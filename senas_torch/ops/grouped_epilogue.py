@@ -1,0 +1,311 @@
+"""Fused BN(+SE)+alpha-mix epilogue of GroupedMixedOp, forward only.
+
+Port of `senas_tpu/ops/grouped_epilogue.py`. For every branch o of a group
+the whole post-conv epilogue is an affine map per (batch, channel):
+
+    mixed[b,c,h,w] = sum_o x_o[b,c,h,w] * A_o[b,c] + K[b,c]
+
+  * BN train mode: y = (x - mu_c) * rsqrt(var_c + eps) * g_c + b_c, affine
+    once (mu, var) are known; eval mode is affine in the running stats.
+  * SE: the post-BN spatial mean m[b,c] is affine in the raw per-(b,c)
+    mean, so the sigmoid-MLP scale s[b,c] folds into A/K.
+  * 'none': BN(zeros) is a closed-form constant added into K.
+  * alpha mixing: a per-channel scale on each branch.
+
+Two kernels carry it (senas_torch/csrc/grouped_epilogue.cu): `branch_stats`
+sums each (o, b, c) plane and its squares in one sweep over all n branch
+tensors; the glue folds those into A and K ([n,B,C]-sized PyTorch ops);
+`apply_mix` reads each branch once more and writes the mixed output.
+Tensors are NCHW contiguous. Each wrapper takes its plain PyTorch version
+for a tensor on the CPU and launches its kernel for one on the card; it
+never falls back from one to the other.
+
+The batch variance is the one-sweep max(E[x^2] - mu^2, 0) in f32, as in
+the JAX package; `group_epilogue_reference` uses the two-pass form and the
+tests hold the two to f32 rounding.
+
+The backward (the JAX package's `_bwd_reduce` / `_bwd_dx` kernels inside
+one custom VJP) belongs to the training slice and is not here: on the card
+a call that would need a gradient raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence
+
+import torch
+
+EPS = 1e-5
+MAX_BRANCHES = 6
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (the CPU path, and what the kernels are held to)
+# ---------------------------------------------------------------------------
+
+
+def branch_stats_plain(xs: Sequence[torch.Tensor]):
+    """n tensors [B,C,H,W] -> (s1, s2), each [n,B,C] f32: per-plane sums
+    of x and x^2 over H and W."""
+    xf = [x.float() for x in xs]
+    return (torch.stack([x.sum(dim=(2, 3)) for x in xf]),
+            torch.stack([(x * x).sum(dim=(2, 3)) for x in xf]))
+
+
+def apply_mix_plain(xs: Sequence[torch.Tensor], a: torch.Tensor,
+                    k: torch.Tensor, out_dtype=None):
+    """out = k[b,c] + sum_o a[o,b,c] * x_o  (a: [n,B,C], k: [B,C] f32)."""
+    acc = k[:, :, None, None].expand(xs[0].shape)
+    for o, x in enumerate(xs):
+        acc = acc + x.float() * a[o][:, :, None, None]
+    return acc.to(out_dtype or xs[0].dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+_LIB = None
+
+
+def _lib():
+    """Build (first use) and load the kernels' library; declare every
+    argument type, so that ctypes passes pointers at their full width."""
+    global _LIB
+    if _LIB is None:
+        from senas_torch.ops import _build
+        lib = _build.load("grouped_epilogue")
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.senas_branch_stats_f32.argtypes = [ptr] * MAX_BRANCHES + [
+            i32, i32, i64, ptr, ptr, ptr]
+        lib.senas_branch_stats_f32.restype = i32
+        lib.senas_apply_mix_f32.argtypes = [ptr] * MAX_BRANCHES + [
+            i32, ptr, ptr, ptr, i32, i64, ptr]
+        lib.senas_apply_mix_f32.restype = i32
+        lib.senas_cuda_error_string.argtypes = [i32]
+        lib.senas_cuda_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _check_branches(xs: Sequence[torch.Tensor]):
+    if not 1 <= len(xs) <= MAX_BRANCHES:
+        raise ValueError(f"1..{MAX_BRANCHES} branch tensors, got {len(xs)}")
+    x0 = xs[0]
+    if x0.dim() != 4:
+        raise ValueError(f"branch tensors are [B,C,H,W], got {tuple(x0.shape)}")
+    for x in xs:
+        if x.shape != x0.shape or x.device != x0.device or x.dtype != x0.dtype:
+            raise ValueError("branch tensors differ in shape, device or dtype")
+
+
+def _check_card(xs: Sequence[torch.Tensor], *extra: torch.Tensor):
+    """What the CUDA kernels take: f32, NCHW-contiguous, on one card."""
+    if xs[0].device.type != "cuda":
+        raise ValueError(f"no kernel for device {xs[0].device}")
+    if xs[0].dtype != torch.float32:
+        raise NotImplementedError(
+            f"the epilogue kernels take float32 only, got {xs[0].dtype}")
+    for t in (*xs, *extra):
+        if t.device != xs[0].device or t.dtype != torch.float32:
+            raise ValueError("kernel operands must be float32 on one device")
+        if not t.is_contiguous():
+            raise ValueError("kernel operands must be contiguous (NCHW)")
+
+
+def _ptrs(xs):
+    return [x.data_ptr() for x in xs] + [None] * (MAX_BRANCHES - len(xs))
+
+
+def _raise_on(rc: int, what: str):
+    if rc != 0:
+        msg = _lib().senas_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} (cudaError {rc})")
+
+
+def branch_stats(xs: Sequence[torch.Tensor]):
+    """Per-plane sums of x and x^2 for n (<= 6) branch tensors [B,C,H,W].
+
+    Kernel `branch_stats` (csrc/grouped_epilogue.cu) on the card; replaces
+    the TPU kernel `_stats_kernel` through `_branch_stats`
+    (senas_tpu/ops/grouped_epilogue.py:86-135). Memory-bound: it reads
+    n*B*C*H*W*4 bytes and writes 2*n*B*C*4. Returns (s1, s2) [n,B,C] f32."""
+    _check_branches(xs)
+    if xs[0].device.type == "cpu":
+        return branch_stats_plain(xs)
+    _check_card(xs)
+    n = len(xs)
+    b, c, h, w = xs[0].shape
+    s1 = torch.empty((n, b, c), device=xs[0].device, dtype=torch.float32)
+    s2 = torch.empty_like(s1)
+    with torch.cuda.device(xs[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().senas_branch_stats_f32(*_ptrs(xs), n, b * c, h * w,
+                                           s1.data_ptr(), s2.data_ptr(), stream)
+    _raise_on(rc, "branch_stats")
+    branch_stats.launches += 1
+    return s1, s2
+
+
+branch_stats.launches = 0
+
+
+def apply_mix(xs: Sequence[torch.Tensor], a: torch.Tensor, k: torch.Tensor,
+              out_dtype=None):
+    """out[b,c] = k[b,c] + sum_o a[o,b,c] * x_o[b,c] for n (<= 6) branch
+    tensors [B,C,H,W]; a [n,B,C] f32, k [B,C] f32.
+
+    Kernel `apply_mix` (csrc/grouped_epilogue.cu) on the card; replaces the
+    TPU kernel `_apply_kernel` through `_apply_mix`
+    (senas_tpu/ops/grouped_epilogue.py:143-181). Memory-bound: it reads
+    n*B*C*H*W*4 + (n+1)*B*C*4 bytes and writes B*C*H*W*4."""
+    _check_branches(xs)
+    n = len(xs)
+    b, c, h, w = xs[0].shape
+    if tuple(a.shape) != (n, b, c) or tuple(k.shape) != (b, c):
+        raise ValueError(f"a must be {(n, b, c)} and k {(b, c)}, got "
+                         f"{tuple(a.shape)} and {tuple(k.shape)}")
+    if xs[0].device.type == "cpu":
+        return apply_mix_plain(xs, a, k, out_dtype)
+    if (out_dtype or xs[0].dtype) != torch.float32:
+        raise NotImplementedError("the apply_mix kernel writes float32 only")
+    _check_card(xs, a, k)
+    out = torch.empty_like(xs[0])
+    with torch.cuda.device(xs[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().senas_apply_mix_f32(*_ptrs(xs), n, a.data_ptr(), k.data_ptr(),
+                                        out.data_ptr(), b * c, h * w, stream)
+    _raise_on(rc, "apply_mix")
+    apply_mix.launches += 1
+    return out
+
+
+apply_mix.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Glue: fold sums into BN affines / SE scales ([n,B,C]-sized PyTorch ops)
+# ---------------------------------------------------------------------------
+
+
+def _glue(s1, s2, g, bb, al, se_w1, se_w2, none_k, rm, rv, *, b: int,
+          hw: int, train: bool, se_index: Optional[int], E: int, P: int):
+    """s1, s2: [n,B,C] f32 per-plane sums (None in eval mode without SE);
+    g, bb, al: [n,C] BN scale, bias and alpha columns; none_k: [C] or None.
+    Returns (a_full [n,B,C], k_full [B,C], mu [n,C], var [n,C])."""
+    n, c = g.shape
+    if train:
+        cnt = b * hw
+        mu = s1.sum(dim=1) / cnt                            # [n, C]
+        var = torch.clamp(s2.sum(dim=1) / cnt - mu * mu, min=0.0)
+    else:
+        mu, var = rm, rv
+    a_bn = torch.rsqrt(var + EPS) * g                       # [n, C]
+    k_bn = bb - mu * a_bn                                   # [n, C]
+
+    # SE: scale per (b, c) from the post-BN spatial mean, an affine of the
+    # raw per-(b, c) mean (senas_tpu/ops/grouped_epilogue.py:308-319).
+    s_scale = [torch.ones((b, c), device=g.device)] * n
+    if se_index is not None:
+        mean_raw = s1[se_index] / hw                        # [B, C]
+        m = (mean_raw * a_bn[se_index] + k_bn[se_index]).reshape(b, E, P)
+        hid = torch.relu(torch.einsum("bep,epm->bem", m, se_w1.float()))
+        sig = torch.sigmoid(torch.einsum("bem,emp->bep", hid, se_w2.float()))
+        s_scale[se_index] = sig.reshape(b, c)
+    s_scale = torch.stack(s_scale)                          # [n, B, C]
+
+    # Fold everything into per-(b, c) affines.
+    a_full = (al * a_bn)[:, None, :] * s_scale              # [n, B, C]
+    k_full = ((al * k_bn)[:, None, :] * s_scale).sum(dim=0)  # [B, C]
+    if none_k is not None:
+        k_full = k_full + none_k
+    return a_full, k_full, mu, var
+
+
+def fused_group_epilogue(xs, scales, biases, alphas_cols, *,
+                         train: bool = True,
+                         run_means=None, run_vars=None,
+                         se_index: Optional[int] = None,
+                         se_w1=None, se_w2=None, E: int = 0, P: int = 0,
+                         none_alpha_col=None, none_bias=None,
+                         out_dtype=None):
+    """Fused BN(+SE)+alpha-mix over a branch set.
+
+    xs:            list of n pre-BN branch tensors [B, C, H, W] (C = E*P).
+    scales/biases: per-branch BN scale/bias, each [C].
+    alphas_cols:   per-branch per-channel mixing weight [C] (alpha[o, e]
+                   broadcast over the P channels of edge e).
+    train:         True -> normalise by batch stats (and return them);
+                   False -> by run_means/run_vars (lists of [C]).
+    se_index:      which branch (if any) has the SE epilogue; se_w1
+                   [E, P, mid], se_w2 [E, mid, P].
+    none_*:        closed-form 'none' branch constant, mixed in via its
+                   alpha column.
+    Returns (mixed [B,C,H,W], (means [n,C], vars [n,C])): the biased batch
+    stats per branch in train mode, for the caller's running-stat updates.
+    """
+    _check_branches(xs)
+    n = len(xs)
+    b, c, h, w = xs[0].shape
+    g = torch.stack(list(scales)).float()
+    bb = torch.stack(list(biases)).float()
+    al = torch.stack(list(alphas_cols)).float()
+    if xs[0].device.type == "cuda" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (*xs, g, bb, al)):
+        raise NotImplementedError(
+            "the epilogue's backward kernels (senas_tpu _bwd_reduce/_bwd_dx) "
+            "belong to the training slice of the port; on the card call the "
+            "forward under torch.no_grad() or torch.inference_mode()")
+    rm = rv = None
+    if not train:
+        rm = torch.stack(list(run_means)).float()
+        rv = torch.stack(list(run_vars)).float()
+
+    none_k = None
+    if none_alpha_col is not None:
+        none_k = none_alpha_col.float() * none_bias.float()
+
+    # Eval mode without SE is a pure affine in the running stats: the stats
+    # sweep is skipped (senas_tpu/ops/grouped_epilogue.py:341-350).
+    s1 = s2 = None
+    if train or se_index is not None:
+        s1, s2 = branch_stats(xs)
+    a_full, k_full, mu, var = _glue(s1, s2, g, bb, al, se_w1, se_w2, none_k,
+                                    rm, rv, b=b, hw=h * w, train=train,
+                                    se_index=se_index, E=E, P=P)
+    mixed = apply_mix(xs, a_full.contiguous(), k_full.contiguous(), out_dtype)
+    return mixed, (mu, var)
+
+
+def group_epilogue_reference(xs, scales, biases, alphas_cols, *,
+                             train: bool = True,
+                             run_means=None, run_vars=None,
+                             se_index=None, se_w1=None, se_w2=None,
+                             E: int = 0, P: int = 0,
+                             none_alpha_col=None, none_bias=None,
+                             out_dtype=None):
+    """The unfused epilogue, branch by branch (mirrors
+    senas_tpu/ops/grouped_epilogue.py:429-464): per-branch BN with the
+    two-pass variance -> optional SE -> alpha-weighted sum (+ 'none')."""
+    b, c, h, w = xs[0].shape
+    dt = out_dtype or xs[0].dtype
+    acc = torch.zeros((b, c, h, w), dtype=torch.float32, device=xs[0].device)
+    for o, (x, g, bb, a) in enumerate(zip(xs, scales, biases, alphas_cols)):
+        xf = x.float()
+        if train:
+            mu = xf.mean(dim=(0, 2, 3))
+            var = ((xf - mu[:, None, None]) ** 2).mean(dim=(0, 2, 3))
+        else:
+            mu, var = run_means[o], run_vars[o]
+        y = ((xf - mu[:, None, None]) * torch.rsqrt(var + EPS)[:, None, None]
+             * g[:, None, None] + bb[:, None, None]).to(dt)
+        if o == se_index:
+            m = y.reshape(b, E, P, h, w).mean(dim=(3, 4))   # [B, E, P]
+            hid = torch.relu(torch.einsum("bep,epm->bem", m, se_w1.to(y.dtype)))
+            sig = torch.sigmoid(torch.einsum("bem,emp->bep", hid, se_w2.to(y.dtype)))
+            y = (y.reshape(b, E, P, h, w) * sig[..., None, None]).reshape(b, c, h, w)
+        acc = acc + a.float()[:, None, None] * y.float()
+    if none_alpha_col is not None:
+        acc = acc + (none_alpha_col.float() * none_bias.float())[:, None, None]
+    return acc.to(dt)

@@ -1,0 +1,32 @@
+"""Import hygiene: senas_torch and chip_smoke.py load nothing of JAX, flax,
+optax or senas_tpu (checked in a fresh interpreter)."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import senas_torch
+for m in pkgutil.walk_packages(senas_torch.__path__, "senas_torch."):
+    importlib.import_module(m.name)
+import chip_smoke  # module-level code only; main() does not run
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "senas_tpu"))
+print("BAD", bad)
+print("N", len([m for m in sys.modules if m.startswith("senas_torch.")]))
+"""
+
+
+def test_port_imports_nothing_of_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (ROOT, env.get("PYTHONPATH")) if p)
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    n = int(out.stdout.split("N ")[-1])
+    assert n >= 12, out.stdout  # every module of the port was imported

@@ -1,0 +1,142 @@
+"""Shared helpers for the tests that hold senas_torch against senas_tpu.
+
+Flax variables are made without running flax's initialisers (each new
+random-init shape costs an XLA:CPU compile): `jax.eval_shape` gives the
+tree, and numpy fills it from a seed, with non-trivial BN running stats.
+Both packages then get the same numbers through `senas_torch.convert`.
+"""
+
+import jax
+import numpy as np
+
+
+def random_variables(module, rng: np.random.RandomState, *init_args):
+    """Flax {"params", "batch_stats"} of `module` filled from `rng`."""
+    shapes = jax.eval_shape(
+        lambda: module.init({"params": jax.random.PRNGKey(0)}, *init_args))
+
+    def fill(tree, coll):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = fill(v, coll)
+            elif coll == "batch_stats" and k == "var":
+                out[k] = rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
+            elif coll == "batch_stats":
+                out[k] = (0.2 * rng.randn(*v.shape)).astype(np.float32)
+            elif k == "scale":
+                out[k] = rng.uniform(0.7, 1.3, v.shape).astype(np.float32)
+            elif k == "bias":
+                out[k] = (0.2 * rng.randn(*v.shape)).astype(np.float32)
+            else:
+                fan = int(np.prod(v.shape[:-1])) if len(v.shape) > 1 else 1
+                out[k] = (rng.randn(*v.shape) * np.sqrt(2.0 / fan)).astype(np.float32)
+        return out
+
+    return {c: fill(shapes[c], c) for c in ("params", "batch_stats") if c in shapes}
+
+
+def flat(tree, prefix=""):
+    """Nested dict -> {"a/b/c": np.ndarray}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def nhwc(t):
+    """Port NCHW tensor -> NHWC numpy."""
+    return t.detach().permute(0, 2, 3, 1).cpu().numpy()
+
+
+def nchw(a):
+    """NHWC numpy -> NCHW contiguous CPU tensor."""
+    import torch
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a).transpose(0, 3, 1, 2)))
+
+
+def assert_trees_close(got, want, rtol, atol):
+    g, w = flat(got), flat(want)
+    assert g.keys() == w.keys(), sorted(set(g) ^ set(w))
+    for k in w:
+        np.testing.assert_allclose(g[k], w[k], rtol=rtol, atol=atol, err_msg=k)
+
+
+def grouped_to_mixedop(gp, gs, e, E, op_names, C, P):
+    """Slice edge e out of a GroupedMixedOp's flax params/batch_stats into a
+    naive MixedOp's flax variables (the layout map of
+    tests/test_fused_cell.py, in numpy)."""
+    params, stats = {}, {}
+    sl = slice(e * P, (e + 1) * P)
+
+    def bn(name):
+        return ({"scale": gp[name]["scale"][sl], "bias": gp[name]["bias"][sl]},
+                {"mean": gs[name]["mean"][sl], "var": gs[name]["var"][sl]})
+
+    for i, name in enumerate(op_names):
+        key = f"branch_{i}_{name}"
+        if name in ("avg_pool", "max_pool", "up_sample", "identity", "none"):
+            p = {}
+            if f"{name}_kernel" in gp:
+                p["kernel"] = gp[f"{name}_kernel"][..., sl]
+            elif name == "none" and C != P:
+                # the grouped op skips the conv on zeros; the naive one owns
+                # a 1x1 kernel that cannot matter
+                p["kernel"] = np.zeros((1, 1, C, P), np.float32)
+            p["BatchNorm_0"], s = bn(f"{name}_bn")
+            params[key], stats[key] = p, {"BatchNorm_0": s}
+        elif name in ("conv_3", "dil_3_conv_5", "dil_2_conv_5"):
+            bp, bs = bn(f"{name}_bn")
+            params[key] = {"_ConvWeight_0": {"kernel": gp[f"{name}_kernel"][..., sl]},
+                           "BatchNorm_0": bp}
+            stats[key] = {"BatchNorm_0": bs}
+        elif name == "se_conv_3":
+            bp, bs = bn(f"{name}_bn")
+            params[key] = {
+                "ConvBn_0": {"_ConvWeight_0": {"kernel": gp[f"{name}_kernel"][..., sl]},
+                             "BatchNorm_0": bp},
+                "SEBlock_0": {"Dense_0": {"kernel": gp[f"{name}_se1"][e]},
+                              "Dense_1": {"kernel": gp[f"{name}_se2"][e]}},
+            }
+            stats[key] = {"ConvBn_0": {"BatchNorm_0": bs}}
+        else:  # dep_sep_conv_{3,5}
+            idx = np.arange(C) * E + e  # depthwise channel c, multiplier e
+            pp, ps = bn(f"{name}_pbn")
+            params[key] = {
+                "depth": {"kernel": gp[f"{name}_dkernel"][..., idx]},
+                "depth_norm": {"scale": gp[f"{name}_dbn"]["scale"][idx],
+                               "bias": gp[f"{name}_dbn"]["bias"][idx]},
+                "point": {"kernel": gp[f"{name}_pkernel"][e][None, None]},
+                "point_norm": pp,
+            }
+            stats[key] = {
+                "depth_norm": {"mean": gs[f"{name}_dbn"]["mean"][idx],
+                               "var": gs[f"{name}_dbn"]["var"][idx]},
+                "point_norm": ps,
+            }
+    return {"params": params, "batch_stats": stats}
+
+
+def fused_cell_to_naive(fv, M, C, P, cell_type, op_names):
+    """FusedSearchCell flax variables -> SearchCell flax variables.
+    op_names: {"DOWN"/"UP"/"NORM": list of op names}."""
+    fp, fs = fv["params"], fv["batch_stats"]
+    params = {"preprocess0": fp["preprocess0"], "post_process": fp["post_process"]}
+    stats = {"preprocess0": fs["preprocess0"], "post_process": fs["post_process"]}
+    t0 = "DOWN" if cell_type == "down" else "NORM"
+    t1 = "DOWN" if cell_type == "down" else "UP"
+    offsets = [sum(2 + i for i in range(n)) for n in range(M)]
+    for n in range(M):
+        for gkey, tt, j in (("group0", t0, 0), ("group1", t1, 1)):
+            v = grouped_to_mixedop(fp[gkey], fs[gkey], n, M, op_names[tt], C, P)
+            params[f"edge_{offsets[n] + j}"] = v["params"]
+            stats[f"edge_{offsets[n] + j}"] = v["batch_stats"]
+        for j in range(n):
+            pick = lambda t: {k: pick(v) if isinstance(v, dict) else v[j]
+                              for k, v in t.items()}
+            params[f"edge_{offsets[n] + 2 + j}"] = pick(fp[f"inner_{n}"])
+            stats[f"edge_{offsets[n] + 2 + j}"] = pick(fs[f"inner_{n}"])
+    return {"params": params, "batch_stats": stats}
