@@ -138,9 +138,10 @@ def _put(tree: Dict[str, Any], path: Tuple[str, ...], value):
 
 
 def arch_to_torch(arch: Dict[str, Any], device=None) -> Dict[str, torch.Tensor]:
-    """Arch dict of arrays -> f32 tensors on `device` (None means the card)."""
+    """Arch dict of arrays -> f32 tensors on `device` (None means the card),
+    copies: a search step updates its tables in place."""
     dev = resolve_device(device)
-    return {k: torch.as_tensor(np.asarray(v, dtype=np.float32), device=dev)
+    return {k: torch.tensor(np.asarray(v, dtype=np.float32), device=dev)
             for k, v in arch.items()}
 
 

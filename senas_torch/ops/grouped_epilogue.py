@@ -1,4 +1,4 @@
-"""Fused BN(+SE)+alpha-mix epilogue of GroupedMixedOp, forward only.
+"""Fused BN(+SE)+alpha-mix epilogue of GroupedMixedOp, forward and backward.
 
 Port of `senas_tpu/ops/grouped_epilogue.py`. For every branch o of a group
 the whole post-conv epilogue is an affine map per (batch, channel):
@@ -12,32 +12,36 @@ the whole post-conv epilogue is an affine map per (batch, channel):
   * 'none': BN(zeros) is a closed-form constant added into K.
   * alpha mixing: a per-channel scale on each branch.
 
-Two kernels carry it (senas_torch/csrc/grouped_epilogue.cu): `branch_stats`
-sums each (o, b, c) plane and its squares in one sweep over all n branch
-tensors; the glue folds those into A and K ([n,B,C]-sized PyTorch ops);
-`apply_mix` reads each branch once more and writes the mixed output.
-Tensors are NCHW contiguous. Each wrapper takes its plain PyTorch version
-for a tensor on the CPU and launches its kernel for one on the card; it
-never falls back from one to the other.
+Four kernels carry it (senas_torch/csrc/grouped_epilogue.cu). Forward:
+`branch_stats` sums each (o, b, c) plane and its squares in one sweep over
+all n branch tensors; the glue folds those into A and K ([n,B,C]-sized
+PyTorch ops); `apply_mix` reads each branch once more and writes the mixed
+output. Backward, inside one `torch.autograd.Function` (the JAX package's
+custom VJP): `bwd_reduce` gives dA, dK from the output's gradient g; torch
+autograd differentiates the glue, which gives the parameters' gradients
+and ds1, ds2 (the gradients of the sums); `bwd_dx` forms each branch's
+gradient g*A + ds1 + 2*x*ds2. Tensors are NCHW contiguous. Each wrapper
+takes its plain PyTorch version for a tensor on the CPU and launches its
+kernel for one on the card; it never falls back from one to the other.
 
 The batch variance is the one-sweep max(E[x^2] - mu^2, 0) in f32, as in
 the JAX package; `group_epilogue_reference` uses the two-pass form and the
 tests hold the two to f32 rounding.
-
-The backward (the JAX package's `_bwd_reduce` / `_bwd_dx` kernels inside
-one custom VJP) belongs to the training slice and is not here: on the card
-a call that would need a gradient raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
+from torch.autograd.function import once_differentiable
 
 EPS = 1e-5
 MAX_BRANCHES = 6
+# kReduceTargetBlocks of csrc/grouped_epilogue.cu: the blocks bwd_reduce
+# spreads its planes over
+_REDUCE_BLOCKS = 8 * 132
 
 
 # ---------------------------------------------------------------------------
@@ -62,6 +66,24 @@ def apply_mix_plain(xs: Sequence[torch.Tensor], a: torch.Tensor,
     return acc.to(out_dtype or xs[0].dtype)
 
 
+def bwd_reduce_plain(xs: Sequence[torch.Tensor], g: torch.Tensor):
+    """n tensors and g [B,C,H,W] -> (dA [n,B,C], dK [B,C]) f32:
+    dA[o] = sum_hw g * x_o, dK = sum_hw g."""
+    gf = g.float()
+    return (torch.stack([(gf * x.float()).sum(dim=(2, 3)) for x in xs]),
+            gf.sum(dim=(2, 3)))
+
+
+def bwd_dx_plain(xs: Sequence[torch.Tensor], g: torch.Tensor, a: torch.Tensor,
+                 ds1: torch.Tensor, ds2: torch.Tensor):
+    """dx_o = g * a[o] + ds1[o] + 2 * x_o * ds2[o] with a, ds1, ds2 [n,B,C]
+    f32 broadcast over H and W; each dx_o in its x's dtype."""
+    gf = g.float()
+    col = lambda t: t[:, :, None, None]
+    return [(gf * col(a[o]) + col(ds1[o]) + 2.0 * x.float() * col(ds2[o])).to(x.dtype)
+            for o, x in enumerate(xs)]
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -83,6 +105,12 @@ def _lib():
         lib.senas_apply_mix_f32.argtypes = [ptr] * MAX_BRANCHES + [
             i32, ptr, ptr, ptr, i32, i64, ptr]
         lib.senas_apply_mix_f32.restype = i32
+        lib.senas_bwd_reduce_f32.argtypes = [ptr] * MAX_BRANCHES + [
+            i32, ptr, i32, i64, ptr, i64, ptr, ptr, ptr]
+        lib.senas_bwd_reduce_f32.restype = i32
+        lib.senas_bwd_dx_f32.argtypes = [ptr] * MAX_BRANCHES + [
+            i32, ptr, ptr, ptr, ptr] + [ptr] * MAX_BRANCHES + [i32, i64, ptr]
+        lib.senas_bwd_dx_f32.restype = i32
         lib.senas_cuda_error_string.argtypes = [i32]
         lib.senas_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -184,6 +212,84 @@ def apply_mix(xs: Sequence[torch.Tensor], a: torch.Tensor, k: torch.Tensor,
 apply_mix.launches = 0
 
 
+def _check_planes(xs, g, *per_plane):
+    """g like xs[0]; each of `per_plane` [n,B,C]."""
+    n = len(xs)
+    b, c = xs[0].shape[:2]
+    if g.shape != xs[0].shape or g.device != xs[0].device:
+        raise ValueError(f"g must be {tuple(xs[0].shape)} on {xs[0].device}, got "
+                         f"{tuple(g.shape)} on {g.device}")
+    for t in per_plane:
+        if tuple(t.shape) != (n, b, c):
+            raise ValueError(f"per-plane operands must be {(n, b, c)}, got {tuple(t.shape)}")
+
+
+def bwd_reduce(xs: Sequence[torch.Tensor], g: torch.Tensor):
+    """dA[o,b,c] = sum_hw g * x_o and dK[b,c] = sum_hw g for n (<= 6)
+    branch tensors and g [B,C,H,W]. Returns (dA [n,B,C], dK [B,C]) f32.
+
+    Kernel `bwd_reduce` (csrc/grouped_epilogue.cu) on the card, two
+    launches (partial sums over chunks of each plane, then their ordered
+    sum); replaces the TPU kernel `_bwd_reduce_kernel` through `_bwd_reduce`
+    (senas_tpu/ops/grouped_epilogue.py:189-229). Memory-bound: it reads
+    (n+1)*B*C*H*W*4 bytes and writes (n+1)*B*C*4."""
+    _check_branches(xs)
+    _check_planes(xs, g)
+    if xs[0].device.type == "cpu":
+        return bwd_reduce_plain(xs, g)
+    _check_card(xs, g)
+    n = len(xs)
+    b, c, h, w = xs[0].shape
+    dA = torch.empty((n, b, c), device=xs[0].device, dtype=torch.float32)
+    dK = torch.empty((b, c), device=xs[0].device, dtype=torch.float32)
+    # the partial sums: n+1 per chunk, each plane cut into at most
+    # ceil(_REDUCE_BLOCKS / planes) chunks (the kernel checks the size)
+    partial = torch.empty((n + 1) * (b * c + _REDUCE_BLOCKS), device=xs[0].device,
+                          dtype=torch.float32)
+    with torch.cuda.device(xs[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().senas_bwd_reduce_f32(*_ptrs(xs), n, g.data_ptr(), b * c, h * w,
+                                         partial.data_ptr(), partial.numel(),
+                                         dA.data_ptr(), dK.data_ptr(), stream)
+    _raise_on(rc, "bwd_reduce")
+    bwd_reduce.launches += 1
+    return dA, dK
+
+
+bwd_reduce.launches = 0
+
+
+def bwd_dx(xs: Sequence[torch.Tensor], g: torch.Tensor, a: torch.Tensor,
+           ds1: torch.Tensor, ds2: torch.Tensor):
+    """dx_o = g * a[o,b,c] + ds1[o,b,c] + 2 * x_o * ds2[o,b,c] for n (<= 6)
+    branch tensors and g [B,C,H,W]; a, ds1, ds2 [n,B,C] f32. Returns the
+    list of n gradients, each like its x.
+
+    Kernel `bwd_dx` (csrc/grouped_epilogue.cu) on the card; replaces the
+    TPU kernel `_bwd_dx_kernel` through `_bwd_dx`
+    (senas_tpu/ops/grouped_epilogue.py:237-273). Memory-bound: it reads
+    (n+1)*B*C*H*W*4 + 3*n*B*C*4 bytes and writes n*B*C*H*W*4."""
+    _check_branches(xs)
+    _check_planes(xs, g, a, ds1, ds2)
+    if xs[0].device.type == "cpu":
+        return bwd_dx_plain(xs, g, a, ds1, ds2)
+    _check_card(xs, g, a, ds1, ds2)
+    n = len(xs)
+    b, c, h, w = xs[0].shape
+    outs = [torch.empty_like(x) for x in xs]
+    with torch.cuda.device(xs[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().senas_bwd_dx_f32(*_ptrs(xs), n, g.data_ptr(), a.data_ptr(),
+                                     ds1.data_ptr(), ds2.data_ptr(), *_ptrs(outs),
+                                     b * c, h * w, stream)
+    _raise_on(rc, "bwd_dx")
+    bwd_dx.launches += 1
+    return outs
+
+
+bwd_dx.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # Glue: fold sums into BN affines / SE scales ([n,B,C]-sized PyTorch ops)
 # ---------------------------------------------------------------------------
@@ -223,6 +329,86 @@ def _glue(s1, s2, g, bb, al, se_w1, se_w2, none_k, rm, rv, *, b: int,
     return a_full, k_full, mu, var
 
 
+class _Config(NamedTuple):
+    train: bool
+    se_index: Optional[int]
+    E: int
+    P: int
+    out_dtype: Optional[torch.dtype]
+
+
+# The glue's differentiable inputs, in the order _FusedEpilogue takes them
+# (after the config): their gradients come from torch autograd.
+_PARAMS = ("g", "bb", "al", "se_w1", "se_w2", "none_k")
+
+
+class _FusedEpilogue(torch.autograd.Function):
+    """The JAX package's custom VJP (`_make_epilogue`,
+    senas_tpu/ops/grouped_epilogue.py:334-378) as an autograd Function.
+
+    forward(cfg, g, bb, al, se_w1, se_w2, none_k, rm, rv, *xs) -> (mixed,
+    mu, var). Saves xs, the sums s1/s2, the parameters and A. The backward
+    runs `bwd_reduce` for dA, dK; recomputes the glue under autograd on
+    detached copies of s1, s2 and the parameters (the forward ran with
+    gradients off) and takes its vector-Jacobian product with (dA, dK, dmu,
+    dvar), which gives the parameters' gradients and ds1, ds2; then runs
+    `bwd_dx` for the branch tensors. Running stats get no gradient."""
+
+    @staticmethod
+    def forward(ctx, cfg: _Config, g, bb, al, se_w1, se_w2, none_k, rm, rv, *xs):
+        b, c, h, w = xs[0].shape
+        # Eval mode without SE is a pure affine in the running stats: the
+        # stats sweep is skipped (senas_tpu/ops/grouped_epilogue.py:341-350).
+        s1 = s2 = None
+        if cfg.train or cfg.se_index is not None:
+            s1, s2 = branch_stats(xs)
+        a_full, k_full, mu, var = _glue(s1, s2, g, bb, al, se_w1, se_w2, none_k,
+                                        rm, rv, b=b, hw=h * w, train=cfg.train,
+                                        se_index=cfg.se_index, E=cfg.E, P=cfg.P)
+        a_full = a_full.contiguous()
+        mixed = apply_mix(xs, a_full, k_full.contiguous(), cfg.out_dtype)
+        ctx.cfg = cfg
+        ctx.save_for_backward(s1, s2, g, bb, al, se_w1, se_w2, none_k, rm, rv,
+                              a_full, *xs)
+        if not cfg.train:
+            # the running stats pass through and take no gradient
+            mu, var = mu.clone(), var.clone()
+            ctx.mark_non_differentiable(mu, var)
+        return mixed, mu, var
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dmixed, dmu, dvar):
+        cfg = ctx.cfg
+        s1, s2, g, bb, al, se_w1, se_w2, none_k, rm, rv, a_full, *xs = ctx.saved_tensors
+        # the incoming gradient may be non-contiguous or channels_last
+        dmixed = dmixed.contiguous()
+        dA, dK = bwd_reduce(xs, dmixed)
+
+        named = dict(zip(("s1", "s2") + _PARAMS, (s1, s2, g, bb, al, se_w1, se_w2, none_k)))
+        leaves = {k: v.detach().requires_grad_() for k, v in named.items() if v is not None}
+        b, c, h, w = xs[0].shape
+        with torch.enable_grad():
+            outs = _glue(leaves.get("s1"), leaves.get("s2"),
+                         *(leaves.get(k) for k in _PARAMS), rm, rv, b=b, hw=h * w,
+                         train=cfg.train, se_index=cfg.se_index, E=cfg.E, P=cfg.P)
+        # in eval mode mu and var are the running stats: nothing to push back
+        pairs = [(o, ct) for o, ct in zip(outs, (dA, dK, dmu, dvar)) if o.requires_grad]
+        grads = torch.autograd.grad([o for o, _ in pairs], list(leaves.values()),
+                                    [ct for _, ct in pairs], allow_unused=True)
+        got = dict(zip(leaves, grads))
+
+        dxs = [None] * len(xs)
+        if any(ctx.needs_input_grad[9:]):
+            # ds1/ds2 are constant over each plane; None where the glue did
+            # not read the sum (eval mode: s2, and s1 off the SE branch)
+            zeros = torch.zeros_like(dA)
+            ds1 = zeros if got.get("s1") is None else got["s1"].contiguous()
+            ds2 = zeros if got.get("s2") is None else got["s2"].contiguous()
+            dxs = bwd_dx(xs, dmixed, a_full, ds1, ds2)
+        return (None, *(got.get(k) for k in _PARAMS), None, None, *dxs)
+
+
 def fused_group_epilogue(xs, scales, biases, alphas_cols, *,
                          train: bool = True,
                          run_means=None, run_vars=None,
@@ -244,37 +430,25 @@ def fused_group_epilogue(xs, scales, biases, alphas_cols, *,
                    alpha column.
     Returns (mixed [B,C,H,W], (means [n,C], vars [n,C])): the biased batch
     stats per branch in train mode, for the caller's running-stat updates.
+    Differentiable in xs, scales, biases, alphas_cols, se_w1/se_w2 and the
+    'none' inputs (through `_FusedEpilogue`).
     """
     _check_branches(xs)
-    n = len(xs)
-    b, c, h, w = xs[0].shape
     g = torch.stack(list(scales)).float()
     bb = torch.stack(list(biases)).float()
     al = torch.stack(list(alphas_cols)).float()
-    if xs[0].device.type == "cuda" and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (*xs, g, bb, al)):
-        raise NotImplementedError(
-            "the epilogue's backward kernels (senas_tpu _bwd_reduce/_bwd_dx) "
-            "belong to the training slice of the port; on the card call the "
-            "forward under torch.no_grad() or torch.inference_mode()")
     rm = rv = None
     if not train:
         rm = torch.stack(list(run_means)).float()
         rv = torch.stack(list(run_vars)).float()
-
     none_k = None
     if none_alpha_col is not None:
         none_k = none_alpha_col.float() * none_bias.float()
-
-    # Eval mode without SE is a pure affine in the running stats: the stats
-    # sweep is skipped (senas_tpu/ops/grouped_epilogue.py:341-350).
-    s1 = s2 = None
-    if train or se_index is not None:
-        s1, s2 = branch_stats(xs)
-    a_full, k_full, mu, var = _glue(s1, s2, g, bb, al, se_w1, se_w2, none_k,
-                                    rm, rv, b=b, hw=h * w, train=train,
-                                    se_index=se_index, E=E, P=P)
-    mixed = apply_mix(xs, a_full.contiguous(), k_full.contiguous(), out_dtype)
+    if se_index is None:
+        se_w1 = se_w2 = None
+    cfg = _Config(bool(train), se_index, E, P, out_dtype)
+    mixed, mu, var = _FusedEpilogue.apply(cfg, g, bb, al, se_w1, se_w2, none_k,
+                                          rm, rv, *xs)
     return mixed, (mu, var)
 
 

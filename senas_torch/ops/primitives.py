@@ -35,18 +35,50 @@ from senas_torch.core.genotype import DownOps, NormOps, UpOps
 EPS = 1e-5
 
 
+def kaiming_std(fan: int) -> float:
+    """Std of kaiming_normal_(nonlinearity='relu') for the torch fan `fan`."""
+    return math.sqrt(2.0 / fan)
+
+
+def xavier_std(fan_in: int, fan_out: int) -> float:
+    """Std of xavier_normal_ for the torch fans."""
+    return math.sqrt(2.0 / (fan_in + fan_out))
+
+
+def add_kernel(module: nn.Module, name: str, shape, std: float) -> nn.Parameter:
+    """Register parameter `name` of `shape` on `module`, to be drawn from
+    normal(0, std) by `init_params_`."""
+    p = nn.Parameter(torch.zeros(shape))
+    setattr(module, name, p)
+    if "init_std" not in module.__dict__:
+        module.init_std = {}
+    module.init_std[name] = std
+    return p
+
+
+def add_conv_kernel(module: nn.Module, name: str, shape) -> nn.Parameter:
+    """A conv kernel in PyTorch's layout ([O, I/g, k, k], or [I, O/g, k, k]
+    for a transposed conv) with kaiming_normal_(mode='fan_out') on that
+    layout: fan = shape[0]*k*k, which is the JAX package's rule for every
+    ungrouped block (`kaiming_normal` for a conv, the input-side fan for a
+    transposed one, senas_tpu/ops/primitives.py:43-93, 371-374)."""
+    return add_kernel(module, name, shape, kaiming_std(shape[0] * shape[2] * shape[3]))
+
+
 def init_params_(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded random init of every kernel: normal(0, sqrt(2 / fan)) with
-    fan = numel / shape[0]. BN scale/bias keep their construction values
-    (1, 0). The JAX package's exact per-layer torch fans (its init parity
-    rules) are queued for the training slice; this init only has to give a
-    well-scaled network made from a seed."""
+    """Seeded random init with the JAX package's (= the reference's
+    weights_init) rules: every kernel from normal(0, std), with the std its
+    module stated when it made it (`add_kernel`); BN scale/bias keep their
+    construction values (1, 0). The numbers differ from the JAX package's
+    (another generator); the distribution of each leaf is the same."""
     with torch.no_grad():
-        for p in module.parameters():
-            if p.ndim < 2:
-                continue
-            std = math.sqrt(2.0 / (p.numel() // p.shape[0]))
-            p.copy_(torch.randn(p.shape, generator=generator) * std)
+        for m in module.modules():
+            stds = m.__dict__.get("init_std", {})
+            for name, p in m.named_parameters(recurse=False):
+                if name in stds:
+                    p.copy_(torch.randn(p.shape, generator=generator) * stds[name])
+                elif p.ndim > 1:
+                    raise ValueError(f"{type(m).__name__}.{name} states no init")
     return module
 
 
@@ -141,10 +173,6 @@ class OpType(enum.Enum):
 # Parametric blocks
 # ---------------------------------------------------------------------------
 
-def _kernel(shape) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(shape))
-
-
 class _ConvWeight(nn.Module):
     """(Conv | ConvTranspose), bias-free (build_weight parity)."""
 
@@ -156,10 +184,10 @@ class _ConvWeight(nn.Module):
         self.transpose, self.output_padding = transpose, output_padding
         k = kernel_size
         if transpose:
-            self.kernel = _kernel((c_in, c_out // groups, k, k))
+            add_conv_kernel(self, "kernel", (c_in, c_out // groups, k, k))
             self.flax_layout = {"kernel": "dw_t" if groups > 1 else "hwio_t"}
         else:
-            self.kernel = _kernel((c_out, c_in // groups, k, k))
+            add_conv_kernel(self, "kernel", (c_out, c_in // groups, k, k))
 
     def forward(self, x, train: bool = False):
         if self.transpose:
@@ -205,7 +233,7 @@ class Dense(nn.Module):
 
     def __init__(self, c_in: int, c_out: int):
         super().__init__()
-        self.kernel = _kernel((c_in, c_out))
+        add_kernel(self, "kernel", (c_in, c_out), xavier_std(c_in, c_out))
 
     def forward(self, x):
         return x @ self.kernel
@@ -269,7 +297,7 @@ class AdapterBlock(nn.Module):
             raise ValueError(f"unknown adapter mode {mode!r}")
         self.mode, self.stride = mode, stride
         if c_in != c_out:
-            self.kernel = _kernel((c_out, c_in, 1, 1))
+            add_conv_kernel(self, "kernel", (c_out, c_in, 1, 1))
         self.BatchNorm_0 = BatchNorm(c_out)
 
     def forward(self, x, train: bool = False):
@@ -297,10 +325,10 @@ class RectifyResample(nn.Module):
         self.cell_type = cell_type
         if c_in != c_out:
             if cell_type == "up":
-                self.kernel = _kernel((c_in, c_out, 1, 1))
+                add_conv_kernel(self, "kernel", (c_in, c_out, 1, 1))
                 self.flax_layout = {"kernel": "hwio_t"}
             else:
-                self.kernel = _kernel((c_out, c_in, 1, 1))
+                add_conv_kernel(self, "kernel", (c_out, c_in, 1, 1))
         self.BatchNorm_0 = BatchNorm(c_out)
 
     def forward(self, x, train: bool = False):
@@ -319,7 +347,7 @@ class ShrinkBlock(nn.Module):
 
     def __init__(self, c_in: int, c_out: int):
         super().__init__()
-        self.kernel = _kernel((c_out, c_in, 3, 3))
+        add_conv_kernel(self, "kernel", (c_out, c_in, 3, 3))
         self.BatchNorm_0 = BatchNorm(c_out)
 
     def forward(self, x, train: bool = False):
@@ -331,7 +359,7 @@ class RectifyBlock(nn.Module):
 
     def __init__(self, c_in: int, c_out: int):
         super().__init__()
-        self.kernel = _kernel((c_out, c_in, 3, 3))
+        add_conv_kernel(self, "kernel", (c_out, c_in, 3, 3))
         self.BatchNorm_0 = BatchNorm(c_out)
 
     def forward(self, x, train: bool = False):
@@ -346,13 +374,13 @@ class BasicBlock(nn.Module):
                  dilation: int = 1, use_downsample: bool = False):
         super().__init__()
         self.stride, self.dilation = stride, dilation
-        self.conv1 = _kernel((planes, c_in, 3, 3))
+        add_conv_kernel(self, "conv1", (planes, c_in, 3, 3))
         self.bn1 = BatchNorm(planes)
-        self.conv2 = _kernel((planes, planes, 3, 3))
+        add_conv_kernel(self, "conv2", (planes, planes, 3, 3))
         self.bn2 = BatchNorm(planes)
         self.use_downsample = use_downsample
         if use_downsample:
-            self.down_conv = _kernel((planes, c_in, 1, 1))
+            add_conv_kernel(self, "down_conv", (planes, c_in, 1, 1))
             self.down_bn = BatchNorm(planes)
 
     def forward(self, x, train: bool = False):

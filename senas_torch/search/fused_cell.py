@@ -29,12 +29,15 @@ from senas_torch.ops.primitives import (
     RectifyBlock,
     RectifyResample,
     ShrinkBlock,
+    add_kernel,
     avg_pool_3x3,
     conv2d,
     conv_transpose2d,
+    kaiming_std,
     max_pool_3x3,
     relu,
     upsample2x,
+    xavier_std,
 )
 from senas_torch.search.cell import MixedOp
 
@@ -69,7 +72,10 @@ class GroupedMixedOp(nn.Module):
 
     alphas: [E, n_ops] mixing weights (already softmaxed). Variables carry
     the flax names (`{op}_kernel`, `{op}_bn`, `{op}_dkernel`, `{op}_dbn`,
-    `{op}_pkernel`, `{op}_pbn`, `se_conv_3_se1/2`, `none_bn`)."""
+    `{op}_pkernel`, `{op}_pbn`, `se_conv_3_se1/2`, `none_bn`). Each kernel
+    is drawn with the PER-EDGE torch fan of the E separate ops it stands
+    for (the JAX package's explicit fans, senas_tpu fused_cell.py:150-220),
+    not the fan of its grouped layout."""
 
     def __init__(self, c_in: int, c_part: int, num_edges: int, op_type: OpType):
         super().__init__()
@@ -81,8 +87,8 @@ class GroupedMixedOp(nn.Module):
         self.ops = list(op_type.value["ops"])
         self.flax_layout = {}
 
-        def kernel(name, shape, layout=None):
-            setattr(self, name, nn.Parameter(torch.zeros(shape)))
+        def kernel(name, shape, std, layout=None):
+            add_kernel(self, name, shape, std)
             if layout:
                 self.flax_layout[name] = layout
 
@@ -90,29 +96,32 @@ class GroupedMixedOp(nn.Module):
             if name == "none":
                 self.none_bn = _EpilogueBN(E * P)
             elif name in _ADAPTERS:
-                if C != P:
-                    kernel(f"{name}_kernel", (E * P, C, 1, 1))
+                if C != P:   # per-edge Conv2d(C, P, 1): fan_out P
+                    kernel(f"{name}_kernel", (E * P, C, 1, 1), kaiming_std(P))
                 setattr(self, f"{name}_bn", _EpilogueBN(E * P))
             elif name in _CONVS:
                 k = _CONVS[name][0]
-                if self.transpose:
-                    kernel(f"{name}_kernel", (C, E * P, k, k), "hwio_t")
-                else:
-                    kernel(f"{name}_kernel", (E * P, C, k, k))
+                if self.transpose:   # per-edge ConvTranspose2d(C, P, k): fan C*k*k
+                    kernel(f"{name}_kernel", (C, E * P, k, k), kaiming_std(C * k * k),
+                           "hwio_t")
+                else:                # per-edge Conv2d(C, P, k): fan_out P*k*k
+                    kernel(f"{name}_kernel", (E * P, C, k, k), kaiming_std(P * k * k))
                 setattr(self, f"{name}_bn", _EpilogueBN(E * P))
                 if name == "se_conv_3":
-                    mid = P // 16 if P > 16 else 1
-                    kernel("se_conv_3_se1", (E, P, mid))
-                    kernel("se_conv_3_se2", (E, mid, P))
+                    mid = P // 16 if P > 16 else 1   # per-edge Linear(P, mid), (mid, P)
+                    kernel("se_conv_3_se1", (E, P, mid), xavier_std(P, mid))
+                    kernel("se_conv_3_se2", (E, mid, P), xavier_std(mid, P))
             elif name in _DEPSEP:
                 k = _DEPSEP[name]
-                # depthwise with channel multiplier E: output channel c*E+e
+                # depthwise with channel multiplier E: output channel c*E+e;
+                # per-edge (Transpose)Conv2d(C, C, k, groups=C): fan C*k*k
                 if self.transpose:
-                    kernel(f"{name}_dkernel", (C, E, k, k), "dw_t")
+                    kernel(f"{name}_dkernel", (C, E, k, k), kaiming_std(C * k * k), "dw_t")
                 else:
-                    kernel(f"{name}_dkernel", (C * E, 1, k, k))
+                    kernel(f"{name}_dkernel", (C * E, 1, k, k), kaiming_std(C * k * k))
                 setattr(self, f"{name}_dbn", BatchNorm(C * E))
-                kernel(f"{name}_pkernel", (E, C, P))
+                # per-edge pointwise Conv2d(C, P, 1): fan_out P
+                kernel(f"{name}_pkernel", (E, C, P), kaiming_std(P))
                 setattr(self, f"{name}_pbn", _EpilogueBN(E * P))
             else:
                 raise NotImplementedError(name)

@@ -1,0 +1,56 @@
+"""Seeding, parameter counting and step timing for the runners.
+
+The parts of `senas_tpu/utils/misc.py` that the search runner uses.
+"""
+
+from __future__ import annotations
+
+import random
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def set_seed(seed: int):
+    """Seed torch's default generators (CPU and every card), numpy's and
+    Python's."""
+    torch.manual_seed(seed)
+    np.random.seed(seed)
+    random.seed(seed)
+
+
+def calc_parameters_count(model: nn.Module) -> float:
+    """Parameter count in M (the reference's utils.py:155)."""
+    return sum(p.numel() for p in model.parameters()) / 1e6
+
+
+class StepTimer:
+    """Wall-clock time of each step. On a CUDA device the exit waits for
+    the card (torch.cuda.synchronize), so a step's time is its device time
+    and not only the host's time to enqueue it."""
+
+    def __init__(self, device: Optional[torch.device] = None):
+        self.device = torch.device("cpu") if device is None else torch.device(device)
+        self._t0 = 0.0
+        self._times: List[float] = []
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._times.append(time.perf_counter() - self._t0)
+        return False
+
+    @property
+    def steps_per_sec(self) -> float:
+        """Over the second half of the steps (the first ones warm up)."""
+        if not self._times:
+            return 0.0
+        recent = self._times[max(1, len(self._times) // 2):] or self._times
+        return 1.0 / (sum(recent) / len(recent))

@@ -4,8 +4,9 @@ on the card run (the suite's conftest imports JAX, which this file does not
 need): python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
 
 Tolerances: the kernels sum in another order than PyTorch's reductions.
-Sums are held to 1e-5 of the plane's sum of |x| (resp. x^2), outputs of
-the mix to atol 1e-4 on values of scale ~1-10."""
+Sums are held to 1e-5 of the plane's sum of |x| (resp. x^2, |g*x|, |g|),
+elementwise outputs (the mix, the branch gradients) to atol 1e-4 on values
+of scale ~1-10, the epilogue's gradients to rtol/atol 1e-4."""
 
 import numpy as np
 import pytest
@@ -81,13 +82,74 @@ def test_fused_epilogue_on_card(dev, train, se, none):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
-def test_card_forward_with_grad_raises(dev):
-    xs = [x.requires_grad_() for x in _xs(dev, 2, (2, 24, 8, 8))]
-    ones = [torch.ones(24, device=dev)] * 2
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ge.fused_group_epilogue(xs, ones, ones, ones)
-    with torch.no_grad():
-        ge.fused_group_epilogue(xs, ones, ones, ones)
+_SHAPES = [(8, 24, 64, 64), (2, 24, 128, 128), (1, 1, 512, 512), (2, 24, 8, 8), (2, 3, 5, 7)]
+
+
+@pytest.mark.parametrize("n", [1, 5, 6])
+@pytest.mark.parametrize("shape", _SHAPES)
+def test_bwd_reduce_kernel(dev, n, shape):
+    xs = _xs(dev, n, shape, seed=4)
+    g = _xs(dev, 1, shape, seed=5)[0]
+    before = ge.bwd_reduce.launches
+    da, dk = ge.bwd_reduce(xs, g)
+    torch.cuda.synchronize()
+    assert ge.bwd_reduce.launches == before + 1
+    pa, pk = ge.bwd_reduce_plain(xs, g)
+    abs_a = torch.stack([(g * x).abs().sum(dim=(2, 3)) for x in xs])
+    assert ((da - pa).abs() <= 1e-5 * abs_a + 1e-6).all()
+    assert ((dk - pk).abs() <= 1e-5 * g.abs().sum(dim=(2, 3)) + 1e-6).all()
+
+
+@pytest.mark.parametrize("n", [1, 5, 6])
+@pytest.mark.parametrize("shape", _SHAPES)
+def test_bwd_dx_kernel(dev, n, shape):
+    xs = _xs(dev, n, shape, seed=6)
+    g = _xs(dev, 1, shape, seed=7)[0]
+    b, c = shape[:2]
+    a, ds1, ds2 = (torch.randn(n, b, c, device=dev) for _ in range(3))
+    before = ge.bwd_dx.launches
+    got = ge.bwd_dx(xs, g, a, ds1, ds2)
+    torch.cuda.synchronize()
+    assert ge.bwd_dx.launches == before + 1
+    for o, want in enumerate(ge.bwd_dx_plain(xs, g, a, ds1, ds2)):
+        torch.testing.assert_close(got[o], want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("train", [True, False])
+@pytest.mark.parametrize("se,none", [(True, False), (False, True), (False, False)])
+def test_fused_epilogue_gradients_on_card(dev, train, se, none):
+    """The autograd Function's gradients (K1a-K1d and the glue's VJP)
+    against torch autograd through the plain two-pass reference."""
+    E, P, n = 3, 8, 6 if se else 5
+    C = E * P
+    g = torch.Generator(device="cpu").manual_seed(8)
+    r = lambda *s: torch.randn(*s, generator=g).to(dev)
+    kw = dict(train=train)
+    if not train:
+        kw.update(run_means=[0.3 * r(C) for _ in range(n)],
+                  run_vars=[r(C).abs() + 0.5 for _ in range(n)])
+    diff = dict(xs=_xs(dev, n, (4, C, 16, 16), seed=9),
+                scales=[1 + 0.1 * r(C) for _ in range(n)],
+                biases=[0.1 * r(C) for _ in range(n)],
+                alphas=[r(C).abs() for _ in range(n)])
+    if se:
+        diff.update(se_w1=0.3 * r(E, P, 1), se_w2=0.3 * r(E, 1, P))
+        kw.update(se_index=1, E=E, P=P)
+    if none:
+        diff.update(none_alpha_col=r(C).abs(), none_bias=0.1 * r(C))
+    leaves = [t.requires_grad_() for v in diff.values()
+              for t in (v if isinstance(v, list) else [v])]
+    readout = r(4, C, 16, 16)
+    call = lambda fn: fn(diff["xs"], diff["scales"], diff["biases"], diff["alphas"], **kw,
+                         **{k: v for k, v in diff.items()
+                            if k not in ("xs", "scales", "biases", "alphas")})
+    before = (ge.bwd_reduce.launches, ge.bwd_dx.launches)
+    got = torch.autograd.grad((call(ge.fused_group_epilogue)[0] * readout).sum(), leaves)
+    torch.cuda.synchronize()
+    assert (ge.bwd_reduce.launches, ge.bwd_dx.launches) == (before[0] + 1, before[1] + 1)
+    want = torch.autograd.grad((call(ge.group_epilogue_reference) * readout).sum(), leaves)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
 def test_card_rejects_other_dtypes(dev):

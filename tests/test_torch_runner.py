@@ -1,0 +1,108 @@
+"""The port's SearchRunner and CLI on configs/senas/senas_synthetic.yml, on
+the CPU: the epochs run (alpha_begin 1, so both step kinds), a checkpoint
+is written each epoch, a resumed run carries the epoch count, patience and
+genotype over and runs only the epochs left, and the genotype parses."""
+
+import copy
+import json
+import os
+
+import pytest
+import torch
+
+from senas_torch.core.config import load_config
+from senas_torch.core.genotype import parse_genotype
+from senas_torch.runner.search import SearchRunner
+from senas_torch.search_arc import main as search_main
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIG = os.path.join(ROOT, "configs", "senas", "senas_synthetic.yml")
+
+
+@pytest.fixture(scope="module")
+def first_run(tmp_path_factory):
+    log_root = tmp_path_factory.mktemp("logs")
+    cfg = load_config(CONFIG)
+    runner = SearchRunner(copy.deepcopy(cfg), config_path=CONFIG, log_root=str(log_root),
+                          device="cpu")
+    arch0 = {k: v.detach().clone() for k, v in runner.state.arch.items()}
+    best = runner.run()
+    return dict(cfg=cfg, runner=runner, best=best, arch0=arch0, log_root=log_root)
+
+
+def _scalars(run_dir):
+    with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def test_epochs_run_and_checkpoint_is_written(first_run):
+    runner, cfg = first_run["runner"], first_run["cfg"]
+    epochs = cfg["searching"]["epoch"]
+    assert runner.ckpt.exists("last")
+    steps_per_epoch = len(runner.train_queue)
+    assert runner.state.step == epochs * steps_per_epoch > 0
+    rows = _scalars(runner.run_dir)
+    assert sorted({r["step"] for r in rows if r["tag"] == "Val/dice"}) == list(range(epochs))
+    assert all(r["value"] == r["value"] for r in rows)   # no NaN
+    assert os.path.exists(os.path.join(runner.run_dir, "all_scalars.json"))
+    assert os.path.exists(os.path.join(runner.run_dir, "senas_synthetic.yml"))
+    # arch steps ran (alpha_begin 1 < epochs): the tables moved
+    assert any(not torch.equal(v, first_run["arch0"][k]) for k, v in runner.state.arch.items())
+
+
+def test_genotype_parses(first_run):
+    g = parse_genotype(first_run["best"])
+    assert repr(g) == first_run["best"]
+    assert len(g.down) == 2 * first_run["cfg"]["searching"]["meta_node_num"]
+
+
+def test_resume_continues(first_run, tmp_path):
+    cfg = copy.deepcopy(first_run["cfg"])
+    done = cfg["searching"]["epoch"]
+    cfg["searching"]["epoch"] = done + 1
+    cfg["searching"]["resume"] = first_run["runner"].ckpt.directory
+    runner = SearchRunner(cfg, log_root=str(tmp_path), device="cpu")
+    assert runner.start_epoch == done
+    assert runner.geno_type == first_run["runner"].geno_type
+    assert runner.state.step == first_run["runner"].state.step
+    for k, v in runner.state.arch.items():
+        torch.testing.assert_close(v, first_run["runner"].state.arch[k], rtol=0, atol=0)
+    runner.run()
+    assert runner.state.step == first_run["runner"].state.step + len(runner.train_queue)
+    assert [r["step"] for r in _scalars(runner.run_dir) if r["tag"] == "Val/dice"] == [done]
+
+
+def test_cli_runs_one_epoch(tmp_path, capsys):
+    assert search_main(["--config", CONFIG, "--device", "cpu", "--epoch", "1",
+                        "--log_root", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "best genotype: Genotype(" in out
+    parse_genotype(out.split("best genotype: ")[1].strip())
+
+
+def test_cli_defaults_stay_in_the_checkout():
+    from senas_torch import search_arc
+    from senas_torch.runner.common import DEFAULT_LOG_ROOT
+    assert DEFAULT_LOG_ROOT == os.path.join(ROOT, "logs")
+    assert search_arc.DEFAULT_CONFIG == os.path.join(ROOT, "configs", "senas",
+                                                     "senas_promise12.yml")
+    assert os.path.exists(search_arc.DEFAULT_CONFIG)
+
+
+@pytest.mark.parametrize("change,match", [
+    ({"multi_gpus": True}, "M13"),
+    ({"precision": "bf16"}, "bf16"),
+    ({"remat": True}, "remat"),
+])
+def test_unported_options_raise(tmp_path, change, match):
+    cfg = load_config(CONFIG)
+    cfg["searching"].update(change)
+    with pytest.raises(NotImplementedError, match=match):
+        SearchRunner(cfg, log_root=str(tmp_path), device="cpu")
+
+
+def test_real_datasets_wait_for_their_data(tmp_path):
+    cfg = load_config(CONFIG)
+    cfg["data"]["dataset"] = "promise12"
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        SearchRunner(cfg, log_root=str(tmp_path), device="cpu")

@@ -140,3 +140,43 @@ def fused_cell_to_naive(fv, M, C, P, cell_type, op_names):
             params[f"edge_{offsets[n] + 2 + j}"] = pick(fp[f"inner_{n}"])
             stats[f"edge_{offsets[n] + 2 + j}"] = pick(fs[f"inner_{n}"])
     return {"params": params, "batch_stats": stats}
+
+
+def epilogue_case(seed, n, se, none, train, B=2, H=8, W=4, E=3, P=8, mid=1):
+    """Inputs of `fused_group_epilogue` for both packages, from one seed:
+    (jax args, jax kwargs) NHWC and (torch args, torch kwargs) NCHW."""
+    import jax.numpy as jnp
+    import torch
+    C = E * P
+    rng = np.random.RandomState(seed)
+    xs = [(rng.randn(B, H, W, C) * (1.0 + i) + 0.3 * i).astype(np.float32)
+          for i in range(n)]
+    scales = [(1.0 + 0.1 * rng.randn(C)).astype(np.float32) for _ in range(n)]
+    biases = [(0.1 * rng.randn(C)).astype(np.float32) for _ in range(n)]
+    al_edge = rng.rand(n + 1, E).astype(np.float32)
+    al_edge /= al_edge.sum(0, keepdims=True)
+    alphas = [np.repeat(al_edge[o], P) for o in range(n)]
+    kw = {"train": train}
+    if not train:
+        kw.update(run_means=[(0.3 * rng.randn(C)).astype(np.float32) for _ in range(n)],
+                  run_vars=[rng.uniform(0.5, 2.0, C).astype(np.float32) for _ in range(n)])
+    if se:
+        kw.update(se_index=1,
+                  se_w1=(0.3 * rng.randn(E, P, mid)).astype(np.float32),
+                  se_w2=(0.3 * rng.randn(E, mid, P)).astype(np.float32), E=E, P=P)
+    if none:
+        kw.update(none_alpha_col=np.repeat(al_edge[n], P),
+                  none_bias=(0.1 * rng.randn(C)).astype(np.float32))
+
+    def conv(v, to):
+        if isinstance(v, list):
+            return [to(a) for a in v]
+        return to(v) if isinstance(v, np.ndarray) else v
+
+    jargs = ([jnp.asarray(x) for x in xs], conv(scales, jnp.asarray),
+             conv(biases, jnp.asarray), conv(alphas, jnp.asarray))
+    jkw = {k: conv(v, jnp.asarray) for k, v in kw.items()}
+    targs = ([nchw(x) for x in xs], conv(scales, torch.from_numpy),
+             conv(biases, torch.from_numpy), conv(alphas, torch.from_numpy))
+    tkw = {k: conv(v, torch.from_numpy) for k, v in kw.items()}
+    return jargs, jkw, targs, tkw
