@@ -4,12 +4,19 @@
 
 Phases, each of which fails the run:
   1. environment: the card's name and power limit (nvidia-smi), versions;
-  2. build: the CUDA kernels of senas_torch/csrc with nvcc (sm_90a);
+  2. build: the CUDA kernels of senas_torch/csrc (grouped_epilogue.cu and
+     norm_convs.cu) with nvcc (sm_90a), one nvcc per source, together;
   3. kernels: each of the four epilogue kernels against its plain PyTorch
      version on the same tensors on the card, at the shapes the supernet
      gives it (train- and eval-mode operands), timed; the epilogue's
      autograd gradients against autograd through the plain reference;
-  4. the eval path: the supernet's inference path at the
+     K2 (norm_convs) against its plain version at bench.py's shape
+     (B 64, 128x128, C 32, N 24) and at an edge-tile shape, timed beside
+     its plain version and the library convolutions, TF32 off;
+  4. the norm_convs path: one call of `norm_convs` at bench.py's shape, as
+     a user (and bench.py) calls it, with its launch counted: no model path
+     of either package calls K2;
+  5. the eval path: the supernet's inference path at the
      configs/senas/senas_promise12.yml `searching:` geometry (batch 8 of
      256x256x1, init_channels 32, depth 5, meta_node_num 3, f32): one
      train-mode forward (running stats move), then the search-eval step on
@@ -17,19 +24,30 @@ Phases, each of which fails the run:
      held to the plain CPU path on the first 2 images; one eval step under
      torch.profiler, the eval step with the kernels against the plain
      epilogue in turns;
-  5. the search path at the same geometry (batch 8 train + 8 val, the
+  6. the search path at the same geometry (batch 8 train + 8 val, the
      yml's SGD and Adam): one bilevel step with do_arch=False, then 3 with
      do_arch=True, with launch counts checked per step; one step under
      torch.profiler; the same step from one saved state with the kernels
      (twice: the card's own spread), with the kernels' plain twins and with
      the plain epilogue, compared leaf by leaf, and timed in turns;
-  6. a training step on the card held to the same step on the CPU, at a
-     reduced size (depth 3, c 8, 64x64, batch 2) from identical state, with
-     TF32 off; the same step with TF32 on must fail the same limits;
-  7. the runner: `python -m senas_torch.search_arc` on
+  7. a search training step on the card held to the same step on the CPU,
+     at a reduced size (depth 3, c 8, 64x64, batch 2) from identical state,
+     with TF32 off; the same step with TF32 on must fail the same limits;
+  8. the search runner: `python -m senas_torch.search_arc` on
      configs/senas/senas_synthetic.yml for its 3 epochs, then resumed from
-     its checkpoint for one more.
-The line before the last is a JSON list of the kernels; the last line is
+     its checkpoint for one more;
+  9. the fixed path: SenasModel(senas) at the senas_promise12.yml
+     `training:` geometry (batch 12 of 256x256x1, init_channels 32, depth
+     5, SGD 6e-3/0.9/5e-4, clip 5, dice_ce): 1 + 3 train steps, one under
+     torch.profiler, the eval step on 3 batches with its uint8 `pred`, the
+     card's logits held to the CPU path on 2 images;
+ 10. a fixed training step on the card held to the same step on the CPU
+     (depth 3, c 8, 64x64, batch 2), TF32 off; with TF32 on it must fail;
+ 11. the fixed CLIs: `python -m senas_torch.train_model` on
+     senas_synthetic.yml, then `python -m senas_torch.testing_model` on its
+     best checkpoint.
+Every kernel must be launched on at least one path (phases 4-6, 9). The
+line before the last is a JSON list of the kernels; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
 prints no result.
 """
@@ -37,6 +55,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import ast
 import contextlib
 import copy
 import json
@@ -48,18 +67,23 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 import yaml
 
 from senas_torch.core.config import load_config
 from senas_torch.core.genotype import parse_genotype
+from senas_torch.models import geno_searched
+from senas_torch.models.senas_model import SenasModel
 from senas_torch.ops import _build
 from senas_torch.ops import grouped_epilogue as ge
+from senas_torch.ops import norm_convs as nc
 from senas_torch.search.fused_cell import GroupedMixedOp
 from senas_torch.search.supernet import (SenasSearch, derive_genotype,
                                          init_arch_params, normalize_arch)
 from senas_torch.train.loss import build_loss
-from senas_torch.train.trainer import (SearchTrainState, make_search_eval_step,
-                                       make_search_step)
+from senas_torch.train.trainer import (FixedTrainState, SearchTrainState,
+                                       make_eval_step, make_search_eval_step,
+                                       make_search_step, make_train_step)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "senas", "senas_promise12.yml")
@@ -75,20 +99,26 @@ PEAK_F32_FLOPS = 67e12
 GROUP_C = 24
 KERNEL_HW = (256, 64)
 LIBRARY_NOTE = "no one PyTorch call reduces or writes over n separate tensors"
+EPILOGUE_SOURCE = "senas_torch/csrc/grouped_epilogue.cu"
 KERNELS = {
     "branch_stats": dict(
-        wrapper=ge.branch_stats,
+        wrapper=ge.branch_stats, source=EPILOGUE_SOURCE,
         replaces="senas_tpu/ops/grouped_epilogue.py:114 (_branch_stats -> _stats_kernel :86)"),
     "apply_mix": dict(
-        wrapper=ge.apply_mix,
+        wrapper=ge.apply_mix, source=EPILOGUE_SOURCE,
         replaces="senas_tpu/ops/grouped_epilogue.py:157 (_apply_mix -> _apply_kernel :143)"),
     "bwd_reduce": dict(
-        wrapper=ge.bwd_reduce,
+        wrapper=ge.bwd_reduce, source=EPILOGUE_SOURCE,
         replaces="senas_tpu/ops/grouped_epilogue.py:206 (_bwd_reduce -> _bwd_reduce_kernel :189)"),
     "bwd_dx": dict(
-        wrapper=ge.bwd_dx,
+        wrapper=ge.bwd_dx, source=EPILOGUE_SOURCE,
         replaces="senas_tpu/ops/grouped_epilogue.py:251 (_bwd_dx -> _bwd_dx_kernel :237)"),
+    "norm_convs": dict(
+        wrapper=nc.norm_convs, source="senas_torch/csrc/norm_convs.cu",
+        replaces="senas_tpu/ops/pallas_kernels.py:65 (fused_norm_convs -> "
+                 "_norm_convs_kernel :37)"),
 }
+SOURCES = ("grouped_epilogue", "norm_convs")
 
 
 def log(msg: str):
@@ -152,15 +182,16 @@ def environment() -> str:
 
 def build() -> None:
     t0 = time.perf_counter()
-    seconds = _build.build(["grouped_epilogue"])
+    seconds = _build.build(SOURCES)
     log(f"build: {seconds} (wall {time.perf_counter() - t0:.2f} s)")
-    for line in _build.build_log("grouped_epilogue").splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"  ptxas: {line.strip()}")
+    for name in SOURCES:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"  ptxas {name}: {line.strip()}")
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: each kernel against its plain version on the card
+# Phase 3: each kernel against its plain version on the card (K1a-K1d)
 # ---------------------------------------------------------------------------
 
 _DIFF = ("se_w1", "se_w2", "none_alpha_col", "none_bias")
@@ -205,8 +236,9 @@ def check_kernels(dev) -> dict:
     """Returns per-kernel records: the worst errors over every case, times at
     each shape in `timed`, and those of the heaviest main-path shape
     ([8,24,256,256], n=6) as `ms`, `plain_ms`, `bound_ms`."""
-    records = {name: {} for name in KERNELS}
-    worst = {name: 0.0 for name in KERNELS}
+    names = [name for name, _ in _TIMED]
+    records = {name: {} for name in names}
+    worst = {name: 0.0 for name in names}
     worst.update(stats_rel=0.0, reduce_rel=0.0, epilogue=0.0, grad_rel=0.0)
     for h in KERNEL_HW:
         for n, se, none in ((6, True, False), (5, False, True)):
@@ -308,7 +340,7 @@ def check_kernels(dev) -> dict:
                 if (h, n) == (KERNEL_HW[0], 6):
                     records[name].update(ms=rec["ms"], plain_ms=rec["plain_ms"],
                                          bound_ms=rec["bound_ms"])
-    for name in KERNELS:
+    for name in names:
         records[name]["max_abs_err"] = worst[name]
     records["branch_stats"]["max_rel_err"] = worst["stats_rel"]
     records["bwd_reduce"]["max_rel_err"] = worst["reduce_rel"]
@@ -320,6 +352,115 @@ _TIMED = (("branch_stats", "stats"), ("apply_mix", "mix"), ("bwd_reduce", "reduc
           ("bwd_dx", "dx"))
 
 
+# K2 shapes (B, C, H, W, N): bench.py's (bench_pallas_norm_convs), and edge
+# tiles in both directions (100 = 12*8 + 4 rows, 70 = 2*32 + 6 columns).
+K2_SHAPES = {"bench": (64, 32, 128, 128, 24), "edge": (5, 32, 100, 70, 24)}
+# K2 against its plain version: within this share of each output's sum of
+# |products| (the same convolutions of |x| and |w|): both sum the 59*C
+# products in f32, in other orders.
+K2_REL_TOL = 1e-5
+
+
+def _norm_inputs(dev, b, c, h, w, n, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, c, h, w, generator=g).to(dev)
+    ks = [(0.1 * torch.randn(n, c, k, k, generator=g)).to(dev) for k in (3, 5, 5)]
+    return x, ks
+
+
+def _library_norm_convs(x, ks):
+    """The library's yardstick: the three cuDNN convolutions and the cat."""
+    return torch.cat([F.conv2d(x, w, padding=(k // 2) * d, dilation=d)
+                      for (k, d), w in zip(nc.BRANCHES, ks)], dim=1)
+
+
+def _embedded_13x13(ks):
+    """The three kernels placed in one [3N,C,13,13] kernel (dilation 1,
+    padding 6): one F.conv2d call computes the same function, with 3N*169
+    taps per input channel where the three branches need N*59 (8.6x)."""
+    n, c = ks[0].shape[:2]
+    big = ks[0].new_zeros(3 * n, c, 13, 13)
+    for i, ((k, d), w) in enumerate(zip(nc.BRANCHES, ks)):
+        off = 6 - (k // 2) * d
+        big[i * n:(i + 1) * n, :, off:off + (k - 1) * d + 1:d, off:off + (k - 1) * d + 1:d] = w
+    return big
+
+
+def check_norm_convs(dev, seed: int) -> dict:
+    """K2 against its plain version (and both against an f64 reference) at
+    each of K2_SHAPES; at bench.py's shape, times of the kernel, its plain
+    version and the library calls in turns, and its bounds."""
+    rec = {"timed": []}
+    worst_rel = worst_abs = 0.0
+    for label, (b, c, h, w, n) in K2_SHAPES.items():
+        x, ks = _norm_inputs(dev, b, c, h, w, n, seed)
+        got = nc.norm_convs(x, *ks)
+        want = nc.norm_convs_plain(x, *ks)
+        abs_sum = nc.norm_convs_plain(x.abs(), *[k.abs() for k in ks]).clamp_min(1e-30)
+        exact = nc.norm_convs_plain(x.double(), *[k.double() for k in ks])
+        torch.cuda.synchronize()
+        rel = ((got - want).abs() / abs_sum).max().item()
+        err = (got - want).abs().max().item()
+        rel_exact = ((got.double() - exact).abs() / abs_sum).max().item()
+        plain_exact = ((want.double() - exact).abs() / abs_sum).max().item()
+        del exact
+        log(f"  norm_convs {label} [{b},{c},{h},{w}] N={n}: max abs err {err:.3g}, "
+            f"rel (of the sum of |products|) {rel:.3g}; against f64: kernel {rel_exact:.3g}, "
+            f"plain {plain_exact:.3g}")
+        check(rel <= K2_REL_TOL, f"norm_convs disagrees with its plain version at {label}: "
+              f"rel {rel:.3g} > {K2_REL_TOL}")
+        check(tuple(got.shape) == (b, 3 * n, h, w), f"norm_convs gave {tuple(got.shape)}")
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, err)
+        if label != "bench":
+            continue
+        big = _embedded_13x13(ks)
+        single = lambda: F.conv2d(x, big, padding=6)
+        single_rel = ((single() - want).abs() / abs_sum).max().item()
+        # a library call, not a kernel of the port: cuDNN may take an FFT or
+        # Winograd algorithm for 13x13, so it is held to a looser 1e-4
+        check(single_rel <= 1e-4, f"the 13x13 embedding disagrees: {single_rel:.3g}")
+        del got, want, abs_sum
+        t = {"kernel": [], "plain": [], "library": [], "single": []}
+        calls = dict(kernel=lambda: nc.norm_convs(x, *ks),
+                     plain=lambda: nc.norm_convs_plain(x, *ks),
+                     library=lambda: _library_norm_convs(x, ks), single=single)
+        for which in ("kernel", "plain", "library", "single",
+                      "single", "library", "plain", "kernel"):
+            t[which].append(time_ms(calls[which]))
+        ms = {k: float(np.mean(v)) for k, v in t.items()}
+        flop_ms = nc.flops(x.shape, n) / PEAK_F32_FLOPS * 1e3
+        byte_ms = nc.nbytes(x.shape, n) / PEAK_BYTES_PER_S * 1e3
+        log(f"  norm_convs times at bench.py's shape (ms, in turns k,p,l,s,s,l,p,k): {t}; "
+            f"bounds: operations {flop_ms:.4f} ({nc.flops(x.shape, n) / 1e9:.2f} GFLOP at "
+            f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s), bytes {byte_ms:.4f} "
+            f"({nc.nbytes(x.shape, n) / 1e6:.1f} MB at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s); "
+            f"kernel at {nc.flops(x.shape, n) / ms['kernel'] / 1e9:.2f} TFLOP/s")
+        rec.update(ms=ms["kernel"], plain_ms=ms["plain"], library_ms=ms["library"],
+                   library_single_call_ms=ms["single"], bound_ms=max(flop_ms, byte_ms),
+                   bytes_bound_ms=byte_ms, shape=[b, c, h, w], n=n)
+        rec["timed"].append(dict(shape=[b, c, h, w], n=n, bound_ms=rec["bound_ms"],
+                                 **{f"{k}_in_turns": v for k, v in t.items()}))
+    rec.update(max_abs_err=worst_abs, max_rel_err=worst_rel)
+    return rec
+
+
+def run_norm_convs_path(dev, seed: int) -> dict:
+    """One call of norm_convs at bench.py's shape, as a user calls it; its
+    launch read from the counter."""
+    b, c, h, w, n = K2_SHAPES["bench"]
+    x, ks = _norm_inputs(dev, b, c, h, w, n, seed + 4)
+    reset_counts()
+    out = nc.norm_convs(x, *ks)
+    torch.cuda.synchronize()
+    got = counts()
+    want = {**{name: 0 for name in KERNELS}, "norm_convs": 1}
+    check(got == want, f"the norm_convs call launched {got}, expected {want}")
+    check(tuple(out.shape) == (b, 3 * n, h, w) and bool(torch.isfinite(out).all()),
+          "norm_convs gave non-finite values or a wrong shape")
+    log(f"norm_convs call [{b},{c},{h},{w}] N={n}: launches {got}")
+    return dict(launches=got)
+
+
 # ---------------------------------------------------------------------------
 # Profiles and the plain epilogue swapped in
 # ---------------------------------------------------------------------------
@@ -329,10 +470,12 @@ _KERNEL_CLASSES = (
     ("apply_mix (K1b)", ("apply_mix_kernel",)),
     ("bwd_reduce (K1c)", ("bwd_reduce_partial_kernel", "bwd_reduce_finish_kernel")),
     ("bwd_dx (K1d)", ("bwd_dx_kernel",)),
+    ("norm_convs (K2)", ("norm_convs_kernel",)),
     ("matmul", ("xmma_gemm", "sgemm", "gemv")),
+    # before "convolution": cuDNN's BN kernels carry "cudnn" in their names
+    ("batch norm", ("batch_norm", "bn_fw", "bn_bw")),
     ("convolution", ("conv", "cudnn", "implicit", "gemm", "xmma", "sm90", "fprop",
                      "dgrad", "wgrad", "depthwise", "winograd", "cutlass")),
-    ("batch norm", ("batch_norm", "bn_fw", "bn_bw", "bn_")),
     ("pool / upsample", ("pool", "upsample", "interp")),
     ("copy / cat", ("copy", "memcpy", "memset", "cat", "Cat")),
     ("optimizer", ("foreach", "multi_tensor", "sgd", "adam")),
@@ -459,7 +602,7 @@ def in_turns(fn, label: str, reps: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: the eval path
+# Phase 5: the eval path
 # ---------------------------------------------------------------------------
 
 def expected_launches(model) -> dict:
@@ -589,7 +732,7 @@ def run_eval_path(dev, seed: int, n_batches: int = N_BATCHES) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: the search path
+# Phase 6: the search path
 # ---------------------------------------------------------------------------
 
 def _snapshot(state: SearchTrainState) -> dict:
@@ -649,9 +792,8 @@ def _state_rel(before: dict, a: dict, b: dict) -> dict:
                            / b["model"][k].abs().max().clamp_min(1.0)) for k in stats))
 
 
-def _metrics_rel(a: dict, b: dict) -> dict:
-    return {k: abs(float(a[k]) - float(b[k])) / max(abs(float(b[k])), 1e-30)
-            for k in ("loss", "arch_loss", "grad_norm")}
+def _metrics_rel(a: dict, b: dict, keys=("loss", "arch_loss", "grad_norm")) -> dict:
+    return {k: abs(float(a[k]) - float(b[k])) / max(abs(float(b[k])), 1e-30) for k in keys}
 
 
 # Limits of the full-width step with the kernels against the same step with
@@ -755,13 +897,15 @@ def run_search_path(dev, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: a training step on the card against the CPU
+# Phase 7: a search training step on the card against the CPU
 # ---------------------------------------------------------------------------
 
-# Limits of the card-vs-CPU step, from its readings on an H100 (loss, arch
-# loss and grad norm within 2.7e-7, weight update 1.5e-5, arch update
-# 1.2e-6, running stats 4.6e-7), with room on both sides: the same step
-# with TF32 on must fail them.
+# Limits of the card-vs-CPU steps, from their readings on an H100, with
+# room on both sides: the same steps with TF32 on must fail them. The
+# search step read loss, arch loss and grad norm within 2.7e-7, weight
+# update 1.5e-5, arch update 1.2e-6, running stats 4.6e-7; the fixed step
+# loss and grad norm within 6.9e-8, weight update 1.6e-5, running stats
+# 1.7e-7 (with TF32 on: grad norm 2.7e-4, weight update 1.6e-2).
 CARD_CPU_LIMITS = dict(metrics=1e-5, weights=1e-4, arch=1e-5, bn_stats=1e-5)
 
 
@@ -815,16 +959,21 @@ def train_card_vs_cpu(dev, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: the runner and its resume
+# Phase 8: the search runner and its resume
 # ---------------------------------------------------------------------------
 
-def _search_cli(config: str, *args: str) -> str:
-    cmd = [sys.executable, "-m", "senas_torch.search_arc", "--config", config, *args]
+def _cli(module: str, config: str, *args: str) -> str:
+    """`python -m <module> --config <config> ...` from the checkout; its stdout."""
+    cmd = [sys.executable, "-m", module, "--config", config, *args]
     t0 = time.perf_counter()
     out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
     log(f"  {' '.join(cmd[1:])}: rc {out.returncode}, {time.perf_counter() - t0:.1f} s")
-    check(out.returncode == 0, f"search CLI failed:\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    check(out.returncode == 0, f"{module} failed:\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
     return out.stdout
+
+
+def _run_dir(stdout: str) -> str:
+    return stdout.split("run dir: ")[1].splitlines()[0].strip()
 
 
 def _val_epochs(run_dir: str) -> list:
@@ -836,8 +985,8 @@ def run_runner() -> dict:
     cfg = load_config(RUNNER_CONFIG)
     epochs = cfg["searching"]["epoch"]
     with tempfile.TemporaryDirectory() as log_root:
-        first = _search_cli(RUNNER_CONFIG, "--log_root", log_root)
-        run_dir = first.split("run dir: ")[1].splitlines()[0].strip()
+        first = _cli("senas_torch.search_arc", RUNNER_CONFIG, "--log_root", log_root)
+        run_dir = _run_dir(first)
         check(_val_epochs(run_dir) == list(range(epochs)),
               f"runner ran epochs {_val_epochs(run_dir)}, expected {epochs}")
         best = parse_genotype(first.split("best genotype: ")[1].strip())
@@ -848,14 +997,189 @@ def run_runner() -> dict:
         resume_config = os.path.join(log_root, "resume.yml")
         with open(resume_config, "w") as f:
             yaml.safe_dump(cfg, f)
-        resumed = _search_cli(resume_config, "--log_root", os.path.join(log_root, "resumed"))
+        resumed = _cli("senas_torch.search_arc", resume_config, "--log_root",
+                       os.path.join(log_root, "resumed"))
         check(f"at epoch {epochs}" in resumed, "the resumed run did not start at the "
               f"checkpoint's epoch {epochs}")
-        run_dir2 = resumed.split("run dir: ")[1].splitlines()[0].strip()
+        run_dir2 = _run_dir(resumed)
         check(_val_epochs(run_dir2) == [epochs],
               f"the resumed run ran epochs {_val_epochs(run_dir2)}, expected [{epochs}]")
         log(f"runner: {epochs} epochs then 1 resumed; genotype {best!r}")
     return dict(epochs=epochs, resumed_epochs=1)
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the fixed model's train and eval steps at full width
+# ---------------------------------------------------------------------------
+
+FIXED_STEPS = 4      # 1 + 3 train steps
+
+
+def _fixed_model(t, dev, gen):
+    return SenasModel(NCLASS, IN_CHANNELS, c=t["init_channels"], depth=t["depth"],
+                      supervision=t["deep_supervision"],
+                      genotype=getattr(geno_searched, t["geno_type"]),
+                      double_down_channel=t["double_down_channel"], device=dev,
+                      generator=gen)
+
+
+def _fixed_loss(t):
+    return build_loss(t["loss"]["name"], t["deep_supervision"])
+
+
+def run_fixed_path(dev, seed: int) -> dict:
+    t = load_config(CONFIG)["training"]
+    bs = t["batch_size"]
+    model = _fixed_model(t, dev, torch.Generator().manual_seed(seed + 3))
+    state = FixedTrainState.create(model, t["model_optimizer"])
+    step = make_train_step(_fixed_loss(t), grad_clip=t["grad_clip"])
+    evaluate = make_eval_step(model, _fixed_loss(t))
+    rng = np.random.RandomState(seed + 3)
+    train_batches = _batches(rng, FIXED_STEPS, bs, HW, dev)
+    eval_batches = _batches(rng, N_BATCHES, bs, HW, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"fixed model: {t['geno_type']} init_channels {t['init_channels']} depth "
+        f"{t['depth']}, {n_params} parameters; batch {bs} {HW}x{HW}x{IN_CHANNELS}, SGD "
+        f"{t['model_optimizer']}, clip {t['grad_clip']}, {t['loss']['name']}")
+
+    reset_counts()
+    total = {name: 0 for name in KERNELS}
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i, batch in enumerate(train_batches):
+        t0 = time.perf_counter()
+        m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        vals = {k: float(m[k]) for k in ("loss", "grad_norm", "acc")}
+        check(all(np.isfinite(v) for v in vals.values()), f"fixed train step {i}: {vals}")
+        log(f"fixed train step {i}: {vals} tp {m['tp'].cpu().numpy()} {times[-1]:.2f} ms")
+    peak = torch.cuda.max_memory_allocated()
+    steady = times[1:]
+    log(f"fixed train step: {np.mean(steady):.2f} ms/step (steps after the first: "
+        f"{[round(x, 2) for x in steady]}; first {times[0]:.2f} ms), peak memory "
+        f"{peak / 2**20:.1f} MiB")
+    add_counts(total, counts())
+
+    reset_counts()
+    eval_times = []
+    for i, batch in enumerate(eval_batches):
+        t0 = time.perf_counter()
+        m = evaluate(batch)
+        torch.cuda.synchronize()
+        eval_times.append((time.perf_counter() - t0) * 1e3)
+        pred, label = m["pred"], batch["label"]
+        check(pred.dtype == torch.uint8 and tuple(pred.shape) == (bs, HW, HW),
+              f"eval pred is {pred.dtype} {tuple(pred.shape)}")
+        tp = int(((pred == 1) & (label == 1)).sum())
+        check(np.isfinite(float(m["loss"])) and tp == int(m["tp"][0])
+              and int(m["tp"][0] + m["fn"][0]) == int((label == 1).sum()),
+              f"eval batch {i}: loss {float(m['loss'])}, tp {m['tp']} (pred gives {tp})")
+        log(f"fixed eval batch {i}: loss {float(m['loss']):.6f} tp {m['tp'].cpu().numpy()} "
+            f"fp {m['fp'].cpu().numpy()} fn {m['fn'].cpu().numpy()} {eval_times[-1]:.2f} ms")
+    add_counts(total, counts())
+    # the fixed model has no GroupedMixedOp and does not call K2
+    check(not any(total.values()), f"the fixed path launched {total}")
+
+    # the card's logits against the CPU path on 2 images (eval-mode BN is
+    # per sample)
+    with torch.inference_mode():
+        card = model(eval_batches[0]["image"][:2], train=False)[0].cpu()
+    cpu_model = _fixed_model(t, "cpu", None)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.inference_mode():
+        ref = cpu_model(eval_batches[0]["image"][:2].cpu(), train=False)[0]
+    abs_err = (card - ref).abs().max().item()
+    agree = (card.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    log(f"fixed model card vs CPU (2 images): max |logit| {ref.abs().max().item():.4g}, "
+        f"max abs err {abs_err:.3g}, argmax agreement {agree:.6f}")
+    check(bool(torch.isfinite(card).all()), "non-finite fixed-model logits")
+    torch.testing.assert_close(card, ref, rtol=1e-3, atol=1e-3)
+    check(agree >= 0.999, f"argmax agreement {agree:.6f} < 0.999")
+
+    prof = profile(lambda: step(state, train_batches[-1]), f"one fixed train step, batch {bs}")
+    return dict(launches=total, step_ms=float(np.mean(steady)), first_ms=times[0],
+                eval_ms=float(np.mean(eval_times[1:])), peak_mib=peak / 2**20,
+                cpu_abs_err=abs_err, argmax_agreement=agree, profile=prof)
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: a fixed training step on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def fixed_card_vs_cpu(dev, seed: int) -> dict:
+    t = dict(load_config(CONFIG)["training"], depth=3, init_channels=8)
+    model0 = _fixed_model(t, "cpu", torch.Generator().manual_seed(seed + 5)).state_dict()
+    batch = _batches(np.random.RandomState(seed + 5), 1, 2, 64, "cpu")[0]
+
+    def snap(model):
+        return {"model": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+                "arch": {}}
+
+    def run_on(d):
+        model = _fixed_model(t, d, None)
+        model.load_state_dict({k: v.to(d) for k, v in model0.items()})
+        state = FixedTrainState.create(model, t["model_optimizer"])
+        before = snap(model)
+        m = make_train_step(_fixed_loss(t), grad_clip=t["grad_clip"])(
+            state, {k: v.to(d) for k, v in batch.items()})
+        return before, {k: v.cpu() for k, v in m.items()}, snap(model)
+
+    keys = ("loss", "grad_norm")
+    before, m_cpu, after_cpu = run_on("cpu")
+    _, m_card, after_card = run_on(dev)
+    rel_m, rel_s = _metrics_rel(m_card, m_cpu, keys), _state_rel(before, after_card, after_cpu)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        _, m_tf32, after_tf32 = run_on(dev)
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    tf32_m, tf32_s = _metrics_rel(m_tf32, m_cpu, keys), _state_rel(before, after_tf32, after_cpu)
+    log(f"fixed training step card vs CPU (depth 3, c 8, 64x64, batch 2): metrics "
+        f"{({k: float(m_card[k]) for k in keys})} rel {rel_m}, state {rel_s}; with TF32 on: "
+        f"metrics rel {tf32_m}, state {tf32_s} (limits {CARD_CPU_LIMITS})")
+    check(_within(rel_m, rel_s),
+          f"card and CPU fixed steps disagree: metrics {rel_m}, state {rel_s}")
+    check(not _within(tf32_m, tf32_s),
+          "the fixed card-vs-CPU limits let a step with TF32 on pass")
+    return dict(metrics=rel_m, state=rel_s, tf32=dict(metrics=tf32_m, state=tf32_s))
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the fixed CLIs
+# ---------------------------------------------------------------------------
+
+def run_fixed_clis() -> dict:
+    cfg = load_config(RUNNER_CONFIG)
+    epochs = cfg["training"]["epoch"]
+    with tempfile.TemporaryDirectory() as log_root:
+        out = _cli("senas_torch.train_model", RUNNER_CONFIG, "--log_root", log_root)
+        run_dir = _run_dir(out)
+        best = ast.literal_eval(out.split("best: ")[1].splitlines()[0])
+        check(_val_epochs(run_dir) == list(range(epochs)),
+              f"train_model ran epochs {_val_epochs(run_dir)}, expected {epochs}")
+        grids = [f for f in os.listdir(run_dir) if f.startswith("Val_images_")]
+        check(len(grids) == epochs and os.path.exists(os.path.join(run_dir, "ckpt", "best.pt")),
+              f"train_model wrote {grids} and no best checkpoint")
+        # at the training run's batch, so that cuDNN takes the same algorithms
+        out = _cli("senas_torch.testing_model", RUNNER_CONFIG, "--resume",
+                   os.path.join(run_dir, "ckpt"), "--log_root", log_root,
+                   "--batch_size", str(cfg["training"]["batch_size"]))
+        result = ast.literal_eval(out.strip().splitlines()[-1])
+        image_dir = os.path.join(_run_dir(out), "images")
+        pngs = sorted(os.listdir(image_dir))
+        for name in pngs:
+            with open(os.path.join(image_dir, name), "rb") as f:
+                check(f.read(8) == b"\x89PNG\r\n\x1a\n", f"{name} is not a PNG")
+        # eval-mode BN is per sample, so the best epoch's val dice comes back;
+        # a batch of 6 against the run's 4 gave 90.298 against 90.301 on an
+        # H100 (other cuDNN algorithms flip a pixel or two), hence 0.01 points
+        check(abs(result["dice"] - best["best_dice"]) <= 0.01,
+              f"testing_model dice {result['dice']} on the best checkpoint, the run's best "
+              f"{best['best_dice']}")
+        log(f"fixed CLIs: {epochs} epochs, best {best}; testing_model {result}, "
+            f"{len(pngs)} PNGs")
+    return dict(epochs=epochs, best=best, test=result, pngs=len(pngs))
 
 
 def main(argv=None) -> int:
@@ -877,35 +1201,47 @@ def main(argv=None) -> int:
     smi = environment()
     build()
     records = check_kernels(dev)
-    evald = run_eval_path(dev, args.seed)
-    search = run_search_path(dev, args.seed)
+    records["norm_convs"] = check_norm_convs(dev, args.seed)
+    paths = {"norm_convs_call": run_norm_convs_path(dev, args.seed)}
+    evald = paths["eval"] = run_eval_path(dev, args.seed)
+    search = paths["search_step"] = run_search_path(dev, args.seed)
     card_cpu = train_card_vs_cpu(dev, args.seed)
     runner = run_runner()
+    fixed = paths["fixed_train_eval"] = run_fixed_path(dev, args.seed)
+    fixed_cpu = fixed_card_vs_cpu(dev, args.seed)
+    fixed_clis = run_fixed_clis()
 
-    for name in KERNELS:
-        launched = evald["launches"][name] + search["launches"][name]
-        check(launched > 0, f"{name} was not launched on the main path")
     kernels = []
     for name, k in KERNELS.items():
+        by_path = {p: r["launches"][name] for p, r in paths.items()}
+        check(sum(by_path.values()) > 0, f"{name} was launched on no path: {by_path}")
         r = records[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": "senas_torch/csrc/grouped_epilogue.cu",
-            "replaces": k["replaces"],
-            "launches": evald["launches"][name] + search["launches"][name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None,
-            "library_note": LIBRARY_NOTE, "shape": [8, GROUP_C, HW, HW], "n": 6,
-            "launches_by_path": {"eval": evald["launches"][name],
-                                 "search_step": search["launches"][name]},
-            "launches_per_search_step": {f"do_arch={d}": search["per_step"][d][name]
-                                         for d in ("False", "True")},
-            "timed": r["timed"],
-        })
+        row = {"name": name, "route": "cuda", "source": k["source"],
+               "replaces": k["replaces"], "launches": sum(by_path.values()),
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+               "bound_ms": r["bound_ms"], "launches_by_path": by_path, "timed": r["timed"]}
+        if name == "norm_convs":
+            row.update(bound_by="operations", library_ms=r["library_ms"],
+                       library_note="three cuDNN convolutions (F.conv2d) and torch.cat, "
+                                    "TF32 off",
+                       library_single_call_ms=r["library_single_call_ms"],
+                       bytes_bound_ms=r["bytes_bound_ms"], shape=r["shape"], n=r["n"])
+        else:
+            row.update(bound_by="bytes", library_ms=None, library_note=LIBRARY_NOTE,
+                       shape=[8, GROUP_C, HW, HW], n=6,
+                       launches_per_search_step={f"do_arch={d}": search["per_step"][d][name]
+                                                 for d in ("False", "True")})
         if "max_rel_err" in r:
-            kernels[-1]["max_rel_err"] = r["max_rel_err"]
+            row["max_rel_err"] = r["max_rel_err"]
+        kernels.append(row)
     log(f"summary: eval {evald['eval_ms']:.2f} ms/batch, search {search['step_ms']:.2f} "
         f"ms/step, peak {search['peak_mib']:.1f} MiB, card vs CPU step {card_cpu}, "
-        f"runner {runner}")
+        f"runner {runner}; fixed train {fixed['step_ms']:.2f} ms/step, eval "
+        f"{fixed['eval_ms']:.2f} ms/batch, peak {fixed['peak_mib']:.1f} MiB, card vs CPU "
+        f"{fixed_cpu}, CLIs {fixed_clis}; norm_convs {records['norm_convs']['ms']:.4f} ms "
+        f"(plain {records['norm_convs']['plain_ms']:.4f}, library "
+        f"{records['norm_convs']['library_ms']:.4f}, bound "
+        f"{records['norm_convs']['bound_ms']:.4f})")
     log(f"card: {smi}; total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,119 @@
+"""The three NORM convolutions of one input in one kernel (K2).
+
+Port of `senas_tpu/ops/pallas_kernels.py`: `fused_norm_convs` computes the
+3x3 dilation-1, 5x5 dilation-2 and 5x5 dilation-3 convolutions (stride 1,
+torch 'same' padding 1, 4 and 6) of one input and concatenates them in that
+order. In the port's idiom it is NCHW:
+
+    norm_convs(x [B,C,H,W], k3 [N,C,3,3], k5d2 [N,C,5,5], k5d3 [N,C,5,5])
+        -> [B,3N,H,W]
+
+On the card it launches the hand-written kernel of csrc/norm_convs.cu; on
+the CPU it takes `norm_convs_plain`, the counterpart of the JAX package's
+`xla_norm_convs`. The wrapper never falls back from one to the other. As in
+the JAX package, no model path calls it: it is forward only (no VJP), and no
+group of the supernet has exactly these three branches. Its yardstick is the
+three library convolutions (`chip_smoke.py`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+BRANCHES = ((3, 1), (5, 2), (5, 3))  # (kernel, dilation), in output order
+
+
+def norm_convs_plain(x: torch.Tensor, k3: torch.Tensor, k5d2: torch.Tensor,
+                     k5d3: torch.Tensor) -> torch.Tensor:
+    """torch.cat of the three F.conv2d calls (padding (k//2)*d, dilation d)."""
+    return torch.cat([F.conv2d(x, w, padding=(k // 2) * d, dilation=d)
+                      for (k, d), w in zip(BRANCHES, (k3, k5d2, k5d3))], dim=1)
+
+
+_LIB = None
+
+
+def _lib():
+    """Build (first use) and load the kernel's library; declare every
+    argument type, so that ctypes passes pointers at their full width."""
+    global _LIB
+    if _LIB is None:
+        from senas_torch.ops import _build
+        lib = _build.load("norm_convs")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.senas_norm_convs_f32.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+        lib.senas_norm_convs_f32.restype = i32
+        lib.senas_norm_convs_error_string.argtypes = [i32]
+        lib.senas_norm_convs_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _check(x, k3, k5d2, k5d3):
+    """What both paths take: f32 NCHW-contiguous operands on one device,
+    with the kernels' shapes."""
+    ops = (x, k3, k5d2, k5d3)
+    for t in ops:
+        if t.dtype != torch.float32:
+            raise NotImplementedError(f"norm_convs takes float32 only, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError("norm_convs operands must be on one device")
+        if not t.is_contiguous():
+            raise ValueError("norm_convs operands must be contiguous (NCHW, OIHW)")
+    if x.dim() != 4:
+        raise ValueError(f"x must be [B,C,H,W], got {tuple(x.shape)}")
+    c = x.shape[1]
+    n = k3.shape[0]
+    for (k, _), w in zip(BRANCHES, (k3, k5d2, k5d3)):
+        if tuple(w.shape) != (n, c, k, k):
+            raise ValueError(f"a {k}x{k} kernel must be {(n, c, k, k)}, got {tuple(w.shape)}")
+
+
+def norm_convs(x: torch.Tensor, k3: torch.Tensor, k5d2: torch.Tensor,
+               k5d3: torch.Tensor) -> torch.Tensor:
+    """The 3x3 d1, 5x5 d2 and 5x5 d3 convolutions of x, concatenated over
+    channels: [B,C,H,W] -> [B,3N,H,W].
+
+    Kernel `norm_convs` (csrc/norm_convs.cu) on the card; replaces the TPU
+    kernel `_norm_convs_kernel` through `fused_norm_convs`
+    (senas_tpu/ops/pallas_kernels.py:37-99). Bound by operations:
+    2*B*H*W*C*N*59 FLOP in f32, against (B*C + 3*B*N)*H*W*4 bytes."""
+    _check(x, k3, k5d2, k5d3)
+    if x.device.type == "cpu":
+        return norm_convs_plain(x, k3, k5d2, k5d3)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    b, c, h, w = x.shape
+    n = k3.shape[0]
+    out = torch.empty((b, 3 * n, h, w), device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().senas_norm_convs_f32(x.data_ptr(), k3.data_ptr(), k5d2.data_ptr(),
+                                         k5d3.data_ptr(), out.data_ptr(), b, c, h, w, n,
+                                         stream)
+    if rc != 0:
+        msg = _lib().senas_norm_convs_error_string(rc).decode()
+        raise RuntimeError(f"norm_convs kernel launch failed: {msg} (cudaError {rc})")
+    norm_convs.launches += 1
+    return out
+
+
+norm_convs.launches = 0
+
+
+def flops(x_shape, n: int) -> int:
+    """Multiply-adds (as 2 FLOP) of one call: every output pixel of every
+    branch sums C * k*k products."""
+    b, c, h, w = x_shape
+    return 2 * b * h * w * c * n * sum(k * k for k, _ in BRANCHES)
+
+
+def nbytes(x_shape, n: int) -> int:
+    """Bytes one call must move: x and the kernels read once, the output
+    written once (f32)."""
+    b, c, h, w = x_shape
+    weights = n * c * sum(k * k for k, _ in BRANCHES)
+    return 4 * (b * c * h * w + weights + 3 * b * n * h * w)

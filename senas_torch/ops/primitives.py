@@ -398,10 +398,16 @@ class BasicBlock(nn.Module):
 # Candidate-op registry (OPS, the reference's operations.py:8-21)
 # ---------------------------------------------------------------------------
 
-def make_op(name: str, c_in: int, c_out: int, op_type: OpType) -> nn.Module:
+def make_op(name: str, c_in: int, c_out: int, op_type: OpType,
+            dp: float = 0.0) -> nn.Module:
     """Instantiate candidate op `name` with the reference's stride rules:
     NORM -> stride 1; DOWN -> stride-2 conv/pool; UP -> stride-2 transpose
-    conv with output_padding 1 (pool ops become bilinear 2x upsample)."""
+    conv with output_padding 1 (pool ops become bilinear 2x upsample).
+    `dp` is the conv ops' spatial-dropout rate; only 0 is ported."""
+    if dp > 0:
+        raise NotImplementedError(
+            "dropout_prob > 0 (spatial_dropout) is not ported yet (ROADMAP.md "
+            "Queue 1, M11 deferred: dropout)")
     stride = 1 if op_type == OpType.NORM else 2
     transpose = op_type == OpType.UP
     op = 1 if op_type == OpType.UP else 0

@@ -1,7 +1,8 @@
 """Shared runner plumbing: config resolution, batch placement, eval loop.
 
-Port of the parts of `senas_tpu/runner/common.py` that the search runner
-uses. The device mesh (`multi_gpus`, `mesh_spatial`) is not ported.
+Port of the parts of `senas_tpu/runner/common.py` that the search, train
+and test runners use. The device mesh (`multi_gpus`, `mesh_spatial`) is not
+ported.
 """
 
 from __future__ import annotations
@@ -16,9 +17,10 @@ from senas_torch.data import DataLoader
 from senas_torch.train.metrics import AverageMeter, SegmentationMetric
 
 # Run directories go under the checkout's git-ignored logs/ unless the
-# caller names another root.
-DEFAULT_LOG_ROOT = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "logs")
+# caller names another root; the CLIs' default config is the checkout's.
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+DEFAULT_LOG_ROOT = os.path.join(_CHECKOUT, "logs")
+DEFAULT_CONFIG = os.path.join(_CHECKOUT, "configs", "senas", "senas_promise12.yml")
 
 
 def make_batch_placer(device: torch.device) -> Callable[[Dict[str, np.ndarray]], Dict[str, torch.Tensor]]:
@@ -74,6 +76,17 @@ def run_eval_loop(eval_step_fn, loader: DataLoader, nclass: int, place_fn):
         acc.push(out, n=batch["image"].shape[0])
     acc.drain()
     return metric, loss_meter
+
+
+def check_unported(section: Dict[str, Any]) -> None:
+    """Raise on the options of a `searching:` or `training:` section that the
+    port does not have yet."""
+    if section.get("multi_gpus", False) or int(section.get("mesh_spatial", 1)) > 1:
+        raise NotImplementedError("multi_gpus / mesh_spatial are not ported yet "
+                                  "(ROADMAP.md Queue 1, M13)")
+    if section.get("remat", False):
+        raise NotImplementedError("remat is not ported yet (ROADMAP.md Queue 1)")
+    resolve_precision(section.get("precision"))
 
 
 def resolve_precision(name):

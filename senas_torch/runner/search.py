@@ -22,8 +22,8 @@ import torch
 from senas_torch.core.device import resolve_device
 from senas_torch.data import DataLoader, PrefetchLoader, get_dataset, get_dataset_spec
 from senas_torch.runner.common import (DEFAULT_LOG_ROOT, DeferredMetrics,
-                                       make_batch_placer, resolve_dataset_kwargs,
-                                       resolve_precision, run_eval_loop)
+                                       check_unported, make_batch_placer,
+                                       resolve_dataset_kwargs, run_eval_loop)
 from senas_torch.search.supernet import (SenasSearch, derive_genotype,
                                          init_arch_params, normalize_arch)
 from senas_torch.train.checkpoint import CheckpointManager
@@ -39,14 +39,9 @@ from senas_torch.utils.misc import StepTimer, calc_parameters_count, set_seed
 
 def _check_supported(s: Dict[str, Any]) -> None:
     """Raise on the `searching:` options the port does not have yet."""
-    if s.get("multi_gpus", False) or int(s.get("mesh_spatial", 1)) > 1:
-        raise NotImplementedError("multi_gpus / mesh_spatial are not ported yet "
-                                  "(ROADMAP.md Queue 1, M13)")
-    if s.get("remat", False):
-        raise NotImplementedError("remat is not ported yet (ROADMAP.md Queue 1)")
+    check_unported(s)
     if s.get("beta_mode", "reference") != "reference":
         raise NotImplementedError("only beta_mode 'reference' is ported")
-    resolve_precision(s.get("precision"))
 
 
 class SearchRunner:

@@ -1,0 +1,102 @@
+"""Evaluation runner: load a checkpoint, evaluate on the val split, save the
+per-image predicted masks and the input|pred|gt grid PNGs.
+
+Port of `senas_tpu/runner/test.py` (the reference's
+experiments/testing_model.py). The checkpoint is read without a target
+state (`CheckpointManager.restore_raw`): evaluation takes only the model's
+weights and running stats, whatever optimizer the training run had. It
+runs in f32 on one device, as the JAX package's TestRunner does unless
+`multi_gpus` spreads the batches over a mesh (the same numbers). The PNGs
+are written as each batch comes back. The PROMISE12 submission path
+(`run_promise12_submission`) is not ported yet and raises.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Optional
+
+from senas_torch.core.device import resolve_device
+from senas_torch.core.genotype import parse_genotype
+from senas_torch.data import DataLoader, get_dataset, get_dataset_spec
+from senas_torch.models import geno_searched
+from senas_torch.models.factory import get_segmentation_model
+from senas_torch.runner.common import (DEFAULT_LOG_ROOT, make_batch_placer,
+                                       resolve_dataset_kwargs)
+from senas_torch.runner.train import loss_name
+from senas_torch.train.checkpoint import CheckpointManager
+from senas_torch.train.loss import build_loss
+from senas_torch.train.metrics import AverageMeter, SegmentationMetric
+from senas_torch.train.trainer import make_eval_step
+from senas_torch.utils.logging import (close_logger, get_logger, make_run_dir, store_images,
+                                       write_png)
+
+
+class TestRunner:
+    __test__ = False  # not a pytest class, despite the name
+
+    def __init__(self, cfg: Dict[str, Any], model_name: str = "senas",
+                 genotype_str: str = "", resume: Optional[str] = None,
+                 config_path: Optional[str] = None, data_root: Optional[str] = None,
+                 log_root: str = DEFAULT_LOG_ROOT, batch_size: int = 6, device=None):
+        if resume is None:
+            raise ValueError("resume: the checkpoint directory to evaluate is required")
+        mgr = CheckpointManager(resume)
+        name = "best" if mgr.exists("best") else "last"
+        if not mgr.exists(name):
+            raise FileNotFoundError(f"no checkpoint in {resume}")
+        self.cfg = cfg
+        t = cfg["training"]
+        self.device = resolve_device(device)
+        ds_name = cfg["data"]["dataset"]
+        valset = get_dataset(ds_name, path=data_root, split=cfg["data"].get("split", "val"),
+                             mode="val", **resolve_dataset_kwargs(cfg))
+        self.n_classes = get_dataset_spec(ds_name).num_class
+        self.valid_queue = DataLoader(valset, batch_size, shuffle=False)
+        self._place = make_batch_placer(self.device)
+
+        self.run_dir = make_run_dir(log_root, model_name, "testing", ds_name, config_path)
+        self.logger = get_logger(self.run_dir)
+        self.image_dir = os.path.join(self.run_dir, "images")
+        os.makedirs(self.image_dir, exist_ok=True)
+
+        genotype = (parse_genotype(genotype_str) if genotype_str
+                    else getattr(geno_searched, t.get("geno_type", "senas")))
+        self.model = get_segmentation_model(
+            model_name, dataset=ds_name, c=t.get("init_channels", 32),
+            depth=t.get("depth", 5), supervision=False, genotype=genotype,
+            double_down_channel=t.get("double_down_channel", False), device=self.device)
+        self.model.load_state_dict(mgr.restore_raw(name)["model"])
+        self.logger.info("loaded checkpoint %s (%s)", resume, name)
+        self.eval_step = make_eval_step(self.model, build_loss(loss_name(t)))
+
+    def run(self, save_images: bool = True) -> Dict[str, float]:
+        metric = SegmentationMetric(self.n_classes)
+        loss_meter = AverageMeter()
+        img_idx = 0
+        # class ids spread over 0..255 in the saved masks
+        scale = 255 // max(1, self.n_classes - 1)
+        for batch in self.valid_queue:
+            out = self.eval_step(self._place(batch))
+            host = {k: v.cpu().numpy() for k, v in out.items()}
+            metric.update_counts(host["tp"], host["fp"], host["fn"], float(host["acc"]))
+            loss_meter.update(float(host["loss"]), n=batch["image"].shape[0])
+            if save_images:
+                preds = host["pred"]
+                for i in range(preds.shape[0]):
+                    write_png(os.path.join(self.image_dir, f"{img_idx + i:05d}.png"),
+                              preds[i] * scale)
+                img_idx += preds.shape[0]
+                write_png(os.path.join(self.image_dir, f"grid_{img_idx:05d}.png"),
+                          store_images(batch["image"], preds, batch["label"], self.n_classes))
+        pixacc, miou, dice = metric.get()
+        self.logger.info("val loss %f pixAcc %s mIoU %s dice %s",
+                         loss_meter.avg, pixacc, miou, dice)
+        close_logger(self.logger)
+        return {"loss": loss_meter.avg, "pixAcc": pixacc, "mIoU": miou, "dice": dice}
+
+    def run_promise12_submission(self, case_dir: str, dest: Optional[str] = None,
+                                 queue: Optional[DataLoader] = None):
+        raise NotImplementedError(
+            "the PROMISE12 submission path is not ported yet: it needs challenge/, the "
+            ".mhd volumes and SimpleITK (ROADMAP.md Queue 1, M11 deferred: submission)")

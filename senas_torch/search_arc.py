@@ -15,15 +15,11 @@ config is the checkout's configs/senas/senas_promise12.yml.
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 
 from senas_torch.core.config import load_config
-from senas_torch.runner.common import DEFAULT_LOG_ROOT
+from senas_torch.runner.common import DEFAULT_CONFIG, DEFAULT_LOG_ROOT
 from senas_torch.runner.search import SearchRunner
-
-DEFAULT_CONFIG = os.path.join(os.path.dirname(DEFAULT_LOG_ROOT), "configs", "senas",
-                              "senas_promise12.yml")
 
 
 def main(argv=None) -> int:

@@ -1,10 +1,12 @@
-"""Run-dir logging and scalar logging for the runners.
+"""Run-dir logging, scalar logging and image grids for the runners.
 
-The parts of `senas_tpu/utils/logging.py` that the search runner uses,
-copied: stdout + run.log file logger, the run-dir layout
+The parts of `senas_tpu/utils/logging.py` that the runners use, copied:
+stdout + run.log file logger, the run-dir layout
 <log_root>/<model>/<phase>/<dataset>/<phase>-<timestamp>/ with the config
-YAML copied in, and a JSONL scalar log (scalars.jsonl). TensorBoard output
-is not ported.
+YAML copied in, a JSONL scalar log (scalars.jsonl), and the
+input | prediction | ground-truth grids (`store_images`). Images are
+written as PNG by `write_png` (zlib + struct: the card's machine has no
+Pillow). TensorBoard output is not ported.
 """
 
 from __future__ import annotations
@@ -13,9 +15,13 @@ import json
 import logging
 import os
 import shutil
+import struct
 import sys
 import time
+import zlib
 from typing import Optional
+
+import numpy as np
 
 
 def get_logger(log_dir: str, name: str = "senas_torch") -> logging.Logger:
@@ -73,9 +79,78 @@ class ScalarWriter:
                                       "step": int(step), "t": time.time()}) + "\n")
         self._jsonl.flush()
 
+    def add_image_grid(self, tag: str, grid: np.ndarray, step: int):
+        """grid: [H, W, 3] uint8, written as <log_dir>/<tag>_<step>.png."""
+        write_png(os.path.join(self.log_dir, f"{tag.replace('/', '_')}_{step}.png"), grid)
+
     def export_scalars_to_json(self, path: str):
         # the JSONL is already on disk; the reference's export hook copies it
         shutil.copy(os.path.join(self.log_dir, "scalars.jsonl"), path)
 
     def close(self):
         self._jsonl.close()
+
+
+def write_png(path: str, image: np.ndarray) -> None:
+    """An 8-bit PNG of `image`: [H, W] grayscale or [H, W, 3] RGB uint8.
+    Each row is stored with filter type 0 (none) in one zlib stream."""
+    image = np.ascontiguousarray(image, dtype=np.uint8)
+    if image.ndim not in (2, 3) or (image.ndim == 3 and image.shape[2] != 3):
+        raise ValueError(f"write_png takes [H,W] or [H,W,3] uint8, got {image.shape}")
+    h, w = image.shape[:2]
+    color = 0 if image.ndim == 2 else 2
+    rows = image.reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 6))
+                + chunk(b"IEND", b""))
+
+
+_PALETTE = None
+
+
+def get_mask_palette(nclass: int) -> np.ndarray:
+    """VOC-style color palette (the reference's utils/encoder_colors.py:3-33)."""
+    global _PALETTE
+    if _PALETTE is None:
+        pal = np.zeros((256, 3), np.uint8)
+        for j in range(256):
+            lab = j
+            for i in range(8):
+                pal[j, 0] |= ((lab >> 0) & 1) << (7 - i)
+                pal[j, 1] |= ((lab >> 1) & 1) << (7 - i)
+                pal[j, 2] |= ((lab >> 2) & 1) << (7 - i)
+                lab >>= 3
+        _PALETTE = pal
+    return _PALETTE
+
+
+def store_images(images: np.ndarray, preds: np.ndarray, labels: np.ndarray,
+                 nclass: int) -> np.ndarray:
+    """input | prediction | ground-truth grid (the reference's
+    utils/utils.py:253-282).
+
+    images: [B,H,W,C] float; preds/labels: [B,H,W] int. Returns [H*B, W*3, 3]
+    uint8 (rows = samples, cols = input/pred/gt)."""
+    pal = get_mask_palette(nclass)
+    rows = []
+    for img, pred, lab in zip(images, preds, labels):
+        x = img[..., 0] if img.ndim == 3 else img
+        lo, hi = float(x.min()), float(x.max())
+        gray = ((x - lo) / (hi - lo if hi > lo else 1) * 255).astype(np.uint8)
+        gray3 = np.stack([gray] * 3, axis=-1)
+        if nclass <= 2:
+            p = np.stack([(pred * 255).astype(np.uint8)] * 3, -1)
+            g = np.stack([(lab * 255).astype(np.uint8)] * 3, -1)
+        else:
+            p = pal[pred.astype(np.int32) % 256]
+            g = pal[lab.astype(np.int32) % 256]
+        rows.append(np.concatenate([gray3, p, g], axis=1))
+    return np.concatenate(rows, axis=0)

@@ -24,6 +24,7 @@ from senas_tpu.ops import grouped_epilogue as jge
 from senas_torch.ops import grouped_epilogue as tge
 
 from torch_port_util import epilogue_case, nchw, nhwc
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 B, H, W, E, P = 2, 8, 4, 3, 8
 C = E * P

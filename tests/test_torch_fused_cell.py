@@ -23,6 +23,7 @@ from senas_torch.search.fused_cell import FusedSearchCell, GroupedMixedOp
 
 from torch_port_util import (assert_trees_close, fused_cell_to_naive, nchw,
                              nhwc, random_variables)
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 B, E = 2, 3
 GROUP_TOL = dict(rtol=2e-5, atol=2e-5)

@@ -1,6 +1,6 @@
-"""Import hygiene: senas_torch (every module, the training path's too) and
-chip_smoke.py load nothing of JAX, flax, optax or senas_tpu (checked in a
-fresh interpreter)."""
+"""Import hygiene: senas_torch (every module: the search path's, the fixed
+model's train and test paths', K2's) and chip_smoke.py load nothing of JAX,
+flax, optax or senas_tpu (checked in a fresh interpreter)."""
 
 import os
 import subprocess
@@ -18,16 +18,26 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "senas_tpu"))
 print("BAD", bad)
 print("N", len([m for m in sys.modules if m.startswith("senas_torch.")]))
+print("FIXED", sorted(m for m in sys.modules if m in FIXED_PATH))
 """
+
+# the modules of the fixed model's path and K2, named so that a module that
+# stops being importable (or is moved) fails here
+FIXED_PATH = ("senas_torch.ops.norm_convs", "senas_torch.models.geno_searched",
+              "senas_torch.models.senas_model", "senas_torch.models.factory",
+              "senas_torch.runner.train", "senas_torch.runner.test",
+              "senas_torch.train_model", "senas_torch.testing_model")
 
 
 def test_port_imports_nothing_of_jax():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (ROOT, env.get("PYTHONPATH")) if p)
-    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+    probe = f"FIXED_PATH = {FIXED_PATH!r}\n" + _PROBE
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
-    n = int(out.stdout.split("N ")[-1])
-    assert n >= 29, out.stdout  # every module of the port was imported
+    n = int(out.stdout.split("N ")[1].split()[0])
+    assert n >= 38, out.stdout  # every module of the port was imported
+    assert f"FIXED {sorted(FIXED_PATH)}" in out.stdout, out.stdout

@@ -22,6 +22,7 @@ from senas_torch import convert
 from senas_torch.search import supernet as tsn
 
 from torch_port_util import flat
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 M, D, C = 2, 2, 16
 SEEDS = 8

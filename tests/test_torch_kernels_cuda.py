@@ -1,18 +1,22 @@
-"""The epilogue's CUDA kernels against their plain PyTorch versions, on the
-card. Every test here needs an NVIDIA GPU with nvcc and skips without one;
-on the card run (the suite's conftest imports JAX, which this file does not
-need): python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
+"""The port's CUDA kernels (the epilogue's four, K2 norm_convs) against
+their plain PyTorch versions, on the card. Every test here needs an NVIDIA
+GPU with nvcc and skips without one; on the card run (the suite's conftest
+imports JAX, which this file does not need):
+python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
 
 Tolerances: the kernels sum in another order than PyTorch's reductions.
 Sums are held to 1e-5 of the plane's sum of |x| (resp. x^2, |g*x|, |g|),
 elementwise outputs (the mix, the branch gradients) to atol 1e-4 on values
-of scale ~1-10, the epilogue's gradients to rtol/atol 1e-4."""
+of scale ~1-10, the epilogue's gradients to rtol/atol 1e-4. norm_convs is
+held to 1e-5 of the same convolutions of |x| and |w| (each output's sum of
+|products|): the kernel and cuDNN sum the products in other orders."""
 
 import numpy as np
 import pytest
 import torch
 
 from senas_torch.ops import grouped_epilogue as ge
+from senas_torch.ops import norm_convs as nc
 
 pytestmark = pytest.mark.cuda
 
@@ -156,3 +160,34 @@ def test_card_rejects_other_dtypes(dev):
     xs = [x.half() for x in _xs(dev, 2, (2, 24, 8, 8))]
     with pytest.raises(NotImplementedError):
         ge.branch_stats(xs)
+
+
+# (b, c, h, w, n): a main-sized tile, edge tiles in both directions,
+# partial channel chunks and groups, images smaller than the 13-pixel
+# receptive field, and n > 32 (channel groups over two blocks)
+_NORM_SHAPES = [(2, 32, 64, 64, 24), (1, 10, 9, 35, 12), (2, 3, 5, 7, 4),
+                (3, 10, 8, 1, 8), (1, 2, 17, 40, 40)]
+
+
+@pytest.mark.parametrize("b,c,h,w,n", _NORM_SHAPES)
+def test_norm_convs_kernel(dev, b, c, h, w, n):
+    g = torch.Generator(device="cpu").manual_seed(10)
+    x = torch.randn(b, c, h, w, generator=g).to(dev)
+    ks = [(0.1 * torch.randn(n, c, k, k, generator=g)).to(dev) for k in (3, 5, 5)]
+    before = nc.norm_convs.launches
+    got = nc.norm_convs(x, *ks)
+    torch.cuda.synchronize()
+    assert nc.norm_convs.launches == before + 1
+    assert got.shape == (b, 3 * n, h, w)
+    want = nc.norm_convs_plain(x, *ks)
+    abs_sum = nc.norm_convs_plain(x.abs(), *[k.abs() for k in ks])
+    assert ((got - want).abs() <= 1e-5 * abs_sum + 1e-6).all()
+
+
+def test_norm_convs_rejects_what_it_does_not_take(dev):
+    x = torch.randn(1, 2, 8, 8, device=dev)
+    ks = [torch.randn(3, 2, k, k, device=dev) for k in (3, 5, 5)]
+    with pytest.raises(NotImplementedError):
+        nc.norm_convs(x.half(), *ks)
+    with pytest.raises(ValueError, match="contiguous"):
+        nc.norm_convs(x.transpose(2, 3), *ks)

@@ -16,6 +16,7 @@ from senas_torch import convert
 from senas_torch.ops import primitives as TP
 
 from torch_port_util import assert_trees_close, nchw, nhwc, random_variables
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 CONV_TOL = dict(rtol=1e-4, atol=1e-5)
 EXACT_TOL = dict(rtol=1e-6, atol=1e-6)

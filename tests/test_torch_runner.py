@@ -15,6 +15,8 @@ from senas_torch.core.genotype import parse_genotype
 from senas_torch.runner.search import SearchRunner
 from senas_torch.search_arc import main as search_main
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(ROOT, "configs", "senas", "senas_synthetic.yml")
 

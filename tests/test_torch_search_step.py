@@ -37,6 +37,7 @@ from senas_torch.train.loss import build_loss as tbuild_loss
 from senas_torch.train.trainer import SearchTrainState, make_search_step
 
 from torch_port_util import assert_trees_close, flat, random_variables
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "configs", "senas", "senas_synthetic.yml")

@@ -25,6 +25,7 @@ from senas_torch.train.loss import build_loss as tbuild_loss
 from senas_torch.train.trainer import make_search_eval_step as tmake_eval
 
 from torch_port_util import assert_trees_close, random_variables
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 M, D, C, HW, B = 3, 3, 8, 32, 2
 LOGIT_TOL = dict(rtol=2e-4, atol=2e-5)

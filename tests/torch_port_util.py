@@ -8,6 +8,21 @@ Both packages then get the same numbers through `senas_torch.convert`.
 
 import jax
 import numpy as np
+import pytest
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run a module's torch ops on one thread. The suite runs in several
+    worker processes at once; torch's default of one thread per core in
+    each of them oversubscribes the host, and its spinning thread pool then
+    slows the small CPU models of these tests many times over. A module
+    that imports this fixture gets it."""
+    import torch
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def random_variables(module, rng: np.random.RandomState, *init_args):
