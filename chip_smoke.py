@@ -6,13 +6,17 @@ Phases, each of which fails the run:
   1. environment: the card's name and power limit (nvidia-smi), versions;
   2. build: the CUDA kernels of senas_torch/csrc (grouped_epilogue.cu and
      norm_convs.cu) with nvcc (sm_90a), one nvcc per source, together;
+     the SASS of norm_convs_kernel (cuobjdump) must hold tensor-core
+     instructions (HGMMA: wgmma);
   3. kernels: each of the four epilogue kernels against its plain PyTorch
      version on the same tensors on the card, at the shapes the supernet
      gives it (train- and eval-mode operands), timed; the epilogue's
      autograd gradients against autograd through the plain reference;
-     K2 (norm_convs) against its plain version at bench.py's shape
-     (B 64, 128x128, C 32, N 24) and at an edge-tile shape, timed beside
-     its plain version and the library convolutions, TF32 off;
+     K2 (norm_convs, 3xTF32 on the tensor cores) against its plain version
+     at bench.py's shape (B 64, 128x128, C 32, N 24) and at an edge-tile
+     shape, timed beside its plain version and the library convolutions
+     with TF32 off and on; the library with TF32 on (the control) must
+     fail K2's limit, which the kernel meets;
   4. the norm_convs path: one call of `norm_convs` at bench.py's shape, as
      a user (and bench.py) calls it, with its launch counted: no model path
      of either package calls K2;
@@ -91,9 +95,11 @@ RUNNER_CONFIG = os.path.join(ROOT, "configs", "senas", "senas_synthetic.yml")
 IN_CHANNELS, NCLASS, HW = 1, 2, 256     # promise12: 1-channel MR slices, 2 classes
 N_BATCHES = 3
 DO_ARCH = (False, True, True, True)     # the search path's steps
-# H100 SXM: 3.35 TB/s HBM3, 67 TFLOP/s f32 outside the tensor cores (data sheet)
+# H100 SXM: 3.35 TB/s HBM3, 67 TFLOP/s f32 outside the tensor cores, 495
+# TFLOP/s TF32 on them, dense (data sheet, at a 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 # Group geometry of the flagship supernet: E=3 edges x c_part=8 channels,
 # and the sides of its largest and a middle-sized group output.
 GROUP_C = 24
@@ -180,14 +186,36 @@ def environment() -> str:
     return smi
 
 
-def build() -> None:
+def build() -> str:
+    """Build every source; print ptxas's registers and spills. Returns the
+    tensor-core instruction that norm_convs_kernel's SASS holds."""
     t0 = time.perf_counter()
     seconds = _build.build(SOURCES)
     log(f"build: {seconds} (wall {time.perf_counter() - t0:.2f} s)")
     for name in SOURCES:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(k in line for k in ("registers", "spill", "error", "warning", "Function")):
                 log(f"  ptxas {name}: {line.strip()}")
+    return tensor_core_sass("norm_convs", "norm_convs_kernel")
+
+
+def tensor_core_sass(source: str, kernel: str) -> str:
+    """cuobjdump --dump-sass of the built library: the tensor-core
+    instructions of each function whose name holds `kernel`. Fails unless
+    every such function holds HGMMA (wgmma) or HMMA (mma.sync)."""
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(_build.library_path(source))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    found = {}
+    for part in sass.split("Function : ")[1:]:
+        name, body = part.split("\n", 1)
+        if kernel in name:
+            found[name.strip()] = {op: body.count(op) for op in ("HGMMA", "HMMA")}
+    log(f"  SASS of {kernel}: {found}")
+    check(bool(found), f"no function {kernel} in the SASS of {source}")
+    kinds = {"HGMMA" if c["HGMMA"] else ("HMMA" if c["HMMA"] else None) for c in found.values()}
+    check(None not in kinds, f"{kernel} holds no tensor-core instruction: {found}")
+    return "HGMMA" if kinds == {"HGMMA"} else "HMMA"
 
 
 # ---------------------------------------------------------------------------
@@ -357,7 +385,8 @@ _TIMED = (("branch_stats", "stats"), ("apply_mix", "mix"), ("bwd_reduce", "reduc
 K2_SHAPES = {"bench": (64, 32, 128, 128, 24), "edge": (5, 32, 100, 70, 24)}
 # K2 against its plain version: within this share of each output's sum of
 # |products| (the same convolutions of |x| and |w|): both sum the 59*C
-# products in f32, in other orders.
+# products in f32, in other orders, the kernel each product as three TF32
+# ones (3xTF32, ~2^-21 of it). One TF32 product (~2^-11) fails it.
 K2_REL_TOL = 1e-5
 
 
@@ -386,10 +415,22 @@ def _embedded_13x13(ks):
     return big
 
 
+@contextlib.contextmanager
+def tf32_convolutions():
+    """cuDNN's convolutions in TF32 within it (off again after)."""
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
 def check_norm_convs(dev, seed: int) -> dict:
     """K2 against its plain version (and both against an f64 reference) at
-    each of K2_SHAPES; at bench.py's shape, times of the kernel, its plain
-    version and the library calls in turns, and its bounds."""
+    each of K2_SHAPES; at bench.py's shape, the TF32 control (the library
+    convolutions with TF32 on must fail K2_REL_TOL), times of the kernel,
+    its plain version and the library calls in turns, and its bounds: the
+    3xTF32 one on the tensor cores, the f32 one on the CUDA cores, bytes."""
     rec = {"timed": []}
     worst_rel = worst_abs = 0.0
     for label, (b, c, h, w, n) in K2_SHAPES.items():
@@ -419,25 +460,42 @@ def check_norm_convs(dev, seed: int) -> dict:
         # a library call, not a kernel of the port: cuDNN may take an FFT or
         # Winograd algorithm for 13x13, so it is held to a looser 1e-4
         check(single_rel <= 1e-4, f"the 13x13 embedding disagrees: {single_rel:.3g}")
+        # the TF32 control: the same library convolutions in TF32 must fail
+        # the limit that the kernel's 3xTF32 meets
+        with tf32_convolutions():
+            tf32_rel = ((_library_norm_convs(x, ks) - want).abs() / abs_sum).max().item()
+        log(f"  TF32 control: the library convolutions with TF32 on are {tf32_rel:.3g} of "
+            f"the sum of |products| off the plain version (limit {K2_REL_TOL})")
+        check(tf32_rel > K2_REL_TOL, f"K2's limit let the TF32 library pass: {tf32_rel:.3g}")
         del got, want, abs_sum
-        t = {"kernel": [], "plain": [], "library": [], "single": []}
+        t = {"kernel": [], "plain": [], "library": [], "library_tf32": [], "single": []}
         calls = dict(kernel=lambda: nc.norm_convs(x, *ks),
                      plain=lambda: nc.norm_convs_plain(x, *ks),
-                     library=lambda: _library_norm_convs(x, ks), single=single)
-        for which in ("kernel", "plain", "library", "single",
-                      "single", "library", "plain", "kernel"):
-            t[which].append(time_ms(calls[which]))
+                     library=lambda: _library_norm_convs(x, ks),
+                     library_tf32=lambda: _library_norm_convs(x, ks), single=single)
+        turns = ("kernel", "plain", "library", "library_tf32", "single",
+                 "single", "library_tf32", "library", "plain", "kernel")
+        for which in turns:
+            with tf32_convolutions() if which == "library_tf32" else contextlib.nullcontext():
+                t[which].append(time_ms(calls[which]))
         ms = {k: float(np.mean(v)) for k, v in t.items()}
-        flop_ms = nc.flops(x.shape, n) / PEAK_F32_FLOPS * 1e3
+        flops = nc.flops(x.shape, n)
+        tf32_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3
+        f32_ms = flops / PEAK_F32_FLOPS * 1e3
         byte_ms = nc.nbytes(x.shape, n) / PEAK_BYTES_PER_S * 1e3
-        log(f"  norm_convs times at bench.py's shape (ms, in turns k,p,l,s,s,l,p,k): {t}; "
-            f"bounds: operations {flop_ms:.4f} ({nc.flops(x.shape, n) / 1e9:.2f} GFLOP at "
+        log(f"  norm_convs times at bench.py's shape (ms, in turns {','.join(turns)}): {t}; "
+            f"bounds: 3xTF32 operations {tf32_ms:.4f} (3 x {flops / 1e9:.2f} GFLOP at "
+            f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32), f32 operations {f32_ms:.4f} (at "
             f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s), bytes {byte_ms:.4f} "
             f"({nc.nbytes(x.shape, n) / 1e6:.1f} MB at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s); "
-            f"kernel at {nc.flops(x.shape, n) / ms['kernel'] / 1e9:.2f} TFLOP/s")
+            f"kernel at {flops / ms['kernel'] / 1e9:.2f} TFLOP/s of f32-equivalent work "
+            f"({3 * flops / ms['kernel'] / 1e9:.2f} TFLOP/s TF32), "
+            f"{max(tf32_ms, byte_ms) / ms['kernel']:.3f} of its bound")
         rec.update(ms=ms["kernel"], plain_ms=ms["plain"], library_ms=ms["library"],
-                   library_single_call_ms=ms["single"], bound_ms=max(flop_ms, byte_ms),
-                   bytes_bound_ms=byte_ms, shape=[b, c, h, w], n=n)
+                   library_tf32_ms=ms["library_tf32"], library_single_call_ms=ms["single"],
+                   bound_ms=max(tf32_ms, byte_ms), f32_bound_ms=f32_ms, bytes_bound_ms=byte_ms,
+                   tf32_control_rel=tf32_rel, tflops_f32_equivalent=flops / ms["kernel"] / 1e9,
+                   shape=[b, c, h, w], n=n)
         rec["timed"].append(dict(shape=[b, c, h, w], n=n, bound_ms=rec["bound_ms"],
                                  **{f"{k}_in_turns": v for k, v in t.items()}))
     rec.update(max_abs_err=worst_abs, max_rel_err=worst_rel)
@@ -1199,7 +1257,7 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     smi = environment()
-    build()
+    sass = build()
     records = check_kernels(dev)
     records["norm_convs"] = check_norm_convs(dev, args.seed)
     paths = {"norm_convs_call": run_norm_convs_path(dev, args.seed)}
@@ -1224,8 +1282,13 @@ def main(argv=None) -> int:
             row.update(bound_by="operations", library_ms=r["library_ms"],
                        library_note="three cuDNN convolutions (F.conv2d) and torch.cat, "
                                     "TF32 off",
+                       library_tf32_ms=r["library_tf32_ms"],
                        library_single_call_ms=r["library_single_call_ms"],
-                       bytes_bound_ms=r["bytes_bound_ms"], shape=r["shape"], n=r["n"])
+                       bound_note="3xTF32: 3 TF32 products per f32 product at 495 TFLOP/s",
+                       f32_bound_ms=r["f32_bound_ms"], bytes_bound_ms=r["bytes_bound_ms"],
+                       tf32_control_rel=r["tf32_control_rel"],
+                       tflops_f32_equivalent=r["tflops_f32_equivalent"],
+                       tensor_core_sass=sass, shape=r["shape"], n=r["n"])
         else:
             row.update(bound_by="bytes", library_ms=None, library_note=LIBRARY_NOTE,
                        shape=[8, GROUP_C, HW, HW], n=6,
@@ -1240,8 +1303,10 @@ def main(argv=None) -> int:
         f"{fixed['eval_ms']:.2f} ms/batch, peak {fixed['peak_mib']:.1f} MiB, card vs CPU "
         f"{fixed_cpu}, CLIs {fixed_clis}; norm_convs {records['norm_convs']['ms']:.4f} ms "
         f"(plain {records['norm_convs']['plain_ms']:.4f}, library "
-        f"{records['norm_convs']['library_ms']:.4f}, bound "
-        f"{records['norm_convs']['bound_ms']:.4f})")
+        f"{records['norm_convs']['library_ms']:.4f}, library TF32 "
+        f"{records['norm_convs']['library_tf32_ms']:.4f}, bound "
+        f"{records['norm_convs']['bound_ms']:.4f}, f32 bound "
+        f"{records['norm_convs']['f32_bound_ms']:.4f}; SASS {sass})")
     log(f"card: {smi}; total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,8 @@ PyTorch headers, so `nvcc` builds it in seconds:
          -Xcompiler -fPIC -o senas_torch/_build/<name>-<hash>.so <name>.cu
 
 The library lands in `senas_torch/_build/` (git-ignored), keyed by a hash of
-the source and the flags, so an edited source rebuilds and an unchanged one
-loads at once. `build()` starts one nvcc per source, all together. Nothing
+the source, the headers of csrc/ (`*.cuh`) and the flags, so an edited
+source or header rebuilds and an unchanged one loads at once. `build()` starts one nvcc per source, all together. Nothing
 here runs at import time: the CPU tests import every module of the port.
 """
 
@@ -44,8 +44,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of `<name>.cu`, keyed by the source, every header of
+    csrc/ (one a source includes edits the library) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

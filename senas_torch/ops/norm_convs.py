@@ -8,9 +8,12 @@ order. In the port's idiom it is NCHW:
     norm_convs(x [B,C,H,W], k3 [N,C,3,3], k5d2 [N,C,5,5], k5d3 [N,C,5,5])
         -> [B,3N,H,W]
 
-On the card it launches the hand-written kernel of csrc/norm_convs.cu; on
-the CPU it takes `norm_convs_plain`, the counterpart of the JAX package's
-`xla_norm_convs`. The wrapper never falls back from one to the other. As in
+On the card it launches the hand-written kernel of csrc/norm_convs.cu, an
+implicit GEMM on Hopper's tensor cores (wgmma) in split precision: each
+operand is split into two TF32 parts and three TF32 products stand for one
+f32 product (3xTF32), so the result stays within f32 rounding of the plain
+version. On the CPU it takes `norm_convs_plain`, the counterpart of the JAX
+package's `xla_norm_convs`. The wrapper never falls back from one to the other. As in
 the JAX package, no model path calls it: it is forward only (no VJP), and no
 group of the supernet has exactly these three branches. Its yardstick is the
 three library convolutions (`chip_smoke.py`).
@@ -44,8 +47,11 @@ def _lib():
         from senas_torch.ops import _build
         lib = _build.load("norm_convs")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.senas_norm_convs_f32.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+        i64 = ctypes.c_longlong
+        lib.senas_norm_convs_f32.argtypes = [ptr] * 5 + [i32] * 5 + [ptr, i64, ptr]
         lib.senas_norm_convs_f32.restype = i32
+        lib.senas_norm_convs_scratch_floats.argtypes = [i32, i32]
+        lib.senas_norm_convs_scratch_floats.restype = i64
         lib.senas_norm_convs_error_string.argtypes = [i32]
         lib.senas_norm_convs_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -80,7 +86,9 @@ def norm_convs(x: torch.Tensor, k3: torch.Tensor, k5d2: torch.Tensor,
     Kernel `norm_convs` (csrc/norm_convs.cu) on the card; replaces the TPU
     kernel `_norm_convs_kernel` through `fused_norm_convs`
     (senas_tpu/ops/pallas_kernels.py:37-99). Bound by operations:
-    2*B*H*W*C*N*59 FLOP in f32, against (B*C + 3*B*N)*H*W*4 bytes."""
+    2*B*H*W*C*N*59 FLOP, each as three TF32 products on the tensor cores,
+    against (B*C + 3*B*N)*H*W*4 bytes. The kernel's split weights go to a
+    scratch buffer allocated here."""
     _check(x, k3, k5d2, k5d3)
     if x.device.type == "cpu":
         return norm_convs_plain(x, k3, k5d2, k5d3)
@@ -88,14 +96,17 @@ def norm_convs(x: torch.Tensor, k3: torch.Tensor, k5d2: torch.Tensor,
         raise ValueError(f"no kernel for device {x.device}")
     b, c, h, w = x.shape
     n = k3.shape[0]
+    lib = _lib()
     out = torch.empty((b, 3 * n, h, w), device=x.device, dtype=torch.float32)
+    scratch = torch.empty(lib.senas_norm_convs_scratch_floats(c, n), device=x.device,
+                          dtype=torch.float32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().senas_norm_convs_f32(x.data_ptr(), k3.data_ptr(), k5d2.data_ptr(),
-                                         k5d3.data_ptr(), out.data_ptr(), b, c, h, w, n,
-                                         stream)
+        rc = lib.senas_norm_convs_f32(x.data_ptr(), k3.data_ptr(), k5d2.data_ptr(),
+                                      k5d3.data_ptr(), out.data_ptr(), b, c, h, w, n,
+                                      scratch.data_ptr(), scratch.numel(), stream)
     if rc != 0:
-        msg = _lib().senas_norm_convs_error_string(rc).decode()
+        msg = lib.senas_norm_convs_error_string(rc).decode()
         raise RuntimeError(f"norm_convs kernel launch failed: {msg} (cudaError {rc})")
     norm_convs.launches += 1
     return out

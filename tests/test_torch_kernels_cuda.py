@@ -9,7 +9,8 @@ Sums are held to 1e-5 of the plane's sum of |x| (resp. x^2, |g*x|, |g|),
 elementwise outputs (the mix, the branch gradients) to atol 1e-4 on values
 of scale ~1-10, the epilogue's gradients to rtol/atol 1e-4. norm_convs is
 held to 1e-5 of the same convolutions of |x| and |w| (each output's sum of
-|products|): the kernel and cuDNN sum the products in other orders."""
+|products|): the kernel (3xTF32 on the tensor cores, f32 sums) and cuDNN
+sum the products in other orders."""
 
 import numpy as np
 import pytest
@@ -164,9 +165,10 @@ def test_card_rejects_other_dtypes(dev):
 
 # (b, c, h, w, n): a main-sized tile, edge tiles in both directions,
 # partial channel chunks and groups, images smaller than the 13-pixel
-# receptive field, and n > 32 (channel groups over two blocks)
+# receptive field, n > 32 (channel slices over two blocks), and
+# chip_smoke.py's edge shape (100 = 12*8 + 4 rows, 70 = 64 + 6 columns)
 _NORM_SHAPES = [(2, 32, 64, 64, 24), (1, 10, 9, 35, 12), (2, 3, 5, 7, 4),
-                (3, 10, 8, 1, 8), (1, 2, 17, 40, 40)]
+                (3, 10, 8, 1, 8), (1, 2, 17, 40, 40), (5, 32, 100, 70, 24)]
 
 
 @pytest.mark.parametrize("b,c,h,w,n", _NORM_SHAPES)
