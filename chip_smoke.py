@@ -49,7 +49,22 @@ Phases, each of which fails the run:
      (depth 3, c 8, 64x64, batch 2), TF32 off; with TF32 on it must fail;
  11. the fixed CLIs: `python -m senas_torch.train_model` on
      senas_synthetic.yml, then `python -m senas_torch.testing_model` on its
-     best checkpoint.
+     best checkpoint;
+ 12. serving: phase 9's trained model saved with CheckpointManager and
+     exported by `python -m senas_torch.export_model --check --f32` on the
+     card; the artifact's Predictor answers batches of 1, 3 and 12 with the
+     eager model's logits (1e-4) and their argmax as uint8 masks, timed
+     per request at batch 1 and 12; the same artifact on the CPU within
+     phase 9's card-vs-CPU limit; two replicas on the card at batch 5 (the
+     pad path); the TF32 control (a backend-default artifact with TF32 on
+     strays from the CPU, the --f32 one does not);
+ 13. the PROMISE12 submission path: three cases at 320-pixel native
+     resolution written with the port's write_mhd, their slices predicted
+     at 256x256 through the Predictor, `predict_test` and
+     `volumetric_metrics`, and the same through
+     `TestRunner.run_promise12_submission` on the card; the written
+     volumes keep their sources' shape, origin, spacing and direction.
+Phases 12-13 launch none of the five kernels (the fixed model has none).
 Every kernel must be launched on at least one path (phases 4-6, 9). The
 line before the last is a JSON list of the kernels; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
@@ -74,16 +89,22 @@ import torch
 import torch.nn.functional as F
 import yaml
 
+from senas_torch.challenge import predict_test, volumetric_metrics
 from senas_torch.core.config import load_config
 from senas_torch.core.genotype import parse_genotype
+from senas_torch.data import DataLoader
+from senas_torch.data.io import MetaImage, read_mhd, write_mhd
 from senas_torch.models import geno_searched
 from senas_torch.models.senas_model import SenasModel
 from senas_torch.ops import _build
 from senas_torch.ops import grouped_epilogue as ge
 from senas_torch.ops import norm_convs as nc
+from senas_torch.runner.test import TestRunner
 from senas_torch.search.fused_cell import GroupedMixedOp
 from senas_torch.search.supernet import (SenasSearch, derive_genotype,
                                          init_arch_params, normalize_arch)
+from senas_torch.serve import Predictor, export_predict_fn, save_artifact
+from senas_torch.train.checkpoint import CheckpointManager
 from senas_torch.train.loss import build_loss
 from senas_torch.train.trainer import (FixedTrainState, SearchTrainState,
                                        make_eval_step, make_search_eval_step,
@@ -1071,6 +1092,9 @@ def run_runner() -> dict:
 # ---------------------------------------------------------------------------
 
 FIXED_STEPS = 4      # 1 + 3 train steps
+# the fixed model's logits on the card against the CPU path (phase 9; the
+# serving artifact loaded on the CPU is held to it in phase 12)
+CARD_CPU_LOGIT_TOL = dict(rtol=1e-3, atol=1e-3)
 
 
 def _fixed_model(t, dev, gen):
@@ -1140,7 +1164,7 @@ def run_fixed_path(dev, seed: int) -> dict:
     check(not any(total.values()), f"the fixed path launched {total}")
 
     # the card's logits against the CPU path on 2 images (eval-mode BN is
-    # per sample)
+    # per sample), within CARD_CPU_LOGIT_TOL
     with torch.inference_mode():
         card = model(eval_batches[0]["image"][:2], train=False)[0].cpu()
     cpu_model = _fixed_model(t, "cpu", None)
@@ -1152,13 +1176,13 @@ def run_fixed_path(dev, seed: int) -> dict:
     log(f"fixed model card vs CPU (2 images): max |logit| {ref.abs().max().item():.4g}, "
         f"max abs err {abs_err:.3g}, argmax agreement {agree:.6f}")
     check(bool(torch.isfinite(card).all()), "non-finite fixed-model logits")
-    torch.testing.assert_close(card, ref, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(card, ref, **CARD_CPU_LOGIT_TOL)
     check(agree >= 0.999, f"argmax agreement {agree:.6f} < 0.999")
 
     prof = profile(lambda: step(state, train_batches[-1]), f"one fixed train step, batch {bs}")
     return dict(launches=total, step_ms=float(np.mean(steady)), first_ms=times[0],
                 eval_ms=float(np.mean(eval_times[1:])), peak_mib=peak / 2**20,
-                cpu_abs_err=abs_err, argmax_agreement=agree, profile=prof)
+                cpu_abs_err=abs_err, argmax_agreement=agree, profile=prof, state=state)
 
 
 # ---------------------------------------------------------------------------
@@ -1240,6 +1264,257 @@ def run_fixed_clis() -> dict:
     return dict(epochs=epochs, best=best, test=result, pngs=len(pngs))
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: serving the trained fixed model from an exported artifact
+# ---------------------------------------------------------------------------
+
+SERVE_BATCHES = (1, 3, 12)
+# the artifact against the eager model on the card, both in f32
+SERVE_TOL = dict(rtol=1e-4, atol=1e-4)
+# the TF32 control: a backend-default artifact run with TF32 on must stray
+# from the CPU at least this many times further than the --f32 one does
+TF32_CONTROL_FACTOR = 10.0
+
+
+def _request_ms(pred, x, reps: int = 20, warmup: int = 3) -> dict:
+    """Host-clock ms per request (numpy in, logits on the card), each one
+    ended by a synchronise: warm-up, then `reps` timed."""
+    for _ in range(warmup):
+        pred.logits(x)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        pred.logits(x)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return dict(mean=float(np.mean(times)), p50=float(np.median(times)),
+                min=float(np.min(times)), max=float(np.max(times)))
+
+
+def run_serve_path(dev, fixed: dict, seed: int, work: str) -> dict:
+    """Phase 9's trained model saved, exported by the CLI (--check --f32),
+    served by a Predictor on the card, the CPU and two replicas, timed; the
+    TF32 control. Returns the Predictor on the card with the numbers."""
+    state = fixed["state"]
+    model = state.model
+    reset_counts()
+    ckpt = CheckpointManager(os.path.join(work, "ckpt"))
+    ckpt.save(state, {"epoch": 1, "model_name": "senas"}, is_best=True)
+    art = os.path.join(work, "artifact")
+    t0 = time.perf_counter()
+    out = _cli("senas_torch.export_model", CONFIG, "--resume", ckpt.directory, "--out", art,
+               "--check", "--f32")
+    cli_s = time.perf_counter() - t0
+    for line in out.strip().splitlines():
+        log(f"  export_model: {line}")
+    check("check OK" in out, "export_model --check did not pass")
+    with open(os.path.join(art, "meta.json")) as f:
+        meta = json.load(f)
+    size_mb = os.path.getsize(os.path.join(art, "model.pt2")) / 1e6
+    check(meta["matmul_precision"] == "float32" and meta["input_hw"] == [HW, HW],
+          f"artifact meta {meta}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = Predictor(art, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    x_all = np.random.RandomState(seed + 6).randn(12, HW, HW, IN_CHANNELS).astype(np.float32)
+    errs = {}
+    for b in SERVE_BATCHES:
+        x = x_all[:b]
+        got = pred.logits(x)
+        with torch.inference_mode():
+            want = model(torch.from_numpy(x).to(dev), train=False)[-1]
+        check(tuple(got.shape) == (b, HW, HW, NCLASS) and got.device == want.device,
+              f"served logits {tuple(got.shape)} on {got.device}")
+        errs[b] = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, **SERVE_TOL)
+        masks = pred.predict_masks(x)
+        check(masks.dtype == np.uint8 and masks.shape == (b, HW, HW)
+              and np.array_equal(masks, got.argmax(-1).to(torch.uint8).cpu().numpy()),
+              f"masks at batch {b}: {masks.dtype} {masks.shape}, or not the argmax")
+    log(f"served vs eager on the card (batches {SERVE_BATCHES}; the program's batch range "
+        f"{pred.batch_range}, a smaller request is zero-padded): max abs err {errs} "
+        f"(limit {SERVE_TOL})")
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = {b: _request_ms(pred, x_all[:b]) for b in (1, 12)}
+    peak = torch.cuda.max_memory_allocated()
+    images_s = 12 / (ms[12]["mean"] / 1e3)
+    prof = {b: profile(lambda: pred.logits(x_all[:b]), f"one served request, batch {b}")
+            for b in (1, 12)}
+    log(f"serving: batch 1 {ms[1]['mean']:.3f} ms/request (p50 {ms[1]['p50']:.3f}), batch 12 "
+        f"{ms[12]['mean']:.3f} ms/request (p50 {ms[12]['p50']:.3f}), {images_s:.1f} images/s; "
+        f"export {meta['export_seconds']:.2f} s (CLI with its check {cli_s:.1f} s), artifact "
+        f"{size_mb:.2f} MB, load {load_s:.2f} s, peak memory {peak / 2**20:.1f} MiB")
+
+    # the same artifact on the CPU, held to phase 9's card-vs-CPU limit
+    t0 = time.perf_counter()
+    cpu_pred = Predictor(art, device="cpu")
+    cpu_load_s = time.perf_counter() - t0
+    x2 = x_all[:2]
+    cpu = cpu_pred.logits(x2)
+    card = pred.logits(x2).cpu()
+    cpu_err = (card - cpu).abs().max().item()
+    torch.testing.assert_close(card, cpu, **CARD_CPU_LOGIT_TOL)
+
+    # two replicas on the one card, at batch 5 (padded to 6, split 3 + 3)
+    dp = Predictor(art, data_parallel=True, devices=[dev, dev])
+    x5 = x_all[:5]
+    got = dp.logits(x5)
+    padded = np.concatenate([x5, np.zeros((1,) + x5.shape[1:], np.float32)])
+    halves = torch.cat([pred.logits(padded[:3]), pred.logits(padded[3:])])[:5]
+    dp_err = dict(halves=(got - halves).abs().max().item(),
+                  single=(got - pred.logits(x5)).abs().max().item())
+    torch.testing.assert_close(got, halves, **SERVE_TOL)
+    torch.testing.assert_close(got, pred.logits(x5), **SERVE_TOL)
+    check(np.array_equal(dp.predict_masks(x5), got.argmax(-1).to(torch.uint8).cpu().numpy()),
+          "data-parallel masks are not the argmax")
+    log(f"served on the CPU (load {cpu_load_s:.2f} s): card vs CPU max abs err {cpu_err:.3g} "
+        f"(limit {CARD_CPU_LOGIT_TOL}); two replicas at batch 5 vs their halves / vs the "
+        f"single Predictor: {dp_err}")
+
+    # the TF32 control: the process's TF32 on; a backend-default artifact
+    # keeps it, the --f32 one turns it off around each call
+    default_art = os.path.join(work, "artifact_default")
+    save_artifact(export_predict_fn(model, (HW, HW, IN_CHANNELS)), {}, default_art)
+    default_pred = Predictor(default_art, device=dev)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32_err = (default_pred.logits(x2).cpu() - cpu).abs().max().item()
+        f32_err = (pred.logits(x2).cpu() - cpu).abs().max().item()
+        kept = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"TF32 control, the process's TF32 on: backend-default artifact vs CPU {tf32_err:.3g}, "
+        f"--f32 artifact vs CPU {f32_err:.3g} (ratio {tf32_err / max(f32_err, 1e-30):.3g}, "
+        f"must be > {TF32_CONTROL_FACTOR})")
+    check(kept == (True, True), f"the --f32 Predictor did not restore the TF32 flags: {kept}")
+    check(f32_err <= CARD_CPU_LOGIT_TOL["atol"], f"--f32 artifact with TF32 on: {f32_err:.3g}")
+    check(tf32_err > TF32_CONTROL_FACTOR * f32_err,
+          f"the TF32 control did not stray: {tf32_err:.3g} against {f32_err:.3g}")
+
+    got_counts = counts()
+    check(not any(got_counts.values()), f"the serve path launched {got_counts}")
+    return dict(pred=pred, launches=got_counts, ms=ms, images_per_s=images_s,
+                export_s=meta["export_seconds"], export_cli_s=cli_s, artifact_mb=size_mb,
+                load_s=load_s, cpu_load_s=cpu_load_s, peak_mib=peak / 2**20, errs=errs,
+                profile=prof, batch_range=pred.batch_range,
+                cpu_err=cpu_err, dp_err=dp_err, tf32_control=dict(tf32=tf32_err, f32=f32_err))
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the PROMISE12 submission path
+# ---------------------------------------------------------------------------
+
+# native case geometry (slices, rows, cols): 320x320 as many PROMISE12 MR
+# volumes are, and one narrower; non-unit spacing
+SUBMISSION_CASES = ((14, 320, 320), (12, 320, 288), (18, 320, 320))
+
+
+def _write_cases(case_dir: str, rng) -> list:
+    """Case volumes (int16 MR-like intensities) and their segmentations
+    (uint8 ellipsoids), written with the port's write_mhd."""
+    os.makedirs(case_dir, exist_ok=True)
+    paths = []
+    for i, (n, h, w) in enumerate(SUBMISSION_CASES):
+        zz, yy, xx = np.mgrid[0:n, 0:h, 0:w]
+        seg = (((yy - h / 2) / (h / 5)) ** 2 + ((xx - w / 2) / (w / 6)) ** 2
+               + ((zz - n / 2) / (n / 3)) ** 2 < 1).astype(np.uint8)
+        vol = (400.0 * seg + 100 + 60 * rng.randn(n, h, w)).astype(np.int16)
+        geometry = dict(spacing=(0.625, 0.625, 3.6 - 0.4 * i), origin=(-100.0 + i, -80.5, 12.25),
+                        direction=(1, 0, 0, 0, 1, 0, 0, 0, 1))
+        path = os.path.join(case_dir, f"Case{i:02d}.mhd")
+        write_mhd(path, MetaImage(vol, **geometry))
+        write_mhd(os.path.join(case_dir, f"Case{i:02d}_segmentation.mhd"),
+                  MetaImage(seg, **geometry))
+        paths.append(path)
+    return paths
+
+
+def _case_slices(paths) -> np.ndarray:
+    """Each case's slices, z-scored per volume and resized to HW x HW:
+    [N, HW, HW, 1] f32 in case order."""
+    out = []
+    for path in paths:
+        vol = read_mhd(path).array.astype(np.float32)
+        vol = (vol - vol.mean()) / vol.std()
+        out.append(F.interpolate(torch.from_numpy(vol)[:, None], size=(HW, HW),
+                                 mode="bilinear", align_corners=False)[:, 0, ..., None].numpy())
+    return np.concatenate(out)
+
+
+class _SliceSet:
+    """The case slices as a dataset for TestRunner's queue (labels unused)."""
+
+    def __init__(self, images):
+        self.images = images
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, i):
+        return self.images[i], np.zeros(self.images.shape[1:3], np.int32)
+
+
+def _geometry_kept(written, sources) -> None:
+    """Each written mask volume has its source's shape and geometry."""
+    for w, src in zip(written, sources):
+        back, source = read_mhd(w), read_mhd(src)
+        check(back.array.shape == source.array.shape and back.array.dtype == np.uint8
+              and back.origin == source.origin and back.spacing == source.spacing
+              and back.direction == source.direction,
+              f"{w}: {back.array.shape} {back.array.dtype} origin {back.origin} spacing "
+              f"{back.spacing}, source {source.array.shape} {source.origin} {source.spacing}")
+
+
+def run_submission(dev, pred, work: str, seed: int) -> dict:
+    """Three cases at their native resolution, their slices predicted at
+    HW x HW by the serving Predictor, stitched back with predict_test and
+    scored with volumetric_metrics; then the same through
+    TestRunner.run_promise12_submission on phase 9's checkpoint."""
+    reset_counts()
+    case_dir = os.path.join(work, "cases")
+    paths = _write_cases(case_dir, np.random.RandomState(seed + 7))
+    images = _case_slices(paths)
+    t0 = time.perf_counter()
+    slices = [m for start in range(0, len(images), 12)
+              for m in pred.predict_masks(images[start:start + 12])]
+    predict_s = time.perf_counter() - t0
+    written = predict_test(slices, paths, dest=os.path.join(work, "predictions"))
+    metrics = volumetric_metrics(slices, case_dir)
+    _geometry_kept(written, paths)
+    check(metrics["n_cases"] == len(SUBMISSION_CASES)
+          and all(np.isfinite(v) for v in metrics.values()), f"metrics {metrics}")
+    log(f"submission through the Predictor: {len(slices)} slices of {len(paths)} cases "
+        f"{[c[1:] for c in SUBMISSION_CASES]} predicted at {HW}x{HW} in {predict_s:.2f} s, "
+        f"{len(written)} volumes written with their source geometry; metrics {metrics}")
+
+    # TestRunner on the card: the fixed `training:` geometry over the
+    # synthetic data config (the promise12 loader is not ported: M9)
+    cfg = load_config(RUNNER_CONFIG)
+    cfg["training"] = load_config(CONFIG)["training"]
+    runner = TestRunner(cfg, resume=os.path.join(work, "ckpt"), log_root=work,
+                        batch_size=12, device=dev)
+    written_r, metrics_r = runner.run_promise12_submission(
+        case_dir, dest=os.path.join(work, "predictions_runner"),
+        queue=DataLoader(_SliceSet(images), 12))
+    _geometry_kept(written_r, paths)
+    same = np.mean([float((read_mhd(a).array == read_mhd(b).array).mean())
+                    for a, b in zip(written, written_r)])
+    log(f"submission through TestRunner on the card: {len(written_r)} volumes, metrics "
+        f"{metrics_r}; voxels equal to the Predictor's {same:.6f}")
+    check(metrics_r is not None and abs(metrics_r["mean_volumetric_dsc"]
+                                        - metrics["mean_volumetric_dsc"]) <= 1e-3
+          and same >= 0.999, f"TestRunner's submission differs: {metrics_r}, agreement {same}")
+    got_counts = counts()
+    check(not any(got_counts.values()), f"the submission path launched {got_counts}")
+    return dict(launches=got_counts, metrics=metrics, runner_metrics=metrics_r,
+                agreement=same, predict_s=predict_s, slices=len(slices))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1268,6 +1543,9 @@ def main(argv=None) -> int:
     fixed = paths["fixed_train_eval"] = run_fixed_path(dev, args.seed)
     fixed_cpu = fixed_card_vs_cpu(dev, args.seed)
     fixed_clis = run_fixed_clis()
+    with tempfile.TemporaryDirectory() as work:
+        serve = paths["serve"] = run_serve_path(dev, fixed, args.seed, work)
+        paths["submission"] = run_submission(dev, serve.pop("pred"), work, args.seed)
 
     kernels = []
     for name, k in KERNELS.items():
@@ -1307,6 +1585,12 @@ def main(argv=None) -> int:
         f"{records['norm_convs']['library_tf32_ms']:.4f}, bound "
         f"{records['norm_convs']['bound_ms']:.4f}, f32 bound "
         f"{records['norm_convs']['f32_bound_ms']:.4f}; SASS {sass})")
+    log(f"serve summary: batch 1 {serve['ms'][1]['mean']:.3f} ms/request, batch 12 "
+        f"{serve['ms'][12]['mean']:.3f} ms/request, {serve['images_per_s']:.1f} images/s, export "
+        f"{serve['export_s']:.2f} s, artifact {serve['artifact_mb']:.2f} MB, load "
+        f"{serve['load_s']:.2f} s, peak {serve['peak_mib']:.1f} MiB, card vs CPU "
+        f"{serve['cpu_err']:.3g}, TF32 control {serve['tf32_control']}; submission "
+        f"{paths['submission']['metrics']}")
     log(f"card: {smi}; total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

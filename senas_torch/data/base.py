@@ -3,8 +3,8 @@
 A numpy copy of `senas_tpu/data/base.py`, kept here so that the port
 imports nothing of the JAX package. Batches are NHWC float32 images and
 int32 label maps; the runner moves them to the device. Of the datasets only
-`synthetic` is registered: the loaders of the real datasets wait until their
-data is in the repository, and asking for one raises.
+`synthetic` is registered: the JAX package's loaders of the real datasets
+need cv2, which the port does not depend on, and asking for one raises.
 """
 
 from __future__ import annotations
@@ -203,9 +203,8 @@ def get_dataset(name: str, path: Optional[str] = None, **kwargs) -> Segmentation
     if name not in _FACTORIES:
         if name in SPECS:
             raise NotImplementedError(
-                f"dataset {name!r} is not ported yet: its loader waits until its "
-                "data is in the repository (ROADMAP.md Queue 1, M9: the real "
-                "dataset loaders); use 'synthetic'")
+                f"dataset {name!r} is not ported yet: its loader needs cv2 "
+                "(ROADMAP.md Queue 1, M9: the real dataset loaders); use 'synthetic'")
         raise KeyError(f"unknown dataset {name!r}; known: {sorted(_FACTORIES)}")
     return _FACTORIES[name](root=path, **kwargs)
 

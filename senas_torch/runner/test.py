@@ -7,8 +7,8 @@ state (`CheckpointManager.restore_raw`): evaluation takes only the model's
 weights and running stats, whatever optimizer the training run had. It
 runs in f32 on one device, as the JAX package's TestRunner does unless
 `multi_gpus` spreads the batches over a mesh (the same numbers). The PNGs
-are written as each batch comes back. The PROMISE12 submission path
-(`run_promise12_submission`) is not ported yet and raises.
+are written as each batch comes back. `run_promise12_submission` writes
+the PROMISE12 challenge volumes from the slice masks.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from __future__ import annotations
 import os
 from typing import Any, Dict, Optional
 
+from senas_torch.challenge import predict_test, volumetric_metrics
 from senas_torch.core.device import resolve_device
 from senas_torch.core.genotype import parse_genotype
 from senas_torch.data import DataLoader, get_dataset, get_dataset_spec
@@ -97,6 +98,27 @@ class TestRunner:
 
     def run_promise12_submission(self, case_dir: str, dest: Optional[str] = None,
                                  queue: Optional[DataLoader] = None):
-        raise NotImplementedError(
-            "the PROMISE12 submission path is not ported yet: it needs challenge/, the "
-            ".mhd volumes and SimpleITK (ROADMAP.md Queue 1, M11 deferred: submission)")
+        """The PROMISE12 challenge path (the reference's train_model.py:355-381
+        test() and store_test_seg.py): infer over `queue` (default: the val
+        queue) in case order on the runner's device, stitch the uint8 slice
+        masks back into volumes with each source case's origin, direction and
+        spacing, and write <case>_segmentation.mhd under `dest` (default
+        <run dir>/predictions). With ground truth (*_segmentation.mhd) in
+        `case_dir`, also score the volumes. Returns (written paths, the
+        volumetric summary or None)."""
+        logger = get_logger(self.run_dir)
+        slices = []
+        for batch in (self.valid_queue if queue is None else queue):
+            preds = self.eval_step(self._place(batch))["pred"].cpu().numpy()
+            slices.extend(preds)
+        dest = dest or os.path.join(self.run_dir, "predictions")
+        names = sorted(os.listdir(case_dir))
+        case_paths = [os.path.join(case_dir, f) for f in names
+                      if f.endswith(".mhd") and "segm" not in f.lower()]
+        written = predict_test(slices, case_paths, dest=dest)
+        summary = None
+        if any("segm" in f.lower() for f in names):
+            summary = volumetric_metrics(slices, case_dir, logger=logger)
+        logger.info("submission: %d volumes -> %s", len(written), dest)
+        close_logger(logger)
+        return written, summary

@@ -1,6 +1,7 @@
 """Import hygiene: senas_torch (every module: the search path's, the fixed
-model's train and test paths', K2's) and chip_smoke.py load nothing of JAX,
-flax, optax or senas_tpu (checked in a fresh interpreter)."""
+model's train and test paths', K2's, the operations layer's: serving,
+checkpoint import, the challenge tools) and chip_smoke.py load nothing of
+JAX, flax, optax or senas_tpu (checked in a fresh interpreter)."""
 
 import os
 import subprocess
@@ -21,12 +22,17 @@ print("N", len([m for m in sys.modules if m.startswith("senas_torch.")]))
 print("FIXED", sorted(m for m in sys.modules if m in FIXED_PATH))
 """
 
-# the modules of the fixed model's path and K2, named so that a module that
-# stops being importable (or is moved) fails here
+# the modules of the fixed model's path, K2 and the operations layer, named so
+# that a module that stops being importable (or is moved) fails here
 FIXED_PATH = ("senas_torch.ops.norm_convs", "senas_torch.models.geno_searched",
               "senas_torch.models.senas_model", "senas_torch.models.factory",
               "senas_torch.runner.train", "senas_torch.runner.test",
-              "senas_torch.train_model", "senas_torch.testing_model")
+              "senas_torch.train_model", "senas_torch.testing_model",
+              # the operations layer
+              "senas_torch.data.io", "senas_torch.challenge", "senas_torch.challenge.promise12",
+              "senas_torch.challenge.nerve", "senas_torch.serve", "senas_torch.export_model",
+              "senas_torch.compat", "senas_torch.compat.torch_import",
+              "senas_torch.import_torch_checkpoint")
 
 
 def test_port_imports_nothing_of_jax():
@@ -39,5 +45,5 @@ def test_port_imports_nothing_of_jax():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     n = int(out.stdout.split("N ")[1].split()[0])
-    assert n >= 38, out.stdout  # every module of the port was imported
+    assert n >= 47, out.stdout  # every module of the port was imported
     assert f"FIXED {sorted(FIXED_PATH)}" in out.stdout, out.stdout

@@ -170,5 +170,19 @@ def test_test_runner_needs_a_checkpoint_and_has_no_submission_path(first_run, tm
                    device="cpu")
     runner = TestRunner(_cfg(), resume=first_run["runner"].ckpt.directory,
                         log_root=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="submission"):
-        runner.run_promise12_submission(str(tmp_path))
+    # the submission path, ported since: one case volume of as many 64x64
+    # slices as the val queue holds, no ground truth; the mask volume
+    # written takes the case's geometry (tests/test_torch_challenge.py holds
+    # it to senas_tpu's writer)
+    from senas_torch.data.io import MetaImage, read_mhd, write_mhd
+    n = len(runner.valid_queue.dataset)
+    case_dir = tmp_path / "cases"
+    case_dir.mkdir()
+    write_mhd(str(case_dir / "Case00.mhd"), MetaImage(np.zeros((n, 64, 64), np.int16),
+                                                      spacing=(0.6, 0.6, 3.0)))
+    written, summary = runner.run_promise12_submission(str(case_dir))
+    assert summary is None and written == [
+        os.path.join(runner.run_dir, "predictions", "Case00_segmentation.mhd")]
+    mask = read_mhd(written[0])
+    assert mask.array.shape == (n, 64, 64) and mask.array.dtype == np.uint8
+    assert mask.spacing == (0.6, 0.6, 3.0)

@@ -157,6 +157,176 @@ def fused_cell_to_naive(fv, M, C, P, cell_type, op_names):
     return {"params": params, "batch_stats": stats}
 
 
+# ---------------------------------------------------------------------------
+# Reference-layout (torch) state_dicts, made by inverting the JAX package's
+# checkpoint translation (senas_tpu/compat/torch_import.py): names and
+# layouts. The reference's own modules are not in the repository, so the
+# tests build a reference checkpoint from flax variables with these, and
+# first check that senas_tpu's translator gives the variables back exactly.
+# ---------------------------------------------------------------------------
+
+_POOLISH = ("avg_pool", "max_pool", "up_sample", "identity", "none")
+_CONVISH = ("conv_3", "dil_3_conv_5", "dil_2_conv_5")
+
+
+def _inv_conv(k):
+    """HWIO -> Conv2d (O, I, kH, kW)."""
+    return np.ascontiguousarray(np.transpose(k, (3, 2, 0, 1)))
+
+
+def _inv_tconv(k):
+    """HWIO -> ConvTranspose2d (I, O, kH, kW), spatially flipped."""
+    return np.ascontiguousarray(np.flip(np.transpose(k, (2, 3, 0, 1)), axis=(2, 3)))
+
+
+def _inv_dw_tconv(k):
+    """(kH, kW, 1, C) -> depthwise ConvTranspose2d (C, 1, kH, kW), flipped."""
+    return np.ascontiguousarray(np.flip(np.transpose(k, (3, 2, 0, 1)), axis=(2, 3)))
+
+
+def _put_bn(sd, name, p, s):
+    sd[f"{name}.weight"] = p["scale"]
+    sd[f"{name}.bias"] = p["bias"]
+    sd[f"{name}.running_mean"] = s["mean"]
+    sd[f"{name}.running_var"] = s["var"]
+    sd[f"{name}.num_batches_tracked"] = np.array(0, np.int64)
+
+
+def _put_op(sd, prefix, name, p, s, transpose):
+    """One candidate op's variables at `prefix` in the reference's
+    Sequential/AdapterBlock layout (utils/operations.py)."""
+    conv = _inv_tconv if transpose else _inv_conv
+    if name in _CONVISH:
+        sd[prefix + "0.weight"] = conv(p["_ConvWeight_0"]["kernel"])
+        _put_bn(sd, prefix + "1", p["BatchNorm_0"], s["BatchNorm_0"])
+    elif name == "se_conv_3":
+        sd[prefix + "0.weight"] = conv(p["ConvBn_0"]["_ConvWeight_0"]["kernel"])
+        _put_bn(sd, prefix + "1", p["ConvBn_0"]["BatchNorm_0"], s["ConvBn_0"]["BatchNorm_0"])
+        sd[prefix + "2.excitation.0.weight"] = np.ascontiguousarray(
+            p["SEBlock_0"]["Dense_0"]["kernel"].T)
+        sd[prefix + "2.excitation.2.weight"] = np.ascontiguousarray(
+            p["SEBlock_0"]["Dense_1"]["kernel"].T)
+    elif name in ("dep_sep_conv_3", "dep_sep_conv_5"):
+        depth = _inv_dw_tconv if transpose else _inv_conv
+        sd[prefix + "0.weight"] = depth(p["depth"]["kernel"])
+        _put_bn(sd, prefix + "1", p["depth_norm"], s["depth_norm"])
+        sd[prefix + "3.weight"] = _inv_conv(p["point"]["kernel"])
+        _put_bn(sd, prefix + "4", p["point_norm"], s["point_norm"])
+    elif name in _POOLISH:
+        _put_bn(sd, prefix + "norm", p["BatchNorm_0"], s["BatchNorm_0"])
+        if "kernel" in p:
+            sd[prefix + "conv.weight"] = _inv_conv(p["kernel"])
+    else:
+        raise NotImplementedError(name)
+
+
+def _put_pre_post(sd, prefix, cell_type, p, s):
+    pre, pre_s = p["preprocess0"], s["preprocess0"]
+    if cell_type == "down":
+        _put_bn(sd, prefix + "preprocess0.2", pre["BatchNorm_0"], pre_s["BatchNorm_0"])
+        if "kernel" in pre:
+            sd[prefix + "preprocess0.1.weight"] = _inv_conv(pre["kernel"])
+    else:
+        sd[prefix + "preprocess0.conv.weight"] = _inv_conv(pre["kernel"])
+        _put_bn(sd, prefix + "preprocess0.norm", pre["BatchNorm_0"], pre_s["BatchNorm_0"])
+    post, post_s = p["post_process"], s["post_process"]
+    sd[prefix + "post_process.conv.weight"] = _inv_conv(post["kernel"])
+    _put_bn(sd, prefix + "post_process.norm", post["BatchNorm_0"], post_s["BatchNorm_0"])
+
+
+def _put_stems_and_head(sd, params, stats):
+    sd["stem0.0.weight"] = _inv_conv(params["stem0"]["_ConvWeight_0"]["kernel"])
+    _put_bn(sd, "stem0.1", params["stem0"]["BatchNorm_0"], stats["stem0"]["BatchNorm_0"])
+    blk, blk_s = params["stem1_block"], stats["stem1_block"]
+    sd["stem1.2.conv1.weight"] = _inv_conv(blk["conv1"])
+    sd["stem1.2.conv2.weight"] = _inv_conv(blk["conv2"])
+    _put_bn(sd, "stem1.2.bn1", blk["bn1"], blk_s["bn1"])
+    _put_bn(sd, "stem1.2.bn2", blk["bn2"], blk_s["bn2"])
+    sd["head_block.0.segmentation_head.1.weight"] = _inv_conv(
+        params["head"]["segmentation_head"]["_ConvWeight_0"]["kernel"])
+
+
+def _cell_prefix(name):
+    """flax cell name -> the reference's module path."""
+    if name == "head":
+        return "head_block.0.up_cell.", "up"
+    parts = name.split("_")
+    if parts[0] == "down":
+        return f"blocks.0.{parts[1]}.", "down"
+    return f"blocks.{parts[1]}.{parts[2]}.", "up"
+
+
+def reference_fixed_state_dict(variables, genotype):
+    """flax SenasModel variables -> the reference SenasModel's state_dict
+    (numpy), for the cells the variables have (gamma-pruned ones absent)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = {}
+    _put_stems_and_head(sd, params, stats)
+    for name in params:
+        if not name.startswith(("down_", "up_", "head")):
+            continue
+        p, s = (params[name]["up_cell"], stats[name]["up_cell"]) if name == "head" \
+            else (params[name], stats[name])
+        prefix, cell_type = _cell_prefix(name)
+        _put_pre_post(sd, prefix, cell_type, p, s)
+        gene = genotype.down if cell_type == "down" else genotype.up
+        for i, (op_name, inp) in enumerate(gene):
+            _put_op(sd, f"{prefix}_ops.{i}.", op_name, p[f"op_{i}"], s[f"op_{i}"],
+                    transpose=cell_type == "up" and inp == 1)
+    return sd
+
+
+def reference_search_state_dict(variables, meta):
+    """Naive (per-edge) flax SenasSearch variables -> the reference
+    SenasSearch's state_dict (numpy)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = {}
+    _put_stems_and_head(sd, params, stats)
+    up_edges = {sum(2 + i for i in range(n)) + 1 for n in range(meta)}
+    for name in params:
+        if not name.startswith(("down_", "up_", "head")):
+            continue
+        p, s = (params[name]["up_cell"], stats[name]["up_cell"]) if name == "head" \
+            else (params[name], stats[name])
+        prefix, cell_type = _cell_prefix(name)
+        _put_pre_post(sd, prefix, cell_type, p, s)
+        for e in range(sum(2 + i for i in range(meta))):
+            for key in p[f"edge_{e}"]:
+                _, bi, op_name = key.split("_", 2)
+                _put_op(sd, f"{prefix}_ops.{e}._ops.{bi}.", op_name, p[f"edge_{e}"][key],
+                        s[f"edge_{e}"][key], transpose=cell_type == "up" and e in up_edges)
+    return sd
+
+
+def reference_search_checkpoint(variables, arch, meta, use_sharing):
+    """A reference search-CLI checkpoint (experiments/search_arc.py:227-238)
+    holding torch tensors: the NAS state_dict (`net.` + the supernet, the
+    seven arch tables at the top; with sharing, the up-normal table is the
+    down-normal one)."""
+    import torch
+    tables = dict(arch)
+    if use_sharing:
+        tables["alphas_up_nm"] = tables["alphas_dn_nm"]
+    nas = {f"net.{k}": v for k, v in reference_search_state_dict(variables, meta).items()}
+    nas.update(tables)
+    as_torch = lambda d: {k: torch.from_numpy(np.array(v)) for k, v in d.items()}
+    alphas = {k: v for k, v in tables.items() if k.startswith("alphas")}
+    betas = {k: v for k, v in tables.items() if not k.startswith("alphas")}
+    return {"epoch": 3, "dur_time": 55.0, "cur_patience": 2, "geno_type": "genotype-string",
+            "model_state": as_torch(nas), "arch_optimizer": {}, "model_optimizer": {},
+            "alphas_dict": as_torch(alphas), "betas_dict": as_torch(betas), "scheduler": {}}
+
+
+def reference_train_checkpoint(variables, genotype):
+    """A reference train-CLI checkpoint (experiments/train_model.py:220-233)."""
+    import torch
+    sd = reference_fixed_state_dict(variables, genotype)
+    return {"epoch": 7, "dur_time": 123.0,
+            "model_state": {k: torch.from_numpy(np.array(v)) for k, v in sd.items()},
+            "model_optimizer": {}, "best_pixAcc": 91.0, "best_mIoU": 72.5,
+            "best_dice_coeff": 80.25, "best_loss": 0.31}
+
+
 def epilogue_case(seed, n, se, none, train, B=2, H=8, W=4, E=3, P=8, mid=1):
     """Inputs of `fused_group_epilogue` for both packages, from one seed:
     (jax args, jax kwargs) NHWC and (torch args, torch kwargs) NCHW."""
