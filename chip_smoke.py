@@ -3,7 +3,8 @@
     python3 chip_smoke.py [--seed 0]
 
 Phases, each of which fails the run:
-  1. environment: the card's name and power limit (nvidia-smi), versions;
+  1. environment: the card's name and power limit (nvidia-smi), versions,
+     and which of cv2, PIL, matplotlib and scipy import;
   2. build: the CUDA kernels of senas_torch/csrc (grouped_epilogue.cu and
      norm_convs.cu) with nvcc (sm_90a), one nvcc per source, together;
      the SASS of norm_convs_kernel (cuobjdump) must hold tensor-core
@@ -53,8 +54,10 @@ Phases, each of which fails the run:
  12. serving: phase 9's trained model saved with CheckpointManager and
      exported by `python -m senas_torch.export_model --check --f32` on the
      card; the artifact's Predictor answers batches of 1, 3 and 12 with the
-     eager model's logits (1e-4) and their argmax as uint8 masks, timed
-     per request at batch 1 and 12; the same artifact on the CPU within
+     eager model's logits (1e-4) and their argmax as uint8 masks (the
+     compared calls with cuDNN's deterministic algorithms, which must give
+     the same bits call after call; the call-to-call spread with its
+     default ones is logged), timed per request at batch 1 and 12; the same artifact on the CPU within
      phase 9's card-vs-CPU limit; two replicas on the card at batch 5 (the
      pad path); the TF32 control (a backend-default artifact with TF32 on
      strays from the CPU, the --f32 one does not);
@@ -63,9 +66,22 @@ Phases, each of which fails the run:
      at 256x256 through the Predictor, `predict_test` and
      `volumetric_metrics`, and the same through
      `TestRunner.run_promise12_submission` on the card; the written
-     volumes keep their sources' shape, origin, spacing and direction.
+     volumes keep their sources' shape, origin, spacing and direction;
+ 14. the PROMISE12 data path: a phantom in PROMISE12's layout (10 training
+     cases of 10-16 slices at 320x320, 2 test cases) written with
+     write_mhd; the cache built through get_dataset("promise12"), timed as
+     CLAHE, resize and the native curvature flow (which must run, and
+     agree exactly with its numpy twin); the augmented loader timed at
+     batch 8 and 12, serial and pooled; then the CLIs in this process on
+     configs/senas/senas_promise12.yml with --data_root the phantom:
+     search_arc for 1 epoch at full width (K1a-K1d launches held to the
+     count the epoch's steps and eval batches need; ms/step and the
+     loop's wait on the loader), train_model for 1 epoch, testing_model on
+     its best checkpoint, the submission from the test split through
+     `TestRunner.run_promise12_submission` (each volume with its source's
+     geometry), and `best_worst_contour_grid` where matplotlib imports.
 Phases 12-13 launch none of the five kernels (the fixed model has none).
-Every kernel must be launched on at least one path (phases 4-6, 9). The
+Every kernel must be launched on at least one path (phases 4-6, 9, 14). The
 line before the last is a JSON list of the kernels; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
 prints no result.
@@ -77,6 +93,8 @@ import argparse
 import ast
 import contextlib
 import copy
+import importlib
+import io
 import json
 import os
 import subprocess
@@ -89,10 +107,12 @@ import torch
 import torch.nn.functional as F
 import yaml
 
+from senas_torch import search_arc, testing_model, train_model
 from senas_torch.challenge import predict_test, volumetric_metrics
+from senas_torch.challenge.promise12 import best_worst_contour_grid
 from senas_torch.core.config import load_config
 from senas_torch.core.genotype import parse_genotype
-from senas_torch.data import DataLoader
+from senas_torch.data import DataLoader, augment, get_dataset, imgproc, native, promise12
 from senas_torch.data.io import MetaImage, read_mhd, write_mhd
 from senas_torch.models import geno_searched
 from senas_torch.models.senas_model import SenasModel
@@ -1276,6 +1296,44 @@ SERVE_TOL = dict(rtol=1e-4, atol=1e-4)
 TF32_CONTROL_FACTOR = 10.0
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside, the process's choice restored."""
+    kept = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = kept
+
+
+REPEAT_CALLS = 8
+
+
+def call_to_call(pred, x) -> dict:
+    """REPEAT_CALLS calls of the served program on one input, with cuDNN's
+    default algorithms and with its deterministic ones: the largest logit
+    difference from the first call, the mask pixels that differ from its
+    argmax, and the largest gap between the two best logits at such a
+    pixel. The default algorithms may sum in a different order each call
+    (e.g. with atomics), which the deterministic ones do not."""
+    out = {}
+    for name, ctx in (("default", contextlib.nullcontext), ("deterministic", deterministic_cudnn)):
+        with ctx():
+            first = pred.logits(x)
+            rest = [pred.logits(x) for _ in range(REPEAT_CALLS - 1)]
+        top2 = first.topk(2, dim=-1).values
+        gap = top2[..., 0] - top2[..., 1]
+        flipped = torch.zeros_like(gap, dtype=torch.bool)
+        for r in rest:
+            flipped |= r.argmax(-1) != first.argmax(-1)
+        out[name] = dict(max_abs=max((r - first).abs().max().item() for r in rest),
+                         flipped=int(flipped.sum()),
+                         max_gap_flipped=gap[flipped].max().item() if flipped.any() else None)
+    log(f"call to call ({REPEAT_CALLS} calls at batch {len(x)}, against the first): {out}")
+    return out
+
+
 def _request_ms(pred, x, reps: int = 20, warmup: int = 3) -> dict:
     """Host-clock ms per request (numpy in, logits on the card), each one
     ended by a synchronise: warm-up, then `reps` timed."""
@@ -1324,20 +1382,26 @@ def run_serve_path(dev, fixed: dict, seed: int, work: str) -> dict:
     errs = {}
     for b in SERVE_BATCHES:
         x = x_all[:b]
-        got = pred.logits(x)
+        # the masks are the argmax of the logits, exactly: the two calls run
+        # cuDNN's deterministic algorithms, so that they compute the same bits
+        with deterministic_cudnn():
+            got = pred.logits(x)
+            masks = pred.predict_masks(x)
         with torch.inference_mode():
             want = model(torch.from_numpy(x).to(dev), train=False)[-1]
         check(tuple(got.shape) == (b, HW, HW, NCLASS) and got.device == want.device,
               f"served logits {tuple(got.shape)} on {got.device}")
         errs[b] = (got - want).abs().max().item()
         torch.testing.assert_close(got, want, **SERVE_TOL)
-        masks = pred.predict_masks(x)
         check(masks.dtype == np.uint8 and masks.shape == (b, HW, HW)
               and np.array_equal(masks, got.argmax(-1).to(torch.uint8).cpu().numpy()),
               f"masks at batch {b}: {masks.dtype} {masks.shape}, or not the argmax")
     log(f"served vs eager on the card (batches {SERVE_BATCHES}; the program's batch range "
         f"{pred.batch_range}, a smaller request is zero-padded): max abs err {errs} "
         f"(limit {SERVE_TOL})")
+    repeat = call_to_call(pred, x_all)
+    check(repeat["deterministic"]["max_abs"] == 0,
+          f"two calls with deterministic cuDNN differ: {repeat['deterministic']}")
 
     torch.cuda.reset_peak_memory_stats()
     ms = {b: _request_ms(pred, x_all[:b]) for b in (1, 12)}
@@ -1363,14 +1427,16 @@ def run_serve_path(dev, fixed: dict, seed: int, work: str) -> dict:
     # two replicas on the one card, at batch 5 (padded to 6, split 3 + 3)
     dp = Predictor(art, data_parallel=True, devices=[dev, dev])
     x5 = x_all[:5]
-    got = dp.logits(x5)
+    with deterministic_cudnn():
+        got = dp.logits(x5)
+        dp_masks = dp.predict_masks(x5)
     padded = np.concatenate([x5, np.zeros((1,) + x5.shape[1:], np.float32)])
     halves = torch.cat([pred.logits(padded[:3]), pred.logits(padded[3:])])[:5]
     dp_err = dict(halves=(got - halves).abs().max().item(),
                   single=(got - pred.logits(x5)).abs().max().item())
     torch.testing.assert_close(got, halves, **SERVE_TOL)
     torch.testing.assert_close(got, pred.logits(x5), **SERVE_TOL)
-    check(np.array_equal(dp.predict_masks(x5), got.argmax(-1).to(torch.uint8).cpu().numpy()),
+    check(np.array_equal(dp_masks, got.argmax(-1).to(torch.uint8).cpu().numpy()),
           "data-parallel masks are not the argmax")
     log(f"served on the CPU (load {cpu_load_s:.2f} s): card vs CPU max abs err {cpu_err:.3g} "
         f"(limit {CARD_CPU_LOGIT_TOL}); two replicas at batch 5 vs their halves / vs the "
@@ -1402,7 +1468,8 @@ def run_serve_path(dev, fixed: dict, seed: int, work: str) -> dict:
                 export_s=meta["export_seconds"], export_cli_s=cli_s, artifact_mb=size_mb,
                 load_s=load_s, cpu_load_s=cpu_load_s, peak_mib=peak / 2**20, errs=errs,
                 profile=prof, batch_range=pred.batch_range,
-                cpu_err=cpu_err, dp_err=dp_err, tf32_control=dict(tf32=tf32_err, f32=f32_err))
+                cpu_err=cpu_err, dp_err=dp_err, tf32_control=dict(tf32=tf32_err, f32=f32_err),
+                call_to_call=repeat)
 
 
 # ---------------------------------------------------------------------------
@@ -1515,6 +1582,279 @@ def run_submission(dev, pred, work: str, seed: int) -> dict:
                 agreement=same, predict_s=predict_s, slices=len(slices))
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the PROMISE12 data path
+# ---------------------------------------------------------------------------
+
+# the phantom in PROMISE12's layout: training cases of 10-16 slices at 320 x
+# 320 (case 05, the val split, among them) and test cases at 320 x 320 and
+# 320 x 288, int16 volumes with uint8 masks, PROMISE12-like spacing
+PHANTOM_TRAIN_CASES = 10
+PHANTOM_TEST_SHAPES = ((12, 320, 320), (14, 320, 288))
+LOADER_BATCHES = 4        # batches timed per loader setting
+LIBRARIES = ("cv2", "PIL", "matplotlib", "scipy")
+
+
+def libraries() -> dict:
+    """Which of LIBRARIES import in this interpreter (the port needs only
+    scipy; the JAX package's data path needs cv2)."""
+    found = {}
+    for name in LIBRARIES:
+        try:
+            importlib.import_module(name)
+            found[name] = True
+        except ImportError:
+            found[name] = False
+    log("libraries: " + ", ".join(f"{k} {'imports' if v else 'missing'}"
+                                  for k, v in found.items()))
+    return found
+
+
+def _phantom_case(rng, n, h, w):
+    """An MR-like int16 volume and its uint8 ellipsoid mask."""
+    zz, yy, xx = np.mgrid[0:n, 0:h, 0:w]
+    cy, cx = h * rng.uniform(0.4, 0.6), w * rng.uniform(0.4, 0.6)
+    seg = (((yy - cy) / (h * rng.uniform(0.12, 0.2))) ** 2
+           + ((xx - cx) / (w * rng.uniform(0.12, 0.2))) ** 2
+           + ((zz - n / 2) / (n / 2.5)) ** 2 < 1).astype(np.uint8)
+    shade = 300 + 80 * np.sin(yy / rng.uniform(20, 40)) * np.cos(xx / rng.uniform(20, 40))
+    vol = np.clip(shade + 260.0 * seg + 45 * rng.randn(n, h, w), 0, 2000).astype(np.int16)
+    return vol, seg
+
+
+def write_phantom(root: str, rng) -> list:
+    """PROMISE2012/TrainingData and TestData under `root`, written with the
+    port's write_mhd. Returns the test volumes' paths in case order."""
+    base = os.path.join(root, "PROMISE2012")
+    for sub in ("TrainingData", "TestData"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    for i in range(PHANTOM_TRAIN_CASES):
+        vol, seg = _phantom_case(rng, int(rng.randint(10, 17)), 320, 320)
+        geometry = dict(spacing=(0.625, 0.625, float(rng.uniform(2.2, 4.0))),
+                        origin=(-100.0 + i, -90.0, 10.0 * i))
+        path = os.path.join(base, "TrainingData", f"Case{i:02d}")
+        write_mhd(path + ".mhd", MetaImage(vol, **geometry))
+        write_mhd(path + "_segmentation.mhd", MetaImage(seg, **geometry))
+    tests = []
+    for i, (n, h, w) in enumerate(PHANTOM_TEST_SHAPES):
+        vol, _ = _phantom_case(rng, n, h, w)
+        path = os.path.join(base, "TestData", f"Case{i:02d}.mhd")
+        write_mhd(path, MetaImage(vol, spacing=(0.6 + 0.05 * i, 0.625, 3.6),
+                                  origin=(-80.5, 12.25 - i, 3.0),
+                                  direction=(1, 0, 0, 0, -1, 0, 0, 0, 1)))
+        tests.append(path)
+    return tests
+
+
+@contextlib.contextmanager
+def _timed(module, name: str, seconds: dict):
+    """module.name timed into seconds[name] (and its calls counted) while
+    the block runs."""
+    fn = getattr(module, name)
+    seconds.setdefault(name, 0.0)
+    seconds.setdefault(name + "_calls", 0)
+
+    def wrapped(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            seconds[name] += time.perf_counter() - t0
+            seconds[name + "_calls"] += 1
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def build_promise12_cache(root: str) -> dict:
+    """The cache built through get_dataset, its time split into CLAHE,
+    resize and curvature flow; the native curvature flow must have run, and
+    agree with its numpy twin exactly on 3 slices."""
+    t0 = time.perf_counter()
+    native.lib()
+    build_s = time.perf_counter() - t0
+    split: dict = {}
+    t0 = time.perf_counter()
+    with _timed(augment, "equalize_adapthist", split), \
+            _timed(imgproc, "resize_nearest", split), \
+            _timed(native, "curvature_flow", split):
+        trainset = get_dataset("promise12", path=root, mode="train")
+    wall = time.perf_counter() - t0
+    store = os.path.join(root, "PROMISE2012", f"npy_image_{HW}")
+    sizes = {f: np.load(os.path.join(store, f), mmap_mode="r").shape
+             for f in sorted(os.listdir(store))}
+    log(f"promise12 cache: native curvature flow built with g++ in {build_s:.2f} s; "
+        f"cache {wall:.2f} s wall; CLAHE {split['equalize_adapthist']:.2f} s "
+        f"({split['equalize_adapthist_calls']} slices), resize "
+        f"{split['resize_nearest']:.2f} s ({split['resize_nearest_calls']}), curvature flow "
+        f"{split['curvature_flow']:.2f} s ({split['curvature_flow_calls']} native calls); "
+        f"files {sizes}")
+    check(split["curvature_flow_calls"] == sizes["X_train.npy"][0] + sizes["X_val.npy"][0]
+          + sizes["X_test.npy"][0],
+          f"the native curvature flow ran {split['curvature_flow_calls']} times for {sizes}")
+    vol = read_mhd(os.path.join(root, "PROMISE2012", "TrainingData", "Case00.mhd")).array
+    slices = promise12._img_resize(vol[:3], HW, HW, equalize=True)
+    for s_ in slices:
+        check(np.array_equal(native.curvature_flow(s_, 0.125, 5),
+                             augment._curvature_flow(s_, 0.125, 5)),
+              "the native curvature flow and its numpy twin disagree")
+    x = np.load(os.path.join(store, "X_train.npy"))
+    check(np.isfinite(x).all() and abs(float(x.mean())) < 1e-3
+          and abs(float(x.std()) - 1) < 1e-3, f"X_train mean {x.mean()}, std {x.std()}")
+    return dict(build_s=build_s, wall_s=wall, clahe_s=split["equalize_adapthist"],
+                resize_s=split["resize_nearest"], curvature_flow_s=split["curvature_flow"],
+                native_calls=split["curvature_flow_calls"], files=sizes, trainset=trainset)
+
+
+def time_loader(trainset) -> dict:
+    """ms per augmented batch at 8 and 12, serial and with the default
+    pool of threads."""
+    out = {}
+    for bs in (8, 12):
+        for workers in (0, None):
+            loader = DataLoader(trainset, bs, shuffle=True, drop_last=True, workers=workers)
+            it = iter(loader)
+            times = []
+            for _ in range(min(LOADER_BATCHES, len(loader))):
+                t0 = time.perf_counter()
+                batch = next(it)
+                times.append((time.perf_counter() - t0) * 1e3)
+            check(batch["image"].shape == (bs, HW, HW, IN_CHANNELS)
+                  and np.isfinite(batch["image"]).all()
+                  and set(np.unique(batch["label"])) <= {0, 1},
+                  f"loader batch {batch['image'].shape} labels {np.unique(batch['label'])}")
+            key = f"batch{bs}_workers{loader.workers}"
+            out[key] = float(np.mean(times))
+            log(f"loader {key}: {out[key]:.1f} ms/batch ({[round(t, 1) for t in times]})")
+    return out
+
+
+def _in_process(main_fn, *argv: str) -> str:
+    """A CLI's main(argv) in this process (so that the kernels' counters
+    see its launches); its stdout, also logged."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(list(argv))
+    out = buf.getvalue()
+    log(f"  {main_fn.__module__} {' '.join(argv)}: rc {rc}, {time.perf_counter() - t0:.1f} s")
+    for line in out.splitlines():
+        log(f"    {line}")
+    check(rc == 0, f"{main_fn.__module__} returned {rc}")
+    return out
+
+
+def _scalars(run_dir: str) -> dict:
+    with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+        return {r["tag"]: r["value"] for r in map(json.loads, f)}
+
+
+def run_promise12_path(dev, expect: dict, work: str, seed: int, found: dict) -> dict:
+    """The PROMISE12 files through the port's CLIs at the flagship config:
+    search_arc (1 epoch, full width), train_model (1 epoch, the default
+    genotype), testing_model on its best checkpoint, and the submission from
+    the test split through TestRunner.run_promise12_submission."""
+    root = os.path.join(work, "data")
+    tests = write_phantom(root, np.random.RandomState(seed + 11))
+    cache = build_promise12_cache(root)
+    trainset = cache.pop("trainset")
+    loader = time_loader(trainset)
+
+    s = load_config(CONFIG)["searching"]
+    n = len(trainset)
+    split = int(np.floor(s["train_portion"] * n))
+    steps, val_batches = split // s["batch_size"], (n - split) // s["batch_size"]
+    do_arch = s["alpha_begin"] <= 0
+    want = {k: steps * per_step(expect, do_arch)[k] + val_batches * expect["eval"][k]
+            for k in KERNELS}
+    log_root = os.path.join(work, "logs")
+    reset_counts()
+    t0 = time.perf_counter()
+    out = _in_process(search_arc.main, "--config", CONFIG, "--data_root", root,
+                      "--epoch", "1", "--log_root", log_root)
+    search_s = time.perf_counter() - t0
+    got = counts()
+    log(f"search_arc on the phantom: {steps} steps (do_arch={do_arch}) and {val_batches} "
+        f"eval batches of {s['batch_size']}; launches {got}, expected {want}")
+    check(got == want, f"search_arc launched {got}, expected {want}")
+    search = _scalars(_run_dir(out))
+    search_ms = 1e3 / search["Train/steps_per_sec"]
+    log(f"search_arc: {search_ms:.2f} ms/step (steps' second half), prefetch wait "
+        f"{search['Train/prefetch_wait_share']:.4f} of a step's wall, val batch fetch "
+        f"{search['Train/val_fetch_share']:.4f}; {search_s:.1f} s in all; val dice "
+        f"{search['Val/dice']:.4f}")
+    check(all(np.isfinite(v) for v in search.values()), f"search scalars {search}")
+
+    reset_counts()
+    out = _in_process(train_model.main, "--config", CONFIG, "--data_root", root,
+                      "--epoch", "1", "--log_root", log_root)
+    train_dir = _run_dir(out)
+    train = _scalars(train_dir)
+    train_ms = 1e3 / train["Train/steps_per_sec"]
+    log(f"train_model: {train_ms:.2f} ms/step, prefetch wait "
+        f"{train['Train/prefetch_wait_share']:.4f} of a step's wall; val dice "
+        f"{train['Val/dice']:.4f}")
+    check(all(np.isfinite(v) for v in train.values()), f"train scalars {train}")
+    ckpt = os.path.join(train_dir, "ckpt")
+    check(os.path.exists(os.path.join(ckpt, "best.pt")), "train_model wrote no best checkpoint")
+
+    out = _in_process(testing_model.main, "--config", CONFIG, "--data_root", root,
+                      "--resume", ckpt, "--log_root", log_root, "--batch_size",
+                      str(load_config(CONFIG)["training"]["batch_size"]))
+    tested = ast.literal_eval(out.strip().splitlines()[-1])
+    check(abs(tested["dice"] - train["Val/dice"]) <= 0.01,
+          f"testing_model dice {tested['dice']}, the run's {train['Val/dice']}")
+    fixed_launches = counts()
+    check(not any(fixed_launches.values()), f"the fixed CLIs launched {fixed_launches}")
+
+    # the submission from the test split, in case order
+    cfg = load_config(CONFIG)
+    runner = TestRunner(cfg, resume=ckpt, data_root=root, log_root=log_root,
+                        batch_size=12, device=dev)
+    testset = promise12.Promise12(root, mode="test")
+    check([os.path.basename(p) for p in testset.test_file_list]
+          == [os.path.basename(p) for p in tests]
+          and list(testset.n_imgs) == [c[0] for c in PHANTOM_TEST_SHAPES],
+          f"test split {testset.test_file_list} {testset.n_imgs}")
+    t0 = time.perf_counter()
+    written, summary = runner.run_promise12_submission(
+        os.path.dirname(tests[0]), dest=os.path.join(work, "submission"),
+        queue=DataLoader(testset, 12))
+    submit_s = time.perf_counter() - t0
+    _geometry_kept(written, tests)
+    check(summary is None and len(written) == len(tests), f"submission {written} {summary}")
+    log(f"submission from the test split: {len(written)} volumes "
+        f"{[read_mhd(w).array.shape for w in written]} in {submit_s:.2f} s, each with its "
+        "source's shape, origin, spacing and direction")
+
+    # the contour grid draws with matplotlib, where the machine has it
+    if found["matplotlib"]:
+        val = DataLoader(promise12.Promise12(root, mode="val"), 12)
+        images, labels, preds = [], [], []
+        for batch in val:
+            preds.append(runner.eval_step(runner._place(batch))["pred"].cpu().numpy())
+            images.append(batch["image"][..., 0])
+            labels.append(batch["label"])
+        grid = best_worst_contour_grid(np.concatenate(images), np.concatenate(labels),
+                                       np.concatenate(preds), os.path.join(work, "grid.png"))
+        with open(grid, "rb") as f:
+            check(f.read(8) == b"\x89PNG\r\n\x1a\n", "the contour grid is not a PNG")
+        contour = f"drawn ({os.path.getsize(grid)} bytes)"
+    else:
+        contour = "not drawn: matplotlib does not import on this machine"
+    log(f"best_worst_contour_grid: {contour}")
+    return dict(launches=got, expected=want, cache={k: v for k, v in cache.items()},
+                loader_ms=loader, search_ms_per_step=search_ms,
+                search_prefetch_wait_share=search["Train/prefetch_wait_share"],
+                search_val_fetch_share=search["Train/val_fetch_share"], search_s=search_s,
+                train_ms_per_step=train_ms,
+                train_prefetch_wait_share=train["Train/prefetch_wait_share"],
+                test=tested, submission_s=submit_s, contour_grid=contour)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1532,6 +1872,7 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     smi = environment()
+    found = libraries()
     sass = build()
     records = check_kernels(dev)
     records["norm_convs"] = check_norm_convs(dev, args.seed)
@@ -1546,6 +1887,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as work:
         serve = paths["serve"] = run_serve_path(dev, fixed, args.seed, work)
         paths["submission"] = run_submission(dev, serve.pop("pred"), work, args.seed)
+    with tempfile.TemporaryDirectory() as work:
+        data = paths["promise12_data"] = run_promise12_path(dev, evald["expect"], work,
+                                                            args.seed, found)
 
     kernels = []
     for name, k in KERNELS.items():
@@ -1591,6 +1935,14 @@ def main(argv=None) -> int:
         f"{serve['load_s']:.2f} s, peak {serve['peak_mib']:.1f} MiB, card vs CPU "
         f"{serve['cpu_err']:.3g}, TF32 control {serve['tf32_control']}; submission "
         f"{paths['submission']['metrics']}")
+    log(f"promise12 data path summary: cache {data['cache']['wall_s']:.2f} s (CLAHE "
+        f"{data['cache']['clahe_s']:.2f}, resize {data['cache']['resize_s']:.2f}, curvature "
+        f"flow {data['cache']['curvature_flow_s']:.2f}); loader ms/batch {data['loader_ms']}; "
+        f"search {data['search_ms_per_step']:.2f} ms/step, prefetch wait "
+        f"{data['search_prefetch_wait_share']:.4f}, val fetch "
+        f"{data['search_val_fetch_share']:.4f}; fixed {data['train_ms_per_step']:.2f} ms/step, "
+        f"prefetch wait {data['train_prefetch_wait_share']:.4f}; launches {data['launches']}; "
+        f"contour grid {data['contour_grid']}; libraries that import {found}")
     log(f"card: {smi}; total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

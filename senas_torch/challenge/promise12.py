@@ -165,9 +165,34 @@ def predict_test(pred_slices: Iterable[np.ndarray], case_paths: Sequence[str],
 def best_worst_contour_grid(images: np.ndarray, y_true: np.ndarray,
                             y_pred: np.ndarray, out_path: str,
                             n_best: int = 20, n_worst: int = 20) -> str:
-    """Contour grid of the best/worst predictions (the JAX package's
-    matplotlib plot). Not ported: the card's machine has no matplotlib."""
-    raise NotImplementedError(
-        "best_worst_contour_grid is not ported yet: it draws with matplotlib, which "
-        "the port does not depend on (ROADMAP.md Queue 1, Slice 4 deferred: "
-        "best_worst_contour_grid)")
+    """Contour grid of the best/worst predictions among non-empty slices
+    (make_plots, metrics.py:76-134). GT contours red, prediction blue.
+    Draws with matplotlib, imported here: the rest of the port does not
+    need it."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    axes = tuple(range(1, y_true.ndim))
+    scores = numpy_dice(y_true.astype(float), y_pred.astype(float), axis=axes)
+    nonempty = set(np.nonzero(y_true.sum(axis=axes))[0].tolist())
+    order = np.argsort(scores)[::-1]
+    picks = [i for i in order if i in nonempty][:n_best]
+    picks += [i for i in order[::-1] if i in nonempty][:n_worst]
+
+    n_cols = 4
+    n_rows = max(1, int(np.ceil(len(picks) / n_cols)))
+    fig, ax_grid = plt.subplots(n_rows, n_cols,
+                                figsize=(4 * n_cols, 4 * n_rows), squeeze=False)
+    for slot, idx in enumerate(picks):
+        ax = ax_grid[slot // n_cols][slot % n_cols]
+        ax.imshow(images[idx], cmap="gray")
+        ax.contour(y_true[idx], levels=[0.5], colors="r", linewidths=1)
+        ax.contour(y_pred[idx], levels=[0.5], colors="b", linewidths=1)
+        ax.set_xticks([]), ax.set_yticks([])
+    for slot in range(len(picks), n_rows * n_cols):
+        ax_grid[slot // n_cols][slot % n_cols].axis("off")
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    fig.savefig(out_path, bbox_inches="tight", dpi=150)
+    plt.close(fig)
+    return out_path

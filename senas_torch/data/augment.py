@@ -1,0 +1,195 @@
+"""Joint (image, mask) augmentations and the cache build's preprocessing.
+
+A port of the parts of `senas_tpu/data/augment.py` that the PROMISE12 data
+path runs: `Compose`, the two flips, `RandomTranslate`,
+`RandomElasticTransform`, `equalize_adapthist` and `smooth_images`. Images
+are float32 [H,W] or [H,W,C], masks uint8 [H,W]. Where the JAX package
+calls cv2, this module calls `senas_torch.data.imgproc`, which computes the
+same numbers without cv2.
+
+The transforms draw from Python's `random` and numpy's global `np.random`,
+in the JAX package's order and shapes, so that under the same
+`random.seed` and `np.random.seed` both packages give the same sample.
+
+The JAX package's other transforms (rotation, the resize and crop family,
+the colour transforms) belong to the loaders of M9b (ROADMAP.md Queue 1)
+and raise here until then.
+"""
+
+from __future__ import annotations
+
+import random
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+
+from senas_torch.data import imgproc
+
+
+class Compose:
+    def __init__(self, augmentations: Sequence):
+        self.augmentations = augmentations
+
+    def __call__(self, img, mask):
+        if img.shape[:2] != mask.shape[:2]:
+            raise ValueError(f"image {img.shape} and mask {mask.shape} differ in size")
+        for a in self.augmentations:
+            img, mask = a(img, mask)
+        return img, mask
+
+
+class RandomHorizontallyFlip:
+    def __init__(self, p: float = 0.5):
+        self.p = p
+
+    def __call__(self, img, mask):
+        if random.random() < self.p:
+            return np.ascontiguousarray(img[:, ::-1]), np.ascontiguousarray(mask[:, ::-1])
+        return img, mask
+
+
+class RandomVerticallyFlip:
+    def __init__(self, p: float = 0.5):
+        self.p = p
+
+    def __call__(self, img, mask):
+        if random.random() < self.p:
+            return np.ascontiguousarray(img[::-1]), np.ascontiguousarray(mask[::-1])
+        return img, mask
+
+
+class RandomTranslate:
+    """Shift by up to offset * size; the image is re-padded by reflection,
+    the mask with zeros (the reference's augmentation.py:148-191)."""
+
+    def __init__(self, offset: Tuple[float, float]):
+        self.offset = offset
+
+    def __call__(self, img, mask):
+        h, w = img.shape[:2]
+        x_offset = int(2 * (random.random() - 0.5) * self.offset[0] * w)
+        y_offset = int(2 * (random.random() - 0.5) * self.offset[1] * h)
+        return (self._translate(img, x_offset, y_offset, reflect=True),
+                self._translate(mask, x_offset, y_offset, reflect=False))
+
+    @staticmethod
+    def _translate(arr, x_offset, y_offset, reflect):
+        h, w = arr.shape[:2]
+        y0, x0 = max(y_offset, 0), max(x_offset, 0)
+        crop = arr[y0:y0 + h - abs(y_offset), x0:x0 + w - abs(x_offset)]
+        pt = ((y_offset, 0) if y_offset >= 0 else (0, -y_offset),
+              (x_offset, 0) if x_offset >= 0 else (0, -x_offset))
+        if arr.ndim == 3:
+            pt = pt + ((0, 0),)
+        return np.pad(crop, pt, mode="reflect" if reflect else "constant")
+
+
+class RandomElasticTransform:
+    """Simard-style elastic deformation with probability p (the
+    reference's augmentation.py:376-425). The displacement fields are
+    blurred uniform noise; the image is resampled bilinearly and the mask
+    by nearest neighbour, zero outside. As in the JAX package, the map of
+    row coordinates goes where cv2 takes the column map, and the two
+    converted maps are handed over in swapped order (which cv2 accepts)."""
+
+    def __init__(self, alpha: float = 3, sigma: float = 0.07, p: float = 0.5):
+        self.alpha = alpha
+        self.sigma = sigma
+        self.p = p
+
+    def __call__(self, img, mask):
+        if random.random() >= self.p:
+            return img, mask
+        h, w = img.shape[:2]
+        if img.size != h * w:
+            raise NotImplementedError("the elastic transform of a multi-channel image comes "
+                                      "with the loaders of M9b (ROADMAP.md Queue 1)")
+        alpha = self.alpha * h
+        sigma = self.sigma * h
+        blur_size = int(4 * sigma) | 1
+        dx = imgproc.gaussian_blur(np.random.rand(h, w) * 2 - 1, blur_size, sigma) * alpha
+        dy = imgproc.gaussian_blur(np.random.rand(h, w) * 2 - 1, blur_size, sigma) * alpha
+        x, y = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+        maps = imgproc.convert_maps_16sc2((x + dx).astype(np.float32),
+                                          (y + dy).astype(np.float32))
+        img2 = imgproc.remap_bilinear(img.reshape(h, w), maps).reshape(img.shape)
+        mask2 = imgproc.remap_nearest(mask.reshape(h, w), maps).reshape(mask.shape)
+        return img2, mask2
+
+
+# ---------------------------------------------------------------------------
+# Preprocessing of the cache build
+# ---------------------------------------------------------------------------
+
+def equalize_adapthist(img: np.ndarray, clip_limit: float = 0.05,
+                       nbins: int = 256) -> np.ndarray:
+    """CLAHE of a 2-D float image, as floats in [0, 1]: the JAX package's
+    cv2 CLAHE on a 16-bit quantisation. Its tile grid is (h // 8, w // 8)
+    tiles, which at 320 x 320 is 40 x 40 tiles of 8 x 8 pixels and a clip
+    limit of 1 per bin; that is the JAX package's semantics, kept as is."""
+    img = np.asarray(img, dtype=np.float64)
+    lo, hi = img.min(), img.max()
+    scale = (hi - lo) if hi > lo else 1.0
+    u16 = ((img - lo) / scale * 65535).astype(np.uint16)
+    h, w = img.shape
+    grid = (max(1, h // 8), max(1, w // 8))
+    return imgproc.clahe_u16(u16, clip_limit * nbins, grid).astype(np.float64) / 65535.0
+
+
+def smooth_images(imgs: np.ndarray, t_step: float = 0.125, n_iter: int = 5,
+                  native: bool = True) -> np.ndarray:
+    """Curvature-flow denoising of each image of a stack (the reference's
+    sitk.CurvatureFlow, augmentation.py:428-442), as float64. `native`
+    runs the C++ version (built at first use; a failed build raises),
+    else numpy's `_curvature_flow`; the two agree exactly."""
+    out = np.array(imgs, dtype=np.float64, copy=True)
+    if native:
+        from senas_torch.data.native import curvature_flow as flow
+    else:
+        flow = _curvature_flow
+    for idx in range(len(out)):
+        out[idx] = flow(out[idx], t_step, n_iter)
+    return out
+
+
+def _curvature_flow(img: np.ndarray, t_step: float, n_iter: int) -> np.ndarray:
+    """dI/dt = kappa * |grad I| with central differences, edges replicated."""
+    eps = 1e-8
+    u = img.astype(np.float64)
+    for _ in range(n_iter):
+        up = np.pad(u, 1, mode="edge")
+        ux = (up[1:-1, 2:] - up[1:-1, :-2]) / 2.0
+        uy = (up[2:, 1:-1] - up[:-2, 1:-1]) / 2.0
+        uxx = up[1:-1, 2:] - 2 * u + up[1:-1, :-2]
+        uyy = up[2:, 1:-1] - 2 * u + up[:-2, 1:-1]
+        uxy = (up[2:, 2:] - up[2:, :-2] - up[:-2, 2:] + up[:-2, :-2]) / 4.0
+        num = uxx * uy * uy - 2 * ux * uy * uxy + uyy * ux * ux
+        den = ux * ux + uy * uy + eps
+        u = u + t_step * num / den
+    return u
+
+
+# ---------------------------------------------------------------------------
+# Registry (the reference's utils/augmentations/__init__.py:7-32)
+# ---------------------------------------------------------------------------
+
+key2aug = {
+    "hflip": RandomHorizontallyFlip,
+    "vflip": RandomVerticallyFlip,
+    "translate": RandomTranslate,
+    "elastic": RandomElasticTransform,
+}
+# the JAX package's other names, which the loaders of M9b bring
+WAITING_FOR_M9B = ("gamma", "hue", "brightness", "saturation", "contrast", "rcrop", "scale",
+                   "rsize", "rsizecrop", "rotate", "ccrop", "zoom")
+
+
+def get_composed_augmentations(aug_dict: Optional[dict]) -> Optional[Compose]:
+    if aug_dict is None:
+        return None
+    waiting = [k for k in aug_dict if k in WAITING_FOR_M9B]
+    if waiting:
+        raise NotImplementedError(
+            f"augmentations {waiting} are not ported yet; they come with the loaders "
+            "of M9b (ROADMAP.md Queue 1)")
+    return Compose([key2aug[k](v) for k, v in aug_dict.items()])

@@ -2,14 +2,16 @@
 
 A numpy copy of `senas_tpu/data/base.py`, kept here so that the port
 imports nothing of the JAX package. Batches are NHWC float32 images and
-int32 label maps; the runner moves them to the device. Of the datasets only
-`synthetic` is registered: the JAX package's loaders of the real datasets
-need cv2, which the port does not depend on, and asking for one raises.
+int32 label maps; the runner moves them to the device. The datasets
+registered are `synthetic` and `promise12`; asking for another raises until
+its loader is ported (M9b, ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -90,23 +92,37 @@ class SegmentationDataset:
 
 
 class DataLoader:
-    """Host-side batcher: shuffle / drop_last / subset sampling. Samples are
-    fetched serially: the one dataset of the port has no per-sample
-    transforms; `PrefetchLoader` overlaps batch assembly with the step.
+    """Host-side batcher: shuffle / drop_last / subset sampling, with the
+    samples of a batch fetched by a thread pool.
 
     `indices` supports the reference's 50/50 SubsetRandomSampler split of one
     trainset for bilevel search (experiments/search_arc.py:78-94).
+
+    `workers` threads fetch the samples of a batch (the reference's
+    n_workers DataLoader processes, as threads: numpy and scipy release the
+    interpreter lock in the heavy operations); default: the
+    SENAS_LOADER_WORKERS environment variable, else min(4, cores); 0 or 1
+    fetches serially. With more than one worker the transforms' draws from
+    the global `random` and `np.random` interleave in whatever order the
+    threads take, in the JAX package too, so a sample depends on the
+    threads' timing: tests that hold the two packages' samples together use
+    workers=0.
     """
 
     def __init__(self, dataset: SegmentationDataset, batch_size: int,
                  shuffle: bool = False, drop_last: bool = False,
-                 indices: Optional[List[int]] = None, seed: int = 0):
+                 indices: Optional[List[int]] = None, seed: int = 0,
+                 workers: Optional[int] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.indices = list(indices) if indices is not None else list(range(len(dataset)))
         self._rng = np.random.RandomState(seed)
+        if workers is None:
+            workers = int(os.environ.get("SENAS_LOADER_WORKERS", min(4, os.cpu_count() or 1)))
+        self.workers = workers
+        self._pool = None
 
     def __len__(self):
         n = len(self.indices)
@@ -119,15 +135,25 @@ class DataLoader:
         if self.shuffle:
             self._rng.shuffle(order)
         fetch = self.dataset.__getitem__
+        pool = self._get_pool()
         for start in range(0, len(order), self.batch_size):
             chunk = order[start:start + self.batch_size]
             if len(chunk) < self.batch_size and self.drop_last:
                 return
-            samples = [fetch(i) for i in chunk]
+            samples = list(pool.map(fetch, chunk)) if pool else [fetch(i) for i in chunk]
             yield {
                 "image": np.stack([s[0] for s in samples]).astype(np.float32),
                 "label": np.stack([s[1] for s in samples]).astype(np.int32),
             }
+
+    def _get_pool(self):
+        if self.workers <= 1:
+            return None
+        if self._pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+            self._pool = ThreadPoolExecutor(max_workers=self.workers,
+                                            thread_name_prefix="senas-loader")
+        return self._pool
 
     # NOTE on trailing partial batches: the reference evaluates the true
     # partial batch (no padding), and the batch-aggregated dice loss is not
@@ -138,13 +164,17 @@ class PrefetchLoader:
     """Background-thread prefetch wrapper around a DataLoader.
 
     The stand-in for the reference's DataLoader workers (n_workers: 2,
-    senas_promise12.yml:16): batch assembly overlaps the device step.
-    depth=2 keeps one batch in flight and one ready.
+    senas_promise12.yml:16): batch assembly (augmentation, elastic
+    deformation) overlaps the device step. depth=2 keeps one batch in
+    flight and one ready. `waits` holds, for each batch, the seconds the
+    consumer spent blocked on it: the loader's part of a training loop's
+    wall time.
     """
 
     def __init__(self, loader: "DataLoader", depth: int = 2):
         self.loader = loader
         self.depth = depth
+        self.waits: List[float] = []
 
     def __len__(self):
         return len(self.loader)
@@ -168,11 +198,13 @@ class PrefetchLoader:
         t = threading.Thread(target=worker, daemon=True)
         t.start()
         while True:
+            t0 = time.perf_counter()
             item = q.get()
             if item is _END:
                 break
             if isinstance(item, BaseException):
                 raise item
+            self.waits.append(time.perf_counter() - t0)
             yield item
         t.join()
 
@@ -196,22 +228,23 @@ def get_dataset_spec(name: str) -> DatasetSpec:
 
 
 def get_dataset(name: str, path: Optional[str] = None, **kwargs) -> SegmentationDataset:
-    """The dataset `name` under the directory `path` (the synthetic dataset
-    reads no files and takes none)."""
+    """The dataset `name` under the directory `path` (the data root that
+    holds e.g. PROMISE2012/; the synthetic dataset reads no files and takes
+    none)."""
     name = name.lower()
     _ensure_registered()
     if name not in _FACTORIES:
         if name in SPECS:
             raise NotImplementedError(
-                f"dataset {name!r} is not ported yet: its loader needs cv2 "
-                "(ROADMAP.md Queue 1, M9: the real dataset loaders); use 'synthetic'")
+                f"dataset {name!r} is not ported yet: its loader comes with M9b "
+                "(ROADMAP.md Queue 1); the port has 'promise12' and 'synthetic'")
         raise KeyError(f"unknown dataset {name!r}; known: {sorted(_FACTORIES)}")
     return _FACTORIES[name](root=path, **kwargs)
 
 
 def _ensure_registered():
     # import side-effect registration, deferred to avoid import cycles
-    from senas_torch.data import synthetic  # noqa: F401
+    from senas_torch.data import promise12, synthetic  # noqa: F401
 
 
 DATASETS = SPECS

@@ -34,7 +34,7 @@ from senas_torch.train.trainer import (SearchTrainState, make_search_eval_step,
                                        make_search_step)
 from senas_torch.utils.logging import (ScalarWriter, calc_time, close_logger,
                                        get_logger, make_run_dir)
-from senas_torch.utils.misc import StepTimer, calc_parameters_count, set_seed
+from senas_torch.utils.misc import StepTimer, calc_parameters_count, set_seed, steady_share
 
 
 def _check_supported(s: Dict[str, Any]) -> None:
@@ -168,12 +168,17 @@ class SearchRunner:
             timer = StepTimer(self.device)
             do_arch = epoch >= alpha_begin
             val_iter = iter(self.valid_queue)
-            for step, batch in enumerate(PrefetchLoader(self.train_queue)):
+            prefetch = PrefetchLoader(self.train_queue)
+            walls, val_waits = [], []
+            t_end = time.perf_counter()
+            for step, batch in enumerate(prefetch):
+                t0 = time.perf_counter()
                 try:
                     val_batch = next(val_iter)
                 except StopIteration:
                     val_iter = iter(self.valid_queue)
                     val_batch = next(val_iter)
+                val_waits.append(time.perf_counter() - t0)
                 with timer:
                     m = self.search_step(self.state, self._place(batch),
                                          self._place(val_batch), do_arch)
@@ -183,11 +188,21 @@ class SearchRunner:
                     _, _, dice = train_metric.get()
                     self.logger.info("Train %03d loss %e dice %.5f", step + 1,
                                      loss_meter.avg, dice)
+                now = time.perf_counter()
+                walls.append(now - t_end)
+                t_end = now
             acc.drain()
             _, _, train_dice = train_metric.get()
             self.writer.add_scalar("Train/Loss", loss_meter.avg, epoch)
             self.writer.add_scalar("Train/dice", train_dice, epoch)
             self.writer.add_scalar("Train/steps_per_sec", timer.steps_per_sec, epoch)
+            # the share of a step's wall time (its wait for the batch
+            # included) spent waiting on the prefetched train batch, and on
+            # the val batch, which is assembled in the loop; over the steps
+            # that steps_per_sec counts
+            self.writer.add_scalar("Train/prefetch_wait_share",
+                                   steady_share(prefetch.waits, walls), epoch)
+            self.writer.add_scalar("Train/val_fetch_share", steady_share(val_waits, walls), epoch)
 
             # ---- eval epoch ----
             metric, vloss = run_eval_loop(self.eval_step, self.valid_queue,

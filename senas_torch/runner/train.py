@@ -34,7 +34,7 @@ from senas_torch.train.optim import build_scheduler, set_learning_rate
 from senas_torch.train.trainer import FixedTrainState, make_eval_step, make_train_step
 from senas_torch.utils.logging import (ScalarWriter, calc_time, close_logger, get_logger,
                                        make_run_dir, store_images)
-from senas_torch.utils.misc import StepTimer, calc_parameters_count, set_seed
+from senas_torch.utils.misc import StepTimer, calc_parameters_count, set_seed, steady_share
 
 
 def resolve_genotype(cfg: Dict[str, Any], cli_genotype: str = ""):
@@ -134,7 +134,10 @@ class TrainRunner:
             loss_meter = AverageMeter()
             acc = DeferredMetrics(metric, loss_meter)
             timer = StepTimer(self.device)
-            for step, batch in enumerate(PrefetchLoader(self.train_queue)):
+            prefetch = PrefetchLoader(self.train_queue)
+            walls = []
+            t_end = time.perf_counter()
+            for step, batch in enumerate(prefetch):
                 with timer:
                     m = self.train_step(self.state, self._place(batch))
                 acc.push(m)
@@ -143,20 +146,29 @@ class TrainRunner:
                     _, _, dice = metric.get()
                     self.logger.info("Train %03d loss %e dice %.5f", step + 1,
                                      loss_meter.avg, dice)
+                now = time.perf_counter()
+                walls.append(now - t_end)
+                t_end = now
             acc.drain()
             _, _, train_dice = metric.get()
             self.writer.add_scalar("Train/Loss", loss_meter.avg, epoch)
             self.writer.add_scalar("Train/dice", train_dice, epoch)
             self.writer.add_scalar("Train/steps_per_sec", timer.steps_per_sec, epoch)
+            # over the steps that steps_per_sec counts, as in SearchRunner
+            self.writer.add_scalar("Train/prefetch_wait_share",
+                                   steady_share(prefetch.waits, walls), epoch)
 
             # ---- validation ----
             vmetric, vloss = run_eval_loop(self.eval_step, self.valid_queue,
                                            self.n_classes, self._place)
             # input|pred|gt grid of the first val batch (train_model.py:331)
-            first = next(iter(self.valid_queue))
-            pred = self.eval_step(self._place(first))["pred"].cpu().numpy()
-            self.writer.add_image_grid("Val/images", store_images(
-                first["image"], pred, first["label"], self.n_classes), epoch)
+            try:
+                first = next(iter(self.valid_queue))
+                pred = self.eval_step(self._place(first))["pred"].cpu().numpy()
+                self.writer.add_image_grid("Val/images", store_images(
+                    first["image"], pred, first["label"], self.n_classes), epoch)
+            except Exception as e:  # image logging must never end the run
+                self.logger.warning("val image grid failed: %s", e, exc_info=True)
             pixacc, miou, dice = vmetric.get()
             self.logger.info("Epoch %d Val loss: %f pixAcc: %s mIoU: %s dice: %s",
                              epoch, vloss.avg, pixacc, miou, dice)

@@ -5,7 +5,7 @@ stdout + run.log file logger, the run-dir layout
 <log_root>/<model>/<phase>/<dataset>/<phase>-<timestamp>/ with the config
 YAML copied in, a JSONL scalar log (scalars.jsonl), and the
 input | prediction | ground-truth grids (`store_images`). Images are
-written as PNG by `write_png` (zlib + struct: the card's machine has no
+written as PNG by `write_png` (zlib + struct: the port does not depend on
 Pillow). TensorBoard output is not ported.
 """
 

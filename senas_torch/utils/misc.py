@@ -27,6 +27,19 @@ def calc_parameters_count(model: nn.Module) -> float:
     return sum(p.numel() for p in model.parameters()) / 1e6
 
 
+def steady(xs: List[float]) -> List[float]:
+    """The steps a StepTimer counts: the second half (the first ones warm
+    up)."""
+    return xs[max(1, len(xs) // 2):] or xs
+
+
+def steady_share(part: List[float], whole: List[float]) -> float:
+    """sum(part) / sum(whole) over the steps a StepTimer counts (0 without
+    steps): e.g. a loop's per-step waits against its per-step wall times."""
+    whole_s = sum(steady(whole))
+    return sum(steady(part)) / whole_s if whole_s else 0.0
+
+
 class StepTimer:
     """Wall-clock time of each step. On a CUDA device the exit waits for
     the card (torch.cuda.synchronize), so a step's time is its device time
@@ -52,5 +65,5 @@ class StepTimer:
         """Over the second half of the steps (the first ones warm up)."""
         if not self._times:
             return 0.0
-        recent = self._times[max(1, len(self._times) // 2):] or self._times
+        recent = steady(self._times)
         return 1.0 / (sum(recent) / len(recent))

@@ -215,10 +215,37 @@ def test_predict_test_writes_the_same_files(tmp_path):
         assert _bytes(g[:-4] + ".raw") == _bytes(w[:-4] + ".raw")
 
 
+def _png_pixels(path):
+    return np.asarray(pytest.importorskip("PIL.Image").open(path).convert("RGBA"))
+
+
 def test_contour_grid_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tp12.best_worst_contour_grid(np.zeros((1, 4, 4)), np.zeros((1, 4, 4)),
-                                     np.zeros((1, 4, 4)), str(tmp_path / "g.png"))
+    """It is ported since: with every ground truth empty no slice is
+    picked, and both packages draw the same blank grid."""
+    pytest.importorskip("matplotlib")
+    z = np.zeros((2, 8, 8))
+    got = tp12.best_worst_contour_grid(z, z, z, str(tmp_path / "t" / "g.png"))
+    want = jp12.best_worst_contour_grid(z, z, z, str(tmp_path / "j" / "g.png"))
+    np.testing.assert_array_equal(_png_pixels(got), _png_pixels(want))
+
+
+@pytest.mark.parametrize("n_best,n_worst", [(20, 20), (2, 3)])
+def test_contour_grid_matches(tmp_path, n_best, n_worst):
+    """The PNG's decoded pixels equal senas_tpu's on the same inputs."""
+    pytest.importorskip("matplotlib")
+    rng = np.random.RandomState(9)
+    yy, xx = np.mgrid[0:48, 0:48]
+    y_true = np.stack([((yy - 24) ** 2 + (xx - 20 - i) ** 2 < (6 + i) ** 2)
+                       for i in range(9)]).astype(np.uint8)
+    y_true[4] = 0   # an empty slice is never picked
+    y_pred = np.stack([np.roll(m, i % 5, axis=1) for i, m in enumerate(y_true)])
+    images = rng.rand(9, 48, 48)
+    paths = [fn(images, y_true, y_pred, str(tmp_path / name / "grid.png"), n_best, n_worst)
+             for name, fn in (("t", tp12.best_worst_contour_grid),
+                              ("j", jp12.best_worst_contour_grid))]
+    got, want = (_png_pixels(p) for p in paths)
+    assert got.shape == want.shape and got.shape[0] > 100
+    np.testing.assert_array_equal(got, want)
 
 
 # ---------------------------------------------------------------------------

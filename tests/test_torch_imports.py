@@ -1,7 +1,9 @@
 """Import hygiene: senas_torch (every module: the search path's, the fixed
 model's train and test paths', K2's, the operations layer's: serving,
-checkpoint import, the challenge tools) and chip_smoke.py load nothing of
-JAX, flax, optax or senas_tpu (checked in a fresh interpreter)."""
+checkpoint import, the challenge tools; the PROMISE12 data path's) and
+chip_smoke.py load nothing of JAX, flax, optax or senas_tpu, and neither
+cv2 nor PIL, which the port does not depend on (checked in a fresh
+interpreter)."""
 
 import os
 import subprocess
@@ -16,7 +18,7 @@ for m in pkgutil.walk_packages(senas_torch.__path__, "senas_torch."):
     importlib.import_module(m.name)
 import chip_smoke  # module-level code only; main() does not run
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "senas_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "senas_tpu", "cv2", "PIL"))
 print("BAD", bad)
 print("N", len([m for m in sys.modules if m.startswith("senas_torch.")]))
 print("FIXED", sorted(m for m in sys.modules if m in FIXED_PATH))
@@ -32,7 +34,11 @@ FIXED_PATH = ("senas_torch.ops.norm_convs", "senas_torch.models.geno_searched",
               "senas_torch.data.io", "senas_torch.challenge", "senas_torch.challenge.promise12",
               "senas_torch.challenge.nerve", "senas_torch.serve", "senas_torch.export_model",
               "senas_torch.compat", "senas_torch.compat.torch_import",
-              "senas_torch.import_torch_checkpoint")
+              "senas_torch.import_torch_checkpoint",
+              # the PROMISE12 data path
+              "senas_torch.data.imgproc", "senas_torch.data.augment",
+              "senas_torch.data.promise12", "senas_torch.data.native",
+              "senas_torch.data.native.build", "senas_torch.data.legacy_promise12")
 
 
 def test_port_imports_nothing_of_jax():
@@ -45,5 +51,5 @@ def test_port_imports_nothing_of_jax():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     n = int(out.stdout.split("N ")[1].split()[0])
-    assert n >= 47, out.stdout  # every module of the port was imported
+    assert n >= 53, out.stdout  # every module of the port was imported
     assert f"FIXED {sorted(FIXED_PATH)}" in out.stdout, out.stdout

@@ -104,7 +104,31 @@ def test_unported_options_raise(tmp_path, change, match):
 
 
 def test_real_datasets_wait_for_their_data(tmp_path):
+    """promise12 is ported (tests/test_torch_promise12.py); the loaders of
+    the other real datasets come with M9b."""
     cfg = load_config(CONFIG)
-    cfg["data"]["dataset"] = "promise12"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    cfg["data"]["dataset"] = "chaos"
+    with pytest.raises(NotImplementedError, match="not ported yet.*M9b"):
         SearchRunner(cfg, log_root=str(tmp_path), device="cpu")
+    cfg["data"]["dataset"] = "promise12"
+    with pytest.raises(ValueError, match="data_root"):
+        SearchRunner(cfg, log_root=str(tmp_path), device="cpu")
+
+
+def test_loop_shares_count_the_timed_steps(first_run):
+    """The loader shares are taken over the steps that steps_per_sec counts
+    (the second half), so a slow first step does not weigh in them; each
+    PrefetchLoader batch records its own wait."""
+    from senas_torch.data import DataLoader, PrefetchLoader, get_dataset
+    from senas_torch.utils.misc import steady, steady_share
+
+    assert steady([9.0, 1.0, 2.0, 3.0, 4.0]) == [2.0, 3.0, 4.0]
+    assert steady([7.0]) == [7.0]
+    assert steady_share([8.0, 0.5, 0.5, 0.5], [10.0, 1.0, 2.0, 2.0]) == pytest.approx(0.25)
+    assert steady_share([], []) == 0.0
+    loader = PrefetchLoader(DataLoader(get_dataset("synthetic", size=6), 2, workers=0))
+    assert len(list(loader)) == len(loader.waits) == 3
+    assert all(w >= 0 for w in loader.waits)
+    scalars = {r["tag"]: r["value"] for r in _scalars(first_run["runner"].run_dir)}
+    assert 0 <= scalars["Train/prefetch_wait_share"] <= 1
+    assert 0 <= scalars["Train/val_fetch_share"] <= 1

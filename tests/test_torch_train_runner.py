@@ -186,3 +186,24 @@ def test_test_runner_needs_a_checkpoint_and_has_no_submission_path(first_run, tm
     mask = read_mhd(written[0])
     assert mask.array.shape == (n, 64, 64) and mask.array.dtype == np.uint8
     assert mask.spacing == (0.6, 0.6, 3.0)
+
+
+def test_a_failing_val_grid_does_not_end_the_run(tmp_path, monkeypatch):
+    """The first val batch's image grid is logged under a guard, as in
+    senas_tpu's runner: when it raises, the epoch's checkpoint is still
+    written and the run goes on."""
+    from senas_torch.utils.logging import ScalarWriter
+
+    def broken(*args, **kwargs):
+        raise OSError("the run directory cannot be written")
+
+    monkeypatch.setattr(ScalarWriter, "add_image_grid", broken)
+    cfg = _cfg()
+    cfg["training"]["epoch"] = 1
+    runner = TrainRunner(cfg, log_root=str(tmp_path), device="cpu")
+    runner.run()
+    assert runner.ckpt.exists("last")
+    assert [r["step"] for r in _scalars(runner.run_dir, "Val/dice")] == [0]
+    with open(os.path.join(runner.run_dir, "run.log")) as f:
+        assert "val image grid failed" in f.read()
+    assert 0 <= _scalars(runner.run_dir, "Train/prefetch_wait_share")[0]["value"] <= 1

@@ -25,10 +25,12 @@ def one_torch_thread():
     torch.set_num_threads(before)
 
 
-def random_variables(module, rng: np.random.RandomState, *init_args):
-    """Flax {"params", "batch_stats"} of `module` filled from `rng`."""
+def random_variables(module, rng: np.random.RandomState, *init_args, init=None):
+    """Flax {"params", "batch_stats"} of `module` filled from `rng`.
+    `init` stands in for `module.init` (e.g. the original of a patched one)."""
+    init = init or module.init
     shapes = jax.eval_shape(
-        lambda: module.init({"params": jax.random.PRNGKey(0)}, *init_args))
+        lambda: init({"params": jax.random.PRNGKey(0)}, *init_args))
 
     def fill(tree, coll):
         out = {}
