@@ -79,9 +79,22 @@ Phases, each of which fails the run:
      loop's wait on the loader), train_model for 1 epoch, testing_model on
      its best checkpoint, the submission from the test split through
      `TestRunner.run_promise12_submission` (each volume with its source's
-     geometry), and `best_worst_contour_grid` where matplotlib imports.
+     geometry), and `best_worst_contour_grid` where matplotlib imports;
+ 15. the other shipped configs' data paths, on phantoms written here (no
+     Pillow) in each dataset's layout: CHAOS CT (4 cases of 24 DICOM slices
+     at 512x512 with RescaleSlope/Intercept, Ground/liver_GT_*.png), CHAOS
+     MR (T1DUAL and T2SPIR at 256x256), MSD Task02_Heart (3 volumes of
+     320x320x16 as .nii.gz, extracted once by the port's extract_task) and
+     MoNuSAC (RGB tiles); the port's DICOM, NIfTI and PNG readers held to
+     the written arrays; decode ms per slice, ms per augmented batch
+     (serial and pooled) and the extraction's seconds; search_arc on
+     configs/senas/senas_chaos.yml for 1 epoch at full width (K1a-K1d
+     launches held to the count; ms/step and the loop's waits),
+     train_model on configs/senas/senas_heart.yml for 1 epoch (batch 12 of
+     256x320) and testing_model on its best checkpoint; a monusac and a
+     chaos_mr batch through get_dataset.
 Phases 12-13 launch none of the five kernels (the fixed model has none).
-Every kernel must be launched on at least one path (phases 4-6, 9, 14). The
+Every kernel must be launched on at least one path (phases 4-6, 9, 14, 15). The
 line before the last is a JSON list of the kernels; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
 prints no result.
@@ -93,10 +106,12 @@ import argparse
 import ast
 import contextlib
 import copy
+import gzip
 import importlib
 import io
 import json
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -113,7 +128,11 @@ from senas_torch.challenge.promise12 import best_worst_contour_grid
 from senas_torch.core.config import load_config
 from senas_torch.core.genotype import parse_genotype
 from senas_torch.data import DataLoader, augment, get_dataset, imgproc, native, promise12
-from senas_torch.data.io import MetaImage, read_mhd, write_mhd
+from senas_torch.data.dicom import read_dicom_pixels
+from senas_torch.data.imfile import float_to_l, read_image, write_png_l
+from senas_torch.data.io import MetaImage, read_mhd, read_nifti, write_mhd
+from senas_torch.data.msd import extract_task
+from senas_torch.utils.logging import write_png
 from senas_torch.models import geno_searched
 from senas_torch.models.senas_model import SenasModel
 from senas_torch.ops import _build
@@ -1855,6 +1874,304 @@ def run_promise12_path(dev, expect: dict, work: str, seed: int, found: dict) -> 
                 test=tested, submission_s=submit_s, contour_grid=contour)
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the other shipped configs' data paths
+# ---------------------------------------------------------------------------
+
+CHAOS_CONFIG = os.path.join(ROOT, "configs", "senas", "senas_chaos.yml")
+HEART_CONFIG = os.path.join(ROOT, "configs", "senas", "senas_heart.yml")
+# the phantoms: each dataset's own slice size, few cases. CHAOS CT: 512 x
+# 512 int16 slices; CHAOS MR: 256 x 256 uint16 slices (T1DUAL in and out
+# phase, T2SPIR); MSD heart: 320 x 320 MR volumes; MoNuSAC: RGB tiles
+CHAOS_CT = dict(cases=4, slices=24, hw=512)
+CHAOS_MR = dict(slices=8, hw=256)
+HEART = dict(volumes=3, slices=16, hw=320)
+MONUSAC = dict(images=12, hw=(300, 340))
+DECODE_REPS = 10           # slices timed per reader
+
+
+def _dicom_element(group, elem, vr, value: bytes) -> bytes:
+    """An explicit-VR little-endian data element."""
+    if len(value) % 2:
+        value += b"\x00" if vr == b"UI" else b" "
+    head = struct.pack("<HH", group, elem) + vr
+    if vr in (b"OB", b"OW", b"UN", b"SQ", b"UT"):
+        return head + b"\x00\x00" + struct.pack("<I", len(value)) + value
+    return head + struct.pack("<H", len(value)) + value
+
+
+def write_dicom(path: str, pixels: np.ndarray, slope: float, intercept: float) -> None:
+    """A CHAOS-like DICOM slice: preamble, file meta group (explicit VR
+    little endian), SOP UIDs, the image pixel module with
+    RescaleSlope/Intercept, and the 16-bit pixel data."""
+    meta = _dicom_element(0x0002, 0x0010, b"UI", b"1.2.840.10008.1.2.1")
+    data = (_dicom_element(0x0008, 0x0016, b"UI", b"1.2.840.10008.5.1.4.1.1.2")
+            + _dicom_element(0x0008, 0x0018, b"UI", b"1.2.826.0.1.3680043.2.1125.1")
+            + _dicom_element(0x0028, 0x0002, b"US", struct.pack("<H", 1))
+            + _dicom_element(0x0028, 0x0010, b"US", struct.pack("<H", pixels.shape[0]))
+            + _dicom_element(0x0028, 0x0011, b"US", struct.pack("<H", pixels.shape[1]))
+            + _dicom_element(0x0028, 0x0100, b"US", struct.pack("<H", 16))
+            + _dicom_element(0x0028, 0x0103, b"US",
+                             struct.pack("<H", int(pixels.dtype == np.int16)))
+            + _dicom_element(0x0028, 0x1052, b"DS", repr(float(intercept)).encode())
+            + _dicom_element(0x0028, 0x1053, b"DS", repr(float(slope)).encode())
+            + _dicom_element(0x7FE0, 0x0010, b"OW", pixels.astype(pixels.dtype.newbyteorder("<"))
+                             .tobytes()))
+    with open(path, "wb") as f:
+        f.write(b"\x00" * 128 + b"DICM"
+                + _dicom_element(0x0002, 0x0000, b"UL", struct.pack("<I", len(meta)))
+                + meta + data)
+
+
+def write_nifti_gz(path: str, vol: np.ndarray) -> None:
+    """A gzipped NIfTI-1 volume of int16 or uint8 `vol` [X, Y, Z]."""
+    hdr = bytearray(348)
+    struct.pack_into("<i", hdr, 0, 348)
+    struct.pack_into("<8h", hdr, 40, 3, *vol.shape, 1, 1, 1, 1)
+    struct.pack_into("<hh", hdr, 70, {np.dtype(np.int16): 4, np.dtype(np.uint8): 2}[vol.dtype],
+                     8 * vol.itemsize)
+    struct.pack_into("<4f", hdr, 76, 1.0, 1.25, 1.25, 1.37)
+    struct.pack_into("<fff", hdr, 108, 352.0, 0.0, 0.0)
+    hdr[344:348] = b"n+1\x00"
+    with gzip.open(path, "wb") as f:
+        f.write(bytes(hdr) + b"\x00" * 4 + vol.astype(vol.dtype.newbyteorder("<"))
+                .tobytes(order="F"))
+
+
+def _organ(rng, h, w, scale=1.0):
+    """A smooth field (-1..1) and an ellipse mask inside it."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    cy, cx = h * rng.uniform(0.4, 0.6), w * rng.uniform(0.35, 0.55)
+    inside = (((yy - cy) / (h * rng.uniform(0.12, 0.2) * scale)) ** 2
+              + ((xx - cx) / (w * rng.uniform(0.15, 0.25) * scale)) ** 2) < 1
+    field = np.sin(yy / rng.uniform(15, 40)) * np.cos(xx / rng.uniform(15, 40))
+    return field, inside
+
+
+def write_shipped_phantoms(root: str, rng) -> dict:
+    """CHAOS CT and MR, MSD Task02_Heart volumes and MoNuSAC tiles under
+    `root`, in each dataset's layout; returns a few written arrays to check
+    the readers against."""
+    written = {}
+    ct = os.path.join(root, "CHAOS", "CT_data_batch")
+    n = CHAOS_CT["hw"]
+    for case in range(CHAOS_CT["cases"]):
+        d = os.path.join(ct, str(case + 1), "DICOM_anon")
+        g = os.path.join(ct, str(case + 1), "Ground")
+        os.makedirs(d)
+        os.makedirs(g)
+        for i in range(CHAOS_CT["slices"]):
+            field, liver = _organ(rng, n, n, 0.6 + 0.5 * np.sin(np.pi * i / CHAOS_CT["slices"]))
+            _, body = _organ(rng, n, n, 2.3)
+            hu = np.where(body, 40 + 30 * field + 60 * liver, -1000) + 20 * rng.randn(n, n)
+            raw = (hu + 1024).astype(np.int16)            # stored = HU - intercept
+            write_dicom(os.path.join(d, f"IMG-{case + 1:04d}-{i + 1:05d}.dcm"), raw, 1.0,
+                        -1024.0)
+            write_png_l(os.path.join(g, f"liver_GT_{i:03d}.png"), 255.0 * liver)
+            if case == i == 0:
+                written["ct_raw"], written["ct_mask"] = raw, (255 * liver).astype(np.uint8)
+    mr = os.path.join(root, "CHAOS", "MR_data_batch1", "1")
+    m = CHAOS_MR["hw"]
+    for series, dup in (("T1DUAL", True), ("T2SPIR", False)):
+        d, g = os.path.join(mr, series, "DICOM_anon"), os.path.join(mr, series, "Ground")
+        os.makedirs(d)
+        os.makedirs(g)
+        for i in range(CHAOS_MR["slices"]):
+            field, liver = _organ(rng, m, m)
+            _, kidney = _organ(rng, m, m, 0.4)
+            px = np.clip(300 + 150 * field + 400 * liver + 30 * rng.randn(m, m), 0, None)
+            write_dicom(os.path.join(d, f"IMG-0001-{i + 1:05d}.dcm"), px.astype(np.uint16),
+                        1.0, 0.0)
+            ident = "%03d" % ((i + 2) // 2) if dup else f"{i + 1:03d}"
+            if not dup or i % 2 == 0:                     # in/out phase share a mask
+                write_png_l(os.path.join(g, f"liver_{ident}.png"),
+                            np.where(kidney, 160.0, np.where(liver, 80.0, 0.0)))
+    task = os.path.join(root, "Task02_Heart")
+    h = HEART["hw"]
+    for sub in ("imagesTr", "labelsTr"):
+        os.makedirs(os.path.join(task, sub))
+    for v in range(HEART["volumes"]):
+        vols, labs = [], []
+        for _ in range(HEART["slices"]):
+            field, atrium = _organ(rng, h, h, 0.7)
+            vols.append(np.clip(200 + 150 * field + 500 * atrium + 40 * rng.randn(h, h),
+                                0, 1600))
+            labs.append(atrium)
+        vol = np.stack(vols, -1).astype(np.int16)
+        write_nifti_gz(os.path.join(task, "imagesTr", f"la_{v:03d}.nii.gz"), vol)
+        write_nifti_gz(os.path.join(task, "labelsTr", f"la_{v:03d}.nii.gz"),
+                       np.stack(labs, -1).astype(np.uint8))
+        if v == 0:
+            written["heart_slice0"] = vol[..., 0]
+    mon = os.path.join(root, "MoNuSAC", "MoNuSAC_cleaned")
+    os.makedirs(os.path.join(mon, "images"))
+    os.makedirs(os.path.join(mon, "masks"))
+    mh, mw = MONUSAC["hw"]
+    for i in range(MONUSAC["images"]):
+        field, nuclei = _organ(rng, mh, mw, 0.5)
+        base = 180 + 40 * field - 90 * nuclei
+        rgb = np.stack([base + 20, base - 30, base + 10], -1) + 8 * rng.randn(mh, mw, 3)
+        rgb = np.clip(rgb, 0, 255).astype(np.uint8)
+        write_png(os.path.join(mon, "images", f"tile_{i:02d}.png"), rgb)
+        write_png(os.path.join(mon, "masks", f"tile_{i:02d}.png"),
+                  (255 * nuclei).astype(np.uint8))
+        if i == 0:
+            written["monusac_rgb"] = rgb
+    return written
+
+
+def _decode_ms(fn, paths) -> float:
+    """Mean ms of fn(path) over up to DECODE_REPS of `paths`."""
+    times = []
+    for path in paths[:DECODE_REPS]:
+        t0 = time.perf_counter()
+        fn(path)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.mean(times))
+
+
+def time_batches(dataset, bs: int, shape, labels) -> dict:
+    """ms per augmented batch of `bs`, serial and with the default pool of
+    threads; each batch of `shape` with labels within `labels`."""
+    out = {}
+    for workers in (0, None):
+        loader = DataLoader(dataset, bs, shuffle=True, drop_last=True, workers=workers)
+        it = iter(loader)
+        times = []
+        for _ in range(min(LOADER_BATCHES, len(loader))):
+            t0 = time.perf_counter()
+            batch = next(it)
+            times.append((time.perf_counter() - t0) * 1e3)
+        check(batch["image"].shape == shape and np.isfinite(batch["image"]).all()
+              and set(np.unique(batch["label"])) <= set(labels),
+              f"batch {batch['image'].shape} (want {shape}), labels "
+              f"{np.unique(batch['label'])} (want within {labels})")
+        out[f"workers{loader.workers}"] = float(np.mean(times))
+    return out
+
+
+def run_shipped_configs(dev, expect: dict, work: str, seed: int) -> dict:
+    """The other shipped configs on phantoms in their own layouts: the
+    readers checked and timed, the augmented loaders timed, search_arc on
+    senas_chaos.yml for 1 epoch at full width (K1a-K1d launches held to the
+    count), train_model on senas_heart.yml for 1 epoch and testing_model on
+    its best checkpoint, and a batch of monusac and chaos_mr."""
+    root = os.path.join(work, "data")
+    t0 = time.perf_counter()
+    written = write_shipped_phantoms(root, np.random.RandomState(seed + 15))
+    phantom_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    extract_task(os.path.join(root, "Task02_Heart"))
+    extract_s = time.perf_counter() - t0
+
+    # the readers on this machine, against what was written
+    ct_dir = os.path.join(root, "CHAOS", "CT_data_batch", "1")
+    raw, slope, intercept = read_dicom_pixels(
+        os.path.join(ct_dir, "DICOM_anon", "IMG-0001-00001.dcm"))
+    check(np.array_equal(raw, written["ct_raw"]) and (slope, intercept) == (1.0, -1024.0),
+          "the DICOM reader does not give back the written slice")
+    check(np.array_equal(read_image(os.path.join(ct_dir, "Ground", "liver_GT_000.png"), "L"),
+                         written["ct_mask"]), "the PNG reader does not give back the mask")
+    heart_png = os.path.join(root, "Task02_Heart", "imagesTr", "la_000", "0.png")
+    check(np.array_equal(read_image(heart_png, "L"),
+                         float_to_l(written["heart_slice0"].astype(np.float64))),
+          "the heart slice's PNG is not Pillow's F-to-L of the volume's slice")
+    check(np.array_equal(read_nifti(os.path.join(root, "Task02_Heart", "imagesTr",
+                                                 "la_000.nii.gz"))[..., 0],
+                         written["heart_slice0"]), "the NIfTI reader does not give back "
+          "the written volume")
+    rgb = written["monusac_rgb"].astype(np.uint32)
+    luma = ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000)
+            >> 16).astype(np.uint8)
+    mon_png = os.path.join(root, "MoNuSAC", "MoNuSAC_cleaned", "images", "tile_00.png")
+    check(np.array_equal(read_image(mon_png, "L"), luma), "MoNuSAC's luma is not Pillow's")
+
+    dicoms = sorted(os.path.join(ct_dir, "DICOM_anon", f)
+                    for f in os.listdir(os.path.join(ct_dir, "DICOM_anon")))
+    masks = sorted(os.path.join(ct_dir, "Ground", f)
+                   for f in os.listdir(os.path.join(ct_dir, "Ground")))
+    heart_slices = [os.path.join(os.path.dirname(heart_png), f"{i}.png")
+                    for i in range(HEART["slices"])]
+    mon_dir = os.path.dirname(mon_png)
+    tiles = sorted(os.path.join(mon_dir, f) for f in os.listdir(mon_dir))
+    decode = {"chaos_dicom": _decode_ms(read_dicom_pixels, dicoms),
+              "chaos_mask_png": _decode_ms(lambda p: read_image(p, "L"), masks),
+              "heart_png": _decode_ms(lambda p: read_image(p, "L"), heart_slices),
+              "monusac_rgb_png_as_l": _decode_ms(lambda p: read_image(p, "L"), tiles)}
+
+    chaos = get_dataset("chaos", path=root, mode="train")
+    heart = get_dataset("heart", path=root, mode="train")
+    monusac = get_dataset("monusac", path=root, mode="train")
+    chaos_mr = get_dataset("chaos_mr", path=root, mode="train")
+    hh, hw = heart.spec.crop_size
+    batches = {"chaos": time_batches(chaos, 8, (8, HW, HW, 1), {0, 1}),
+               "heart": time_batches(heart, 12, (12, hh, hw, 1), {0, 1}),
+               "monusac": time_batches(monusac, 8, (8, HW, HW, 1), {0, 1}),
+               "chaos_mr": time_batches(chaos_mr, 8, (8, HW, HW, 1), {0, 1, 2, 3, 4})}
+    log(f"shipped configs' phantoms written in {phantom_s:.2f} s ({CHAOS_CT}, {CHAOS_MR}, "
+        f"{HEART}, {MONUSAC}); heart extraction {extract_s:.2f} s for "
+        f"{HEART['volumes'] * HEART['slices']} slices; decode ms per slice {decode}; ms per "
+        f"augmented batch {batches}")
+    labels = np.unique(next(iter(DataLoader(chaos_mr, 8, workers=0)))["label"])
+    check(len(labels) >= 2, f"the chaos_mr batch has labels {labels}")
+
+    # search_arc on CHAOS at full width
+    s = load_config(CHAOS_CONFIG)["searching"]
+    same = ("init_channels", "depth", "meta_node_num", "double_down_channel",
+            "deep_supervision")
+    check(all(s[k] == load_config(CONFIG)["searching"][k] for k in same),
+          f"senas_chaos.yml's search geometry differs from {CONFIG}'s")
+    n = len(chaos)
+    split = int(np.floor(s["train_portion"] * n))
+    steps, val_batches = split // s["batch_size"], (n - split) // s["batch_size"]
+    do_arch = s["alpha_begin"] <= 0
+    want = {k: steps * per_step(expect, do_arch)[k] + val_batches * expect["eval"][k]
+            for k in KERNELS}
+    log_root = os.path.join(work, "logs")
+    reset_counts()
+    t0 = time.perf_counter()
+    out = _in_process(search_arc.main, "--config", CHAOS_CONFIG, "--data_root", root,
+                      "--epoch", "1", "--log_root", log_root)
+    search_s = time.perf_counter() - t0
+    got = counts()
+    log(f"search_arc on CHAOS CT: {steps} steps (do_arch={do_arch}) and {val_batches} eval "
+        f"batches of {s['batch_size']}; launches {got}, expected {want}")
+    check(got == want, f"search_arc on CHAOS launched {got}, expected {want}")
+    search = _scalars(_run_dir(out))
+    check(all(np.isfinite(v) for v in search.values()), f"CHAOS search scalars {search}")
+    search_ms = 1e3 / search["Train/steps_per_sec"]
+
+    # train_model and testing_model on the heart volumes
+    t = load_config(HEART_CONFIG)["training"]
+    reset_counts()
+    out = _in_process(train_model.main, "--config", HEART_CONFIG, "--data_root", root,
+                      "--epoch", "1", "--log_root", log_root)
+    train_dir = _run_dir(out)
+    train = _scalars(train_dir)
+    check(all(np.isfinite(v) for v in train.values()), f"heart train scalars {train}")
+    train_ms = 1e3 / train["Train/steps_per_sec"]
+    ckpt = os.path.join(train_dir, "ckpt")
+    out = _in_process(testing_model.main, "--config", HEART_CONFIG, "--data_root", root,
+                      "--resume", ckpt, "--log_root", log_root, "--batch_size",
+                      str(t["batch_size"]))
+    tested = ast.literal_eval(out.strip().splitlines()[-1])
+    check(abs(tested["dice"] - train["Val/dice"]) <= 0.01,
+          f"testing_model dice {tested['dice']} on heart, the run's {train['Val/dice']}")
+    fixed_launches = counts()
+    check(not any(fixed_launches.values()), f"the heart CLIs launched {fixed_launches}")
+    log(f"shipped configs: CHAOS search {search_ms:.2f} ms/step, prefetch wait "
+        f"{search['Train/prefetch_wait_share']:.4f}, val fetch "
+        f"{search['Train/val_fetch_share']:.4f}, {search_s:.1f} s in all; heart train "
+        f"{train_ms:.2f} ms/step (batch {t['batch_size']} of {hh}x{hw}), prefetch wait "
+        f"{train['Train/prefetch_wait_share']:.4f}; heart test dice {tested['dice']:.4f}")
+    return dict(launches=got, expected=want, phantom_s=phantom_s, extract_s=extract_s,
+                decode_ms=decode, batch_ms=batches, search_ms_per_step=search_ms,
+                search_prefetch_wait_share=search["Train/prefetch_wait_share"],
+                search_val_fetch_share=search["Train/val_fetch_share"], search_s=search_s,
+                train_ms_per_step=train_ms,
+                train_prefetch_wait_share=train["Train/prefetch_wait_share"], test=tested)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1890,6 +2207,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as work:
         data = paths["promise12_data"] = run_promise12_path(dev, evald["expect"], work,
                                                             args.seed, found)
+    with tempfile.TemporaryDirectory() as work:
+        shipped = paths["shipped_configs"] = run_shipped_configs(dev, evald["expect"], work,
+                                                                 args.seed)
 
     kernels = []
     for name, k in KERNELS.items():
@@ -1943,6 +2263,13 @@ def main(argv=None) -> int:
         f"{data['search_val_fetch_share']:.4f}; fixed {data['train_ms_per_step']:.2f} ms/step, "
         f"prefetch wait {data['train_prefetch_wait_share']:.4f}; launches {data['launches']}; "
         f"contour grid {data['contour_grid']}; libraries that import {found}")
+    log(f"shipped configs summary: decode ms/slice {shipped['decode_ms']}; ms/batch "
+        f"{shipped['batch_ms']}; heart extraction {shipped['extract_s']:.2f} s; CHAOS search "
+        f"{shipped['search_ms_per_step']:.2f} ms/step, prefetch wait "
+        f"{shipped['search_prefetch_wait_share']:.4f}, val fetch "
+        f"{shipped['search_val_fetch_share']:.4f}; heart train "
+        f"{shipped['train_ms_per_step']:.2f} ms/step, prefetch wait "
+        f"{shipped['train_prefetch_wait_share']:.4f}; launches {shipped['launches']}")
     log(f"card: {smi}; total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

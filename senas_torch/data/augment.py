@@ -1,29 +1,42 @@
 """Joint (image, mask) augmentations and the cache build's preprocessing.
 
-A port of the parts of `senas_tpu/data/augment.py` that the PROMISE12 data
-path runs: `Compose`, the two flips, `RandomTranslate`,
-`RandomElasticTransform`, `equalize_adapthist` and `smooth_images`. Images
-are float32 [H,W] or [H,W,C], masks uint8 [H,W]. Where the JAX package
-calls cv2, this module calls `senas_torch.data.imgproc`, which computes the
-same numbers without cv2.
+A port of the parts of `senas_tpu/data/augment.py` that the loaders run:
+`Compose`, the two flips, `RandomTranslate`, `RandomElasticTransform`, the
+resize and crop family (`Scale`, `FreeScale`, `RandomZoom`, `RandomCrop`,
+`CenterCrop`, `RandomSizedCrop`, `RandomSized`, `Pad`), and the cache
+build's `equalize_adapthist` and `smooth_images`. Images are float32 [H,W]
+or [H,W,C], masks uint8 [H,W]. Where the JAX package calls cv2, this module
+calls `senas_torch.data.imgproc`, which computes the same numbers without
+cv2.
 
 The transforms draw from Python's `random` and numpy's global `np.random`,
 in the JAX package's order and shapes, so that under the same
 `random.seed` and `np.random.seed` both packages give the same sample.
 
-The JAX package's other transforms (rotation, the resize and crop family,
-the colour transforms) belong to the loaders of M9b (ROADMAP.md Queue 1)
-and raise here until then.
+The JAX package's rotation (`cv2.warpAffine`) and colour transforms
+(`cv2.cvtColor` for the hue) are not ported: no loader or runner of either
+package calls them, and `get_composed_augmentations` raises on their names
+(M9c, ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
 
+import math
+import numbers
 import random
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 from senas_torch.data import imgproc
+
+
+def _resize(img: np.ndarray, size_wh: Tuple[int, int], nearest: bool) -> np.ndarray:
+    """cv2.resize(img, size_wh) with INTER_NEAREST or INTER_LINEAR."""
+    w, h = size_wh
+    if nearest:
+        return imgproc.resize_nearest(img, h, w)
+    return imgproc.resize_bilinear(img, h, w)
 
 
 class Compose:
@@ -87,7 +100,8 @@ class RandomTranslate:
 class RandomElasticTransform:
     """Simard-style elastic deformation with probability p (the
     reference's augmentation.py:376-425). The displacement fields are
-    blurred uniform noise; the image is resampled bilinearly and the mask
+    blurred uniform noise; the image (each of its channels alike) is
+    resampled bilinearly and the mask
     by nearest neighbour, zero outside. As in the JAX package, the map of
     row coordinates goes where cv2 takes the column map, and the two
     converted maps are handed over in swapped order (which cv2 accepts)."""
@@ -101,9 +115,6 @@ class RandomElasticTransform:
         if random.random() >= self.p:
             return img, mask
         h, w = img.shape[:2]
-        if img.size != h * w:
-            raise NotImplementedError("the elastic transform of a multi-channel image comes "
-                                      "with the loaders of M9b (ROADMAP.md Queue 1)")
         alpha = self.alpha * h
         sigma = self.sigma * h
         blur_size = int(4 * sigma) | 1
@@ -112,9 +123,172 @@ class RandomElasticTransform:
         x, y = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
         maps = imgproc.convert_maps_16sc2((x + dx).astype(np.float32),
                                           (y + dy).astype(np.float32))
-        img2 = imgproc.remap_bilinear(img.reshape(h, w), maps).reshape(img.shape)
+        src = img.reshape(h, w) if img.size == h * w else img
+        img2 = imgproc.remap_bilinear(src, maps).reshape(img.shape)
         mask2 = imgproc.remap_nearest(mask.reshape(h, w), maps).reshape(mask.shape)
         return img2, mask2
+
+
+class Scale:
+    """Resize the shorter side to `size`, keeping the aspect (the
+    reference's augmentation.py:217-242)."""
+
+    def __init__(self, size: int):
+        self.size = size
+
+    def __call__(self, img, mask):
+        h, w = img.shape[:2]
+        if (w >= h and w == self.size) or (h >= w and h == self.size):
+            return img, mask
+        if w > h:
+            ow = self.size
+            oh = int(self.size * h / w)
+        else:
+            oh = self.size
+            ow = int(self.size * w / h)
+        return _resize(img, (ow, oh), False), _resize(mask, (ow, oh), True)
+
+
+class FreeScale:
+    def __init__(self, size: Tuple[int, int]):
+        self.size = size  # (h, w)
+
+    def __call__(self, img, mask):
+        wh = (self.size[1], self.size[0])
+        return _resize(img, wh, False), _resize(mask, wh, True)
+
+
+class RandomZoom:
+    def __init__(self, zoom: Tuple[float, float] = (0.8, 1.2)):
+        self.zoom = zoom
+
+    def __call__(self, img, mask):
+        h, w = img.shape[:2]
+        z = random.uniform(*self.zoom)
+        nh, nw = int(h * z), int(w * z)
+        img2 = _resize(img, (nw, nh), False)
+        mask2 = _resize(mask, (nw, nh), True)
+        if z >= 1:  # centre crop back
+            y0, x0 = (nh - h) // 2, (nw - w) // 2
+            return img2[y0:y0 + h, x0:x0 + w], mask2[y0:y0 + h, x0:x0 + w]
+        # pad back
+        py, px = h - nh, w - nw
+        pt = ((py // 2, py - py // 2), (px // 2, px - px // 2))
+        if img.ndim == 3:
+            return np.pad(img2, pt + ((0, 0),)), np.pad(mask2, pt)
+        return np.pad(img2, pt), np.pad(mask2, pt)
+
+
+class RandomCrop:
+    def __init__(self, size, padding: int = 0):
+        if isinstance(size, numbers.Number):
+            self.size = (int(size), int(size))
+        else:
+            self.size = size
+        self.padding = padding
+
+    def __call__(self, img, mask):
+        if self.padding > 0:
+            p = self.padding
+            pt = ((p, p), (p, p))
+            img = np.pad(img, pt + ((0, 0),) if img.ndim == 3 else pt)
+            mask = np.pad(mask, pt)
+        h, w = img.shape[:2]
+        th, tw = self.size
+        if w == tw and h == th:
+            return img, mask
+        if w < tw or h < th:
+            return _resize(img, (tw, th), False), _resize(mask, (tw, th), True)
+        x1 = random.randint(0, w - tw)
+        y1 = random.randint(0, h - th)
+        return img[y1:y1 + th, x1:x1 + tw], mask[y1:y1 + th, x1:x1 + tw]
+
+
+class CenterCrop:
+    def __init__(self, size, presize: bool = False):
+        if isinstance(size, numbers.Number):
+            self.size = (int(size), int(size))
+        else:
+            self.size = size  # (w, h), the reference's convention
+        self.presize = presize
+
+    def __call__(self, img, mask):
+        h, w = img.shape[:2]
+        tw, th = self.size
+        if self.presize or w < tw or h < th:
+            img = _resize(img, (tw, th), False)
+            mask = _resize(mask, (tw, th), True)
+            h, w = img.shape[:2]
+        x1 = int(round((w - tw) / 2.0))
+        y1 = int(round((h - th) / 2.0))
+        return img[y1:y1 + th, x1:x1 + tw], mask[y1:y1 + th, x1:x1 + tw]
+
+
+class RandomSizedCrop:
+    """Area 0.7-1.0, aspect 0.6-1.4, 10 attempts, then the centre crop
+    (the reference's augmentation.py:277-317)."""
+
+    def __init__(self, size, presize: bool = False):
+        if isinstance(size, numbers.Number):
+            self.size = (int(size), int(size))
+        else:
+            self.size = size  # (w, h)
+        self.presize = presize
+        self.center_crop = CenterCrop(self.size, self.presize)
+
+    def __call__(self, img, mask):
+        h, w = img.shape[:2]
+        tw, th = self.size
+        if self.presize or w < tw or h < th:
+            img = _resize(img, (tw, th), False)
+            mask = _resize(mask, (tw, th), True)
+            h, w = img.shape[:2]
+        for _ in range(10):
+            area = w * h
+            target_area = random.uniform(0.7, 1.0) * area
+            aspect = random.uniform(0.6, 1.4)
+            cw = int(round(math.sqrt(target_area * aspect)))
+            ch = int(round(math.sqrt(target_area / aspect)))
+            if tw > th and cw < ch:
+                cw, ch = ch, cw
+            elif tw < th and cw > ch:
+                cw, ch = ch, cw
+            if cw <= w and ch <= h:
+                x1 = random.randint(0, w - cw)
+                y1 = random.randint(0, h - ch)
+                imgc = img[y1:y1 + ch, x1:x1 + cw]
+                maskc = mask[y1:y1 + ch, x1:x1 + cw]
+                return _resize(imgc, (tw, th), False), _resize(maskc, (tw, th), True)
+        return self.center_crop(img, mask)
+
+
+class RandomSized:
+    def __init__(self, size):
+        self.size = size
+        self.scale = Scale(size)
+        self.crop = RandomCrop(size)
+
+    def __call__(self, img, mask):
+        h, w = img.shape[:2]
+        nw = int(random.uniform(0.5, 2) * w)
+        nh = int(random.uniform(0.5, 2) * h)
+        img = _resize(img, (nw, nh), False)
+        mask = _resize(mask, (nw, nh), True)
+        return self.crop(*self.scale(img, mask))
+
+
+class Pad:
+    def __init__(self, padding: int, fill=0):
+        self.padding = padding
+        self.fill = fill
+
+    def __call__(self, img, mask):
+        p = self.padding
+        pt = ((p, p), (p, p))
+        img = np.pad(img, pt + ((0, 0),) if img.ndim == 3 else pt,
+                     constant_values=self.fill)
+        mask = np.pad(mask, pt, constant_values=self.fill)
+        return img, mask
 
 
 # ---------------------------------------------------------------------------
@@ -174,22 +348,27 @@ def _curvature_flow(img: np.ndarray, t_step: float, n_iter: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 key2aug = {
+    "rcrop": RandomCrop,
     "hflip": RandomHorizontallyFlip,
     "vflip": RandomVerticallyFlip,
+    "scale": Scale,
+    "rsize": RandomSized,
+    "rsizecrop": RandomSizedCrop,
     "translate": RandomTranslate,
+    "ccrop": CenterCrop,
     "elastic": RandomElasticTransform,
+    "zoom": RandomZoom,
 }
-# the JAX package's other names, which the loaders of M9b bring
-WAITING_FOR_M9B = ("gamma", "hue", "brightness", "saturation", "contrast", "rcrop", "scale",
-                   "rsize", "rsizecrop", "rotate", "ccrop", "zoom")
+# the JAX package's rotation and colour transforms, which no loader calls
+WAITING_FOR_M9C = ("gamma", "hue", "brightness", "saturation", "contrast", "rotate")
 
 
 def get_composed_augmentations(aug_dict: Optional[dict]) -> Optional[Compose]:
     if aug_dict is None:
         return None
-    waiting = [k for k in aug_dict if k in WAITING_FOR_M9B]
+    waiting = [k for k in aug_dict if k in WAITING_FOR_M9C]
     if waiting:
         raise NotImplementedError(
-            f"augmentations {waiting} are not ported yet; they come with the loaders "
-            "of M9b (ROADMAP.md Queue 1)")
+            f"augmentations {waiting} are not ported yet; they come with M9c "
+            "(ROADMAP.md Queue 1)")
     return Compose([key2aug[k](v) for k, v in aug_dict.items()])

@@ -3,8 +3,11 @@
 A numpy copy of `senas_tpu/data/base.py`, kept here so that the port
 imports nothing of the JAX package. Batches are NHWC float32 images and
 int32 label maps; the runner moves them to the device. The datasets
-registered are `synthetic` and `promise12`; asking for another raises until
-its loader is ported (M9b, ROADMAP.md Queue 1).
+registered are `synthetic`, `promise12` (`data/promise12.py`), `chaos`,
+`chaos_mr`, `ultrasound_nerve`, `bladder`, `camvid`
+(`data/png_datasets.py`), `heart`, `spleen`, `pancreas`, `hippo`
+(`data/msd.py`) and `monusac` (`data/monusac.py`): every dataset of SPECS.
+The JAX package's generic loaders (`GENERIC_NOT_PORTED`) raise.
 """
 
 from __future__ import annotations
@@ -215,6 +218,11 @@ class PrefetchLoader:
 
 _FACTORIES: Dict[str, Callable[..., SegmentationDataset]] = {}
 
+# senas_tpu/data/generic.py's datasets: they decode JPEG and resize with
+# Pillow's own resampling (generic.py:47-91), which the port has not
+GENERIC_NOT_PORTED = ("ade20k", "pascal_voc", "pascal_aug", "pcontext", "coco", "minc",
+                      "imagenet")
+
 
 def register_dataset(name: str):
     def deco(fn):
@@ -234,17 +242,27 @@ def get_dataset(name: str, path: Optional[str] = None, **kwargs) -> Segmentation
     name = name.lower()
     _ensure_registered()
     if name not in _FACTORIES:
-        if name in SPECS:
+        if name in GENERIC_NOT_PORTED:
             raise NotImplementedError(
-                f"dataset {name!r} is not ported yet: its loader comes with M9b "
-                "(ROADMAP.md Queue 1); the port has 'promise12' and 'synthetic'")
+                f"dataset {name!r} is not ported yet: the generic loaders "
+                f"{GENERIC_NOT_PORTED} decode JPEG and resize with Pillow's own "
+                "resampling, which the port has not (ROADMAP.md Queue 1)")
         raise KeyError(f"unknown dataset {name!r}; known: {sorted(_FACTORIES)}")
     return _FACTORIES[name](root=path, **kwargs)
 
 
+def require_root(name: str, root: Optional[str]) -> str:
+    """The data root of dataset `name`; None raises (the CLIs' --data_root)."""
+    if root is None:
+        raise ValueError(f"the {name} dataset reads its files under a data root: "
+                         "pass --data_root")
+    return os.path.expanduser(root)
+
+
 def _ensure_registered():
     # import side-effect registration, deferred to avoid import cycles
-    from senas_torch.data import promise12, synthetic  # noqa: F401
+    from senas_torch.data import (monusac, msd, png_datasets, promise12,  # noqa: F401
+                                  synthetic)
 
 
 DATASETS = SPECS

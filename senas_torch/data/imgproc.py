@@ -6,11 +6,14 @@ function here computes what its cv2 call computes, down to cv2's own
 rounding, and `tests/test_torch_imgproc.py` holds each to cv2:
 
 - `resize_nearest`: `cv2.resize(..., interpolation=INTER_NEAREST)`;
+- `resize_bilinear`: `cv2.resize(..., interpolation=INTER_LINEAR)` of a
+  float32 image, as x86 builds of cv2 compute it (through Intel IPP);
 - `clahe_u16`: `cv2.createCLAHE(clip, grid).apply` on a uint16 image;
 - `gaussian_blur`: `cv2.GaussianBlur` on a float64 image;
 - `convert_maps_16sc2`: `cv2.convertMaps(map_x, map_y, CV_16SC2)`;
 - `remap_bilinear`, `remap_nearest`: `cv2.remap` of those fixed-point maps,
-  INTER_LINEAR and INTER_NEAREST, BORDER_CONSTANT with 0.
+  INTER_LINEAR and INTER_NEAREST, BORDER_CONSTANT with 0 (the bilinear one
+  of a multi-channel image too).
 """
 
 from __future__ import annotations
@@ -34,6 +37,63 @@ def resize_nearest(img: np.ndarray, rows: int, cols: int) -> np.ndarray:
         return np.minimum(np.floor(np.arange(dst) * inv).astype(np.int64), src - 1)
 
     return img[index(rows, img.shape[0])[:, None], index(cols, img.shape[1])[None, :]]
+
+
+def fma32(x: np.ndarray, y: np.ndarray, z: np.ndarray) -> np.ndarray:
+    """x * y + z of float32 arrays rounded once to float32, as a fused
+    multiply-add instruction computes it. The product is exact in float64;
+    the float64 sum is rounded once more only where it lands exactly half
+    way between two float32s with a nonzero remainder, and is then moved
+    toward the remainder (so the result is exact for normal float32s)."""
+    p = np.asarray(x, np.float64) * np.asarray(y, np.float64)
+    z = np.asarray(z, np.float64)
+    s = p + z
+    bv = s - p
+    err = (p - (s - bv)) + (z - bv)          # s + err == p + z exactly (TwoSum)
+    tie = (s.view(np.uint64) & np.uint64(0x1FFFFFFF)) == np.uint64(0x10000000)
+    s = np.where(tie & (err != 0), np.nextafter(s, np.where(err > 0, np.inf, -np.inf)), s)
+    return s.astype(np.float32)
+
+
+def _linear_taps(dst: int, src: int):
+    """Source index and float32 weight of each destination index, as IPP's
+    linear resize takes them: x = (d + 0.5) * (src / dst) - 0.5 in double,
+    the weight x - floor(x) rounded to float32 once; both taps clamped to
+    the image (border replicate)."""
+    x = (np.arange(dst, dtype=np.float64) + 0.5) * (src / dst) - 0.5
+    lo = np.floor(x)
+    weight = (x - lo).astype(np.float32)
+    lo = lo.astype(np.int64)
+    return np.clip(lo, 0, src - 1), np.clip(lo + 1, 0, src - 1), weight
+
+
+def resize_bilinear(img: np.ndarray, rows: int, cols: int) -> np.ndarray:
+    """cv2.resize(img, (cols, rows), interpolation=INTER_LINEAR) of a
+    float32 [H, W] or [H, W, C] image.
+
+    cv2 copies an image of the same size. Otherwise x86 builds of cv2 hand
+    float32 images to Intel IPP (before cv2's own code and its INTER_AREA
+    path for 2x downscales), whose arithmetic is this: along the width
+    first, then the height, each output is a + w * (b - a) with one fused
+    multiply-add (`fma32`), b - a rounded to float32 first, the taps and
+    weights of `_linear_taps`. That equals cv2 bit for bit at every ratio
+    the loaders give (`tests/test_torch_imgproc.py`). One case differs by
+    up to 2 ulp: a 3-channel image upscaled 9x or more in width (5 or more
+    border columns a side), where IPP computes some border columns of
+    channels 0-1 without the fused product."""
+    img = np.asarray(img)
+    if img.dtype != np.float32 or img.ndim not in (2, 3):
+        raise ValueError(f"resize_bilinear takes a float32 [H, W] or [H, W, C] image, "
+                         f"got {img.dtype} {img.shape}")
+    if img.shape[:2] == (rows, cols):
+        return img.copy()
+    x0, x1, wx = _linear_taps(cols, img.shape[1])
+    y0, y1, wy = _linear_taps(rows, img.shape[0])
+    extra = (None,) * (img.ndim - 2)
+    a, b = img[:, x0], img[:, x1]
+    along = fma32(b - a, np.broadcast_to(wx[(None, slice(None)) + extra], a.shape), a)
+    a, b = along[y0], along[y1]
+    return fma32(b - a, np.broadcast_to(wy[(slice(None), None) + extra], a.shape), a)
 
 
 def clahe_u16(u16: np.ndarray, clip_limit: float, grid: Tuple[int, int]) -> np.ndarray:
@@ -154,17 +214,20 @@ def convert_maps_16sc2(map_x: np.ndarray, map_y: np.ndarray):
 
 
 def _gather(img: np.ndarray, y: np.ndarray, x: np.ndarray) -> np.ndarray:
-    """img[y, x], 0 where (y, x) lies outside the image."""
+    """img[y, x] (with img's channels, if any), 0 where (y, x) lies outside
+    the image."""
     h, w = img.shape[:2]
     inside = (y >= 0) & (y < h) & (x >= 0) & (x < w)
     out = img[np.clip(y, 0, h - 1), np.clip(x, 0, w - 1)]
+    inside = inside.reshape(inside.shape + (1,) * (img.ndim - 2))
     return np.where(inside, out, np.zeros((), img.dtype))
 
 
 def remap_bilinear(img: np.ndarray, maps) -> np.ndarray:
-    """cv2.remap(img, xy, frac, INTER_LINEAR, BORDER_CONSTANT) of a 2-D
-    float32 image: the four neighbours of each integer part weighted by the
-    float32 products of (1 - f/32, f/32), summed in cv2's order."""
+    """cv2.remap(img, xy, frac, INTER_LINEAR, BORDER_CONSTANT) of a float32
+    [H, W] or [H, W, C] image: the four neighbours of each integer part
+    weighted by the float32 products of (1 - f/32, f/32), summed in cv2's
+    order, the same weights for every channel."""
     xy, frac = maps
     img = np.asarray(img, np.float32)
     x, y = xy[..., 0].astype(np.int64), xy[..., 1].astype(np.int64)
@@ -173,6 +236,8 @@ def remap_bilinear(img: np.ndarray, maps) -> np.ndarray:
     one = np.float32(1)
     w00, w01 = (one - fy) * (one - fx), (one - fy) * fx
     w10, w11 = fy * (one - fx), fy * fx
+    if img.ndim == 3:
+        w00, w01, w10, w11 = (wt[..., None] for wt in (w00, w01, w10, w11))
     out = _gather(img, y, x) * w00 + _gather(img, y, x + 1) * w01
     out = out + _gather(img, y + 1, x) * w10
     return (out + _gather(img, y + 1, x + 1) * w11).astype(np.float32)

@@ -22,7 +22,7 @@ import numpy as np
 
 from senas_torch.data import augment as A
 from senas_torch.data import imgproc
-from senas_torch.data.base import SPECS, SegmentationDataset, register_dataset
+from senas_torch.data.base import SPECS, SegmentationDataset, register_dataset, require_root
 from senas_torch.data.io import read_mhd
 
 VAL_CASES = [5, 15, 25, 35, 45]
@@ -90,9 +90,7 @@ class Promise12(SegmentationDataset):
     slice count and `test_file_list` its volumes, in case order."""
 
     def __init__(self, root: str, mode: str = "train"):
-        if root is None:
-            raise ValueError("the promise12 dataset reads PROMISE2012/ under a data root: "
-                             "pass --data_root")
+        root = require_root("promise12", root)
         if mode not in MODES:
             raise ValueError(f"promise12 mode {mode!r}; one of {MODES}")
         self.spec = SPECS["promise12"]

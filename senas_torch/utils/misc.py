@@ -1,13 +1,15 @@
 """Seeding, parameter counting and step timing for the runners.
 
-The parts of `senas_tpu/utils/misc.py` that the search runner uses.
+The parts of `senas_tpu/utils/misc.py` that the runners and the loaders
+use.
 """
 
 from __future__ import annotations
 
+import math
 import random
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -25,6 +27,17 @@ def set_seed(seed: int):
 def calc_parameters_count(model: nn.Module) -> float:
     """Parameter count in M (the reference's utils.py:155)."""
     return sum(p.numel() for p in model.parameters()) / 1e6
+
+
+def create_class_weight(labels_dict: Dict[int, float], mu: float = 0.15) -> List[float]:
+    """Log-scaled class weights, in key order: max(log(mu * total / count),
+    1) (the reference's utils.py:302-310)."""
+    total = sum(labels_dict.values())
+    weights = []
+    for key in sorted(labels_dict):
+        score = math.log(mu * total / float(labels_dict[key]))
+        weights.append(score if score > 1.0 else 1.0)
+    return weights
 
 
 def steady(xs: List[float]) -> List[float]:

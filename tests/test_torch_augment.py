@@ -1,8 +1,10 @@
 """The port's joint augmentations and cache-build preprocessing
 (`senas_torch.data.augment`) against senas_tpu's (which calls cv2), under
-the same `random.seed` and `np.random.seed`: each transform, `Compose` of
-the PROMISE12 train split's four, CLAHE and the curvature flow in both
-packages, native and numpy.
+the same `random.seed` and `np.random.seed`: each transform (the flips,
+translate and elastic of the PROMISE12 path; the resize and crop family of
+the other loaders, on gray and RGB images; the elastic transform of an RGB
+image), `Compose` of the PROMISE12 train split's four, CLAHE and the
+curvature flow in both packages, native and numpy.
 
 Tolerances: images within 2.5e-7 and masks exactly equal (every case here
 came out exactly equal: the port reproduces cv2's rounding); the curvature
@@ -21,9 +23,11 @@ IMG_ATOL = 2.5e-7
 
 
 def _pair(shape, seed):
+    """A float32 image of `shape` ([H, W] or [H, W, C]) and a uint8 [H, W]
+    mask."""
     rs = np.random.RandomState(seed)
     img = rs.randn(*shape).astype(np.float32)
-    mask = (rs.rand(*shape) > 0.6).astype(np.uint8)
+    mask = (rs.rand(*shape[:2]) > 0.6).astype(np.uint8)
     return img, mask
 
 
@@ -59,6 +63,41 @@ def test_transform_matches(make, shape):
     _assert_same(_both(make, shape, seed=7))
 
 
+# the resize and crop family of the other loaders (senas_tpu/data/augment.py
+# :140-298), at sizes that take each branch (crop, resize up and down,
+# presize, pad, the centre-crop fallback of RandomSizedCrop)
+RESIZE_FAMILY = {
+    "scale": lambda A: A.Scale(48),
+    "scale_noop": lambda A: A.Scale(72),
+    "freescale": lambda A: A.FreeScale((40, 56)),
+    "zoom": lambda A: A.RandomZoom((0.8, 1.2)),
+    "zoom_out": lambda A: A.RandomZoom((0.6, 0.9)),
+    "rcrop": lambda A: A.RandomCrop(32),
+    "rcrop_pad": lambda A: A.RandomCrop((40, 30), padding=4),
+    "rcrop_up": lambda A: A.RandomCrop(96),
+    "ccrop": lambda A: A.CenterCrop((48, 40)),
+    "ccrop_presize": lambda A: A.CenterCrop((48, 40), presize=True),
+    "rsizecrop": lambda A: A.RandomSizedCrop((56, 40)),
+    "rsizecrop_tall": lambda A: A.RandomSizedCrop((40, 56)),
+    "rsizecrop_presize": lambda A: A.RandomSizedCrop(64, presize=True),
+    "rsizecrop_fallback": lambda A: A.RandomSizedCrop((64, 8)),
+    "rsized": lambda A: A.RandomSized(48),
+    "pad": lambda A: A.Pad(3, fill=2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RESIZE_FAMILY))
+@pytest.mark.parametrize("shape", [(64, 64), (72, 48), (72, 48, 3)], ids=["square", "tall", "rgb"])
+def test_resize_family_matches(name, shape):
+    _assert_same(_both(RESIZE_FAMILY[name], shape, seed=9, draws=5))
+
+
+@pytest.mark.parametrize("p", [0.5, 1.0])
+def test_elastic_of_an_rgb_image_matches(p):
+    make = lambda A: A.RandomElasticTransform(alpha=1.5, sigma=0.07, p=p)
+    _assert_same(_both(make, (64, 48, 3), seed=4, draws=4))
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_promise12_compose_matches(seed):
     def make(A):
@@ -80,13 +119,21 @@ def test_translate_keeps_a_channel_axis():
 
 
 def test_registry_and_the_transforms_of_m9b():
-    aug = T.get_composed_augmentations({"hflip": 0.5, "translate": (0.1, 0.1)})
+    """M9b brought the resize and crop family; the rotation and the colour
+    transforms wait for M9c."""
+    aug = T.get_composed_augmentations({"hflip": 0.5, "translate": (0.1, 0.1),
+                                        "rsizecrop": 32, "zoom": (0.9, 1.1)})
     assert [type(a) for a in aug.augmentations] == [T.RandomHorizontallyFlip,
-                                                    T.RandomTranslate]
+                                                    T.RandomTranslate, T.RandomSizedCrop,
+                                                    T.RandomZoom]
     assert T.get_composed_augmentations(None) is None
-    assert set(T.key2aug) | set(T.WAITING_FOR_M9B) == set(J.key2aug)
-    with pytest.raises(NotImplementedError, match="M9b"):
-        T.get_composed_augmentations({"rotate": 10})
+    assert set(T.key2aug) | set(T.WAITING_FOR_M9C) == set(J.key2aug)
+    assert not set(T.key2aug) & set(T.WAITING_FOR_M9C)
+    for k in T.key2aug:
+        assert T.key2aug[k].__name__ == J.key2aug[k].__name__, k
+    for name in ("rotate", "hue", "gamma"):
+        with pytest.raises(NotImplementedError, match="M9c"):
+            T.get_composed_augmentations({name: 10})
 
 
 @pytest.mark.parametrize("shape", [(96, 96), (120, 100)])

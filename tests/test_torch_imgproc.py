@@ -1,13 +1,22 @@
 """The port's cv2-free image operations (`senas_torch.data.imgproc`) against
 cv2 itself on seeded inputs, at square and non-square sizes, sizes that the
-CLAHE grid does not divide, and the PROMISE12 path's own sizes (320 x 320
-and 320 x 288 volumes, 256 x 256 crops).
+CLAHE grid does not divide, and the loaders' own sizes (PROMISE12's 320 x
+320 and 320 x 288 volumes and 256 x 256 crops; CHAOS CT's 512 x 512 to
+256 x 256 presize, heart's 256 x 320 crops, hippo's 32 x 48, and the crop
+sizes RandomSizedCrop draws).
 
-Tolerances: `resize_nearest`, `clahe_u16`, `convert_maps_16sc2`,
-`remap_bilinear` and `remap_nearest` are exact (each reproduces cv2's
-integer and float32 arithmetic); `gaussian_blur` within 1e-12 (cv2 and
-scipy sum the 71 taps in another order: 1.1e-16 seen), its kernel within
-1e-16."""
+Tolerances: `resize_nearest`, `resize_bilinear` (gray and RGB), `fma32`,
+`clahe_u16`, `convert_maps_16sc2`, `remap_bilinear` (gray and RGB) and
+`remap_nearest` are exact (each reproduces cv2's integer and float32
+arithmetic, and IPP's for the bilinear resize); `gaussian_blur` within
+1e-12 (cv2 and scipy sum the 71 taps in another order: 1.1e-16 seen), its
+kernel within 1e-16. The one stated limit: an RGB image upscaled 9x or
+more in width, where IPP computes some border columns of channels 0-1
+without a fused multiply-add: at most 2 ulp, on those columns only."""
+
+import math
+import random
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -29,6 +38,115 @@ def test_resize_nearest(src, dst, dtype):
     img = (rs.rand(*src) * 255).astype(dtype)
     want = cv2.resize(img, (dst[1], dst[0]), interpolation=cv2.INTER_NEAREST)
     np.testing.assert_array_equal(imgproc.resize_nearest(img, *dst), want)
+
+
+def _round_f32(q: Fraction) -> np.float32:
+    """The float32 nearest to the rational q (ties to even)."""
+    r = np.float32(float(q))
+    cands = [np.nextafter(r, np.float32(-np.inf)), r, np.nextafter(r, np.float32(np.inf))]
+    dist = [abs(Fraction(float(c)) - q) for c in cands]
+    best = min(dist)
+    picks = [c for c, d in zip(cands, dist) if d == best]
+    if len(picks) > 1:
+        picks = [c for c in picks if not int(np.array(c).view(np.uint32)) & 1]
+    return picks[0]
+
+
+def test_fma32_rounds_once():
+    """x * y + z rounded once to float32, against exact rationals: random
+    operands and the cases where rounding the float64 sum first would land
+    on a tie (1 + 2^-23 + 2^-24 - 2^-70 must round down)."""
+    rs = np.random.RandomState(7)
+    x = (rs.randn(3000) * 10.0 ** rs.randint(-3, 4, 3000)).astype(np.float32)
+    y = rs.rand(3000).astype(np.float32)
+    z = (rs.randn(3000) * 10.0 ** rs.randint(-3, 4, 3000)).astype(np.float32)
+    e = np.float32(2.0 ** -23)
+    x = np.concatenate([x, [1 + e, 1 + e, -(1 + e)]]).astype(np.float32)
+    y = np.concatenate([y, [2.0 ** -24 * (1 - 2.0 ** -23)] * 3]).astype(np.float32)
+    z = np.concatenate([z, [1 + e, 1.0, -(1 + e)]]).astype(np.float32)
+    want = [_round_f32(Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c)))
+            for a, b, c in zip(x, y, z)]
+    got = imgproc.fma32(x, y, z)
+    np.testing.assert_array_equal(got, np.array(want, np.float32))
+    assert got[-3] == 1 + e and got[-1] == -(1 + e)
+    # rounding the float64 sum to float32 is off there
+    assert np.float32(np.float64(x[-3]) * np.float64(y[-3]) + np.float64(z[-3])) != got[-3]
+
+
+def _rsc_sizes(n, w, h, tw, th, seed):
+    """Crop sizes RandomSizedCrop((tw, th)) draws from a w x h image."""
+    random.seed(seed)
+    out = []
+    while len(out) < n:
+        area = w * h * random.uniform(0.7, 1.0)
+        aspect = random.uniform(0.6, 1.4)
+        cw, ch = int(round(math.sqrt(area * aspect))), int(round(math.sqrt(area / aspect)))
+        if (tw > th and cw < ch) or (tw < th and cw > ch):
+            cw, ch = ch, cw
+        if cw <= w and ch <= h:
+            out.append(((ch, cw), (th, tw)))
+    return out
+
+
+RESIZE_CASES = ([((512, 512), (256, 256)),     # CHAOS CT presize: cv2's 2x area path
+                 ((320, 320), (256, 320)),     # heart: crop to 256 x 320
+                 ((320, 320), (256, 256)),     # spleen, pancreas presize
+                 ((35, 51), (32, 48)),         # hippo presize
+                 ((48, 32), (32, 48)),
+                 ((256, 320), (217, 301)),     # a ratio cv2's own code computes otherwise
+                 ((96, 80), (512, 512)),       # bladder's small images up to 512
+                 ((256, 256), (256, 256))]     # the same size: a copy
+                + _rsc_sizes(4, 256, 256, 256, 256, 0)
+                + _rsc_sizes(4, 320, 320, 320, 256, 1))
+
+
+@pytest.mark.parametrize("src,dst", RESIZE_CASES)
+@pytest.mark.parametrize("channels", [0, 3])
+def test_resize_bilinear_at_the_loaders_ratios(src, dst, channels):
+    rs = np.random.RandomState(sum(src) + sum(dst))
+    shape = src + ((channels,) if channels else ())
+    img = (rs.rand(*shape) * 255).astype(np.float32)
+    want = cv2.resize(img, (dst[1], dst[0]), interpolation=cv2.INTER_LINEAR)
+    got = imgproc.resize_bilinear(img, *dst)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("channels", [0, 3])
+def test_resize_bilinear_at_random_ratios(channels):
+    """Up to 4x up and down, values of every scale."""
+    rs = np.random.RandomState(11 + channels)
+    for i in range(60):
+        src = tuple(int(v) for v in rs.randint(2, 160, 2))
+        dst = tuple(int(np.clip(s * rs.uniform(0.25, 4.0), 1, 400)) for s in src)
+        shape = src + ((channels,) if channels else ())
+        img = (rs.randn(*shape) * 10.0 ** rs.randint(-3, 5)).astype(np.float32)
+        want = cv2.resize(img, (dst[1], dst[0]), interpolation=cv2.INTER_LINEAR)
+        np.testing.assert_array_equal(imgproc.resize_bilinear(img, *dst), want,
+                                      err_msg=f"{shape} -> {dst}")
+
+
+def test_resize_bilinear_stated_limit():
+    """The one place the port differs from cv2: an RGB image upscaled 9x or
+    more in width (5 or more border columns a side). There IPP computes some
+    border columns of channels 0 and 1 without the fused multiply-add. Here:
+    at most 2 ulp, on those columns and channels only, 2.2% of the output
+    values at 8 x 4 x 3 -> 9 x 58 and 2.0% at 20 x 4 x 3 -> 61 x 58; the
+    loaders never upscale so far."""
+    rs = np.random.RandomState(3)
+    for (sh, sw), (dh, dw), share in (((8, 4), (9, 58), 0.023), ((20, 4), (61, 58), 0.020)):
+        img = (rs.rand(sh, sw, 3) * 255).astype(np.float32)
+        want = cv2.resize(img, (dw, dh), interpolation=cv2.INTER_LINEAR)
+        got = imgproc.resize_bilinear(img, dh, dw)
+        diff = got != want
+        ulp = np.abs(got - want) / np.spacing(np.abs(want))
+        x = (np.arange(dw) + 0.5) * (sw / dw) - 0.5
+        border = (x < 0) | (x >= sw - 1)
+        assert diff.any() and ulp.max() <= 2
+        assert not diff[:, ~border].any() and not diff[..., 2].any()
+        assert diff.mean() <= share
+    with pytest.raises(ValueError, match="float32"):
+        imgproc.resize_bilinear(np.zeros((4, 4), np.uint8), 8, 8)
 
 
 @pytest.mark.parametrize("shape,clip,grid", [
@@ -105,6 +223,11 @@ def test_convert_maps_and_remap(shape, stretch):
                           borderMode=cv2.BORDER_CONSTANT)
     np.testing.assert_array_equal(imgproc.remap_bilinear(img, (got_xy, got_frac)), want_img)
     np.testing.assert_array_equal(imgproc.remap_nearest(mask, (got_xy, got_frac)), want_mask)
+    # an RGB image through the same maps (CamVid's elastic transform)
+    rgb = rs.randn(*shape, 3).astype(np.float32)
+    want_rgb = cv2.remap(rgb, frac, xy, interpolation=cv2.INTER_LINEAR,
+                         borderMode=cv2.BORDER_CONSTANT)
+    np.testing.assert_array_equal(imgproc.remap_bilinear(rgb, (got_xy, got_frac)), want_rgb)
 
 
 def test_remap_nearest_is_not_plain_rounding():

@@ -1,6 +1,7 @@
 """Import hygiene: senas_torch (every module: the search path's, the fixed
 model's train and test paths', K2's, the operations layer's: serving,
-checkpoint import, the challenge tools; the PROMISE12 data path's) and
+checkpoint import, the challenge tools; the PROMISE12 data path's; the
+other shipped configs' loaders, with their PNG, TIFF and DICOM readers) and
 chip_smoke.py load nothing of JAX, flax, optax or senas_tpu, and neither
 cv2 nor PIL, which the port does not depend on (checked in a fresh
 interpreter)."""
@@ -38,7 +39,11 @@ FIXED_PATH = ("senas_torch.ops.norm_convs", "senas_torch.models.geno_searched",
               # the PROMISE12 data path
               "senas_torch.data.imgproc", "senas_torch.data.augment",
               "senas_torch.data.promise12", "senas_torch.data.native",
-              "senas_torch.data.native.build", "senas_torch.data.legacy_promise12")
+              "senas_torch.data.native.build", "senas_torch.data.legacy_promise12",
+              # the loaders of the other shipped configs
+              "senas_torch.data.imfile", "senas_torch.data.dicom",
+              "senas_torch.data.png_datasets", "senas_torch.data.msd",
+              "senas_torch.data.monusac", "senas_torch.utils.misc")
 
 
 def test_port_imports_nothing_of_jax():
@@ -51,5 +56,5 @@ def test_port_imports_nothing_of_jax():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     n = int(out.stdout.split("N ")[1].split()[0])
-    assert n >= 53, out.stdout  # every module of the port was imported
+    assert n >= 58, out.stdout  # every module of the port was imported
     assert f"FIXED {sorted(FIXED_PATH)}" in out.stdout, out.stdout

@@ -104,15 +104,18 @@ def test_unported_options_raise(tmp_path, change, match):
 
 
 def test_real_datasets_wait_for_their_data(tmp_path):
-    """promise12 is ported (tests/test_torch_promise12.py); the loaders of
-    the other real datasets come with M9b."""
+    """Every dataset of the shipped configs is ported
+    (tests/test_torch_promise12.py, tests/test_torch_m9b_loaders.py) and
+    needs its data root; the JAX package's generic loaders (JPEG, Pillow's
+    resampling) are not ported."""
     cfg = load_config(CONFIG)
-    cfg["data"]["dataset"] = "chaos"
-    with pytest.raises(NotImplementedError, match="not ported yet.*M9b"):
+    cfg["data"]["dataset"] = "ade20k"
+    with pytest.raises(NotImplementedError, match="not ported yet.*JPEG"):
         SearchRunner(cfg, log_root=str(tmp_path), device="cpu")
-    cfg["data"]["dataset"] = "promise12"
-    with pytest.raises(ValueError, match="data_root"):
-        SearchRunner(cfg, log_root=str(tmp_path), device="cpu")
+    for name in ("promise12", "chaos", "heart", "monusac"):
+        cfg["data"]["dataset"] = name
+        with pytest.raises(ValueError, match="data_root"):
+            SearchRunner(cfg, log_root=str(tmp_path), device="cpu")
 
 
 def test_loop_shares_count_the_timed_steps(first_run):

@@ -367,3 +367,78 @@ def epilogue_case(seed, n, se, none, train, B=2, H=8, W=4, E=3, P=8, mid=1):
              conv(biases, torch.from_numpy), conv(alphas, torch.from_numpy))
     tkw = {k: conv(v, torch.from_numpy) for k, v in kw.items()}
     return jargs, jkw, targs, tkw
+
+
+# ---------------------------------------------------------------------------
+# Writers of the medical file formats the loaders read (test phantoms)
+# ---------------------------------------------------------------------------
+
+_EXPLICIT_LE = "1.2.840.10008.1.2.1"
+_IMPLICIT_LE = "1.2.840.10008.1.2"
+
+
+def _dicom_element(group, elem, vr, value: bytes, explicit: bool) -> bytes:
+    import struct
+    if len(value) % 2:
+        value += b"\x00" if vr in (b"UI", b"OB") else b" "
+    head = struct.pack("<HH", group, elem)
+    if not explicit:
+        return head + struct.pack("<I", len(value)) + value
+    if vr in (b"OB", b"OW", b"OF", b"SQ", b"UT", b"UN"):
+        return head + vr + b"\x00\x00" + struct.pack("<I", len(value)) + value
+    return head + vr + struct.pack("<H", len(value)) + value
+
+
+def write_dicom(path, pixels, slope=1.0, intercept=0.0, preamble=True, explicit=True,
+                empty_first=False):
+    """A single-frame uncompressed little-endian DICOM slice of 2-D int16 or
+    uint16 `pixels` with RescaleSlope/Intercept. `preamble` writes the
+    128-byte preamble, "DICM" and the file meta group (which names the
+    transfer syntax); `explicit` picks explicit or implicit VR for the data
+    set. The data set starts with SOP Class and SOP Instance UIDs, as real
+    files do, or, with `empty_first`, with an empty SpecificCharacterSet."""
+    import struct
+    pixels = np.ascontiguousarray(pixels)
+    el = lambda g, e, vr, v: _dicom_element(g, e, vr, v, explicit)
+    first = (el(0x0008, 0x0005, b"CS", b"") if empty_first else
+             el(0x0008, 0x0016, b"UI", b"1.2.840.10008.5.1.4.1.1.2")
+             + el(0x0008, 0x0018, b"UI", b"1.2.3.4.5.6.7"))
+    data = (first
+            + el(0x0028, 0x0002, b"US", struct.pack("<H", 1))
+            + el(0x0028, 0x0010, b"US", struct.pack("<H", pixels.shape[0]))
+            + el(0x0028, 0x0011, b"US", struct.pack("<H", pixels.shape[1]))
+            + el(0x0028, 0x0100, b"US", struct.pack("<H", 8 * pixels.itemsize))
+            + el(0x0028, 0x0103, b"US", struct.pack("<H", int(pixels.dtype.kind == "i")))
+            + el(0x0028, 0x1052, b"DS", repr(float(intercept)).encode())
+            + el(0x0028, 0x1053, b"DS", repr(float(slope)).encode())
+            + el(0x7FE0, 0x0010, b"OW", pixels.astype(pixels.dtype.newbyteorder("<")).tobytes()))
+    out = b""
+    if preamble:
+        ts = (_EXPLICIT_LE if explicit else _IMPLICIT_LE).encode()
+        meta = _dicom_element(0x0002, 0x0010, b"UI", ts, True)
+        out = (b"\x00" * 128 + b"DICM"
+               + _dicom_element(0x0002, 0x0000, b"UL", struct.pack("<I", len(meta)), True)
+               + meta)
+    with open(path, "wb") as f:
+        f.write(out + data)
+
+
+def write_nifti(path, vol, slope=0.0, inter=0.0):
+    """A NIfTI-1 volume (.nii or .nii.gz) of `vol` [X, Y, Z] (uint8, int16
+    or float32), in file (Fortran) order."""
+    import gzip
+    import struct
+    codes = {np.dtype(np.uint8): 2, np.dtype(np.int16): 4, np.dtype(np.float32): 16}
+    vol = np.asarray(vol)
+    hdr = bytearray(348)
+    struct.pack_into("<i", hdr, 0, 348)
+    dims = (vol.ndim,) + vol.shape + (1,) * (7 - vol.ndim)
+    struct.pack_into("<8h", hdr, 40, *dims)
+    struct.pack_into("<hh", hdr, 70, codes[vol.dtype], 8 * vol.itemsize)
+    struct.pack_into("<8f", hdr, 76, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0)
+    struct.pack_into("<fff", hdr, 108, 352.0, slope, inter)
+    hdr[344:348] = b"n+1\x00"
+    body = bytes(hdr) + b"\x00" * 4 + vol.astype(vol.dtype.newbyteorder("<")).tobytes(order="F")
+    opener = gzip.open if str(path).endswith(".gz") else open
+    with opener(path, "wb") as f:
+        f.write(body)
