@@ -92,8 +92,21 @@ Phases, each of which fails the run:
      launches held to the count; ms/step and the loop's waits),
      train_model on configs/senas/senas_heart.yml for 1 epoch (batch 12 of
      256x320) and testing_model on its best checkpoint; a monusac and a
-     chaos_mr batch through get_dataset.
-Phases 12-13 launch none of the five kernels (the fixed model has none).
+     chaos_mr batch through get_dataset;
+ 16. the baseline zoo: the factory's nine models (nasunet, unet,
+     unet_plus_plus, manet, linknet, fpn, pspnet at depth 3, pan,
+     deeplab_v3_plus) at the senas_promise12.yml `training:` geometry, each
+     1 + 3 train steps and the eval step on 3 batches (ms/step, peak memory,
+     the logits' shape, finite losses, every weight moved), a unet and a
+     deeplab_v3_plus step under torch.profiler; each model's train step on
+     the card against the CPU (batch 2, depth 3-5, 64x64 or PAN's 128x128)
+     in f32 (TF32 off) and in f64, one CPU generator giving both devices the
+     same dropout mask; `train_model` and `testing_model` with --model unet
+     and --model nasunet on senas_synthetic.yml; the trained unet exported by
+     `export_model --model unet --check --f32` and served at batch 1 and 12;
+     the six smp_* losses on full-size logits, card against CPU.
+Phases 12-13 and 16 launch none of the five kernels (neither the fixed
+model nor the zoo has any).
 Every kernel must be launched on at least one path (phases 4-6, 9, 14, 15). The
 line before the last is a JSON list of the kernels; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
@@ -122,7 +135,7 @@ import torch
 import torch.nn.functional as F
 import yaml
 
-from senas_torch import search_arc, testing_model, train_model
+from senas_torch import export_model, search_arc, testing_model, train_model
 from senas_torch.challenge import predict_test, volumetric_metrics
 from senas_torch.challenge.promise12 import best_worst_contour_grid
 from senas_torch.core.config import load_config
@@ -134,6 +147,7 @@ from senas_torch.data.io import MetaImage, read_mhd, read_nifti, write_mhd
 from senas_torch.data.msd import extract_task
 from senas_torch.utils.logging import write_png
 from senas_torch.models import geno_searched
+from senas_torch.models.factory import get_segmentation_model
 from senas_torch.models.senas_model import SenasModel
 from senas_torch.ops import _build
 from senas_torch.ops import grouped_epilogue as ge
@@ -651,7 +665,7 @@ def profile(fn, label: str) -> dict:
     for a in sorted(ops, key=lambda a: -a.device_time_total)[:6]:
         log(f"  by shape: {a.device_time_total / 1e3:8.3f} ms  x{a.count:<4d} {a.key} "
             f"{str(a.input_shapes)[:160]}")
-    return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3, idle_share=idle,
+    return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3, idle_share=idle, launches=len(kernels),
                 by_class_ms={c: t / 1e3 for c, (t, _) in by_class.items()})
 
 
@@ -2172,6 +2186,260 @@ def run_shipped_configs(dev, expect: dict, work: str, seed: int) -> dict:
                 train_prefetch_wait_share=train["Train/prefetch_wait_share"], test=tested)
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the baseline zoo
+# ---------------------------------------------------------------------------
+
+ZOO_MODELS = ("nasunet", "unet", "unet_plus_plus", "manet", "linknet", "fpn", "pspnet", "pan",
+              "deeplab_v3_plus")
+# pspnet at smp's own depth 3: at depth 5 its logits are 4x smaller than
+# the labels (upsampling 8 over a stride-32 encoder). DeepLabV3+ keeps depth
+# 5 whatever depth says (the factory's rule in both packages).
+ZOO_DEPTH = {"pspnet": 3}
+# the card-vs-CPU step, batch 2: (depth, side); PAN's pyramid attention
+# pools its deepest map three times, so it needs an 8x8 one
+ZOO_SMALL = {"pspnet": (3, 64), "pan": (5, 128)}
+ZOO_SMALL_DEFAULT = (4, 64)
+# The step on the card against the CPU in f32 (TF32 off) and in f64. f32
+# carries no closer: on the CPU alone an f64 run of the same step is up to
+# 5.2e-3 (manet: PAB's softmax over the whole HW x HW map) off the f32 one
+# in the weight update and 1.6e-4 in the gradient norm. In f64 the two
+# devices must compute the same function.
+ZOO_CPU_LIMITS = {"float32": dict(loss=1e-5, grad_norm=1e-3, weights=2e-2, bn_stats=1e-4),
+                  "float64": dict(loss=1e-12, grad_norm=1e-10, weights=1e-8, bn_stats=1e-12)}
+SMP_LOSSES = ("smp_dice", "smp_jaccard", "smp_tversky", "smp_focal", "smp_lovasz", "smp_soft_ce")
+# full-size logits on the card against the CPU (sums over 786k pixels in
+# other orders)
+SMP_LOSS_REL = 1e-4
+
+
+def _zoo_model(name, depth, dev, gen):
+    return get_segmentation_model(name, dataset="promise12", depth=depth, device=dev,
+                                  generator=gen)
+
+
+def run_zoo_path(dev, seed: int) -> dict:
+    """The nine zoo models at the promise12 `training:` geometry: 1 + 3
+    train steps, then the eval step on 3 batches; unet's and
+    deeplab_v3_plus's step once more under torch.profiler. No kernel of the
+    port is on this path."""
+    t = load_config(CONFIG)["training"]
+    bs, loss_fn = t["batch_size"], _fixed_loss(t)
+    rng = np.random.RandomState(seed + 16)
+    train_batches = _batches(rng, FIXED_STEPS, bs, HW, dev)
+    eval_batches = _batches(rng, N_BATCHES, bs, HW, dev)
+    reset_counts()
+    rows, unet_state = {}, None
+    for name in ZOO_MODELS:
+        depth = ZOO_DEPTH.get(name, t["depth"])
+        model = _zoo_model(name, depth, dev, torch.Generator().manual_seed(seed + 16))
+        state = FixedTrainState.create(model, t["model_optimizer"], seed=seed)
+        step = make_train_step(loss_fn, grad_clip=t["grad_clip"])
+        evaluate = make_eval_step(model, loss_fn)
+        first = {k: p.detach().clone() for k, p in model.named_parameters()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for i, batch in enumerate(train_batches):
+            t0 = time.perf_counter()
+            m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            vals = {k: float(m[k]) for k in ("loss", "grad_norm")}
+            check(all(np.isfinite(v) for v in vals.values()), f"{name} train step {i}: {vals}")
+            losses.append(vals["loss"])
+        # a leaf may stay: a zero-initialised bias whose ReLU unit is dead
+        # on these batches gets no gradient and no decay (nasunet's SE gates)
+        moved = sum(not torch.equal(first[k], p) for k, p in model.named_parameters())
+        check(moved >= 0.95 * len(first), f"{name}: {len(first) - moved} of {len(first)} "
+                                          "weight leaves did not move in 4 steps")
+        eval_times = []
+        for i, batch in enumerate(eval_batches):
+            t0 = time.perf_counter()
+            m = evaluate(batch)
+            torch.cuda.synchronize()
+            eval_times.append((time.perf_counter() - t0) * 1e3)
+            check(np.isfinite(float(m["loss"])) and m["pred"].dtype == torch.uint8
+                  and tuple(m["pred"].shape) == (bs, HW, HW),
+                  f"{name} eval batch {i}: loss {float(m['loss'])}, pred "
+                  f"{m['pred'].dtype} {tuple(m['pred'].shape)}")
+        peak = torch.cuda.max_memory_allocated()
+        with torch.inference_mode():
+            out = model(eval_batches[0]["image"], train=False)
+        check(isinstance(out, list) and len(out) == 1, f"{name} returned {type(out)}")
+        shape = tuple(out[0].shape)
+        check(shape == (bs, HW, HW, NCLASS) and bool(torch.isfinite(out[0]).all()),
+              f"{name} logits {shape}")
+        depth = getattr(model, "encoder", model).depth   # deeplab_v3_plus: always 5
+        row = dict(depth=depth, parameters=sum(p.numel() for p in model.parameters()),
+                   step_ms=float(np.mean(times[1:])), first_ms=times[0],
+                   eval_ms=float(np.mean(eval_times[1:])), peak_mib=peak / 2**20,
+                   out_shape=list(shape), losses=losses, leaves_moved=[moved, len(first)])
+        log(f"zoo {name} (depth {depth}, {row['parameters']} parameters): "
+            f"{row['step_ms']:.2f} ms/step (first {times[0]:.2f}), eval "
+            f"{row['eval_ms']:.2f} ms/batch, peak {row['peak_mib']:.1f} MiB, logits {shape}, "
+            f"loss {losses[0]:.5f} -> {losses[-1]:.5f}, {moved} of {len(first)} weight leaves "
+            "moved")
+        if name in ("unet", "deeplab_v3_plus"):
+            row["profile"] = profile(lambda: step(state, train_batches[-1]),
+                                     f"one {name} train step, batch {bs}")
+        if name == "unet":
+            unet_state = state
+        rows[name] = row
+        del model, state, step, evaluate, first
+        torch.cuda.empty_cache()
+    got = counts()
+    check(not any(got.values()), f"the zoo path launched {got}")
+    return dict(launches=got, models=rows, unet_state=unet_state)
+
+
+def _zoo_snapshot(model) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def zoo_card_vs_cpu(dev, seed: int) -> dict:
+    """Each zoo model's train step on the card and on the CPU from one state
+    and batch of 2, in f32 (TF32 off) and in f64, with one CPU dropout
+    generator (the same ASPP mask on both)."""
+    t = load_config(CONFIG)["training"]
+    rows = {}
+    for name in ZOO_MODELS:
+        depth, hw = ZOO_SMALL.get(name, ZOO_SMALL_DEFAULT)
+        model0 = _zoo_model(name, depth, "cpu", torch.Generator().manual_seed(seed + 17))
+        state0 = model0.state_dict()
+        batch = _batches(np.random.RandomState(seed + 17), 1, 2, hw, "cpu")[0]
+        for dtype in (torch.float32, torch.float64):
+            def run_on(d):
+                model = _zoo_model(name, depth, d, None)
+                model.load_state_dict({k: v.to(d) for k, v in state0.items()})
+                model.to(dtype)
+                state = FixedTrainState.create(model, t["model_optimizer"], seed=seed,
+                                               rng=torch.Generator())
+                before = _zoo_snapshot(model)
+                m = make_train_step(_fixed_loss(t), grad_clip=t["grad_clip"])(
+                    state, {"image": batch["image"].to(d, dtype), "label": batch["label"].to(d)})
+                return before, {k: m[k].cpu() for k in ("loss", "grad_norm")}, _zoo_snapshot(model)
+
+            before, m_cpu, after_cpu = run_on("cpu")
+            _, m_card, after_card = run_on(dev)
+            params = [k for k in after_cpu if k.rsplit(".", 1)[-1] not in ("mean", "var")]
+            stats = [k for k in after_cpu if k not in params]
+            rel = dict(**_metrics_rel(m_card, m_cpu, ("loss", "grad_norm")),
+                       weights=_update_rel(before, after_card, after_cpu, params),
+                       bn_stats=max((float((after_card[k] - after_cpu[k]).abs().max()
+                                           / after_cpu[k].abs().max().clamp_min(1.0))
+                                     for k in stats), default=0.0))
+            kind = str(dtype).replace("torch.", "")
+            limits = ZOO_CPU_LIMITS[kind]
+            rows.setdefault(name, {})[kind] = rel
+            check(all(rel[k] <= limits[k] for k in limits),
+                  f"{name} {kind} step, card vs CPU: {rel} (limits {limits})")
+        log(f"zoo {name} step card vs CPU (depth {getattr(model0, 'encoder', model0).depth}, "
+            f"{hw}x{hw}, batch 2): {rows[name]} (limits {ZOO_CPU_LIMITS})")
+    return rows
+
+
+def run_zoo_clis() -> dict:
+    """train_model --model unet and --model nasunet on senas_synthetic.yml,
+    then testing_model on each one's best checkpoint, in this process (each
+    subprocess would spend ~8 s reaching the card)."""
+    cfg = load_config(RUNNER_CONFIG)
+    epochs, out = cfg["training"]["epoch"], {}
+    with tempfile.TemporaryDirectory() as log_root:
+        for name in ("unet", "nasunet"):
+            stdout = _in_process(train_model.main, "--config", RUNNER_CONFIG, "--model",
+                                 name, "--log_root", log_root)
+            run_dir = _run_dir(stdout)
+            best = ast.literal_eval(stdout.split("best: ")[1].splitlines()[0])
+            check(_val_epochs(run_dir) == list(range(epochs)),
+                  f"train_model --model {name} ran epochs {_val_epochs(run_dir)}")
+            stdout = _in_process(testing_model.main, "--config", RUNNER_CONFIG, "--model",
+                                 name, "--resume", os.path.join(run_dir, "ckpt"), "--log_root",
+                                 log_root, "--batch_size", str(cfg["training"]["batch_size"]))
+            result = ast.literal_eval(stdout.strip().splitlines()[-1])
+            # the 0.01 points of phase 11: other cuDNN algorithms may flip a pixel
+            check(abs(result["dice"] - best["best_dice"]) <= 0.01,
+                  f"testing_model --model {name} dice {result['dice']}, the run's best "
+                  f"{best['best_dice']}")
+            out[name] = dict(best=best, test=result)
+            log(f"zoo CLIs, {name}: {epochs} epochs, best {best}; testing_model {result}")
+    return out
+
+
+def run_zoo_serve(dev, state, seed: int, work: str) -> dict:
+    """Phase 16's trained unet saved and exported by `export_model --model
+    unet --check --f32`, served at batch 1 and 12 on the card."""
+    model = state.model
+    ckpt = CheckpointManager(os.path.join(work, "zoo_ckpt"))
+    ckpt.save(state, {"epoch": 1, "model_name": "unet"}, is_best=True)
+    art = os.path.join(work, "zoo_artifact")
+    out = _in_process(export_model.main, "--config", CONFIG, "--model", "unet", "--resume",
+                      ckpt.directory, "--out", art, "--check", "--f32")
+    check("check OK" in out, "export_model --model unet --check did not pass")
+    pred = Predictor(art, device=dev)
+    check(pred.meta["model"] == "unet", f"artifact meta {pred.meta}")
+    x_all = np.random.RandomState(seed + 18).randn(12, HW, HW, IN_CHANNELS).astype(np.float32)
+    errs = {}
+    for b in (1, 12):
+        with deterministic_cudnn():
+            got = pred.logits(x_all[:b])
+            with torch.inference_mode():
+                want = model(torch.from_numpy(x_all[:b]).to(dev), train=False)[-1]
+        check(tuple(got.shape) == (b, HW, HW, NCLASS), f"served unet logits {tuple(got.shape)}")
+        errs[b] = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, **SERVE_TOL)
+    ms = {b: _request_ms(pred, x_all[:b]) for b in (1, 12)}
+    log(f"zoo serving (unet): batch 1 {ms[1]['mean']:.3f} ms/request (p50 {ms[1]['p50']:.3f}), "
+        f"batch 12 {ms[12]['mean']:.3f} ms/request (p50 {ms[12]['p50']:.3f}); served vs eager "
+        f"max abs err {errs} (limit {SERVE_TOL})")
+    return dict(ms=ms, errs=errs)
+
+
+def run_smp_losses(dev, seed: int) -> dict:
+    """The six smp_* losses on one batch of full-size logits (12 x 256 x 256
+    x 2) on the card against the CPU: values, and input gradients but for
+    Lovasz, whose gradient follows the order of its sorted errors, and
+    a sort of 786k f32 errors computed on two devices breaks ties apart."""
+    rs = np.random.RandomState(seed + 19)
+    logits = rs.randn(12, HW, HW, NCLASS).astype(np.float32)
+    labels = (rs.rand(12, HW, HW) > 0.7).astype(np.int64)
+    out = {}
+    for name in SMP_LOSSES:
+        fn = build_loss(name)
+        res = {}
+        for d in ("cpu", dev):
+            x = torch.tensor(logits, device=d, requires_grad=True)
+            v = fn([x], torch.from_numpy(labels).to(d))
+            v.backward()
+            res[str(d)] = (float(v.detach()), x.grad.cpu())
+        (v_cpu, g_cpu), (v_card, g_card) = res["cpu"], res[str(dev)]
+        rel = abs(v_card - v_cpu) / max(abs(v_cpu), 1e-30)
+        grad_rel = float((g_card - g_cpu).abs().max() / g_cpu.abs().max())
+        xd, ld = torch.tensor(logits, device=dev), torch.from_numpy(labels).to(dev)
+        ms = time_ms(lambda: fn([xd], ld), reps=10, warmup=2)
+        check(np.isfinite(v_card) and rel <= SMP_LOSS_REL, f"{name}: card {v_card}, CPU {v_cpu}")
+        if name != "smp_lovasz":
+            check(grad_rel <= SMP_LOSS_REL, f"{name} input gradient, card vs CPU: {grad_rel}")
+        out[name] = dict(value=v_card, rel=rel, grad_rel=grad_rel, ms=ms)
+        log(f"{name} on 12x{HW}x{HW}x{NCLASS} logits: {v_card:.6f} (CPU {v_cpu:.6f}, rel "
+            f"{rel:.3g}; input gradient rel {grad_rel:.3g}), {ms:.3f} ms on the card")
+    return out
+
+
+def run_zoo(dev, seed: int) -> dict:
+    """Phase 16, timed."""
+    t0 = time.perf_counter()
+    path = run_zoo_path(dev, seed)
+    cpu = zoo_card_vs_cpu(dev, seed)
+    clis = run_zoo_clis()
+    with tempfile.TemporaryDirectory() as work:
+        serve = run_zoo_serve(dev, path.pop("unet_state"), seed, work)
+    losses = run_smp_losses(dev, seed)
+    seconds = time.perf_counter() - t0
+    log(f"phase 16 (the baseline zoo): {seconds:.1f} s")
+    return dict(path, card_vs_cpu=cpu, clis=clis, serve=serve, losses=losses, seconds=seconds)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2210,6 +2478,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as work:
         shipped = paths["shipped_configs"] = run_shipped_configs(dev, evald["expect"], work,
                                                                  args.seed)
+    zoo = paths["zoo"] = run_zoo(dev, args.seed)
 
     kernels = []
     for name, k in KERNELS.items():
@@ -2270,6 +2539,13 @@ def main(argv=None) -> int:
         f"{shipped['search_val_fetch_share']:.4f}; heart train "
         f"{shipped['train_ms_per_step']:.2f} ms/step, prefetch wait "
         f"{shipped['train_prefetch_wait_share']:.4f}; launches {shipped['launches']}")
+    log(f"zoo summary ({zoo['seconds']:.1f} s): ms/step, peak MiB "
+        f"{ {n: (round(r['step_ms'], 2), round(r['peak_mib'], 1)) for n, r in zoo['models'].items()} }; "
+        f"profiles (idle share, busy ms, launches) "
+        f"{ {n: (round(r['profile'].get('idle_share', -1), 3), round(r['profile'].get('busy_ms', -1), 2), r['profile'].get('launches')) for n, r in zoo['models'].items() if 'profile' in r} }; "
+        f"serving unet batch 1 {zoo['serve']['ms'][1]['mean']:.3f} ms, batch 12 "
+        f"{zoo['serve']['ms'][12]['mean']:.3f} ms; losses ms "
+        f"{ {n: round(r['ms'], 3) for n, r in zoo['losses'].items()} }")
     log(f"card: {smi}; total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -25,8 +25,10 @@ Linear transposes) become flax variable trees, for the per-edge ("naive")
 supernet layout and the grouped/fused one that the port's `SenasSearch`
 runs. Optimizer state is not translated: the import CLI builds a fresh
 optimizer from the config and carries the run meta (epoch, best metrics,
-patience) over. The zoo's translators and the encoder-weight import wait
-for the zoo (ROADMAP.md Queue 1, M15).
+patience) over. torchvision-style ResNet / ResNeXt state_dicts (the local
+stand-in for smp's pretrained-weight URLs) translate into the zoo's
+encoder (`translate_resnet_encoder`, `set_encoder_variables`); the zoo's
+models themselves are in `senas_torch/compat/zoo_import.py`.
 """
 
 from __future__ import annotations
@@ -498,3 +500,72 @@ def import_search_checkpoint(path_or_ckpt, depth: int, meta_node_num: int,
     if ckpt.get("geno_type") is not None:
         meta["geno_type"] = str(ckpt["geno_type"])
     return variables, arch, meta
+
+
+# ---------------------------------------------------------------------------
+# torchvision-style encoder weights (the local replacement for smp's
+# pretrained-weight URLs, reference encoders/__init__.py:64-77)
+# ---------------------------------------------------------------------------
+
+def translate_resnet_encoder(sd: Dict[str, Any], name: str = "") -> Dict[str, Any]:
+    """torchvision-naming ResNet / ResNeXt state_dict -> the variables of
+    the zoo's ResNetEncoder (senas_torch/models/encoders.py). BasicBlock
+    (conv1/conv2) and Bottleneck (conv1/conv2/conv3) stacks and the
+    downsample shortcut; fc/classifier keys are ignored."""
+    sd = state_dict_to_numpy(sd)
+    tree = _Tree(sd)
+    params: Dict[str, Any] = {"conv1": _conv(tree.t("conv1.weight"))}
+    stats: Dict[str, Any] = {}
+    params["bn1"], stats["bn1"] = tree.bn("bn1")
+    gi = 1
+    while f"layer{gi}.0.conv1.weight" in sd:
+        b = 0
+        while f"layer{gi}.{b}.conv1.weight" in sd:
+            blk = tree.sub(f"layer{gi}.{b}")
+            key = f"layer{gi}_{b}"
+            bp = {"conv1": _conv(blk.t("conv1.weight")), "conv2": _conv(blk.t("conv2.weight"))}
+            bs: Dict[str, Any] = {}
+            bp["bn1"], bs["bn1"] = blk.bn("bn1")
+            bp["bn2"], bs["bn2"] = blk.bn("bn2")
+            if blk.has("conv3.weight"):
+                bp["conv3"] = _conv(blk.t("conv3.weight"))
+                bp["bn3"], bs["bn3"] = blk.bn("bn3")
+            if blk.has("downsample.0.weight"):
+                bp["down_conv"] = _conv(blk.t("downsample.0.weight"))
+                bp["down_bn"], bs["down_bn"] = blk.bn("downsample.1")
+            params[key], stats[key] = bp, bs
+            b += 1
+        gi += 1
+    return {"params": params, "batch_stats": stats}
+
+
+def _graft(tgt: Dict[str, Any], src: Dict[str, Any], path: str) -> Dict[str, Any]:
+    out = {}
+    for k, v in tgt.items():
+        if isinstance(v, dict):
+            out[k] = _graft(v, src[k], f"{path}/{k}")
+        elif tuple(np.shape(v)) != tuple(np.shape(src[k])):
+            raise ValueError(f"encoder shape mismatch at {path}/{k}: model {np.shape(v)} vs "
+                             f"imported {np.shape(src[k])}")
+        else:
+            out[k] = src[k]
+    return out
+
+
+def set_encoder_variables(variables: Dict[str, Any],
+                          enc_vars: Dict[str, Any]) -> Dict[str, Any]:
+    """Graft imported encoder weights into a zoo model's variables (the
+    encoder lives under the `encoder` name). Shapes are checked leaf by
+    leaf; imported stages beyond the model's encoder depth are dropped."""
+    new = {k: dict(v) for k, v in variables.items()}
+    for col in ("params", "batch_stats"):
+        if col not in variables or "encoder" not in variables[col]:
+            raise KeyError(f"no encoder subtree under variables[{col!r}]")
+        tgt = variables[col]["encoder"]
+        src = {k: v for k, v in enc_vars[col].items() if k in tgt}
+        missing = sorted(set(tgt) - set(src))
+        if missing:
+            raise KeyError(f"imported encoder lacks modules {missing} "
+                           f"required by the model ({col})")
+        new[col] = {**variables[col], "encoder": _graft(tgt, src, f"{col}/encoder")}
+    return new

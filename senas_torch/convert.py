@@ -12,8 +12,15 @@ bridge is a per-leaf layout transform, never a name table:
              flipped one with in/out swapped: (k,k,I,O) <-> flip(I,O,k,k).
   * "dw_t"   depthwise transposed conv with channel multiplier E:
              (k,k,1,C*E) (channel c*E+e) <-> flip(C,E,k,k) for groups=C.
-  * "copy"   everything else (BN vectors, dense (I,O), pointwise (E,C,P),
-             SE (E,P,mid)/(E,mid,P)).
+  * "copy"   everything else (BN and GroupNorm scale/bias, biases, dense
+             (I,O) kernels, which the port keeps in flax's layout,
+             pointwise (E,C,P), SE (E,P,mid)/(E,mid,P)).
+
+The baseline zoo adds no layout of its own: a grouped (ResNeXt) kernel
+(k,k,I/g,O) and a depthwise one (k,k,1,C) are "hwio" to (O,I/g,k,k) and
+(C,1,k,k); Linknet's and nasunet's transposed kernels are "hwio_t", a
+depthwise transposed one "dw_t"; nasunet's CWeightOp is two Dense layers
+and a (transposed) conv.
 
 A module whose kernel is not a plain conv names its layout in its
 `flax_layout` dict. The vmapped inner edges of a fused cell (flax

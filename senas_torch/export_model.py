@@ -68,7 +68,7 @@ def main(argv=None) -> int:
     model = get_segmentation_model(
         args.model, dataset=cfg["data"]["dataset"], c=t.get("init_channels", 32),
         depth=t.get("depth", 5), supervision=False,
-        genotype=resolve_genotype(cfg, args.genotype),
+        genotype=resolve_genotype(cfg, args.genotype, args.model),
         double_down_channel=t.get("double_down_channel", False), device=device)
     model.load_state_dict(restored["model"])
     model.eval()

@@ -2,14 +2,17 @@
 port that the runners resume from.
 
     python -m senas_torch.import_torch_checkpoint CKPT --config configs/senas/senas_promise12.yml \
-        --out <ckpt dir> [--kind auto|train|search] [--genotype "..."] [--depth N]
-        [--meta_node_num N] [--device cuda|cpu]
+        --out <ckpt dir> [--kind auto|train|search] [--model senas|unet|...] [--genotype "..."]
+        [--depth N] [--meta_node_num N] [--device cuda|cpu]
 
 The flags of tools/import_torch_checkpoint.py, plus --device (default
 cuda): the device the port's model is built on to check and hold the
 weights. The reference's train CLI (experiments/train_model.py:220-233) and
 search CLI (experiments/search_arc.py:227-238) save `checkpint.pth.tar` /
-`model_best.pth.tar` (utils/utils.py:138-143). The output holds "last" and
+`model_best.pth.tar` (utils/utils.py:138-143); with --model one of the
+baseline zoo's names (the factory's nine: nasunet, unet, unet_plus_plus,
+manet, linknet, fpn, pspnet, pan, deeplab_v3_plus) a train checkpoint holds
+that smp model. The output holds "last" and
 "best" (`CheckpointManager`): a fixed model's `FixedTrainState` or the
 supernet's `SearchTrainState` with its arch tables. Optimizer slot state is
 not translated: the optimizers are fresh, built from the config, and the
@@ -30,7 +33,8 @@ import numpy as np
 import torch
 
 from senas_torch.compat import (classify_checkpoint, import_fixed_checkpoint,
-                                import_search_checkpoint, load_torch_checkpoint)
+                                import_search_checkpoint, import_zoo_checkpoint,
+                                load_torch_checkpoint)
 from senas_torch.convert import (arch_to_numpy, arch_to_torch, load_variables,
                                  state_dict_to_variables)
 from senas_torch.core.config import load_config
@@ -80,8 +84,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", required=True, help="output checkpoint directory")
     ap.add_argument("--kind", default="auto", choices=["auto", "train", "search"])
     ap.add_argument("--model", default="senas",
-                    help="model the checkpoint was trained with (train kind); only "
-                         "senas is ported")
+                    help="model the checkpoint was trained with (train kind): senas or "
+                         "one of the zoo's names (unet, pspnet, ...)")
     ap.add_argument("--genotype", default="",
                     help="genotype string (train kind; default: the config's "
                          "training.geno_type)")
@@ -98,12 +102,22 @@ def main(argv=None) -> int:
         kind = "train"  # bare SenasModel state_dict
     spec = get_dataset_spec(cfg["data"]["dataset"])
 
-    if kind == "train":
-        if args.model != "senas":
-            raise SystemExit(
-                f"--model {args.model!r} has no translator in the port: only senas is "
-                f"ported; the baseline zoo ({', '.join(ZOO)}) waits for ROADMAP.md "
-                "Queue 1, M15")
+    if kind == "train" and args.model != "senas":
+        if args.model not in ZOO:
+            raise SystemExit(f"--model {args.model!r}: use senas or one of {', '.join(ZOO)}")
+        t = cfg["training"]
+        depth = args.depth if args.depth > 0 else t.get("depth", 5)
+        model = get_segmentation_model(args.model, dataset=cfg["data"]["dataset"],
+                                       depth=depth, device=device)
+        try:
+            variables, meta = import_zoo_checkpoint(ckpt, args.model)
+        except KeyError as e:
+            raise SystemExit(f"--model {args.model}: the checkpoint has no key {e} of that "
+                             "model's state_dict; was it trained with another model?")
+        check_structure(state_dict_to_variables(model), variables, args.model)
+        load_variables(model, variables)
+        state = FixedTrainState.create(model, t.get("model_optimizer"), seed=cfg.get("seed", 0))
+    elif kind == "train":
         t = cfg["training"]
         depth = args.depth if args.depth > 0 else t.get("depth", 5)
         genotype = resolve_genotype(cfg, args.genotype)
@@ -114,7 +128,7 @@ def main(argv=None) -> int:
         variables, meta = import_fixed_checkpoint(ckpt, genotype, depth)
         check_structure(state_dict_to_variables(model), variables, args.model)
         load_variables(model, variables)
-        state = FixedTrainState.create(model, t.get("model_optimizer"))
+        state = FixedTrainState.create(model, t.get("model_optimizer"), seed=cfg.get("seed", 0))
     else:
         s = cfg["searching"]
         depth = args.depth if args.depth > 0 else s.get("depth", 5)

@@ -156,7 +156,9 @@ class SenasModel(nn.Module):
         init_params_(self, generator)
         self.to(dev)
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, rng: Optional[torch.Generator] = None):
+        # `rng` is the train step's dropout generator; no ported op of this
+        # model draws from it (dropout_prob > 0 raises).
         # NHWC -> NCHW with canonical strides (a 1-channel permuted view
         # counts as contiguous with channels_last strides; see SenasSearch)
         x = x.permute(0, 3, 1, 2).clone(memory_format=torch.contiguous_format)

@@ -56,6 +56,21 @@ def add_kernel(module: nn.Module, name: str, shape, std: float) -> nn.Parameter:
     return p
 
 
+def add_bias(module: nn.Module, name: str, c: int, fan_in: Optional[int] = None) -> nn.Parameter:
+    """Register bias `name` of [c]. With `fan_in` it is drawn from
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)) by `init_params_`: torch's own
+    Conv2d bias init, which the reference's weights_init leaves alone
+    (`torch_conv_bias`, senas_tpu/ops/primitives.py:80-90). Without, it
+    stays 0 (a flax Dense's or a zero-initialised conv bias)."""
+    p = nn.Parameter(torch.zeros(c))
+    setattr(module, name, p)
+    if fan_in is not None:
+        if "init_bound" not in module.__dict__:
+            module.init_bound = {}
+        module.init_bound[name] = 1.0 / math.sqrt(fan_in)
+    return p
+
+
 def add_conv_kernel(module: nn.Module, name: str, shape) -> nn.Parameter:
     """A conv kernel in PyTorch's layout ([O, I/g, k, k], or [I, O/g, k, k]
     for a transposed conv) with kaiming_normal_(mode='fan_out') on that
@@ -68,15 +83,20 @@ def add_conv_kernel(module: nn.Module, name: str, shape) -> nn.Parameter:
 def init_params_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random init with the JAX package's (= the reference's
     weights_init) rules: every kernel from normal(0, std), with the std its
-    module stated when it made it (`add_kernel`); BN scale/bias keep their
-    construction values (1, 0). The numbers differ from the JAX package's
-    (another generator); the distribution of each leaf is the same."""
+    module stated when it made it (`add_kernel`), and a torch-default conv
+    bias from U(-bound, bound) (`add_bias`); BN and GroupNorm scale/bias
+    and the other biases keep their construction values (1, 0). The
+    numbers differ from the JAX package's (another generator); the
+    distribution of each leaf is the same."""
     with torch.no_grad():
         for m in module.modules():
             stds = m.__dict__.get("init_std", {})
+            bounds = m.__dict__.get("init_bound", {})
             for name, p in m.named_parameters(recurse=False):
                 if name in stds:
                     p.copy_(torch.randn(p.shape, generator=generator) * stds[name])
+                elif name in bounds:
+                    p.copy_((torch.rand(p.shape, generator=generator) * 2 - 1) * bounds[name])
                 elif p.ndim > 1:
                     raise ValueError(f"{type(m).__name__}.{name} states no init")
     return module
@@ -123,6 +143,11 @@ def avg_pool_3x3(x, stride: int = 1):
 def max_pool_3x3(x, stride: int = 2):
     """MaxPool2d(3, stride, padding=1)."""
     return F.max_pool2d(x, 3, stride=stride, padding=1)
+
+
+def max_pool_2x2(x):
+    """MaxPool2d(2, stride=2)."""
+    return F.max_pool2d(x, 2, stride=2)
 
 
 def upsample2x(x):
@@ -229,14 +254,57 @@ class ConvBn(nn.Module):
 
 
 class Dense(nn.Module):
-    """Bias-free dense layer with the flax kernel layout [in, out]."""
+    """flax Dense with the flax kernel layout [in, out]. The kernel is
+    xavier_normal (an nn.Linear under weights_init) unless `std` is given;
+    `bias` adds a bias, 0 or, with `bias_fan_in`, torch's conv default."""
 
-    def __init__(self, c_in: int, c_out: int):
+    def __init__(self, c_in: int, c_out: int, bias: bool = False,
+                 std: Optional[float] = None, bias_fan_in: Optional[int] = None):
         super().__init__()
-        add_kernel(self, "kernel", (c_in, c_out), xavier_std(c_in, c_out))
+        add_kernel(self, "kernel", (c_in, c_out),
+                   xavier_std(c_in, c_out) if std is None else std)
+        if bias:
+            add_bias(self, "bias", c_out, bias_fan_in)
 
     def forward(self, x):
-        return x @ self.kernel
+        y = x @ self.kernel
+        return y + self.bias if hasattr(self, "bias") else y
+
+
+class GroupNorm(nn.Module):
+    """flax nn.GroupNorm (eps 1e-5, torch's default) with its variables
+    `scale` and `bias`."""
+
+    def __init__(self, c: int, num_groups: int, eps: float = EPS):
+        super().__init__()
+        self.num_groups, self.eps = num_groups, eps
+        self.scale = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+
+    def forward(self, x):
+        return F.group_norm(x, self.num_groups, self.scale, self.bias, self.eps)
+
+
+class Dropout(nn.Module):
+    """flax nn.Dropout: in train mode each element is kept with probability
+    1 - rate and scaled by 1 / (1 - rate). The mask is drawn from `rng`, a
+    torch.Generator, on the generator's device and moved to x's, so one
+    generator gives one mask on every device. Train mode without a
+    generator raises, as flax does without a 'dropout' key."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, train: bool = False, rng: Optional[torch.Generator] = None):
+        if not train or self.rate == 0.0:
+            return x
+        if rng is None:
+            raise ValueError("Dropout in train mode needs a torch.Generator (rng=)")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=rng, device=rng.device) < keep
+        return torch.where(mask.to(x.device), x / keep, torch.zeros((), dtype=x.dtype,
+                                                                   device=x.device))
 
 
 class SEBlock(nn.Module):

@@ -18,13 +18,11 @@ from typing import Any, Dict, Optional
 
 from senas_torch.challenge import predict_test, volumetric_metrics
 from senas_torch.core.device import resolve_device
-from senas_torch.core.genotype import parse_genotype
 from senas_torch.data import DataLoader, get_dataset, get_dataset_spec
-from senas_torch.models import geno_searched
 from senas_torch.models.factory import get_segmentation_model
 from senas_torch.runner.common import (DEFAULT_LOG_ROOT, make_batch_placer,
                                        resolve_dataset_kwargs)
-from senas_torch.runner.train import loss_name
+from senas_torch.runner.train import loss_name, resolve_genotype
 from senas_torch.train.checkpoint import CheckpointManager
 from senas_torch.train.loss import build_loss
 from senas_torch.train.metrics import AverageMeter, SegmentationMetric
@@ -61,8 +59,7 @@ class TestRunner:
         self.image_dir = os.path.join(self.run_dir, "images")
         os.makedirs(self.image_dir, exist_ok=True)
 
-        genotype = (parse_genotype(genotype_str) if genotype_str
-                    else getattr(geno_searched, t.get("geno_type", "senas")))
+        genotype = resolve_genotype(cfg, genotype_str, model_name)
         self.model = get_segmentation_model(
             model_name, dataset=ds_name, c=t.get("init_channels", 32),
             depth=t.get("depth", 5), supervision=False, genotype=genotype,

@@ -37,8 +37,11 @@ from senas_torch.utils.logging import (ScalarWriter, calc_time, close_logger, ge
 from senas_torch.utils.misc import StepTimer, calc_parameters_count, set_seed, steady_share
 
 
-def resolve_genotype(cfg: Dict[str, Any], cli_genotype: str = ""):
-    """--genotype string > cfg training.geno_type name (train_model.py:117-120)."""
+def resolve_genotype(cfg: Dict[str, Any], cli_genotype: str = "", model_name: str = "senas"):
+    """--genotype string > cfg training.geno_type name (train_model.py:117-120).
+    Only `senas` is built from a genotype: None for the zoo's models."""
+    if model_name.lower() != "senas":
+        return None
     if cli_genotype:
         return parse_genotype(cli_genotype)
     return getattr(geno_searched, cfg["training"].get("geno_type", "senas"))
@@ -82,7 +85,7 @@ class TrainRunner:
         self.model = get_segmentation_model(
             model_name, dataset=ds_name, c=t.get("init_channels", 32),
             depth=t.get("depth", 5), supervision=t.get("deep_supervision", False),
-            genotype=resolve_genotype(cfg, genotype_str),
+            genotype=resolve_genotype(cfg, genotype_str, model_name),
             double_down_channel=t.get("double_down_channel", False),
             remat=t.get("remat", False),
             device=self.device, generator=torch.Generator().manual_seed(seed))
@@ -94,7 +97,7 @@ class TrainRunner:
         if sched_cfg.get("name") == "cos":
             sched_cfg["T_max"] = t["epoch"]  # the CLI rewires T_max := epochs
         self.scheduler = build_scheduler(base_lr, sched_cfg)
-        self.state = FixedTrainState.create(self.model, t.get("model_optimizer"))
+        self.state = FixedTrainState.create(self.model, t.get("model_optimizer"), seed=seed)
         self.train_step = make_train_step(loss_fn, grad_clip=t.get("grad_clip", 0.0))
         self.eval_step = make_eval_step(self.model, loss_fn)
 

@@ -7,8 +7,11 @@ utils/loss/loss.py):
     denominator; the squared-denominator variant;
   * cross-entropy: mean over all pixels;
   * dice_ce = ce + dice; deep-supervision mean over heads.
+  * the smp family (`train/smp_losses.py`) under the names smp_dice,
+    smp_jaccard, smp_tversky, smp_focal, smp_lovasz and smp_soft_ce,
+    multiclass on the logits, with senas_tpu's hyperparameters.
 All functions take `logits` [B,H,W,C] (or a list of such) and an integer
-`target` [B,H,W]. The smp loss family is not ported yet.
+`target` [B,H,W].
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from senas_torch.train import smp_losses
 
 
 def cross_entropy(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -62,12 +67,24 @@ def dice_ce_loss(logits: torch.Tensor, target: torch.Tensor,
     return cross_entropy(logits, target) + dice
 
 
+def _smp(cls, with_mode: bool = True, **kw):
+    """An smp loss on multiclass NHWC logits and an int label map."""
+    return cls(mode="multiclass", **kw) if with_mode else cls(**kw)
+
+
 _LOSSES = {
     "cross_entropy": cross_entropy,
     "dice_ce": lambda lg, tg: dice_ce_loss(lg, tg, square_dice=False),
     "dice_sq_ce": lambda lg, tg: dice_ce_loss(lg, tg, square_dice=True),
     "dice_loss": soft_dice_loss,
     "dice_square": soft_dice_loss_squared,
+    # smp family (segmentation_models_pytorch/losses; senas_tpu/train/loss.py:91-96)
+    "smp_dice": _smp(smp_losses.DiceLoss),
+    "smp_jaccard": _smp(smp_losses.JaccardLoss),
+    "smp_tversky": _smp(smp_losses.TverskyLoss, alpha=0.3, beta=0.7),
+    "smp_focal": _smp(smp_losses.FocalLoss, alpha=0.25),
+    "smp_lovasz": _smp(smp_losses.LovaszLoss),
+    "smp_soft_ce": _smp(smp_losses.SoftCrossEntropyLoss, with_mode=False, smooth_factor=0.1),
 }
 
 

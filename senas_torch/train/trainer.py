@@ -82,38 +82,61 @@ def _clipped_step(opt: torch.optim.Optimizer, loss: torch.Tensor,
 class FixedTrainState:
     """What fixed-model training carries from step to step: the model (its
     parameters are the weights, its buffers the BN running stats), the
-    optimizer over its parameters, and the count of steps taken. The JAX
-    state's dropout key has no counterpart: no ported op draws from it."""
+    optimizer over its parameters, the count of steps taken, and the
+    dropout generator with its seed.
+
+    The JAX state carries a dropout key and splits it each step
+    (senas_tpu/train/trainer.py:83-89). Here each step reseeds `rng` from
+    (`seed`, `step`) before the forward, so a step's masks follow from the
+    state alone: a resumed run draws the masks the uninterrupted one would
+    have, and a checkpoint needs no generator state (a CPU and a CUDA
+    generator's states do not load into each other). `rng` lies on the
+    model's device unless the caller gives another; the masks move to the
+    activations' device, so one CPU generator gives the card and the CPU
+    the same masks."""
 
     model: nn.Module
     opt: torch.optim.Optimizer
     step: int = 0
+    seed: int = 0
+    rng: Optional[torch.Generator] = None
 
     @classmethod
-    def create(cls, model: nn.Module, opt_cfg: Optional[Dict[str, Any]]) -> "FixedTrainState":
-        return cls(model=model, opt=build_optimizer(list(model.parameters()), opt_cfg))
+    def create(cls, model: nn.Module, opt_cfg: Optional[Dict[str, Any]], seed: int = 0,
+               rng: Optional[torch.Generator] = None) -> "FixedTrainState":
+        if rng is None:
+            rng = torch.Generator(device=next(model.parameters()).device)
+        return cls(model=model, opt=build_optimizer(list(model.parameters()), opt_cfg),
+                   seed=seed, rng=rng)
+
+    def step_generator(self) -> torch.Generator:
+        """`rng` seeded for the step about to be taken."""
+        self.rng.manual_seed((self.seed << 32) + self.step)
+        return self.rng
 
     def state_dict(self) -> Dict[str, Any]:
         return {"model": self.model.state_dict(), "opt": self.opt.state_dict(),
-                "step": self.step}
+                "step": self.step, "seed": self.seed}
 
     def load_state_dict(self, payload: Dict[str, Any]) -> None:
         self.model.load_state_dict(payload["model"])
         self.opt.load_state_dict(payload["opt"])
         self.step = int(payload["step"])
+        self.seed = int(payload.get("seed", self.seed))
 
 
 def make_train_step(loss_fn: Callable, grad_clip: float = 0.0):
     """Returns step(state, batch) -> metrics {loss, grad_norm, tp, fp, fn,
     acc}; it updates `state` in place (senas_tpu/train/trainer.py:72-115):
-    a train-mode forward (the BN running stats advance), the gradients of
+    a train-mode forward (the BN running stats advance; dropout draws from
+    the state's generator, seeded for this step), the gradients of
     the loss w.r.t. every parameter (zeros where the loss does not reach
     one, as JAX's grad gives), their global norm before clipping as
     grad_norm, the clip to `grad_clip` when it is > 0, and the optimizer's
     step."""
 
     def step(state: FixedTrainState, batch):
-        outputs = state.model(batch["image"], train=True)
+        outputs = state.model(batch["image"], train=True, rng=state.step_generator())
         loss = loss_fn(outputs, batch["label"])
         gnorm = _clipped_step(state.opt, loss, grad_clip)
         state.step += 1

@@ -245,8 +245,11 @@ def test_cli_search_checkpoint_resumes_the_search(tmp_path):
 def test_cli_rejects_what_it_cannot_import(tmp_path, fixed):
     src = _save(fixed["ckpt"], tmp_path / "c.pth.tar")
     args = [src, "--config", CONFIG, "--out", str(tmp_path / "o"), "--device", "cpu"]
-    with pytest.raises(SystemExit, match="M15"):
+    # a senas checkpoint read as a zoo model's (the zoo is ported since)
+    with pytest.raises(SystemExit, match="--model unet: the checkpoint has no key"):
         import_cli(args + ["--model", "unet"])
+    with pytest.raises(SystemExit, match="--model 'segformer'"):
+        import_cli(args + ["--model", "segformer"])
     # the checkpoint's c 8 against a config of c 16
     wide = _config(tmp_path, training={"init_channels": 16})
     with pytest.raises(SystemExit, match="shape mismatch"):

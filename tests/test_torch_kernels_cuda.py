@@ -193,3 +193,24 @@ def test_norm_convs_rejects_what_it_does_not_take(dev):
         nc.norm_convs(x.half(), *ks)
     with pytest.raises(ValueError, match="contiguous"):
         nc.norm_convs(x.transpose(2, 3), *ks)
+
+
+@pytest.mark.parametrize("name,depth,hw", [("deeplab_v3_plus", 5, 64), ("nasunet", 3, 32)])
+def test_zoo_model_forward_on_card_matches_cpu(dev, name, depth, hw):
+    """A baseline-zoo model (no kernel of its own: cuDNN and cuBLAS) on the
+    card against the same weights on the CPU, eval and train mode (one
+    dropout generator on the CPU gives both devices the same ASPP mask),
+    TF32 off: logits within 1e-4 of their largest magnitude."""
+    from senas_torch.models.factory import get_segmentation_model
+
+    cpu = get_segmentation_model(name, depth=depth, device="cpu",
+                                 generator=torch.Generator().manual_seed(0))
+    card = get_segmentation_model(name, depth=depth, device=dev)
+    card.load_state_dict({k: v.to(dev) for k, v in cpu.state_dict().items()})
+    x = torch.randn(2, hw, hw, 1, generator=torch.Generator().manual_seed(1))
+    for train in (False, True):
+        with torch.no_grad():
+            want = cpu(x, train=train, rng=torch.Generator().manual_seed(2))[0]
+            got = card(x.to(dev), train=train, rng=torch.Generator().manual_seed(2))[0].cpu()
+        assert got.shape == want.shape == (2, hw, hw, 2)
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()

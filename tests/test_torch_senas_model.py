@@ -110,8 +110,10 @@ def test_factory():
     m = get_segmentation_model("senas", dataset="synthetic", c=4, depth=2,
                                genotype=tgs.senas, device="cpu")
     assert isinstance(m, SenasModel)
-    with pytest.raises(NotImplementedError, match="M15"):
-        get_segmentation_model("unet", dataset="synthetic", device="cpu")
+    # the baseline zoo is ported since (tests/test_torch_zoo.py holds it)
+    from senas_torch.models.zoo import Unet
+    assert isinstance(get_segmentation_model("unet", dataset="synthetic", depth=3,
+                                             device="cpu"), Unet)
     with pytest.raises(KeyError):
         get_segmentation_model("no_such_model", dataset="synthetic", device="cpu")
 

@@ -53,6 +53,15 @@ def random_variables(module, rng: np.random.RandomState, *init_args, init=None):
     return {c: fill(shapes[c], c) for c in ("params", "batch_stats") if c in shapes}
 
 
+def unit_scales(tree):
+    """`tree` with every norm layer's `scale` leaf at 1 (its init value).
+    Random scales leave some small models' f32 gradients ill-conditioned
+    (tests/test_torch_zoo.py); a test that follows training steps starts
+    from unit ones."""
+    return {k: unit_scales(v) if isinstance(v, dict) else
+            (np.ones_like(v) if k == "scale" else v) for k, v in tree.items()}
+
+
 def flat(tree, prefix=""):
     """Nested dict -> {"a/b/c": np.ndarray}."""
     out = {}
