@@ -105,12 +105,29 @@ Phases, each of which fails the run:
      and --model nasunet on senas_synthetic.yml; the trained unet exported by
      `export_model --model unet --check --f32` and served at batch 1 and 12;
      the six smp_* losses on full-size logits, card against CPU.
-Phases 12-13 and 16 launch none of the five kernels (neither the fixed
-model nor the zoo has any).
-Every kernel must be launched on at least one path (phases 4-6, 9, 14, 15). The
-line before the last is a JSON list of the kernels; the last line is
-{"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
-prints no result.
+ 17. bf16 (`precision: bf16`): the bf16 variants of K1a-K1d against their
+     plain twins on bf16 tensors at the supernet's group shapes (train and
+     eval operands; f32 sums within 1e-5, bf16 outputs equal but on <= 1e-3
+     of the elements, each within one bf16 ulp or the f32 cancellation of
+     its terms), timed beside the f32 variants and the bf16 byte bound, and
+     the epilogue's bf16 gradients; the supernet in bf16 at phase 6's
+     geometry, 1 + 3 search steps (the bf16 variants' launches held to the
+     count, the f32 ones' to 0) and the search-eval step on 3 batches, each
+     with one step under torch.profiler and the peak memory; the fixed
+     model in bf16 at phase 9's geometry, 1 + 3 train steps (one profiled)
+     and the eval step on 3 batches; a search and a fixed step in bf16 on
+     the card against the CPU at phases 7 and 10's size (held as the CPU
+     tests hold the port to the JAX package: at most twice the CPU's own
+     bf16-vs-f32 distance) with the control that the card's bf16 step
+     fails phase 7's f32 limits against its f32 step; senas_synthetic.yml
+     with `precision: bf16` through search_arc and train_model (1 epoch)
+     and testing_model (f32) on the bf16 run's best checkpoint.
+Phases 12-13 and 16 launch none of the kernels (neither the fixed model
+nor the zoo has any).
+Every kernel variant must be launched on at least one path (phases 4-6, 9,
+14, 15, 17). The line before the last is a JSON list of the kernels, the
+bf16 variants as `<name>_bf16`; the last line is {"ok": true, "device":
+{...}}. Without a CUDA device the script exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -180,23 +197,25 @@ GROUP_C = 24
 KERNEL_HW = (256, 64)
 LIBRARY_NOTE = "no one PyTorch call reduces or writes over n separate tensors"
 EPILOGUE_SOURCE = "senas_torch/csrc/grouped_epilogue.cu"
+EPILOGUE_REPLACES = {
+    "branch_stats": "senas_tpu/ops/grouped_epilogue.py:114 (_branch_stats -> _stats_kernel :86)",
+    "apply_mix": "senas_tpu/ops/grouped_epilogue.py:157 (_apply_mix -> _apply_kernel :143)",
+    "bwd_reduce": "senas_tpu/ops/grouped_epilogue.py:206 (_bwd_reduce -> _bwd_reduce_kernel :189)",
+    "bwd_dx": "senas_tpu/ops/grouped_epilogue.py:251 (_bwd_dx -> _bwd_dx_kernel :237)",
+}
+# Each kernel variant: its wrapper, and the dtype whose launches it counts
+# (`launches_by_dtype`); the bf16 variants of K1a-K1d are `<name>_bf16`.
+BF16_SUFFIX = "_bf16"
 KERNELS = {
-    "branch_stats": dict(
-        wrapper=ge.branch_stats, source=EPILOGUE_SOURCE,
-        replaces="senas_tpu/ops/grouped_epilogue.py:114 (_branch_stats -> _stats_kernel :86)"),
-    "apply_mix": dict(
-        wrapper=ge.apply_mix, source=EPILOGUE_SOURCE,
-        replaces="senas_tpu/ops/grouped_epilogue.py:157 (_apply_mix -> _apply_kernel :143)"),
-    "bwd_reduce": dict(
-        wrapper=ge.bwd_reduce, source=EPILOGUE_SOURCE,
-        replaces="senas_tpu/ops/grouped_epilogue.py:206 (_bwd_reduce -> _bwd_reduce_kernel :189)"),
-    "bwd_dx": dict(
-        wrapper=ge.bwd_dx, source=EPILOGUE_SOURCE,
-        replaces="senas_tpu/ops/grouped_epilogue.py:251 (_bwd_dx -> _bwd_dx_kernel :237)"),
+    **{name: dict(wrapper=getattr(ge, name), dtype="float32", source=EPILOGUE_SOURCE,
+                  replaces=replaces) for name, replaces in EPILOGUE_REPLACES.items()},
     "norm_convs": dict(
-        wrapper=nc.norm_convs, source="senas_torch/csrc/norm_convs.cu",
+        wrapper=nc.norm_convs, dtype="float32", source="senas_torch/csrc/norm_convs.cu",
         replaces="senas_tpu/ops/pallas_kernels.py:65 (fused_norm_convs -> "
                  "_norm_convs_kernel :37)"),
+    **{name + BF16_SUFFIX: dict(wrapper=getattr(ge, name), dtype="bfloat16",
+                                source=EPILOGUE_SOURCE, replaces=replaces)
+       for name, replaces in EPILOGUE_REPLACES.items()},
 }
 SOURCES = ("grouped_epilogue", "norm_convs")
 
@@ -228,11 +247,20 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def reset_counts():
     for k in KERNELS.values():
-        k["wrapper"].launches = 0
+        wrapper = k["wrapper"]
+        wrapper.launches = 0
+        for dtype in getattr(wrapper, "launches_by_dtype", {}):
+            wrapper.launches_by_dtype[dtype] = 0
 
 
 def counts():
-    return {name: k["wrapper"].launches for name, k in KERNELS.items()}
+    """Launches per kernel variant: the epilogue's by dtype, K2's in all
+    (it takes f32 only)."""
+    out = {}
+    for name, k in KERNELS.items():
+        by_dtype = getattr(k["wrapper"], "launches_by_dtype", None)
+        out[name] = by_dtype[k["dtype"]] if by_dtype is not None else k["wrapper"].launches
+    return out
 
 
 def add_counts(total: dict, got: dict) -> None:
@@ -317,10 +345,11 @@ def _group_inputs(dev, n, h, seed, train, se, none):
     return args, kw
 
 
-def _epilogue_grad_err(args, kw, readout) -> float:
+def _epilogue_grad_err(args, kw, readout, ref_dtype=None) -> float:
     """The autograd Function's gradients for every differentiable input
     against torch autograd through the plain two-pass reference, on the
-    same tensors: the worst max|got - want| / max|want| over the inputs."""
+    same tensors: the worst max|got - want| / max|want| over the inputs.
+    `ref_dtype` is the reference's output dtype (None: the branches')."""
     leaves = [t.detach().clone().requires_grad_() for part in args for t in part]
     n = len(args[0])
     split = [leaves[i * n:(i + 1) * n] for i in range(4)]
@@ -330,8 +359,9 @@ def _epilogue_grad_err(args, kw, readout) -> float:
     got = torch.autograd.grad(
         (ge.fused_group_epilogue(*split, **rest, **extra)[0] * readout).sum(), inputs)
     want = torch.autograd.grad(
-        (ge.group_epilogue_reference(*split, **rest, **extra) * readout).sum(), inputs)
-    return max(rel_err(a, b) for a, b in zip(got, want))
+        (ge.group_epilogue_reference(*split, **rest, **extra, out_dtype=ref_dtype)
+         * readout).sum(), inputs)
+    return max(rel_err(a.float(), b.float()) for a, b in zip(got, want))
 
 
 def check_kernels(dev) -> dict:
@@ -659,6 +689,12 @@ def profile(fn, label: str) -> dict:
     top = sorted(prof.key_averages(), key=lambda a: -a.self_device_time_total)[:8]
     for a in top:
         log(f"  top: {a.self_device_time_total / 1e3:8.3f} ms  x{a.count:<4d} {a.key[:100]}")
+    # the kernels launched most often, which the host pays for
+    launched: dict = {}
+    for e in kernels:
+        launched[e.name] = launched.get(e.name, 0) + 1
+    for name, n in sorted(launched.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"  most launched: x{n:<5d} {name[:100]}")
     # the heaviest operators with the shapes they were called on
     ops = [a for a in prof.key_averages(group_by_input_shape=True)
            if a.key.startswith("aten::")]
@@ -737,20 +773,22 @@ def in_turns(fn, label: str, reps: int) -> dict:
 # Phase 5: the eval path
 # ---------------------------------------------------------------------------
 
-def expected_launches(model) -> dict:
+def expected_launches(model, suffix: str = "") -> dict:
     """Launches per forward and per backward, from the model: every
     GroupedMixedOp applies its mix; in eval mode only the groups with an SE
     branch (DOWN, UP) need the stats sweep. A backward runs bwd_reduce for
     every group and bwd_dx for every group whose branch tensors need a
     gradient: all of them, since every branch comes out of a convolution,
-    pooling or resampling of a tensor that depends on the weights."""
+    pooling or resampling of a tensor that depends on the weights. The
+    counts land on the variants named `<kernel><suffix>` (BF16_SUFFIX for a
+    bf16 model); every other variant expects 0."""
     groups = [m for m in model.modules() if isinstance(m, GroupedMixedOp)]
     with_se = sum("se_conv_3" in g.ops for g in groups)
     zero = {name: 0 for name in KERNELS}
     g = len(groups)
-    return {"train": {**zero, "branch_stats": g, "apply_mix": g},
-            "eval": {**zero, "branch_stats": with_se, "apply_mix": g},
-            "backward": {**zero, "bwd_reduce": g, "bwd_dx": g}}
+    return {"train": {**zero, "branch_stats" + suffix: g, "apply_mix" + suffix: g},
+            "eval": {**zero, "branch_stats" + suffix: with_se, "apply_mix" + suffix: g},
+            "backward": {**zero, "bwd_reduce" + suffix: g, "bwd_dx" + suffix: g}}
 
 
 def per_step(expect: dict, do_arch: bool) -> dict:
@@ -759,10 +797,11 @@ def per_step(expect: dict, do_arch: bool) -> dict:
     return {name: k * (expect["train"][name] + expect["backward"][name]) for name in KERNELS}
 
 
-def _supernet(s, dev, gen):
+def _supernet(s, dev, gen, dtype=None):
     return SenasSearch(IN_CHANNELS, s["init_channels"], NCLASS, s["depth"], s["meta_node_num"],
                        double_down_channel=s["double_down_channel"],
-                       supervision=s["deep_supervision"], device=dev, generator=gen)
+                       supervision=s["deep_supervision"], dtype=dtype, device=dev,
+                       generator=gen)
 
 
 def _batches(rng, n, bs, hw, dev):
@@ -1150,11 +1189,11 @@ FIXED_STEPS = 4      # 1 + 3 train steps
 CARD_CPU_LOGIT_TOL = dict(rtol=1e-3, atol=1e-3)
 
 
-def _fixed_model(t, dev, gen):
+def _fixed_model(t, dev, gen, dtype=None):
     return SenasModel(NCLASS, IN_CHANNELS, c=t["init_channels"], depth=t["depth"],
                       supervision=t["deep_supervision"],
                       genotype=getattr(geno_searched, t["geno_type"]),
-                      double_down_channel=t["double_down_channel"], device=dev,
+                      double_down_channel=t["double_down_channel"], dtype=dtype, device=dev,
                       generator=gen)
 
 
@@ -2440,6 +2479,408 @@ def run_zoo(dev, seed: int) -> dict:
     return dict(path, card_vs_cpu=cpu, clis=clis, serve=serve, losses=losses, seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: bf16 (`precision: bf16`)
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+# A bf16 kernel output against its plain twin on the same tensors: equal
+# but on at most this share of the elements, each of those within one bf16
+# ulp, or within 2^-21 of the sum of its terms' magnitudes where the f32
+# sum cancels (the kernel fuses each multiply-add, PyTorch rounds the
+# product first). The f32 sums keep phase 3's bound (1e-5 of the plane's
+# sum of magnitudes).
+BF16_SHARE = 1e-3
+# The epilogue's bf16 gradients against autograd through the plain
+# two-pass reference in f32 on the same bf16 branch tensors: the bf16
+# cotangent and the bf16 branch gradients round (2^-9 each).
+BF16_GRAD_REL = 2e-2
+
+
+def _bf16_err(got: torch.Tensor, want: torch.Tensor, terms: torch.Tensor) -> tuple:
+    """(share of differing elements, the worst difference in units of its
+    allowance: max(one bf16 ulp, 2^-21 of `terms`), the largest absolute
+    difference); fails over the bound."""
+    g, w = got.double(), want.double()
+    diff = (g - w).abs()
+    mag = torch.maximum(g.abs(), w.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(torch.where(mag > 0, mag, torch.ones_like(mag)))) - 7)
+    share = (diff > 0).double().mean().item()
+    worst = (diff / torch.maximum(ulp, terms.double() * 2.0 ** -21)).max().item()
+    check(got.dtype == want.dtype == BF16 and share <= BF16_SHARE and worst <= 1.0,
+          f"bf16 output: {share:.3g} of the elements differ, worst {worst:.3g} of the allowance")
+    return share, worst, diff.max().item()
+
+
+def check_kernels_bf16(dev, f32: dict) -> dict:
+    """K1a-K1d on bf16 branch tensors (and a bf16 cotangent) against their
+    plain twins on the card, at the supernet's group shapes in train- and
+    eval-mode operands; the epilogue's gradients; times at each shape beside
+    the f32 variant's (phase 3, `f32`) and the bf16 byte bound."""
+    names = [name for name, _ in _TIMED]
+    records = {name: {"timed": []} for name in names}
+    worst = {name: 0.0 for name in names}
+    worst.update(stats_rel=0.0, reduce_rel=0.0, grad_rel=0.0, share=0.0, mix_allowance=0.0,
+                 dx_allowance=0.0)
+    for h in KERNEL_HW:
+        for n, se, none in ((6, True, False), (5, False, True)):
+            b, planes = 8, 8 * GROUP_C
+            for train in (True, False):
+                args, kw = _group_inputs(dev, n, h, seed=h + n + 7, train=train, se=se, none=none)
+                args = ([x.to(BF16) for x in args[0]], *args[1:])
+                xs = args[0]
+                xf = [x.float() for x in xs]
+                s1, s2 = ge.branch_stats(xs)
+                p1, p2 = ge.branch_stats_plain(xs)
+                abs1 = torch.stack([x.abs().sum(dim=(2, 3)) for x in xf])
+                rel = max(((s1 - p1).abs() / abs1).max().item(),
+                          ((s2 - p2).abs() / p2).max().item())
+                check(rel <= 1e-5, f"branch_stats (bf16) disagrees: rel {rel:.3g}")
+                a = torch.randn(n, b, GROUP_C, device=dev)
+                k = torch.randn(b, GROUP_C, device=dev)
+                col = lambda t: t.abs()[:, :, None, None]
+                share2, w2, err2 = _bf16_err(
+                    ge.apply_mix(xs, a, k), ge.apply_mix_plain(xs, a, k),
+                    col(k) + sum(x.abs() * col(a[o]) for o, x in enumerate(xf)))
+                g = torch.randn(b, GROUP_C, h, h, device=dev).to(BF16)
+                gf = g.float()
+                da, dk = ge.bwd_reduce(xs, g)
+                pa, pk = ge.bwd_reduce_plain(xs, g)
+                abs_a = torch.stack([(gf * x).abs().sum(dim=(2, 3)) for x in xf])
+                rel_c = max(((da - pa).abs() / abs_a).max().item(),
+                            ((dk - pk).abs() / gf.abs().sum(dim=(2, 3))).max().item())
+                check(rel_c <= 1e-5, f"bwd_reduce (bf16) disagrees: rel {rel_c:.3g}")
+                ds1 = torch.randn(n, b, GROUP_C, device=dev)
+                ds2 = torch.randn(n, b, GROUP_C, device=dev)
+                share5, w5, err5 = 0.0, 0.0, 0.0
+                for o, (got, want) in enumerate(zip(ge.bwd_dx(xs, g, a, ds1, ds2),
+                                                    ge.bwd_dx_plain(xs, g, a, ds1, ds2))):
+                    sh, w_, e_ = _bf16_err(got, want, gf.abs() * col(a[o]) + col(ds1[o])
+                                           + 2 * xf[o].abs() * col(ds2[o]))
+                    share5, w5, err5 = max(share5, sh), max(w5, w_), max(err5, e_)
+                err6 = _epilogue_grad_err(args, kw, g.float(), ref_dtype=torch.float32)
+                check(err6 <= BF16_GRAD_REL, f"bf16 epilogue gradients disagree: rel {err6:.3g}")
+                torch.cuda.synchronize()
+                for key, v in (("stats_rel", rel), ("branch_stats", (s1 - p1).abs().max().item()),
+                               ("apply_mix", err2), ("mix_allowance", w2), ("reduce_rel", rel_c),
+                               ("bwd_reduce", (da - pa).abs().max().item()), ("bwd_dx", err5),
+                               ("dx_allowance", w5), ("grad_rel", err6),
+                               ("share", max(share2, share5))):
+                    worst[key] = max(worst[key], v)
+                log(f"  bf16 h={h:3d} n={n} train={train!s:5}: stats rel {rel:.3g} | mix share "
+                    f"{share2:.3g} worst {w2:.3g} | bwd_reduce rel {rel_c:.3g} | bwd_dx share "
+                    f"{share5:.3g} worst {w5:.3g} | grads rel {err6:.3g}")
+
+            args, kw = _group_inputs(dev, n, h, seed=1, train=True, se=se, none=none)
+            xs = [x.to(BF16) for x in args[0]]
+            a = torch.rand(n, b, GROUP_C, device=dev)
+            k = torch.rand(b, GROUP_C, device=dev)
+            g = torch.randn(b, GROUP_C, h, h, device=dev).to(BF16)
+            ds1, ds2 = (torch.randn(n, b, GROUP_C, device=dev) for _ in range(2))
+            elems = n * planes * h * h
+            plane_bytes = planes * h * h * 2          # one [8,24,h,h] bf16 tensor
+            nbytes = dict(
+                stats=n * plane_bytes + 2 * n * planes * 4,
+                mix=n * plane_bytes + (n + 1) * planes * 4 + plane_bytes,
+                reduce=(n + 1) * plane_bytes + (n + 1) * planes * 4,
+                dx=(2 * n + 1) * plane_bytes + 3 * n * planes * 4)
+            flops = dict(stats=3 * elems, mix=2 * elems, reduce=2 * elems + elems // n,
+                         dx=4 * elems)
+            t = dict(
+                stats=time_ms(lambda: ge.branch_stats(xs)),
+                stats_plain=time_ms(lambda: ge.branch_stats_plain(xs)),
+                mix=time_ms(lambda: ge.apply_mix(xs, a, k)),
+                mix_plain=time_ms(lambda: ge.apply_mix_plain(xs, a, k)),
+                reduce=time_ms(lambda: ge.bwd_reduce(xs, g)),
+                reduce_plain=time_ms(lambda: ge.bwd_reduce_plain(xs, g)),
+                dx=time_ms(lambda: ge.bwd_dx(xs, g, a, ds1, ds2)),
+                dx_plain=time_ms(lambda: ge.bwd_dx_plain(xs, g, a, ds1, ds2)),
+            )
+            bound = {key: max(nbytes[key] / PEAK_BYTES_PER_S, flops[key] / PEAK_F32_FLOPS) * 1e3
+                     for key in nbytes}
+            f32_ms = {name: next(r["ms"] for r in f32[name]["timed"] if r["shape"][2] == h
+                                 and r["n"] == n) for name in names}
+            log(f"  bf16 times [8,{GROUP_C},{h},{h}] n={n} (ms / plain / bound / f32 ms): "
+                + " | ".join(f"{name} {t[key]:.4f} / {t[key + '_plain']:.4f} / {bound[key]:.4f}"
+                             f" / {f32_ms[name]:.4f}" for name, key in _TIMED))
+            for name, key in _TIMED:
+                rec = dict(shape=[8, GROUP_C, h, h], n=n, ms=t[key], plain_ms=t[f"{key}_plain"],
+                           bound_ms=bound[key], f32_ms=f32_ms[name])
+                records[name]["timed"].append(rec)
+                if (h, n) == (KERNEL_HW[0], 6):
+                    records[name].update(ms=rec["ms"], plain_ms=rec["plain_ms"],
+                                         bound_ms=rec["bound_ms"], f32_ms=rec["f32_ms"])
+    for name in names:
+        records[name]["max_abs_err"] = worst[name]
+    records["branch_stats"]["max_rel_err"] = worst["stats_rel"]
+    records["bwd_reduce"]["max_rel_err"] = worst["reduce_rel"]
+    for name, key in (("apply_mix", "mix_allowance"), ("bwd_dx", "dx_allowance")):
+        records[name].update(max_share_differing=worst["share"], max_of_allowance=worst[key])
+    log(f"bf16 kernels agree with their plain versions (worst: {worst}; the allowances: "
+        "one bf16 ulp, or 2^-21 of the terms' magnitudes)")
+    return {name + BF16_SUFFIX: r for name, r in records.items()}
+
+
+def _bf16_steps(dev, label: str, step_fn, batches: list, do_arch: tuple, want_fn) -> dict:
+    """Runs the steps, each with its launches checked against want_fn(i);
+    host-clock ms of each and the peak memory."""
+    torch.cuda.reset_peak_memory_stats()
+    total = {name: 0 for name in KERNELS}
+    times = []
+    for i, (batch, flag) in enumerate(zip(batches, do_arch)):
+        reset_counts()
+        t0 = time.perf_counter()
+        m = step_fn(batch, flag)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        got = counts()
+        check(got == want_fn(flag), f"{label} {i}: launched {got}, expected {want_fn(flag)}")
+        add_counts(total, got)
+        vals = {k: float(m[k]) for k in ("loss", "arch_loss", "grad_norm", "acc") if k in m}
+        check(all(np.isfinite(v) for v in vals.values()), f"{label} {i}: {vals}")
+        log(f"bf16 {label} {i}: {vals} {times[-1]:.2f} ms")
+    peak = torch.cuda.max_memory_allocated()
+    steady = times[1:] or times
+    log(f"bf16 {label}: {np.mean(steady):.2f} ms (after the first: "
+        f"{[round(x, 2) for x in steady]}; first {times[0]:.2f}), peak memory "
+        f"{peak / 2**20:.1f} MiB")
+    return dict(launches=total, ms=float(np.mean(steady)), first_ms=times[0],
+                peak_mib=peak / 2**20)
+
+
+def run_bf16_search_path(dev, seed: int) -> dict:
+    """The supernet in bf16 at the senas_promise12.yml `searching:`
+    geometry: 1 search step with do_arch=False and 3 with, the bf16
+    variants' launches held to the model's count and the f32 ones' to 0;
+    one step under torch.profiler; the search-eval step on 3 batches, one
+    of them profiled."""
+    s = load_config(CONFIG)["searching"]
+    meta, depth, bs = s["meta_node_num"], s["depth"], s["batch_size"]
+    gen = torch.Generator().manual_seed(seed + 21)
+    model = _supernet(s, dev, gen, BF16)
+    arch = init_arch_params(meta, depth, use_sharing=s["sharing_normal"], generator=gen, device=dev)
+    state = SearchTrainState.create(model, arch, s["model_optimizer"], s["arch_optimizer"])
+    normalize = lambda a: normalize_arch(a, meta)
+    loss = build_loss(s["loss"]["name"], s["deep_supervision"])
+    step = make_search_step(normalize, loss, grad_clip=s["grad_clip"])
+    expect = expected_launches(model, BF16_SUFFIX)
+    rng = np.random.RandomState(seed + 21)
+    pairs = [tuple(_batches(rng, 2, bs, HW, dev)) for _ in DO_ARCH]
+    with torch.no_grad():
+        logits = model(pairs[0][0]["image"], normalize(arch), train=False)[0]
+    check(logits.dtype == BF16 and all(p.dtype == torch.float32 for p in model.parameters())
+          and all(t.dtype == torch.float32 for t in arch.values()),
+          f"bf16 supernet: logits {logits.dtype}, weights or arch tables not f32")
+    log(f"bf16 search step: batch {bs} train + {bs} val, {HW}x{HW}; expected launches per "
+        f"step: do_arch=True {per_step(expect, True)}")
+    search = _bf16_steps(dev, "search step", lambda p, d: step(state, p[0], p[1], d), pairs,
+                         DO_ARCH, lambda d: per_step(expect, d))
+    tb, vb = pairs[-1]
+    search["profile"] = profile(lambda: step(state, tb, vb, True),
+                                f"one bf16 search step, do_arch, batch {bs}")
+    evaluate = make_search_eval_step(model, normalize, loss)
+    eval_batches = _batches(rng, N_BATCHES, bs, HW, dev)
+    ev = _bf16_steps(dev, "search-eval batch", lambda b, _: evaluate(arch, b), eval_batches,
+                     (None,) * N_BATCHES, lambda _: expect["eval"])
+    ev["profile"] = profile(lambda: evaluate(arch, eval_batches[-1]),
+                            f"one bf16 search-eval step, batch {bs}")
+    return dict(search=search, eval=ev, expect=expect)
+
+
+def run_bf16_fixed_path(dev, seed: int) -> dict:
+    """SenasModel(senas) in bf16 at the `training:` geometry: 1 + 3 train
+    steps, one under torch.profiler, and the eval step on 3 batches; the
+    fixed model launches none of the kernels."""
+    t = load_config(CONFIG)["training"]
+    bs = t["batch_size"]
+    model = _fixed_model(t, dev, torch.Generator().manual_seed(seed + 23), BF16)
+    state = FixedTrainState.create(model, t["model_optimizer"])
+    step = make_train_step(_fixed_loss(t), grad_clip=t["grad_clip"])
+    evaluate = make_eval_step(model, _fixed_loss(t))
+    rng = np.random.RandomState(seed + 23)
+    train_batches = _batches(rng, FIXED_STEPS, bs, HW, dev)
+    eval_batches = _batches(rng, N_BATCHES, bs, HW, dev)
+    none = {name: 0 for name in KERNELS}
+    train = _bf16_steps(dev, "fixed train step", lambda b, _: step(state, b), train_batches,
+                        (None,) * FIXED_STEPS, lambda _: none)
+    train["profile"] = profile(lambda: step(state, train_batches[-1]),
+                               f"one bf16 fixed train step, batch {bs}")
+    with torch.no_grad():
+        logits = model(eval_batches[0]["image"], train=False)[0]
+    check(logits.dtype == BF16 and all(p.dtype == torch.float32 for p in model.parameters()),
+          f"bf16 fixed model: logits {logits.dtype}, weights not f32")
+
+    def eval_step(batch, _):
+        m = evaluate(batch)
+        check(m["pred"].dtype == torch.uint8 and tuple(m["pred"].shape) == (bs, HW, HW),
+              f"bf16 eval pred {m['pred'].dtype} {tuple(m['pred'].shape)}")
+        return m
+
+    ev = _bf16_steps(dev, "fixed eval batch", eval_step, eval_batches, (None,) * N_BATCHES,
+                     lambda _: none)
+    return dict(train=train, eval=ev)
+
+
+def _stats_l2(before: dict, a: dict, b: dict) -> float:
+    """Relative L2 distance of two states' BN running stats (all of them)."""
+    keys = [k for k in b["model"] if k.rsplit(".", 1)[-1] in ("mean", "var")]
+    num = sum(float(((a["model"][k] - b["model"][k]).double() ** 2).sum()) for k in keys)
+    den = sum(float((b["model"][k].double() ** 2).sum()) for k in keys)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def _bf16_bound(before: dict, runs: dict, metric_keys, parts) -> dict:
+    """The CPU tests' bound with the CPU as the reference: each update (and
+    the running stats) of the card's bf16 step lies at most twice as far
+    (relative L2) from the CPU's bf16 step as that lies from the CPU's f32
+    step, plus 1e-6; each metric (a scalar that sums up the step) within
+    twice the CPU's bf16 error of the weight update. The control: the card's
+    bf16 step fails phase 7's f32 card-vs-CPU limits against its f32 one."""
+    params = [k for k in before["model"] if k.rsplit(".", 1)[-1] not in ("mean", "var")]
+    keys = dict(weights=("model", params), arch=("arch", list(before["arch"])))
+    out = {}
+    for part in parts:
+        where, ks = keys[part]
+        after = {k: runs[k][1][where] for k in runs}
+        gap = _update_rel(before[where], after["card_bf16"], after["cpu_bf16"], ks)
+        own = _update_rel(before[where], after["cpu_bf16"], after["cpu_f32"], ks)
+        out[part] = (gap, own)
+    gap = _stats_l2(before, runs["card_bf16"][1], runs["cpu_bf16"][1])
+    own = _stats_l2(before, runs["cpu_bf16"][1], runs["cpu_f32"][1])
+    out["bn_stats"] = (gap, own)
+    for k in metric_keys:
+        a, b = float(runs["card_bf16"][0][k]), float(runs["cpu_bf16"][0][k])
+        out[k] = (abs(a - b) / max(abs(b), 1e-30), out["weights"][1])
+    for k, (gap, own) in out.items():
+        check(gap <= 2 * own + 1e-6, f"bf16 card vs CPU: {k} {gap:.3g} over twice {own:.3g}")
+    control_m = _metrics_rel(runs["card_bf16"][0], runs["card_f32"][0], metric_keys)
+    control_s = _state_rel(before, runs["card_bf16"][1], runs["card_f32"][1])
+    if "arch" not in parts:
+        control_s["arch"] = 0.0
+    check(not _within(control_m, control_s),
+          f"the card's bf16 step lies within phase 7's f32 limits of its f32 step: "
+          f"{control_m} {control_s}")
+    return dict(bound={k: dict(gap=g, own=o) for k, (g, o) in out.items()},
+                control=dict(metrics=control_m, state=control_s))
+
+
+def bf16_card_vs_cpu(dev, seed: int) -> dict:
+    """One search step (do_arch) and one fixed train step from identical
+    state at phases 7 and 10's reduced size (depth 3, c 8, 64x64, batch 2),
+    in bf16 and in f32, on the card and on the CPU."""
+    s = dict(load_config(CONFIG)["searching"], depth=3, init_channels=8)
+    meta = s["meta_node_num"]
+    gen = torch.Generator().manual_seed(seed + 25)
+    model0 = _supernet(s, "cpu", gen).state_dict()
+    arch0 = init_arch_params(meta, 3, use_sharing=False, generator=gen, device="cpu")
+    tb, vb = _batches(np.random.RandomState(seed + 25), 2, 2, 64, "cpu")
+    to_cpu = lambda snap: {k: ({kk: vv.cpu() for kk, vv in v.items()}
+                               if k in ("model", "arch") else v) for k, v in snap.items()}
+
+    def search_on(d, dtype):
+        model = _supernet(s, d, None, dtype)
+        model.load_state_dict({k: v.to(d) for k, v in model0.items()})
+        state = SearchTrainState.create(model, {k: v.clone().to(d) for k, v in arch0.items()},
+                                        s["model_optimizer"], s["arch_optimizer"])
+        m = make_search_step(lambda a: normalize_arch(a, meta), build_loss(s["loss"]["name"]),
+                             grad_clip=s["grad_clip"])(
+            state, {k: v.to(d) for k, v in tb.items()}, {k: v.to(d) for k, v in vb.items()}, True)
+        return {k: v.cpu() for k, v in m.items()}, to_cpu(_snapshot(state))
+
+    t = dict(load_config(CONFIG)["training"], depth=3, init_channels=8)
+    fixed0 = _fixed_model(t, "cpu", torch.Generator().manual_seed(seed + 26)).state_dict()
+    batch = _batches(np.random.RandomState(seed + 26), 1, 2, 64, "cpu")[0]
+
+    def fixed_on(d, dtype):
+        model = _fixed_model(t, d, None, dtype)
+        model.load_state_dict({k: v.to(d) for k, v in fixed0.items()})
+        state = FixedTrainState.create(model, t["model_optimizer"])
+        m = make_train_step(_fixed_loss(t), grad_clip=t["grad_clip"])(
+            state, {k: v.to(d) for k, v in batch.items()})
+        return ({k: v.cpu() for k, v in m.items()},
+                {"model": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+                 "arch": {}})
+
+    out = {}
+    for name, run, before, metric_keys, parts in (
+            ("search", search_on, {"model": model0, "arch": arch0},
+             ("loss", "arch_loss", "grad_norm"), ("weights", "arch")),
+            ("fixed", fixed_on, {"model": fixed0, "arch": {}}, ("loss", "grad_norm"),
+             ("weights",))):
+        runs = {f"{where}_{tag}": run(d, dtype) for where, d in (("cpu", "cpu"), ("card", dev))
+                for tag, dtype in (("bf16", BF16), ("f32", None))}
+        out[name] = _bf16_bound(before, runs, metric_keys, parts)
+        log(f"bf16 {name} step card vs CPU (depth 3, c 8, 64x64, batch 2): "
+            + ", ".join(f"{k} {v['gap']:.3g} (twice {v['own']:.3g} allowed)"
+                        for k, v in out[name]["bound"].items())
+            + f"; control, card bf16 vs f32: {out[name]['control']}")
+    return out
+
+
+def run_bf16_clis(work: str) -> dict:
+    """configs/senas/senas_synthetic.yml with `precision: bf16` in both
+    sections: search_arc and train_model for one epoch each (in this
+    process: the search launches the bf16 kernels and no f32 one), then
+    testing_model, in f32, on the train run's best checkpoint."""
+    cfg = load_config(RUNNER_CONFIG)
+    for section in ("searching", "training"):
+        cfg[section]["precision"] = "bf16"
+    cfg["searching"]["arch_optimizer"]["betas"] = list(cfg["searching"]["arch_optimizer"]["betas"])
+    config = os.path.join(work, "senas_synthetic_bf16.yml")
+    with open(config, "w") as f:
+        yaml.safe_dump(cfg, f)
+    log_root = os.path.join(work, "logs")
+    reset_counts()
+    out = _in_process(search_arc.main, "--config", config, "--epoch", "1", "--log_root", log_root)
+    got = counts()
+    bf16 = {k: v for k, v in got.items() if k.endswith(BF16_SUFFIX)}
+    check(all(bf16.values()) and not any(v for k, v in got.items() if k not in bf16),
+          f"the bf16 search CLI launched {got}")
+    search = _scalars(_run_dir(out))
+    out = _in_process(train_model.main, "--config", config, "--epoch", "1", "--log_root", log_root)
+    train_dir = _run_dir(out)
+    train = _scalars(train_dir)
+    check(all(np.isfinite(v) for v in (*search.values(), *train.values())),
+          f"bf16 CLI scalars {search} {train}")
+    payload = CheckpointManager(os.path.join(train_dir, "ckpt")).restore_raw("best")
+    check(all(v.dtype == torch.float32 for v in payload["model"].values()
+              if v.is_floating_point()), "the bf16 run's checkpoint holds non-f32 tensors")
+    out = _in_process(testing_model.main, "--config", config, "--resume",
+                      os.path.join(train_dir, "ckpt"), "--log_root", log_root,
+                      "--batch_size", str(cfg["training"]["batch_size"]))
+    tested = ast.literal_eval(out.strip().splitlines()[-1])
+    check(np.isfinite(tested["dice"]), f"testing_model on the bf16 checkpoint: {tested}")
+    log(f"bf16 CLIs: search launches {bf16}, val dice {search['Val/dice']:.4f}; train val dice "
+        f"{train['Val/dice']:.4f}; testing_model (f32) on its best checkpoint {tested}")
+    return dict(search_launches=bf16, search_val_dice=search["Val/dice"],
+                train_val_dice=train["Val/dice"], test=tested)
+
+
+def run_bf16(dev, seed: int, f32_records: dict) -> dict:
+    """Phase 17, timed."""
+    t0 = time.perf_counter()
+    marks = []
+
+    def mark(what):
+        marks.append(f"{what} {time.perf_counter() - t0:.1f} s")
+
+    records = check_kernels_bf16(dev, f32_records)
+    mark("kernels")
+    search = run_bf16_search_path(dev, seed)
+    mark("search path")
+    fixed = run_bf16_fixed_path(dev, seed)
+    mark("fixed path")
+    cpu = bf16_card_vs_cpu(dev, seed)
+    mark("card vs CPU")
+    with tempfile.TemporaryDirectory() as work:
+        clis = run_bf16_clis(work)
+    mark("CLIs")
+    seconds = time.perf_counter() - t0
+    log(f"phase 17 (bf16): {seconds:.1f} s (done by: {', '.join(marks)})")
+    return dict(records=records, search=search, fixed=fixed, card_vs_cpu=cpu, clis=clis,
+                seconds=seconds)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2479,6 +2920,13 @@ def main(argv=None) -> int:
         shipped = paths["shipped_configs"] = run_shipped_configs(dev, evald["expect"], work,
                                                                  args.seed)
     zoo = paths["zoo"] = run_zoo(dev, args.seed)
+    bf16 = run_bf16(dev, args.seed, records)
+    records.update(bf16["records"])
+    paths["bf16_search_step"] = bf16["search"]["search"]
+    paths["bf16_search_eval"] = bf16["search"]["eval"]
+    paths["bf16_fixed_train_eval"] = dict(launches={
+        k: bf16["fixed"]["train"]["launches"][k] + bf16["fixed"]["eval"]["launches"][k]
+        for k in KERNELS})
 
     kernels = []
     for name, k in KERNELS.items():
@@ -2501,10 +2949,15 @@ def main(argv=None) -> int:
                        tflops_f32_equivalent=r["tflops_f32_equivalent"],
                        tensor_core_sass=sass, shape=r["shape"], n=r["n"])
         else:
+            per_search_step = ({f"do_arch={d}": per_step(bf16["search"]["expect"], d)[name]
+                                for d in (False, True)} if k["dtype"] == "bfloat16" else
+                               {f"do_arch={d}": search["per_step"][d][name]
+                                for d in ("False", "True")})
             row.update(bound_by="bytes", library_ms=None, library_note=LIBRARY_NOTE,
-                       shape=[8, GROUP_C, HW, HW], n=6,
-                       launches_per_search_step={f"do_arch={d}": search["per_step"][d][name]
-                                                 for d in ("False", "True")})
+                       shape=[8, GROUP_C, HW, HW], n=6, dtype=k["dtype"],
+                       launches_per_search_step=per_search_step)
+            if "f32_ms" in r:
+                row["f32_ms"] = r["f32_ms"]
         if "max_rel_err" in r:
             row["max_rel_err"] = r["max_rel_err"]
         kernels.append(row)
@@ -2546,6 +2999,29 @@ def main(argv=None) -> int:
         f"serving unet batch 1 {zoo['serve']['ms'][1]['mean']:.3f} ms, batch 12 "
         f"{zoo['serve']['ms'][12]['mean']:.3f} ms; losses ms "
         f"{ {n: round(r['ms'], 3) for n, r in zoo['losses'].items()} }")
+    bs, bf, bc = bf16["search"], bf16["fixed"], bf16["card_vs_cpu"]
+    share_of_bound = {n: {k: round(v["gap"] / max(2 * v["own"] + 1e-6, 1e-30), 3)
+                          for k, v in r["bound"].items()} for n, r in bc.items()}
+    log(f"bf16 summary ({bf16['seconds']:.1f} s), f32 beside it: search step "
+        f"{bs['search']['ms']:.2f} ms/step (f32 {search['step_ms']:.2f}), peak "
+        f"{bs['search']['peak_mib']:.1f} MiB (f32 {search['peak_mib']:.1f}), idle share "
+        f"{bs['search']['profile'].get('idle_share', -1):.3f} (f32 "
+        f"{search['profile'].get('idle_share', -1):.3f}), busy "
+        f"{bs['search']['profile'].get('busy_ms', -1):.2f} ms (f32 "
+        f"{search['profile'].get('busy_ms', -1):.2f}), launches "
+        f"{bs['search']['profile'].get('launches')} (f32 {search['profile'].get('launches')}); "
+        f"search-eval {bs['eval']['ms']:.2f} ms/batch (f32 {evald['eval_ms']:.2f}), peak "
+        f"{bs['eval']['peak_mib']:.1f} MiB (f32 {evald['peak_mib']:.1f}), idle "
+        f"{bs['eval']['profile'].get('idle_share', -1):.3f} (f32 "
+        f"{evald['profile'].get('idle_share', -1):.3f}); fixed train "
+        f"{bf['train']['ms']:.2f} ms/step (f32 {fixed['step_ms']:.2f}), peak "
+        f"{bf['train']['peak_mib']:.1f} MiB (f32 {fixed['peak_mib']:.1f}), idle "
+        f"{bf['train']['profile'].get('idle_share', -1):.3f} (f32 "
+        f"{fixed['profile'].get('idle_share', -1):.3f}), busy "
+        f"{bf['train']['profile'].get('busy_ms', -1):.2f} ms (f32 "
+        f"{fixed['profile'].get('busy_ms', -1):.2f}); fixed eval {bf['eval']['ms']:.2f} "
+        f"ms/batch (f32 {fixed['eval_ms']:.2f}); card vs CPU "
+        f"{share_of_bound} of the bound; CLIs {bf16['clis']}")
     log(f"card: {smi}; total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

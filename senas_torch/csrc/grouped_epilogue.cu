@@ -18,7 +18,7 @@
 //   apply_mix     replaces _apply_kernel via _apply_mix (:143-181).
 //                 Each block covers a chunk of one (b, c) plane; it reads its
 //                 n coefficients A[o,b,c] and K[b,c] once, then streams the n
-//                 inputs with float4 loads and writes the mixed output.
+//                 inputs with 16-byte loads and writes the mixed output.
 //   bwd_reduce    replaces _bwd_reduce_kernel via _bwd_reduce (:189-229).
 //                 dA[o,b,c] = sum_hw g[b,c] * x_o[b,c],  dK[b,c] = sum_hw g[b,c].
 //                 g is read once per plane for all n branches. A plane alone
@@ -32,27 +32,41 @@
 //                 elementwise pass that reads g and the n inputs and writes n
 //                 outputs, blocked like apply_mix.
 //
+// Element types: each kernel is a template over the type T of the branch
+// tensors, g, `mixed` and dx_o: float or __nv_bfloat16, as the Pallas
+// kernels take either. The per-(b,c) operands A, K, ds1, ds2 and the sums
+// s1, s2, dA, dK are f32 for both. Every value is widened to f32 on load,
+// every sum and product is taken in f32, and each bf16 written is rounded
+// once, to nearest even (__float2bfloat16_rn, what .to(torch.bfloat16) and
+// astype(jnp.bfloat16) do). A 16-byte vector holds 4 f32 or 8 bf16 values
+// (`Pack<T>`); a plane whose size or address does not allow it is read
+// with scalar loads. The f32 instantiations do the arithmetic of the f32
+// kernels that came before them, in the same order.
+//
 // Bound on the card: all four are memory-bound streaming passes with ~1-2
-// FLOP per byte. branch_stats reads n*B*C*H*W*4 bytes; apply_mix reads that
-// plus the [n,B,C] coefficients and writes B*C*H*W*4 bytes; bwd_reduce reads
-// (n+1)*B*C*H*W*4; bwd_dx reads (n+1)*B*C*H*W*4 and writes n*B*C*H*W*4. The
-// design keeps every input read exactly once per kernel, 16-byte vector
-// accesses on coalesced addresses, and no full-size intermediate in device
-// memory.
+// FLOP per byte. With e = sizeof(T), branch_stats reads n*B*C*H*W*e bytes;
+// apply_mix reads that plus the [n,B,C] coefficients and writes B*C*H*W*e
+// bytes; bwd_reduce reads (n+1)*B*C*H*W*e; bwd_dx reads (n+1)*B*C*H*W*e and
+// writes n*B*C*H*W*e. The design keeps every input read exactly once per
+// kernel, 16-byte vector accesses on coalesced addresses, and no full-size
+// intermediate in device memory.
 //
 // Plain C interface (no PyTorch headers): each launcher returns
-// cudaGetLastError() and launches on the stream it is given.
+// cudaGetLastError() and launches on the stream it is given; the entry
+// points end in _f32 or _bf16 after the element type.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+typedef __nv_bfloat16 bf16;
+
 constexpr int kMaxBranches = 6;
 constexpr int kStatsThreads = 256;
 constexpr int kApplyThreads = 256;
-constexpr int kApplyVecs = 4;  // float4 vectors per thread per block
-constexpr long long kApplyChunk = (long long)kApplyThreads * 4 * kApplyVecs;
+constexpr int kApplyVecs = 4;  // 16-byte vectors per thread per block
 constexpr int kReduceThreads = 256;
 // bwd_reduce: aim for this many blocks in all (about 8 per SM), but give
 // each block at least kReduceMinChunk elements of a plane.
@@ -60,24 +74,113 @@ constexpr long long kReduceTargetBlocks = 8 * 132;
 constexpr long long kReduceMinChunk = (long long)kReduceThreads * 4 * 2;
 constexpr int kFinishThreads = 128;
 
-struct Branches {
-  const float* p[kMaxBranches];
+// 16 bytes of T, widened to f32 on load and rounded back on store.
+template <typename T>
+struct Pack;
+
+template <>
+struct Pack<float> {
+  static constexpr int kN = 4;
+  float v[kN];
+  __device__ __forceinline__ void load(const float* p, long long i) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(p) + i);
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  }
+  __device__ __forceinline__ void store(float* p, long long i) const {
+    reinterpret_cast<float4*>(p)[i] = make_float4(v[0], v[1], v[2], v[3]);
+  }
 };
 
+template <>
+struct Pack<bf16> {
+  static constexpr int kN = 8;
+  float v[kN];
+  __device__ __forceinline__ void load(const bf16* p, long long i) {
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p) + i);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int j = 0; j < kN / 2; ++j) {
+      const float2 f = __bfloat1622float2(h[j]);
+      v[2 * j] = f.x;
+      v[2 * j + 1] = f.y;
+    }
+  }
+  __device__ __forceinline__ void store(bf16* p, long long i) const {
+    uint4 raw;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int j = 0; j < kN / 2; ++j) h[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+    reinterpret_cast<uint4*>(p)[i] = raw;
+  }
+};
+
+__device__ __forceinline__ float load1(const float* p, long long i) { return __ldg(p + i); }
+__device__ __forceinline__ float load1(const bf16* p, long long i) {
+  return __bfloat162float(__ldg(p + i));
+}
+__device__ __forceinline__ void store1(float* p, long long i, float v) { p[i] = v; }
+__device__ __forceinline__ void store1(bf16* p, long long i, float v) {
+  p[i] = __float2bfloat16_rn(v);
+}
+
+// Pairwise sums over a pack: ((v0 + v1) + (v2 + v3)) for 4 values, and the
+// two halves' sums added for 8; `sq` sums v*v, `dot` g*v.
+template <int N>
+__device__ __forceinline__ float tree_sum(const float* v) {
+  if constexpr (N == 2) {
+    return v[0] + v[1];
+  } else {
+    return tree_sum<N / 2>(v) + tree_sum<N / 2>(v + N / 2);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ float tree_sq(const float* v) {
+  if constexpr (N == 2) {
+    return v[0] * v[0] + v[1] * v[1];
+  } else {
+    return tree_sq<N / 2>(v) + tree_sq<N / 2>(v + N / 2);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ float tree_dot(const float* g, const float* v) {
+  if constexpr (N == 2) {
+    return g[0] * v[0] + g[1] * v[1];
+  } else {
+    return tree_dot<N / 2>(g, v) + tree_dot<N / 2>(g + N / 2, v + N / 2);
+  }
+}
+
+template <typename T>
+struct Branches {
+  const T* p[kMaxBranches];
+};
+
+template <typename T>
 struct OutBranches {
-  float* p[kMaxBranches];
+  T* p[kMaxBranches];
 };
 
 long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
 
-// Elements of a plane per bwd_reduce block (a multiple of 4, so that every
-// chunk starts 16-byte aligned when the plane does).
-long long reduce_chunk(int planes, long long hw) {
+// Elements of a plane per apply_mix / bwd_dx block.
+template <typename T>
+__host__ __device__ constexpr long long apply_chunk() {
+  return (long long)kApplyThreads * Pack<T>::kN * kApplyVecs;
+}
+
+// Elements of a plane per bwd_reduce block (a multiple of a pack, so that
+// every chunk starts 16-byte aligned when the plane does).
+long long reduce_chunk(int planes, long long hw, int pack) {
   long long splits = ceil_div(kReduceTargetBlocks, planes);
   const long long most = ceil_div(hw, kReduceMinChunk);
   if (splits > most) splits = most;
   if (splits < 1) splits = 1;
-  return ceil_div(ceil_div(hw, splits), 4) * 4;
+  return ceil_div(ceil_div(hw, splits), pack) * pack;
 }
 
 __device__ __forceinline__ bool aligned16(const void* p) {
@@ -90,24 +193,26 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kStatsThreads)
-branch_stats_kernel(Branches xs, long long hw, int planes,
+branch_stats_kernel(Branches<T> xs, long long hw, int planes,
                     float* __restrict__ s1, float* __restrict__ s2) {
+  constexpr int V = Pack<T>::kN;
   const int plane = blockIdx.x;
   const int o = blockIdx.y;
-  const float* __restrict__ x = xs.p[o] + (long long)plane * hw;
+  const T* __restrict__ x = xs.p[o] + (long long)plane * hw;
   float a = 0.f, q = 0.f;
-  if ((hw & 3) == 0 && aligned16(x)) {
-    const float4* __restrict__ x4 = reinterpret_cast<const float4*>(x);
-    const long long n4 = hw >> 2;
-    for (long long i = threadIdx.x; i < n4; i += kStatsThreads) {
-      const float4 v = __ldg(x4 + i);
-      a += (v.x + v.y) + (v.z + v.w);
-      q += (v.x * v.x + v.y * v.y) + (v.z * v.z + v.w * v.w);
+  if (hw % V == 0 && aligned16(x)) {
+    const long long nv = hw / V;
+    for (long long i = threadIdx.x; i < nv; i += kStatsThreads) {
+      Pack<T> v;
+      v.load(x, i);
+      a += tree_sum<V>(v.v);
+      q += tree_sq<V>(v.v);
     }
   } else {
     for (long long i = threadIdx.x; i < hw; i += kStatsThreads) {
-      const float v = __ldg(x + i);
+      const float v = load1(x, i);
       a += v;
       q += v * v;
     }
@@ -135,16 +240,17 @@ branch_stats_kernel(Branches xs, long long hw, int planes,
   }
 }
 
-template <int N>
+template <typename T, int N>
 __global__ void __launch_bounds__(kApplyThreads)
-apply_mix_kernel(Branches xs, const float* __restrict__ A,
-                 const float* __restrict__ K, float* __restrict__ out,
+apply_mix_kernel(Branches<T> xs, const float* __restrict__ A,
+                 const float* __restrict__ K, T* __restrict__ out,
                  long long hw, int planes) {
+  constexpr int V = Pack<T>::kN;
   const int plane = blockIdx.x;
   const long long base = (long long)plane * hw;
   float a[N];
-  const float* xp[N];
-  bool vec = (hw & 3) == 0 && aligned16(out + base);
+  const T* xp[N];
+  bool vec = hw % V == 0 && aligned16(out + base);
 #pragma unroll
   for (int o = 0; o < N; ++o) {
     a[o] = __ldg(A + (long long)o * planes + plane);
@@ -152,61 +258,63 @@ apply_mix_kernel(Branches xs, const float* __restrict__ A,
     vec = vec && aligned16(xp[o]);
   }
   const float k = __ldg(K + plane);
-  float* __restrict__ y = out + base;
+  T* __restrict__ y = out + base;
   if (vec) {
-    const long long n4 = hw >> 2;
+    const long long nv = hw / V;
 #pragma unroll
     for (int j = 0; j < kApplyVecs; ++j) {
       const long long i =
           ((long long)blockIdx.y * kApplyVecs + j) * kApplyThreads + threadIdx.x;
-      if (i < n4) {
-        float4 acc = make_float4(k, k, k, k);
+      if (i < nv) {
+        Pack<T> acc;
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc.v[e] = k;
 #pragma unroll
         for (int o = 0; o < N; ++o) {
-          const float4 v = __ldg(reinterpret_cast<const float4*>(xp[o]) + i);
-          acc.x = fmaf(v.x, a[o], acc.x);
-          acc.y = fmaf(v.y, a[o], acc.y);
-          acc.z = fmaf(v.z, a[o], acc.z);
-          acc.w = fmaf(v.w, a[o], acc.w);
+          Pack<T> v;
+          v.load(xp[o], i);
+#pragma unroll
+          for (int e = 0; e < V; ++e) acc.v[e] = fmaf(v.v[e], a[o], acc.v[e]);
         }
-        reinterpret_cast<float4*>(y)[i] = acc;
+        acc.store(y, i);
       }
     }
   } else {
-    const long long begin = (long long)blockIdx.y * kApplyChunk;
-    const long long end = begin + kApplyChunk < hw ? begin + kApplyChunk : hw;
+    const long long begin = (long long)blockIdx.y * apply_chunk<T>();
+    const long long end = begin + apply_chunk<T>() < hw ? begin + apply_chunk<T>() : hw;
     for (long long i = begin + threadIdx.x; i < end; i += kApplyThreads) {
       float acc = k;
 #pragma unroll
-      for (int o = 0; o < N; ++o) acc = fmaf(__ldg(xp[o] + i), a[o], acc);
-      y[i] = acc;
+      for (int o = 0; o < N; ++o) acc = fmaf(load1(xp[o], i), a[o], acc);
+      store1(y, i, acc);
     }
   }
 }
 
-template <int N>
-void launch_apply(const Branches& xs, const float* A, const float* K, float* out,
+template <typename T, int N>
+void launch_apply(const Branches<T>& xs, const float* A, const float* K, T* out,
                   long long hw, int planes, cudaStream_t stream) {
-  const dim3 grid(planes, (unsigned)((hw + kApplyChunk - 1) / kApplyChunk));
-  apply_mix_kernel<N><<<grid, kApplyThreads, 0, stream>>>(xs, A, K, out, hw, planes);
+  const dim3 grid(planes, (unsigned)ceil_div(hw, apply_chunk<T>()));
+  apply_mix_kernel<T, N><<<grid, kApplyThreads, 0, stream>>>(xs, A, K, out, hw, planes);
 }
 
 // One block per (plane, chunk): the n sums of g*x_o and the sum of g over
 // its chunk, written to partial[(r * planes + plane) * splits + chunk] for
 // row r = o (dA) and r = N (dK).
-template <int N>
+template <typename T, int N>
 __global__ void __launch_bounds__(kReduceThreads)
-bwd_reduce_partial_kernel(Branches xs, const float* __restrict__ g, long long hw,
+bwd_reduce_partial_kernel(Branches<T> xs, const T* __restrict__ g, long long hw,
                           long long chunk, int planes, float* __restrict__ partial) {
+  constexpr int V = Pack<T>::kN;
   const int plane = blockIdx.x;
   const int split = blockIdx.y;
   const int splits = gridDim.y;
   const long long base = (long long)plane * hw;
   const long long begin = (long long)split * chunk;
   const long long end = begin + chunk < hw ? begin + chunk : hw;
-  const float* __restrict__ gp = g + base;
-  const float* xp[N];
-  bool vec = (hw & 3) == 0 && aligned16(gp);
+  const T* __restrict__ gp = g + base;
+  const T* xp[N];
+  bool vec = hw % V == 0 && aligned16(gp);
 #pragma unroll
   for (int o = 0; o < N; ++o) {
     xp[o] = xs.p[o] + base;
@@ -216,21 +324,23 @@ bwd_reduce_partial_kernel(Branches xs, const float* __restrict__ g, long long hw
 #pragma unroll
   for (int r = 0; r <= N; ++r) acc[r] = 0.f;
   if (vec) {
-    for (long long i = (begin >> 2) + threadIdx.x; i < (end >> 2); i += kReduceThreads) {
-      const float4 gv = __ldg(reinterpret_cast<const float4*>(gp) + i);
-      acc[N] += (gv.x + gv.y) + (gv.z + gv.w);
+    for (long long i = begin / V + threadIdx.x; i < end / V; i += kReduceThreads) {
+      Pack<T> gv;
+      gv.load(gp, i);
+      acc[N] += tree_sum<V>(gv.v);
 #pragma unroll
       for (int o = 0; o < N; ++o) {
-        const float4 v = __ldg(reinterpret_cast<const float4*>(xp[o]) + i);
-        acc[o] += (gv.x * v.x + gv.y * v.y) + (gv.z * v.z + gv.w * v.w);
+        Pack<T> v;
+        v.load(xp[o], i);
+        acc[o] += tree_dot<V>(gv.v, v.v);
       }
     }
   } else {
     for (long long i = begin + threadIdx.x; i < end; i += kReduceThreads) {
-      const float gv = __ldg(gp + i);
+      const float gv = load1(gp, i);
       acc[N] += gv;
 #pragma unroll
-      for (int o = 0; o < N; ++o) acc[o] = fmaf(gv, __ldg(xp[o] + i), acc[o]);
+      for (int o = 0; o < N; ++o) acc[o] = fmaf(gv, load1(xp[o], i), acc[o]);
     }
   }
   __shared__ float s[N + 1][kReduceThreads / 32];
@@ -269,12 +379,12 @@ bwd_reduce_finish_kernel(const float* __restrict__ partial, int n, int planes,
   }
 }
 
-template <int N>
-cudaError_t launch_bwd_reduce(const Branches& xs, const float* g, long long hw, int planes,
+template <typename T, int N>
+cudaError_t launch_bwd_reduce(const Branches<T>& xs, const T* g, long long hw, int planes,
                               float* partial, float* dA, float* dK, cudaStream_t stream) {
-  const long long chunk = reduce_chunk(planes, hw);
+  const long long chunk = reduce_chunk(planes, hw, Pack<T>::kN);
   const int splits = (int)ceil_div(hw, chunk);
-  bwd_reduce_partial_kernel<N><<<dim3(planes, splits), kReduceThreads, 0, stream>>>(
+  bwd_reduce_partial_kernel<T, N><<<dim3(planes, splits), kReduceThreads, 0, stream>>>(
       xs, g, hw, chunk, planes, partial);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -284,18 +394,19 @@ cudaError_t launch_bwd_reduce(const Branches& xs, const float* g, long long hw, 
   return cudaGetLastError();
 }
 
-template <int N>
+template <typename T, int N>
 __global__ void __launch_bounds__(kApplyThreads)
-bwd_dx_kernel(Branches xs, const float* __restrict__ g, const float* __restrict__ A,
+bwd_dx_kernel(Branches<T> xs, const T* __restrict__ g, const float* __restrict__ A,
               const float* __restrict__ ds1, const float* __restrict__ ds2,
-              OutBranches dxs, long long hw, int planes) {
+              OutBranches<T> dxs, long long hw, int planes) {
+  constexpr int V = Pack<T>::kN;
   const int plane = blockIdx.x;
   const long long base = (long long)plane * hw;
-  const float* __restrict__ gp = g + base;
+  const T* __restrict__ gp = g + base;
   float a[N], c1[N], c2[N];
-  const float* xp[N];
-  float* yp[N];
-  bool vec = (hw & 3) == 0 && aligned16(gp);
+  const T* xp[N];
+  T* yp[N];
+  bool vec = hw % V == 0 && aligned16(gp);
 #pragma unroll
   for (int o = 0; o < N; ++o) {
     const long long at = (long long)o * planes + plane;
@@ -307,136 +418,162 @@ bwd_dx_kernel(Branches xs, const float* __restrict__ g, const float* __restrict_
     vec = vec && aligned16(xp[o]) && aligned16(yp[o]);
   }
   if (vec) {
-    const long long n4 = hw >> 2;
+    const long long nv = hw / V;
 #pragma unroll
     for (int j = 0; j < kApplyVecs; ++j) {
       const long long i =
           ((long long)blockIdx.y * kApplyVecs + j) * kApplyThreads + threadIdx.x;
-      if (i < n4) {
-        const float4 gv = __ldg(reinterpret_cast<const float4*>(gp) + i);
+      if (i < nv) {
+        Pack<T> gv;
+        gv.load(gp, i);
 #pragma unroll
         for (int o = 0; o < N; ++o) {
-          const float4 v = __ldg(reinterpret_cast<const float4*>(xp[o]) + i);
-          float4 d;
-          d.x = fmaf(v.x, c2[o], fmaf(gv.x, a[o], c1[o]));
-          d.y = fmaf(v.y, c2[o], fmaf(gv.y, a[o], c1[o]));
-          d.z = fmaf(v.z, c2[o], fmaf(gv.z, a[o], c1[o]));
-          d.w = fmaf(v.w, c2[o], fmaf(gv.w, a[o], c1[o]));
-          reinterpret_cast<float4*>(yp[o])[i] = d;
+          Pack<T> v;
+          v.load(xp[o], i);
+          Pack<T> d;
+#pragma unroll
+          for (int e = 0; e < V; ++e) d.v[e] = fmaf(v.v[e], c2[o], fmaf(gv.v[e], a[o], c1[o]));
+          d.store(yp[o], i);
         }
       }
     }
   } else {
-    const long long begin = (long long)blockIdx.y * kApplyChunk;
-    const long long end = begin + kApplyChunk < hw ? begin + kApplyChunk : hw;
+    const long long begin = (long long)blockIdx.y * apply_chunk<T>();
+    const long long end = begin + apply_chunk<T>() < hw ? begin + apply_chunk<T>() : hw;
     for (long long i = begin + threadIdx.x; i < end; i += kApplyThreads) {
-      const float gv = __ldg(gp + i);
+      const float gv = load1(gp, i);
 #pragma unroll
       for (int o = 0; o < N; ++o)
-        yp[o][i] = fmaf(__ldg(xp[o] + i), c2[o], fmaf(gv, a[o], c1[o]));
+        store1(yp[o], i, fmaf(load1(xp[o], i), c2[o], fmaf(gv, a[o], c1[o])));
     }
   }
 }
 
-template <int N>
-void launch_bwd_dx(const Branches& xs, const float* g, const float* A, const float* ds1,
-                   const float* ds2, const OutBranches& dxs, long long hw, int planes,
+template <typename T, int N>
+void launch_bwd_dx(const Branches<T>& xs, const T* g, const float* A, const float* ds1,
+                   const float* ds2, const OutBranches<T>& dxs, long long hw, int planes,
                    cudaStream_t stream) {
-  const dim3 grid(planes, (unsigned)((hw + kApplyChunk - 1) / kApplyChunk));
-  bwd_dx_kernel<N><<<grid, kApplyThreads, 0, stream>>>(xs, g, A, ds1, ds2, dxs, hw, planes);
+  const dim3 grid(planes, (unsigned)ceil_div(hw, apply_chunk<T>()));
+  bwd_dx_kernel<T, N><<<grid, kApplyThreads, 0, stream>>>(xs, g, A, ds1, ds2, dxs, hw, planes);
+}
+
+bool bad_shape(int n, int planes, long long hw) {
+  return n < 1 || n > kMaxBranches || planes < 1 || hw < 1;
+}
+
+// The launchers behind the entry points, one per element type T.
+
+template <typename T>
+int branch_stats(const Branches<T>& xs, int n, int planes, long long hw, float* s1,
+                 float* s2, cudaStream_t stream) {
+  if (bad_shape(n, planes, hw)) return (int)cudaErrorInvalidValue;
+  branch_stats_kernel<T><<<dim3(planes, n), kStatsThreads, 0, stream>>>(xs, hw, planes, s1,
+                                                                         s2);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int apply_mix(const Branches<T>& xs, int n, const float* A, const float* K, T* out,
+              int planes, long long hw, cudaStream_t s) {
+  if (bad_shape(n, planes, hw) || ceil_div(hw, apply_chunk<T>()) > 65535)
+    return (int)cudaErrorInvalidValue;
+  switch (n) {
+    case 1: launch_apply<T, 1>(xs, A, K, out, hw, planes, s); break;
+    case 2: launch_apply<T, 2>(xs, A, K, out, hw, planes, s); break;
+    case 3: launch_apply<T, 3>(xs, A, K, out, hw, planes, s); break;
+    case 4: launch_apply<T, 4>(xs, A, K, out, hw, planes, s); break;
+    case 5: launch_apply<T, 5>(xs, A, K, out, hw, planes, s); break;
+    default: launch_apply<T, 6>(xs, A, K, out, hw, planes, s); break;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int bwd_reduce(const Branches<T>& xs, int n, const T* g, int planes, long long hw,
+               float* partial, long long partial_len, float* dA, float* dK, cudaStream_t s) {
+  if (bad_shape(n, planes, hw)) return (int)cudaErrorInvalidValue;
+  const long long splits = ceil_div(hw, reduce_chunk(planes, hw, Pack<T>::kN));
+  if (splits > 65535 || partial_len < (long long)(n + 1) * planes * splits)
+    return (int)cudaErrorInvalidValue;
+  switch (n) {
+    case 1: return (int)launch_bwd_reduce<T, 1>(xs, g, hw, planes, partial, dA, dK, s);
+    case 2: return (int)launch_bwd_reduce<T, 2>(xs, g, hw, planes, partial, dA, dK, s);
+    case 3: return (int)launch_bwd_reduce<T, 3>(xs, g, hw, planes, partial, dA, dK, s);
+    case 4: return (int)launch_bwd_reduce<T, 4>(xs, g, hw, planes, partial, dA, dK, s);
+    case 5: return (int)launch_bwd_reduce<T, 5>(xs, g, hw, planes, partial, dA, dK, s);
+    default: return (int)launch_bwd_reduce<T, 6>(xs, g, hw, planes, partial, dA, dK, s);
+  }
+}
+
+template <typename T>
+int bwd_dx(const Branches<T>& xs, int n, const T* g, const float* A, const float* ds1,
+           const float* ds2, const OutBranches<T>& dxs, int planes, long long hw,
+           cudaStream_t s) {
+  if (bad_shape(n, planes, hw) || ceil_div(hw, apply_chunk<T>()) > 65535)
+    return (int)cudaErrorInvalidValue;
+  switch (n) {
+    case 1: launch_bwd_dx<T, 1>(xs, g, A, ds1, ds2, dxs, hw, planes, s); break;
+    case 2: launch_bwd_dx<T, 2>(xs, g, A, ds1, ds2, dxs, hw, planes, s); break;
+    case 3: launch_bwd_dx<T, 3>(xs, g, A, ds1, ds2, dxs, hw, planes, s); break;
+    case 4: launch_bwd_dx<T, 4>(xs, g, A, ds1, ds2, dxs, hw, planes, s); break;
+    case 5: launch_bwd_dx<T, 5>(xs, g, A, ds1, ds2, dxs, hw, planes, s); break;
+    default: launch_bwd_dx<T, 6>(xs, g, A, ds1, ds2, dxs, hw, planes, s); break;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The entry points, _f32 and _bf16 (T = float, __nv_bfloat16):
+//
+// senas_branch_stats_*(x0..x5, n, planes, hw, s1, s2, stream)
+//   xs: n (1..6) NCHW-contiguous tensors of `planes` = B*C planes of `hw`
+//   elements each (unused pointers may be null). s1, s2: [n, planes] f32.
+// senas_apply_mix_*(x0..x5, n, A, K, out, planes, hw, stream)
+//   out[p, :] = K[p] + sum_o A[o, p] * x_o[p, :] for each of the `planes`
+//   planes; A: [n, planes] f32, K: [planes] f32, out like x0.
+// senas_bwd_reduce_*(x0..x5, n, g, planes, hw, partial, partial_len, dA, dK, stream)
+//   dA[o, p] = sum_hw g[p, :] * x_o[p, :],  dK[p] = sum_hw g[p, :]; g like
+//   x0; dA: [n, planes] f32, dK: [planes] f32; `partial` is a workspace of
+//   `partial_len` floats, which (n + 1) * (planes + 8 * 132) always covers:
+//   a plane is cut into at most ceil(8 * 132 / planes) chunks. Two launches.
+// senas_bwd_dx_*(x0..x5, n, g, A, ds1, ds2, y0..y5, planes, hw, stream)
+//   dx_o[p, :] = g[p, :] * A[o, p] + ds1[o, p] + 2 * x_o[p, :] * ds2[o, p];
+//   A, ds1, ds2: [n, planes] f32; g and each dx_o (y_o) like x_o.
+#define SENAS_ENTRY_POINTS(SUFFIX, T)                                                    \
+  int senas_branch_stats_##SUFFIX(const T* x0, const T* x1, const T* x2, const T* x3,   \
+                                  const T* x4, const T* x5, int n, int planes,           \
+                                  long long hw, float* s1, float* s2, void* stream) {    \
+    return branch_stats<T>({{x0, x1, x2, x3, x4, x5}}, n, planes, hw, s1, s2,           \
+                           (cudaStream_t)stream);                                       \
+  }                                                                                      \
+  int senas_apply_mix_##SUFFIX(const T* x0, const T* x1, const T* x2, const T* x3,      \
+                               const T* x4, const T* x5, int n, const float* A,          \
+                               const float* K, T* out, int planes, long long hw,         \
+                               void* stream) {                                           \
+    return apply_mix<T>({{x0, x1, x2, x3, x4, x5}}, n, A, K, out, planes, hw,           \
+                        (cudaStream_t)stream);                                          \
+  }                                                                                      \
+  int senas_bwd_reduce_##SUFFIX(const T* x0, const T* x1, const T* x2, const T* x3,     \
+                                const T* x4, const T* x5, int n, const T* g, int planes, \
+                                long long hw, float* partial, long long partial_len,     \
+                                float* dA, float* dK, void* stream) {                    \
+    return bwd_reduce<T>({{x0, x1, x2, x3, x4, x5}}, n, g, planes, hw, partial,         \
+                         partial_len, dA, dK, (cudaStream_t)stream);                    \
+  }                                                                                      \
+  int senas_bwd_dx_##SUFFIX(const T* x0, const T* x1, const T* x2, const T* x3,         \
+                            const T* x4, const T* x5, int n, const T* g, const float* A, \
+                            const float* ds1, const float* ds2, T* y0, T* y1, T* y2,     \
+                            T* y3, T* y4, T* y5, int planes, long long hw,               \
+                            void* stream) {                                              \
+    return bwd_dx<T>({{x0, x1, x2, x3, x4, x5}}, n, g, A, ds1, ds2,                     \
+                     {{y0, y1, y2, y3, y4, y5}}, planes, hw, (cudaStream_t)stream);     \
+  }
+
 extern "C" {
 
-// xs: n (1..6) NCHW-contiguous f32 tensors of `planes` = B*C planes of `hw`
-// elements each (unused pointers may be null). s1, s2: [n, planes] f32.
-int senas_branch_stats_f32(const float* x0, const float* x1, const float* x2,
-                           const float* x3, const float* x4, const float* x5,
-                           int n, int planes, long long hw, float* s1,
-                           float* s2, void* stream) {
-  if (n < 1 || n > kMaxBranches || planes < 1 || hw < 1)
-    return (int)cudaErrorInvalidValue;
-  const Branches xs = {{x0, x1, x2, x3, x4, x5}};
-  const dim3 grid(planes, n);
-  branch_stats_kernel<<<grid, kStatsThreads, 0, (cudaStream_t)stream>>>(
-      xs, hw, planes, s1, s2);
-  return (int)cudaGetLastError();
-}
-
-// out[p, :] = K[p] + sum_o A[o, p] * x_o[p, :] for each of the `planes`
-// planes; A: [n, planes] f32, K: [planes] f32, out like x0.
-int senas_apply_mix_f32(const float* x0, const float* x1, const float* x2,
-                        const float* x3, const float* x4, const float* x5,
-                        int n, const float* A, const float* K, float* out,
-                        int planes, long long hw, void* stream) {
-  if (n < 1 || n > kMaxBranches || planes < 1 || hw < 1 ||
-      (hw + kApplyChunk - 1) / kApplyChunk > 65535)
-    return (int)cudaErrorInvalidValue;
-  const Branches xs = {{x0, x1, x2, x3, x4, x5}};
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (n) {
-    case 1: launch_apply<1>(xs, A, K, out, hw, planes, s); break;
-    case 2: launch_apply<2>(xs, A, K, out, hw, planes, s); break;
-    case 3: launch_apply<3>(xs, A, K, out, hw, planes, s); break;
-    case 4: launch_apply<4>(xs, A, K, out, hw, planes, s); break;
-    case 5: launch_apply<5>(xs, A, K, out, hw, planes, s); break;
-    default: launch_apply<6>(xs, A, K, out, hw, planes, s); break;
-  }
-  return (int)cudaGetLastError();
-}
-
-// dA[o, p] = sum_hw g[p, :] * x_o[p, :],  dK[p] = sum_hw g[p, :] for each of
-// the `planes` planes; dA: [n, planes] f32, dK: [planes] f32; `partial` is a
-// workspace of `partial_len` floats, which (n + 1) * (planes + 8 * 132)
-// always covers: a plane is cut into at most ceil(8 * 132 / planes) chunks.
-// Two launches.
-int senas_bwd_reduce_f32(const float* x0, const float* x1, const float* x2,
-                         const float* x3, const float* x4, const float* x5,
-                         int n, const float* g, int planes, long long hw,
-                         float* partial, long long partial_len, float* dA, float* dK,
-                         void* stream) {
-  if (n < 1 || n > kMaxBranches || planes < 1 || hw < 1)
-    return (int)cudaErrorInvalidValue;
-  const long long splits = ceil_div(hw, reduce_chunk(planes, hw));
-  if (splits > 65535 || partial_len < (long long)(n + 1) * planes * splits)
-    return (int)cudaErrorInvalidValue;
-  const Branches xs = {{x0, x1, x2, x3, x4, x5}};
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (n) {
-    case 1: return (int)launch_bwd_reduce<1>(xs, g, hw, planes, partial, dA, dK, s);
-    case 2: return (int)launch_bwd_reduce<2>(xs, g, hw, planes, partial, dA, dK, s);
-    case 3: return (int)launch_bwd_reduce<3>(xs, g, hw, planes, partial, dA, dK, s);
-    case 4: return (int)launch_bwd_reduce<4>(xs, g, hw, planes, partial, dA, dK, s);
-    case 5: return (int)launch_bwd_reduce<5>(xs, g, hw, planes, partial, dA, dK, s);
-    default: return (int)launch_bwd_reduce<6>(xs, g, hw, planes, partial, dA, dK, s);
-  }
-}
-
-// dx_o[p, :] = g[p, :] * A[o, p] + ds1[o, p] + 2 * x_o[p, :] * ds2[o, p] for
-// each of the `planes` planes; A, ds1, ds2: [n, planes] f32; dx_o like x_o.
-int senas_bwd_dx_f32(const float* x0, const float* x1, const float* x2,
-                     const float* x3, const float* x4, const float* x5,
-                     int n, const float* g, const float* A, const float* ds1,
-                     const float* ds2, float* y0, float* y1, float* y2, float* y3,
-                     float* y4, float* y5, int planes, long long hw, void* stream) {
-  if (n < 1 || n > kMaxBranches || planes < 1 || hw < 1 ||
-      (hw + kApplyChunk - 1) / kApplyChunk > 65535)
-    return (int)cudaErrorInvalidValue;
-  const Branches xs = {{x0, x1, x2, x3, x4, x5}};
-  const OutBranches dxs = {{y0, y1, y2, y3, y4, y5}};
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (n) {
-    case 1: launch_bwd_dx<1>(xs, g, A, ds1, ds2, dxs, hw, planes, s); break;
-    case 2: launch_bwd_dx<2>(xs, g, A, ds1, ds2, dxs, hw, planes, s); break;
-    case 3: launch_bwd_dx<3>(xs, g, A, ds1, ds2, dxs, hw, planes, s); break;
-    case 4: launch_bwd_dx<4>(xs, g, A, ds1, ds2, dxs, hw, planes, s); break;
-    case 5: launch_bwd_dx<5>(xs, g, A, ds1, ds2, dxs, hw, planes, s); break;
-    default: launch_bwd_dx<6>(xs, g, A, ds1, ds2, dxs, hw, planes, s); break;
-  }
-  return (int)cudaGetLastError();
-}
+SENAS_ENTRY_POINTS(f32, float)
+SENAS_ENTRY_POINTS(bf16, bf16)
 
 const char* senas_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

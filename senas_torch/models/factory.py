@@ -29,8 +29,9 @@ _DECODER_CHANNELS = (256, 128, 64, 32, 16, 8, 4, 2)
 def get_segmentation_model(name: str, dataset: str = "promise12", *, device=None,
                            generator: Optional[torch.Generator] = None, **kwargs: Any):
     """The model `name` for `dataset`, built on `device` (None means the
-    card) with its kernels drawn from `generator`. `dtype` other than None
-    (bf16) raises."""
+    card) with its kernels drawn from `generator`. `dtype` (the compute
+    dtype, None for f32) reaches `senas`; the zoo's models raise on any
+    other than None."""
     spec = get_dataset_spec(dataset)
     nclass, in_ch = spec.num_class, spec.in_channels
     depth = kwargs.get("depth", 5)
@@ -39,15 +40,13 @@ def get_segmentation_model(name: str, dataset: str = "promise12", *, device=None
     built = dict(device=device, generator=generator)
     name = name.lower()
     if name == "senas":
-        if dtype is not None:
-            raise NotImplementedError("bf16 is not ported yet (ROADMAP.md Queue 1, item 5)")
         return SenasModel(nclass=nclass, in_channels=in_ch,
                           c=kwargs.get("c", 32), depth=depth,
                           dropout_prob=kwargs.get("dropout_prob", 0.0),
                           supervision=kwargs.get("supervision", False),
                           genotype=kwargs["genotype"],
                           double_down_channel=kwargs.get("double_down_channel", False),
-                          remat=kwargs.get("remat", False), **built)
+                          dtype=dtype, remat=kwargs.get("remat", False), **built)
     if name == "nasunet":
         return NasUnet(nclass=nclass, in_channels=in_ch, depth=depth, dtype=dtype, **built)
     common = dict(classes=nclass, in_channels=in_ch, dtype=dtype, **built)

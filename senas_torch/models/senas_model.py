@@ -12,7 +12,10 @@ later cell takes only the cells that were. Submodules carry the flax names
 `head.segmentation_head`, each cell's `op_{i}`), so `senas_torch.convert`
 carries the weights leaf by leaf. `SenasModel.forward` keeps the JAX
 package's NHWC boundary and runs NCHW inside. `remat` and a
-`dropout_prob` above 0 are not ported and raise.
+`dropout_prob` above 0 are not ported and raise. `dtype` is every
+module's compute dtype, as in the JAX package (None: f32; with
+`torch.bfloat16` the logits are bf16 and the weights and running stats
+stay f32).
 """
 
 from __future__ import annotations
@@ -33,15 +36,15 @@ class BuildCell(nn.Module):
     """Discrete cell compiled from a genotype (senas_model.py:4-64)."""
 
     def __init__(self, genotype: Genotype, double_down: int, c_in0: int, c_in1: int,
-                 c_out: int, cell_type: str, dropout_prob: float = 0.0):
+                 c_out: int, cell_type: str, dropout_prob: float = 0.0, dtype=None):
         super().__init__()
         if cell_type == "down":
-            self.preprocess0 = RectifyResample(c_in0, c_in1, "down")
+            self.preprocess0 = RectifyResample(c_in0, c_in1, "down", dtype=dtype)
             c_part = c_out // double_down
             op_names, idx = zip(*genotype.down)
             concat = genotype.down_concat
         else:
-            self.preprocess0 = ShrinkBlock(c_in0, c_in1)
+            self.preprocess0 = ShrinkBlock(c_in0, c_in1, dtype=dtype)
             c_part = c_out
             op_names, idx = zip(*genotype.up)
             concat = genotype.up_concat
@@ -60,8 +63,9 @@ class BuildCell(nn.Module):
                 c_in = c_in1
             else:
                 op_type, c_in = OpType.NORM, c_part
-            setattr(self, f"op_{i}", make_op(name, c_in, c_part, op_type, dp=dropout_prob))
-        self.post_process = RectifyBlock(len(self._concat) * c_part, c_out)
+            setattr(self, f"op_{i}", make_op(name, c_in, c_part, op_type, dp=dropout_prob,
+                                             dtype=dtype))
+        self.post_process = RectifyBlock(len(self._concat) * c_part, c_out, dtype=dtype)
 
     def forward(self, in0, in1, train: bool = False):
         states = [self.preprocess0(in0, train), relu(in1)]
@@ -77,10 +81,11 @@ class Head(nn.Module):
     """Final up cell + 3x3 segmentation conv (senas_model.py:67-75)."""
 
     def __init__(self, genotype: Genotype, double_down: int, c_in0: int, c_in1: int,
-                 nclass: int):
+                 nclass: int, dtype=None):
         super().__init__()
-        self.up_cell = BuildCell(genotype, double_down, c_in0, c_in1, c_in1, "up")
-        self.segmentation_head = ReLUConv(c_in1, nclass, kernel_size=3)
+        self.up_cell = BuildCell(genotype, double_down, c_in0, c_in1, c_in1, "up",
+                                 dtype=dtype)
+        self.segmentation_head = ReLUConv(c_in1, nclass, kernel_size=3, dtype=dtype)
 
     def forward(self, s0, ot, train: bool = False):
         return self.segmentation_head(self.up_cell(s0, ot, train), train)
@@ -97,13 +102,14 @@ class SenasModel(nn.Module):
 
     forward(x, train): x [B,H,W,in_channels] -> list of [B,H,W,nclass]
     logits (one head per surviving decoder output with supervision, else
-    one). Built on `device` (None means the card) with kernels drawn from
-    `generator` (a fixed seed when None) by the JAX package's init rules."""
+    one), in `dtype` (None: f32). Built on `device` (None means the card)
+    with kernels drawn from `generator` (a fixed seed when None) by the JAX
+    package's init rules."""
 
     def __init__(self, nclass: int, in_channels: int, c: int = 32, depth: int = 5,
                  dropout_prob: float = 0.0, supervision: bool = False,
                  genotype: Optional[Genotype] = None, double_down_channel: bool = False,
-                 remat: bool = False, *, device=None,
+                 dtype=None, remat: bool = False, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if depth < 2:
@@ -119,8 +125,8 @@ class SenasModel(nn.Module):
         double_down = 2 if double_down_channel else 1
         c_in0 = c_in1 = c_curr = c
 
-        self.stem0 = ConvBn(in_channels, c_in0, kernel_size=7)
-        self.stem1_block = BasicBlock(c_in0, c_in1, stride=1)
+        self.stem0 = ConvBn(in_channels, c_in0, kernel_size=7, dtype=dtype)
+        self.stem1_block = BasicBlock(c_in0, c_in1, stride=1, dtype=dtype)
 
         num_filters: List[List[List]] = []
         down_f = []
@@ -131,7 +137,7 @@ class SenasModel(nn.Module):
                 c_curr = int(double_down * c_curr)
                 down_f.append([c_in0, c_in1, c_curr, "down"])
                 setattr(self, f"down_{i}", BuildCell(genotype, double_down, c_in0, c_in1,
-                                                     c_curr, "down", dropout_prob))
+                                                     c_curr, "down", dropout_prob, dtype))
                 c_in0, c_in1 = c_in1, c_curr
         num_filters.append(down_f)
 
@@ -147,10 +153,10 @@ class SenasModel(nn.Module):
                 up_f.append([head_in0, head_in1, head_curr, "up"])
                 setattr(self, f"up_{i}_{j}", BuildCell(genotype, double_down, head_in0,
                                                        head_in1, head_curr, "up",
-                                                       dropout_prob))
+                                                       dropout_prob, dtype))
             num_filters.append(up_f)
 
-        self.head = Head(genotype, double_down, c, num_filters[-1][0][2], nclass)
+        self.head = Head(genotype, double_down, c, num_filters[-1][0][2], nclass, dtype)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_params_(self, generator)

@@ -24,6 +24,14 @@ gradient g*A + ds1 + 2*x*ds2. Tensors are NCHW contiguous. Each wrapper
 takes its plain PyTorch version for a tensor on the CPU and launches its
 kernel for one on the card; it never falls back from one to the other.
 
+Precision, as in the Pallas kernels: the branch tensors, the output's
+gradient g, `mixed` and each dx_o are f32 or bf16 (one dtype for all of
+them); the per-(b,c) terms A, K, ds1, ds2 and the sums s1, s2, dA, dK are
+f32. Sums and products are taken in f32 and a bf16 result is rounded once.
+Each dtype has its own kernel: a bf16 tensor on the card reaches the bf16
+kernel, and f16 or f64 raises. Every wrapper counts its launches in all
+(`launches`) and by dtype (`launches_by_dtype`).
+
 The batch variance is the one-sweep max(E[x^2] - mu^2, 0) in f32, as in
 the JAX package; `group_epilogue_reference` uses the two-pass form and the
 tests hold the two to f32 rounding.
@@ -89,6 +97,8 @@ def bwd_dx_plain(xs: Sequence[torch.Tensor], g: torch.Tensor, a: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 _LIB = None
+# The element types the kernels take, with the suffix of their entry points.
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def _lib():
@@ -99,22 +109,25 @@ def _lib():
         from senas_torch.ops import _build
         lib = _build.load("grouped_epilogue")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.senas_branch_stats_f32.argtypes = [ptr] * MAX_BRANCHES + [
-            i32, i32, i64, ptr, ptr, ptr]
-        lib.senas_branch_stats_f32.restype = i32
-        lib.senas_apply_mix_f32.argtypes = [ptr] * MAX_BRANCHES + [
-            i32, ptr, ptr, ptr, i32, i64, ptr]
-        lib.senas_apply_mix_f32.restype = i32
-        lib.senas_bwd_reduce_f32.argtypes = [ptr] * MAX_BRANCHES + [
-            i32, ptr, i32, i64, ptr, i64, ptr, ptr, ptr]
-        lib.senas_bwd_reduce_f32.restype = i32
-        lib.senas_bwd_dx_f32.argtypes = [ptr] * MAX_BRANCHES + [
-            i32, ptr, ptr, ptr, ptr] + [ptr] * MAX_BRANCHES + [i32, i64, ptr]
-        lib.senas_bwd_dx_f32.restype = i32
+        for sfx in _SUFFIX.values():
+            for name, args in (
+                    ("branch_stats", [i32, i32, i64, ptr, ptr, ptr]),
+                    ("apply_mix", [i32, ptr, ptr, ptr, i32, i64, ptr]),
+                    ("bwd_reduce", [i32, ptr, i32, i64, ptr, i64, ptr, ptr, ptr]),
+                    ("bwd_dx", [i32, ptr, ptr, ptr, ptr] + [ptr] * MAX_BRANCHES
+                     + [i32, i64, ptr])):
+                fn = getattr(lib, f"senas_{name}_{sfx}")
+                fn.argtypes = [ptr] * MAX_BRANCHES + args
+                fn.restype = i32
         lib.senas_cuda_error_string.argtypes = [i32]
         lib.senas_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _kernel(name: str, dtype: torch.dtype):
+    """The entry point of kernel `name` for branch tensors of `dtype`."""
+    return getattr(_lib(), f"senas_{name}_{_SUFFIX[dtype]}")
 
 
 def _check_branches(xs: Sequence[torch.Tensor]):
@@ -128,18 +141,27 @@ def _check_branches(xs: Sequence[torch.Tensor]):
             raise ValueError("branch tensors differ in shape, device or dtype")
 
 
-def _check_card(xs: Sequence[torch.Tensor], *extra: torch.Tensor):
-    """What the CUDA kernels take: f32, NCHW-contiguous, on one card."""
+def _check_card(xs: Sequence[torch.Tensor], g: Optional[torch.Tensor] = None,
+                per_plane: Sequence[torch.Tensor] = ()):
+    """What the CUDA kernels take: the branch tensors (and g) in f32 or bf16,
+    one dtype for all of them; the per-(b,c) operands in f32; everything
+    NCHW-contiguous on one card. Nothing is converted here: a dtype without
+    a kernel raises."""
     if xs[0].device.type != "cuda":
         raise ValueError(f"no kernel for device {xs[0].device}")
-    if xs[0].dtype != torch.float32:
+    if xs[0].dtype not in _SUFFIX:
         raise NotImplementedError(
-            f"the epilogue kernels take float32 only, got {xs[0].dtype}")
-    for t in (*xs, *extra):
-        if t.device != xs[0].device or t.dtype != torch.float32:
-            raise ValueError("kernel operands must be float32 on one device")
+            f"the epilogue kernels take float32 or bfloat16, got {xs[0].dtype}")
+    streamed = [*xs, *([] if g is None else [g])]
+    for t in (*streamed, *per_plane):
+        if t.device != xs[0].device:
+            raise ValueError("kernel operands must lie on one device")
         if not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous (NCHW)")
+    if any(t.dtype != xs[0].dtype for t in streamed):
+        raise ValueError("g must have the branch tensors' dtype")
+    if any(t.dtype != torch.float32 for t in per_plane):
+        raise ValueError("the per-plane operands (a, k, ds1, ds2) must be float32")
 
 
 def _ptrs(xs):
@@ -152,13 +174,28 @@ def _raise_on(rc: int, what: str):
         raise RuntimeError(f"{what} kernel launch failed: {msg} (cudaError {rc})")
 
 
+def _counted(fn):
+    """Give a wrapper its launch counts: `launches`, all of them, and
+    `launches_by_dtype`, split by the branch tensors' dtype name."""
+    fn.launches = 0
+    fn.launches_by_dtype = {str(dt).removeprefix("torch."): 0 for dt in _SUFFIX}
+    return fn
+
+
+def _count(fn, dtype: torch.dtype) -> None:
+    fn.launches += 1
+    fn.launches_by_dtype[str(dtype).removeprefix("torch.")] += 1
+
+
+@_counted
 def branch_stats(xs: Sequence[torch.Tensor]):
     """Per-plane sums of x and x^2 for n (<= 6) branch tensors [B,C,H,W].
 
-    Kernel `branch_stats` (csrc/grouped_epilogue.cu) on the card; replaces
-    the TPU kernel `_stats_kernel` through `_branch_stats`
-    (senas_tpu/ops/grouped_epilogue.py:86-135). Memory-bound: it reads
-    n*B*C*H*W*4 bytes and writes 2*n*B*C*4. Returns (s1, s2) [n,B,C] f32."""
+    Kernel `branch_stats` (csrc/grouped_epilogue.cu) on the card, for f32
+    or bf16 branches; replaces the TPU kernel `_stats_kernel` through
+    `_branch_stats` (senas_tpu/ops/grouped_epilogue.py:86-135).
+    Memory-bound: it reads n*B*C*H*W*e bytes (e = 4 or 2) and writes
+    2*n*B*C*4. Returns (s1, s2) [n,B,C] f32."""
     _check_branches(xs)
     if xs[0].device.type == "cpu":
         return branch_stats_plain(xs)
@@ -169,25 +206,24 @@ def branch_stats(xs: Sequence[torch.Tensor]):
     s2 = torch.empty_like(s1)
     with torch.cuda.device(xs[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().senas_branch_stats_f32(*_ptrs(xs), n, b * c, h * w,
-                                           s1.data_ptr(), s2.data_ptr(), stream)
+        rc = _kernel("branch_stats", xs[0].dtype)(*_ptrs(xs), n, b * c, h * w,
+                                                   s1.data_ptr(), s2.data_ptr(), stream)
     _raise_on(rc, "branch_stats")
-    branch_stats.launches += 1
+    _count(branch_stats, xs[0].dtype)
     return s1, s2
 
 
-branch_stats.launches = 0
-
-
+@_counted
 def apply_mix(xs: Sequence[torch.Tensor], a: torch.Tensor, k: torch.Tensor,
               out_dtype=None):
     """out[b,c] = k[b,c] + sum_o a[o,b,c] * x_o[b,c] for n (<= 6) branch
-    tensors [B,C,H,W]; a [n,B,C] f32, k [B,C] f32.
+    tensors [B,C,H,W]; a [n,B,C] f32, k [B,C] f32. Summed in f32; the out
+    is written in the branches' dtype (a bf16 one rounded once).
 
     Kernel `apply_mix` (csrc/grouped_epilogue.cu) on the card; replaces the
     TPU kernel `_apply_kernel` through `_apply_mix`
     (senas_tpu/ops/grouped_epilogue.py:143-181). Memory-bound: it reads
-    n*B*C*H*W*4 + (n+1)*B*C*4 bytes and writes B*C*H*W*4."""
+    n*B*C*H*W*e + (n+1)*B*C*4 bytes and writes B*C*H*W*e (e = 4 or 2)."""
     _check_branches(xs)
     n = len(xs)
     b, c, h, w = xs[0].shape
@@ -196,20 +232,18 @@ def apply_mix(xs: Sequence[torch.Tensor], a: torch.Tensor, k: torch.Tensor,
                          f"{tuple(a.shape)} and {tuple(k.shape)}")
     if xs[0].device.type == "cpu":
         return apply_mix_plain(xs, a, k, out_dtype)
-    if (out_dtype or xs[0].dtype) != torch.float32:
-        raise NotImplementedError("the apply_mix kernel writes float32 only")
-    _check_card(xs, a, k)
+    _check_card(xs, per_plane=(a, k))
+    if (out_dtype or xs[0].dtype) != xs[0].dtype:
+        raise NotImplementedError("the apply_mix kernel writes the branch tensors' dtype, "
+                                  f"{xs[0].dtype}, not {out_dtype}")
     out = torch.empty_like(xs[0])
     with torch.cuda.device(xs[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().senas_apply_mix_f32(*_ptrs(xs), n, a.data_ptr(), k.data_ptr(),
-                                        out.data_ptr(), b * c, h * w, stream)
+        rc = _kernel("apply_mix", xs[0].dtype)(*_ptrs(xs), n, a.data_ptr(), k.data_ptr(),
+                                                out.data_ptr(), b * c, h * w, stream)
     _raise_on(rc, "apply_mix")
-    apply_mix.launches += 1
+    _count(apply_mix, xs[0].dtype)
     return out
-
-
-apply_mix.launches = 0
 
 
 def _check_planes(xs, g, *per_plane):
@@ -224,15 +258,17 @@ def _check_planes(xs, g, *per_plane):
             raise ValueError(f"per-plane operands must be {(n, b, c)}, got {tuple(t.shape)}")
 
 
+@_counted
 def bwd_reduce(xs: Sequence[torch.Tensor], g: torch.Tensor):
     """dA[o,b,c] = sum_hw g * x_o and dK[b,c] = sum_hw g for n (<= 6)
-    branch tensors and g [B,C,H,W]. Returns (dA [n,B,C], dK [B,C]) f32.
+    branch tensors and g [B,C,H,W] of one dtype. Returns (dA [n,B,C],
+    dK [B,C]) f32.
 
     Kernel `bwd_reduce` (csrc/grouped_epilogue.cu) on the card, two
     launches (partial sums over chunks of each plane, then their ordered
     sum); replaces the TPU kernel `_bwd_reduce_kernel` through `_bwd_reduce`
     (senas_tpu/ops/grouped_epilogue.py:189-229). Memory-bound: it reads
-    (n+1)*B*C*H*W*4 bytes and writes (n+1)*B*C*4."""
+    (n+1)*B*C*H*W*e bytes (e = 4 or 2) and writes (n+1)*B*C*4."""
     _check_branches(xs)
     _check_planes(xs, g)
     if xs[0].device.type == "cpu":
@@ -248,46 +284,41 @@ def bwd_reduce(xs: Sequence[torch.Tensor], g: torch.Tensor):
                           dtype=torch.float32)
     with torch.cuda.device(xs[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().senas_bwd_reduce_f32(*_ptrs(xs), n, g.data_ptr(), b * c, h * w,
-                                         partial.data_ptr(), partial.numel(),
-                                         dA.data_ptr(), dK.data_ptr(), stream)
+        rc = _kernel("bwd_reduce", xs[0].dtype)(*_ptrs(xs), n, g.data_ptr(), b * c, h * w,
+                                                 partial.data_ptr(), partial.numel(),
+                                                 dA.data_ptr(), dK.data_ptr(), stream)
     _raise_on(rc, "bwd_reduce")
-    bwd_reduce.launches += 1
+    _count(bwd_reduce, xs[0].dtype)
     return dA, dK
 
 
-bwd_reduce.launches = 0
-
-
+@_counted
 def bwd_dx(xs: Sequence[torch.Tensor], g: torch.Tensor, a: torch.Tensor,
            ds1: torch.Tensor, ds2: torch.Tensor):
     """dx_o = g * a[o,b,c] + ds1[o,b,c] + 2 * x_o * ds2[o,b,c] for n (<= 6)
-    branch tensors and g [B,C,H,W]; a, ds1, ds2 [n,B,C] f32. Returns the
-    list of n gradients, each like its x.
+    branch tensors and g [B,C,H,W] of one dtype; a, ds1, ds2 [n,B,C] f32.
+    Computed in f32; returns the list of n gradients, each in its x's dtype.
 
     Kernel `bwd_dx` (csrc/grouped_epilogue.cu) on the card; replaces the
     TPU kernel `_bwd_dx_kernel` through `_bwd_dx`
     (senas_tpu/ops/grouped_epilogue.py:237-273). Memory-bound: it reads
-    (n+1)*B*C*H*W*4 + 3*n*B*C*4 bytes and writes n*B*C*H*W*4."""
+    (n+1)*B*C*H*W*e + 3*n*B*C*4 bytes and writes n*B*C*H*W*e (e = 4 or 2)."""
     _check_branches(xs)
     _check_planes(xs, g, a, ds1, ds2)
     if xs[0].device.type == "cpu":
         return bwd_dx_plain(xs, g, a, ds1, ds2)
-    _check_card(xs, g, a, ds1, ds2)
+    _check_card(xs, g, per_plane=(a, ds1, ds2))
     n = len(xs)
     b, c, h, w = xs[0].shape
     outs = [torch.empty_like(x) for x in xs]
     with torch.cuda.device(xs[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().senas_bwd_dx_f32(*_ptrs(xs), n, g.data_ptr(), a.data_ptr(),
-                                     ds1.data_ptr(), ds2.data_ptr(), *_ptrs(outs),
-                                     b * c, h * w, stream)
+        rc = _kernel("bwd_dx", xs[0].dtype)(*_ptrs(xs), n, g.data_ptr(), a.data_ptr(),
+                                             ds1.data_ptr(), ds2.data_ptr(), *_ptrs(outs),
+                                             b * c, h * w, stream)
     _raise_on(rc, "bwd_dx")
-    bwd_dx.launches += 1
+    _count(bwd_dx, xs[0].dtype)
     return outs
-
-
-bwd_dx.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,12 @@ in PyTorch idiom:
   * Depthwise convs are plain `groups=C` convs. The JAX package's dense
     block-diagonal rewrite is a TPU workaround and is not ported.
   * `forward(x, train)` takes the mode explicitly, as the flax modules do.
+  * `dtype` is the compute dtype, as in the flax modules: None computes in
+    the input's dtype (f32 from an f32 image), `torch.bfloat16` in bf16.
+    A module casts its input to `dtype` on entry where the flax one does,
+    and its weights at use, so the parameters stay f32 masters. BatchNorm
+    takes its statistics and running-stat update in f32 and rounds its
+    output once to `dtype`.
 """
 
 from __future__ import annotations
@@ -111,6 +117,20 @@ def relu(x):
     return F.relu(x)
 
 
+def sigmoid(x):
+    """jax.nn.sigmoid, which is 1 / (1 + exp(-x)) op by op: in bf16 each op
+    rounds, and that is computed here; in f32 and f64 it is PyTorch's
+    sigmoid (the same function to within an ulp)."""
+    if x.dtype != torch.bfloat16:
+        return torch.sigmoid(x)
+    return 1 / (1 + torch.exp(-x))
+
+
+def cast(x, dtype):
+    """x in `dtype`; None leaves it as it is (a module's compute dtype)."""
+    return x if dtype is None else x.to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # Functional conv / pool / resize primitives (NCHW)
 # ---------------------------------------------------------------------------
@@ -166,12 +186,16 @@ class BatchNorm(nn.Module):
     Train mode normalises by the biased batch variance (stats in f32) and
     advances the running stats with momentum 0.1 and the UNBIASED variance;
     eval mode normalises by the running stats. Variables: parameters
-    `scale`, `bias`; buffers `mean`, `var` (all f32, [C])."""
+    `scale`, `bias`; buffers `mean`, `var` (all f32, [C]). The output is in
+    `dtype`, else in x's dtype: a bf16 x is normalised in f32 (PyTorch's
+    mixed batch norm) and rounded once, as the flax module's
+    `y.astype(self.dtype or x.dtype)` does."""
 
-    def __init__(self, c: int, momentum: float = 0.1, eps: float = EPS):
+    def __init__(self, c: int, momentum: float = 0.1, eps: float = EPS, dtype=None):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.dtype = dtype
         self.scale = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("mean", torch.zeros(c))
@@ -179,9 +203,9 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, train: bool = False):
         # F.batch_norm updates `mean`/`var` in place in train mode.
-        return F.batch_norm(x, self.mean, self.var, self.scale, self.bias,
-                            training=train, momentum=self.momentum,
-                            eps=self.eps)
+        y = F.batch_norm(x, self.mean, self.var, self.scale, self.bias,
+                         training=train, momentum=self.momentum, eps=self.eps)
+        return y if self.dtype is None else y.to(self.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -199,13 +223,15 @@ class OpType(enum.Enum):
 # ---------------------------------------------------------------------------
 
 class _ConvWeight(nn.Module):
-    """(Conv | ConvTranspose), bias-free (build_weight parity)."""
+    """(Conv | ConvTranspose), bias-free (build_weight parity); x cast to
+    `dtype` on entry, the kernel to x's dtype at use."""
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int = 3,
                  stride: int = 1, dilation: int = 1, transpose: bool = False,
-                 output_padding: int = 0, groups: int = 1):
+                 output_padding: int = 0, groups: int = 1, dtype=None):
         super().__init__()
         self.stride, self.dilation, self.groups = stride, dilation, groups
+        self.dtype = dtype
         self.transpose, self.output_padding = transpose, output_padding
         k = kernel_size
         if transpose:
@@ -215,12 +241,14 @@ class _ConvWeight(nn.Module):
             add_conv_kernel(self, "kernel", (c_out, c_in // groups, k, k))
 
     def forward(self, x, train: bool = False):
+        x = cast(x, self.dtype)
+        w = self.kernel.to(x.dtype)
         if self.transpose:
-            return conv_transpose2d(x, self.kernel, stride=self.stride,
+            return conv_transpose2d(x, w, stride=self.stride,
                                     dilation=self.dilation,
                                     output_padding=self.output_padding,
                                     groups=self.groups)
-        return conv2d(x, self.kernel, stride=self.stride,
+        return conv2d(x, w, stride=self.stride,
                       dilation=self.dilation, groups=self.groups)
 
 
@@ -229,10 +257,11 @@ class ReLUConv(nn.Module):
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int = 3,
                  stride: int = 1, dilation: int = 1, transpose: bool = False,
-                 output_padding: int = 0):
+                 output_padding: int = 0, dtype=None):
         super().__init__()
         self._ConvWeight_0 = _ConvWeight(c_in, c_out, kernel_size, stride,
-                                         dilation, transpose, output_padding)
+                                         dilation, transpose, output_padding,
+                                         dtype=dtype)
 
     def forward(self, x, train: bool = False):
         return self._ConvWeight_0(relu(x), train)
@@ -243,11 +272,12 @@ class ConvBn(nn.Module):
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int = 3,
                  stride: int = 1, dilation: int = 1, transpose: bool = False,
-                 output_padding: int = 0):
+                 output_padding: int = 0, dtype=None):
         super().__init__()
         self._ConvWeight_0 = _ConvWeight(c_in, c_out, kernel_size, stride,
-                                         dilation, transpose, output_padding)
-        self.BatchNorm_0 = BatchNorm(c_out)
+                                         dilation, transpose, output_padding,
+                                         dtype=dtype)
+        self.BatchNorm_0 = BatchNorm(c_out, dtype=dtype)
 
     def forward(self, x, train: bool = False):
         return self.BatchNorm_0(self._ConvWeight_0(x, train), train)
@@ -256,19 +286,24 @@ class ConvBn(nn.Module):
 class Dense(nn.Module):
     """flax Dense with the flax kernel layout [in, out]. The kernel is
     xavier_normal (an nn.Linear under weights_init) unless `std` is given;
-    `bias` adds a bias, 0 or, with `bias_fan_in`, torch's conv default."""
+    `bias` adds a bias, 0 or, with `bias_fan_in`, torch's conv default.
+    It computes in `dtype`, else in the promoted dtype of x and the f32
+    kernel, as flax's promote_dtype does."""
 
     def __init__(self, c_in: int, c_out: int, bias: bool = False,
-                 std: Optional[float] = None, bias_fan_in: Optional[int] = None):
+                 std: Optional[float] = None, bias_fan_in: Optional[int] = None,
+                 dtype=None):
         super().__init__()
+        self.dtype = dtype
         add_kernel(self, "kernel", (c_in, c_out),
                    xavier_std(c_in, c_out) if std is None else std)
         if bias:
             add_bias(self, "bias", c_out, bias_fan_in)
 
     def forward(self, x):
-        y = x @ self.kernel
-        return y + self.bias if hasattr(self, "bias") else y
+        dt = self.dtype or torch.promote_types(x.dtype, self.kernel.dtype)
+        y = x.to(dt) @ self.kernel.to(dt)
+        return y + self.bias.to(dt) if hasattr(self, "bias") else y
 
 
 class GroupNorm(nn.Module):
@@ -310,15 +345,15 @@ class Dropout(nn.Module):
 class SEBlock(nn.Module):
     """Squeeze-and-Excitation, r=16 (the reference's operations.py:186-203)."""
 
-    def __init__(self, c: int, r: int = 16):
+    def __init__(self, c: int, r: int = 16, dtype=None):
         super().__init__()
         mid = c // r if c > r else 1
-        self.Dense_0 = Dense(c, mid)
-        self.Dense_1 = Dense(mid, c)
+        self.Dense_0 = Dense(c, mid, dtype=dtype)
+        self.Dense_1 = Dense(mid, c, dtype=dtype)
 
     def forward(self, x):
         y = x.mean(dim=(2, 3))  # [B, C]
-        y = torch.sigmoid(self.Dense_1(relu(self.Dense_0(y))))
+        y = sigmoid(self.Dense_1(relu(self.Dense_0(y))))
         return x * y[:, :, None, None]
 
 
@@ -327,11 +362,11 @@ class ConvBnSe(nn.Module):
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int = 3,
                  stride: int = 1, dilation: int = 1, transpose: bool = False,
-                 output_padding: int = 0):
+                 output_padding: int = 0, dtype=None):
         super().__init__()
         self.ConvBn_0 = ConvBn(c_in, c_out, kernel_size, stride, dilation,
-                               transpose, output_padding)
-        self.SEBlock_0 = SEBlock(c_out)
+                               transpose, output_padding, dtype=dtype)
+        self.SEBlock_0 = SEBlock(c_out, dtype=dtype)
 
     def forward(self, x, train: bool = False):
         return self.SEBlock_0(self.ConvBn_0(x, train))
@@ -342,13 +377,13 @@ class DepSepConv(nn.Module):
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int = 3,
                  stride: int = 1, dilation: int = 1, transpose: bool = False,
-                 output_padding: int = 0):
+                 output_padding: int = 0, dtype=None):
         super().__init__()
         self.depth = _ConvWeight(c_in, c_in, kernel_size, stride, dilation,
-                                 transpose, output_padding, groups=c_in)
-        self.depth_norm = BatchNorm(c_in)
-        self.point = _ConvWeight(c_in, c_out, 1)
-        self.point_norm = BatchNorm(c_out)
+                                 transpose, output_padding, groups=c_in, dtype=dtype)
+        self.depth_norm = BatchNorm(c_in, dtype=dtype)
+        self.point = _ConvWeight(c_in, c_out, 1, dtype=dtype)
+        self.point_norm = BatchNorm(c_out, dtype=dtype)
 
     def forward(self, x, train: bool = False):
         x = relu(self.depth_norm(self.depth(x, train), train))
@@ -359,16 +394,17 @@ class AdapterBlock(nn.Module):
     """Parameterless inner op (zero/identity/pool/upsample) + channel adapter:
     inner -> optional 1x1 conv (if c_in != c_out) -> BN."""
 
-    def __init__(self, c_in: int, c_out: int, mode: str, stride: int = 1):
+    def __init__(self, c_in: int, c_out: int, mode: str, stride: int = 1, dtype=None):
         super().__init__()
         if mode not in ("none", "identity", "avg_pool", "max_pool", "up_sample"):
             raise ValueError(f"unknown adapter mode {mode!r}")
-        self.mode, self.stride = mode, stride
+        self.mode, self.stride, self.dtype = mode, stride, dtype
         if c_in != c_out:
             add_conv_kernel(self, "kernel", (c_out, c_in, 1, 1))
-        self.BatchNorm_0 = BatchNorm(c_out)
+        self.BatchNorm_0 = BatchNorm(c_out, dtype=dtype)
 
     def forward(self, x, train: bool = False):
+        x = cast(x, self.dtype)
         if self.mode == "none":
             out = torch.zeros_like(x)
         elif self.mode == "identity":
@@ -380,7 +416,7 @@ class AdapterBlock(nn.Module):
         else:
             out = upsample2x(x)
         if hasattr(self, "kernel"):
-            out = conv2d(out, self.kernel)
+            out = conv2d(out, self.kernel.to(out.dtype))
         return self.BatchNorm_0(out, train)
 
 
@@ -388,50 +424,56 @@ class RectifyResample(nn.Module):
     """Cell-input resampling: act -> {2x up (bilinear | 1x1 transpose) |
     2x down (avgpool | 1x1 conv)} -> BN. Conv-free when c_in == c_out."""
 
-    def __init__(self, c_in: int, c_out: int, cell_type: str):
+    def __init__(self, c_in: int, c_out: int, cell_type: str, dtype=None):
         super().__init__()
-        self.cell_type = cell_type
+        self.cell_type, self.dtype = cell_type, dtype
         if c_in != c_out:
             if cell_type == "up":
                 add_conv_kernel(self, "kernel", (c_in, c_out, 1, 1))
                 self.flax_layout = {"kernel": "hwio_t"}
             else:
                 add_conv_kernel(self, "kernel", (c_out, c_in, 1, 1))
-        self.BatchNorm_0 = BatchNorm(c_out)
+        self.BatchNorm_0 = BatchNorm(c_out, dtype=dtype)
 
     def forward(self, x, train: bool = False):
-        out = relu(x)
+        out = relu(cast(x, self.dtype))
         conv = hasattr(self, "kernel")
         if self.cell_type == "up":
-            out = (conv_transpose2d(out, self.kernel, stride=2, output_padding=1,
-                                    torch_padding=0) if conv else upsample2x(out))
+            out = (conv_transpose2d(out, self.kernel.to(out.dtype), stride=2,
+                                    output_padding=1, torch_padding=0)
+                   if conv else upsample2x(out))
         else:
-            out = conv2d(out, self.kernel, stride=2) if conv else avg_pool_3x3(out, stride=2)
+            out = (conv2d(out, self.kernel.to(out.dtype), stride=2) if conv
+                   else avg_pool_3x3(out, stride=2))
         return self.BatchNorm_0(out, train)
 
 
 class ShrinkBlock(nn.Module):
     """act -> 3x3 conv -> BN: maps grown skip-concat width back down."""
 
-    def __init__(self, c_in: int, c_out: int):
+    def __init__(self, c_in: int, c_out: int, dtype=None):
         super().__init__()
+        self.dtype = dtype
         add_conv_kernel(self, "kernel", (c_out, c_in, 3, 3))
-        self.BatchNorm_0 = BatchNorm(c_out)
+        self.BatchNorm_0 = BatchNorm(c_out, dtype=dtype)
 
     def forward(self, x, train: bool = False):
-        return self.BatchNorm_0(conv2d(relu(x), self.kernel), train)
+        x = relu(cast(x, self.dtype))
+        return self.BatchNorm_0(conv2d(x, self.kernel.to(x.dtype)), train)
 
 
 class RectifyBlock(nn.Module):
     """3x3 conv -> BN: cell expand/post-process."""
 
-    def __init__(self, c_in: int, c_out: int):
+    def __init__(self, c_in: int, c_out: int, dtype=None):
         super().__init__()
+        self.dtype = dtype
         add_conv_kernel(self, "kernel", (c_out, c_in, 3, 3))
-        self.BatchNorm_0 = BatchNorm(c_out)
+        self.BatchNorm_0 = BatchNorm(c_out, dtype=dtype)
 
     def forward(self, x, train: bool = False):
-        return self.BatchNorm_0(conv2d(x, self.kernel), train)
+        x = cast(x, self.dtype)
+        return self.BatchNorm_0(conv2d(x, self.kernel.to(x.dtype)), train)
 
 
 class BasicBlock(nn.Module):
@@ -439,26 +481,28 @@ class BasicBlock(nn.Module):
     residual sum, as in the JAX package."""
 
     def __init__(self, c_in: int, planes: int, stride: int = 1,
-                 dilation: int = 1, use_downsample: bool = False):
+                 dilation: int = 1, use_downsample: bool = False, dtype=None):
         super().__init__()
-        self.stride, self.dilation = stride, dilation
+        self.stride, self.dilation, self.dtype = stride, dilation, dtype
         add_conv_kernel(self, "conv1", (planes, c_in, 3, 3))
-        self.bn1 = BatchNorm(planes)
+        self.bn1 = BatchNorm(planes, dtype=dtype)
         add_conv_kernel(self, "conv2", (planes, planes, 3, 3))
-        self.bn2 = BatchNorm(planes)
+        self.bn2 = BatchNorm(planes, dtype=dtype)
         self.use_downsample = use_downsample
         if use_downsample:
             add_conv_kernel(self, "down_conv", (planes, c_in, 1, 1))
-            self.down_bn = BatchNorm(planes)
+            self.down_bn = BatchNorm(planes, dtype=dtype)
 
     def forward(self, x, train: bool = False):
-        out = conv2d(x, self.conv1, stride=self.stride, dilation=self.dilation)
+        x = cast(x, self.dtype)
+        out = conv2d(x, self.conv1.to(x.dtype), stride=self.stride, dilation=self.dilation)
         out = relu(self.bn1(out, train))
-        out = conv2d(out, self.conv2, stride=1, dilation=self.dilation)
+        out = conv2d(out, self.conv2.to(out.dtype), stride=1, dilation=self.dilation)
         out = self.bn2(out, train)
         residual = x
         if self.use_downsample:
-            residual = self.down_bn(conv2d(x, self.down_conv, stride=self.stride), train)
+            residual = self.down_bn(conv2d(x, self.down_conv.to(x.dtype), stride=self.stride),
+                                    train)
         return out + residual
 
 
@@ -467,11 +511,12 @@ class BasicBlock(nn.Module):
 # ---------------------------------------------------------------------------
 
 def make_op(name: str, c_in: int, c_out: int, op_type: OpType,
-            dp: float = 0.0) -> nn.Module:
+            dp: float = 0.0, dtype=None) -> nn.Module:
     """Instantiate candidate op `name` with the reference's stride rules:
     NORM -> stride 1; DOWN -> stride-2 conv/pool; UP -> stride-2 transpose
     conv with output_padding 1 (pool ops become bilinear 2x upsample).
-    `dp` is the conv ops' spatial-dropout rate; only 0 is ported."""
+    `dp` is the conv ops' spatial-dropout rate; only 0 is ported. `dtype`
+    is the op's compute dtype."""
     if dp > 0:
         raise NotImplementedError(
             "dropout_prob > 0 (spatial_dropout) is not ported yet (ROADMAP.md "
@@ -480,19 +525,19 @@ def make_op(name: str, c_in: int, c_out: int, op_type: OpType,
     transpose = op_type == OpType.UP
     op = 1 if op_type == OpType.UP else 0
     if name in ("none", "identity", "up_sample"):
-        return AdapterBlock(c_in, c_out, mode=name, stride=1)
+        return AdapterBlock(c_in, c_out, mode=name, stride=1, dtype=dtype)
     if name in ("avg_pool", "max_pool"):
-        return AdapterBlock(c_in, c_out, mode=name, stride=stride)
+        return AdapterBlock(c_in, c_out, mode=name, stride=stride, dtype=dtype)
     if name == "conv_3":
-        return ConvBn(c_in, c_out, 3, stride, 1, transpose, op)
+        return ConvBn(c_in, c_out, 3, stride, 1, transpose, op, dtype=dtype)
     if name == "se_conv_3":
-        return ConvBnSe(c_in, c_out, 3, stride, 1, transpose, op)
+        return ConvBnSe(c_in, c_out, 3, stride, 1, transpose, op, dtype=dtype)
     if name == "dil_3_conv_5":
-        return ConvBn(c_in, c_out, 5, stride, 3, transpose, op)
+        return ConvBn(c_in, c_out, 5, stride, 3, transpose, op, dtype=dtype)
     if name == "dil_2_conv_5":
-        return ConvBn(c_in, c_out, 5, stride, 2, transpose, op)
+        return ConvBn(c_in, c_out, 5, stride, 2, transpose, op, dtype=dtype)
     if name == "dep_sep_conv_3":
-        return DepSepConv(c_in, c_out, 3, stride, 1, transpose, op)
+        return DepSepConv(c_in, c_out, 3, stride, 1, transpose, op, dtype=dtype)
     if name == "dep_sep_conv_5":
-        return DepSepConv(c_in, c_out, 5, stride, 1, transpose, op)
+        return DepSepConv(c_in, c_out, 5, stride, 1, transpose, op, dtype=dtype)
     raise NotImplementedError(name)

@@ -90,14 +90,13 @@ def check_unported(section: Dict[str, Any]) -> None:
 
 
 def resolve_precision(name):
-    """Config `precision:` -> compute dtype. The port computes in f32 (None);
-    bf16 is not ported yet."""
+    """Config `precision:` -> module compute dtype: None (f32, the
+    reference's numerics) or torch.bfloat16 (the parameters stay f32
+    masters). Anything else raises ValueError."""
     if name in (None, "", "f32", "fp32", "float32"):
         return None
     if name in ("bf16", "bfloat16"):
-        raise NotImplementedError(
-            "bf16 is not ported yet: the epilogue kernels take float32 only "
-            "(ROADMAP.md Queue 1, slice 1 open items: bf16)")
+        return torch.bfloat16
     raise ValueError(f"unknown precision {name!r} (use f32 or bf16)")
 
 

@@ -23,7 +23,8 @@ from senas_torch.core.device import resolve_device
 from senas_torch.data import DataLoader, PrefetchLoader, get_dataset, get_dataset_spec
 from senas_torch.runner.common import (DEFAULT_LOG_ROOT, DeferredMetrics,
                                        check_unported, make_batch_placer,
-                                       resolve_dataset_kwargs, run_eval_loop)
+                                       resolve_dataset_kwargs, resolve_precision,
+                                       run_eval_loop)
 from senas_torch.search.supernet import (SenasSearch, derive_genotype,
                                          init_arch_params, normalize_arch)
 from senas_torch.train.checkpoint import CheckpointManager
@@ -47,10 +48,12 @@ def _check_supported(s: Dict[str, Any]) -> None:
 class SearchRunner:
     def __init__(self, cfg: Dict[str, Any], config_path: Optional[str] = None,
                  data_root: Optional[str] = None, log_root: str = DEFAULT_LOG_ROOT,
-                 device=None):
+                 device=None, dtype=None):
         self.cfg = cfg
         s = cfg["searching"]
         _check_supported(s)
+        # the compute dtype: the caller's, else `precision:` (None: f32)
+        self.dtype = dtype if dtype is not None else resolve_precision(s.get("precision"))
         seed = cfg.get("seed", 0)
         set_seed(seed)
         self.device = resolve_device(device)
@@ -85,7 +88,7 @@ class SearchRunner:
                           self.depth, self.meta_node_num,
                           double_down_channel=s.get("double_down_channel", False),
                           supervision=s.get("deep_supervision", False),
-                          device=self.device, generator=gen)
+                          dtype=self.dtype, device=self.device, generator=gen)
         arch = init_arch_params(self.meta_node_num, self.depth,
                                 use_sharing=s.get("sharing_normal", True),
                                 generator=gen, device=self.device)

@@ -5,8 +5,9 @@ Port of `senas_tpu/runner/test.py` (the reference's
 experiments/testing_model.py). The checkpoint is read without a target
 state (`CheckpointManager.restore_raw`): evaluation takes only the model's
 weights and running stats, whatever optimizer the training run had. It
-runs in f32 on one device, as the JAX package's TestRunner does unless
-`multi_gpus` spreads the batches over a mesh (the same numbers). The PNGs
+runs on one device in `dtype` (None: f32; the config's `precision:` is not
+read, as in the JAX package's TestRunner), so a bf16 run's checkpoint,
+which holds f32 weights, evaluates in f32 by default. The PNGs
 are written as each batch comes back. `run_promise12_submission` writes
 the PROMISE12 challenge volumes from the slice masks.
 """
@@ -37,7 +38,8 @@ class TestRunner:
     def __init__(self, cfg: Dict[str, Any], model_name: str = "senas",
                  genotype_str: str = "", resume: Optional[str] = None,
                  config_path: Optional[str] = None, data_root: Optional[str] = None,
-                 log_root: str = DEFAULT_LOG_ROOT, batch_size: int = 6, device=None):
+                 log_root: str = DEFAULT_LOG_ROOT, batch_size: int = 6, device=None,
+                 dtype=None):
         if resume is None:
             raise ValueError("resume: the checkpoint directory to evaluate is required")
         mgr = CheckpointManager(resume)
@@ -63,7 +65,8 @@ class TestRunner:
         self.model = get_segmentation_model(
             model_name, dataset=ds_name, c=t.get("init_channels", 32),
             depth=t.get("depth", 5), supervision=False, genotype=genotype,
-            double_down_channel=t.get("double_down_channel", False), device=self.device)
+            double_down_channel=t.get("double_down_channel", False), dtype=dtype,
+            device=self.device)
         self.model.load_state_dict(mgr.restore_raw(name)["model"])
         self.logger.info("loaded checkpoint %s (%s)", resume, name)
         self.eval_step = make_eval_step(self.model, build_loss(loss_name(t)))

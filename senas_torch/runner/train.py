@@ -26,7 +26,7 @@ from senas_torch.models import geno_searched
 from senas_torch.models.factory import get_segmentation_model
 from senas_torch.runner.common import (DEFAULT_LOG_ROOT, DeferredMetrics, check_unported,
                                        make_batch_placer, resolve_dataset_kwargs,
-                                       run_eval_loop)
+                                       resolve_precision, run_eval_loop)
 from senas_torch.train.checkpoint import CheckpointManager
 from senas_torch.train.loss import build_loss
 from senas_torch.train.metrics import AverageMeter, SegmentationMetric
@@ -56,10 +56,12 @@ class TrainRunner:
     def __init__(self, cfg: Dict[str, Any], model_name: str = "senas",
                  genotype_str: str = "", config_path: Optional[str] = None,
                  data_root: Optional[str] = None, log_root: str = DEFAULT_LOG_ROOT,
-                 ft: bool = False, device=None):
+                 ft: bool = False, device=None, dtype=None):
         self.cfg = cfg
         t = cfg["training"]
         check_unported(t)
+        # the compute dtype: the caller's, else `precision:` (None: f32)
+        self.dtype = dtype if dtype is not None else resolve_precision(t.get("precision"))
         seed = cfg.get("seed", 0)
         set_seed(seed)
         self.device = resolve_device(device)
@@ -87,7 +89,7 @@ class TrainRunner:
             depth=t.get("depth", 5), supervision=t.get("deep_supervision", False),
             genotype=resolve_genotype(cfg, genotype_str, model_name),
             double_down_channel=t.get("double_down_channel", False),
-            remat=t.get("remat", False),
+            remat=t.get("remat", False), dtype=self.dtype,
             device=self.device, generator=torch.Generator().manual_seed(seed))
         self.logger.info("param size = %.3f MB", calc_parameters_count(self.model))
 

@@ -14,6 +14,12 @@ The JAX package's unfused branch path computes the same math as the plain
 epilogue, so only the epilogue path is ported. Its default-off MERGE_*
 branch-merging paths are not ported. NCHW inside; a group returns
 [B, E*P, H', W'] with channel e*P + p for edge e.
+
+`dtype` follows the JAX package: a group computes in its input's dtype
+(every kernel cast to it at use, the f32 masters kept) and its epilogue
+writes that dtype; the cell's resampling and expand blocks cast to
+`dtype`; the betas are cast to the activations' dtype before they scale
+them. The alphas stay f32 and enter the epilogue's f32 coefficients.
 """
 
 from __future__ import annotations
@@ -77,7 +83,8 @@ class GroupedMixedOp(nn.Module):
     for (the JAX package's explicit fans, senas_tpu fused_cell.py:150-220),
     not the fan of its grouped layout."""
 
-    def __init__(self, c_in: int, c_part: int, num_edges: int, op_type: OpType):
+    def __init__(self, c_in: int, c_part: int, num_edges: int, op_type: OpType,
+                 dtype=None):
         super().__init__()
         E, P, C = num_edges, c_part, c_in
         self.E, self.P, self.C = E, P, C
@@ -119,7 +126,7 @@ class GroupedMixedOp(nn.Module):
                     kernel(f"{name}_dkernel", (C, E, k, k), kaiming_std(C * k * k), "dw_t")
                 else:
                     kernel(f"{name}_dkernel", (C * E, 1, k, k), kaiming_std(C * k * k))
-                setattr(self, f"{name}_dbn", BatchNorm(C * E))
+                setattr(self, f"{name}_dbn", BatchNorm(C * E, dtype=dtype))
                 # per-edge pointwise Conv2d(C, P, 1): fan_out P
                 kernel(f"{name}_pkernel", (E, C, P), kaiming_std(P))
                 setattr(self, f"{name}_pbn", _EpilogueBN(E * P))
@@ -136,12 +143,12 @@ class GroupedMixedOp(nn.Module):
         else:
             base = x
         if self.C != self.P:
-            return conv2d(base, getattr(self, f"{name}_kernel"))
+            return conv2d(base, getattr(self, f"{name}_kernel").to(x.dtype))
         return base.repeat(1, self.E, 1, 1)  # jnp.tile over channels
 
     def _conv_pre(self, name, x):
         k, dilation = _CONVS[name]
-        kern = getattr(self, f"{name}_kernel")
+        kern = getattr(self, f"{name}_kernel").to(x.dtype)
         if self.transpose:
             return conv_transpose2d(x, kern, stride=2, dilation=dilation,
                                     output_padding=1)
@@ -150,7 +157,7 @@ class GroupedMixedOp(nn.Module):
     def _depsep_pre(self, name, x, train):
         """depthwise (multiplier E) -> dbn -> relu -> grouped pointwise:
         everything up to the final pbn, which the epilogue absorbs."""
-        dkern = getattr(self, f"{name}_dkernel")
+        dkern = getattr(self, f"{name}_dkernel").to(x.dtype)
         if self.transpose:
             out = conv_transpose2d(x, dkern, stride=2, output_padding=1,
                                    groups=self.C)
@@ -159,7 +166,11 @@ class GroupedMixedOp(nn.Module):
         out = relu(getattr(self, f"{name}_dbn")(out, train))
         b, _, oh, ow = out.shape
         out = out.reshape(b, self.C, self.E, oh, ow)
-        out = torch.einsum("bcehw,ecp->bephw", out, getattr(self, f"{name}_pkernel"))
+        # promoted as jnp.einsum promotes: the dbn output is in `dtype`, the
+        # pointwise kernel in x's
+        pkern = getattr(self, f"{name}_pkernel").to(x.dtype)
+        dt = torch.promote_types(out.dtype, pkern.dtype)
+        out = torch.einsum("bcehw,ecp->bephw", out.to(dt), pkern.to(dt))
         return out.reshape(b, self.E * self.P, oh, ow).contiguous()
 
     def forward(self, x, alphas, train: bool = False):
@@ -195,13 +206,14 @@ class GroupedMixedOp(nn.Module):
             else:
                 none_y = nbn.bias - nbn.mean * torch.rsqrt(nbn.var + EPS) * nbn.scale
 
+        branches = [t for *_, t in specs]
         mixed, (mu, var) = fused_group_epilogue(
-            [t for *_, t in specs], [bn.scale for bn in bns],
+            branches, [bn.scale for bn in bns],
             [bn.bias for bn in bns], alphas_cols,
             train=train, run_means=[bn.mean for bn in bns],
             run_vars=[bn.var for bn in bns],
             se_index=se_pos, se_w1=se_w1, se_w2=se_w2, E=E, P=P,
-            none_alpha_col=none_col, none_bias=none_y)
+            none_alpha_col=none_col, none_bias=none_y, out_dtype=branches[0].dtype)
         if train:
             b, _, oh, ow = mixed.shape
             count = b * oh * ow
@@ -222,25 +234,25 @@ class FusedSearchCell(nn.Module):
     k = 4
 
     def __init__(self, meta_node_num: int, double_down: int, c_in0: int,
-                 c_in1: int, c_out: int, cell_type: str):
+                 c_in1: int, c_out: int, cell_type: str, dtype=None):
         super().__init__()
         M = self.meta_node_num = meta_node_num
         if cell_type == "down":
-            self.preprocess0 = RectifyResample(c_in0, c_in1, "down")
+            self.preprocess0 = RectifyResample(c_in0, c_in1, "down", dtype=dtype)
             c_part = (c_out // double_down) // self.k
             t0, t1 = OpType.DOWN, OpType.DOWN
         else:
-            self.preprocess0 = ShrinkBlock(c_in0, c_in1)
+            self.preprocess0 = ShrinkBlock(c_in0, c_in1, dtype=dtype)
             c_part = c_out // self.k
             t0, t1 = OpType.NORM, OpType.UP
         self.c_part = c_part
         self.t0, self.t1 = t0, t1
-        self.group0 = GroupedMixedOp(c_in1, c_part, M, t0)
-        self.group1 = GroupedMixedOp(c_in1, c_part, M, t1)
+        self.group0 = GroupedMixedOp(c_in1, c_part, M, t0, dtype=dtype)
+        self.group1 = GroupedMixedOp(c_in1, c_part, M, t1, dtype=dtype)
         for n in range(1, M):
             setattr(self, f"inner_{n}", nn.ModuleList(
-                [MixedOp(c_part, c_part, OpType.NORM) for _ in range(n)]))
-        self.post_process = RectifyBlock(M * c_part, c_out)
+                [MixedOp(c_part, c_part, OpType.NORM, dtype=dtype) for _ in range(n)]))
+        self.post_process = RectifyBlock(M * c_part, c_out, dtype=dtype)
 
     def forward(self, in0, in1, weights_norm, weights_chg, betas, train: bool = False):
         M, P = self.meta_node_num, self.c_part
@@ -257,13 +269,13 @@ class FusedSearchCell(nn.Module):
         nodes = []
         for n in range(M):
             off = offsets[n]
-            acc = (betas[off] * m0[:, n * P:(n + 1) * P]
-                   + betas[off + 1] * m1[:, n * P:(n + 1) * P])
+            acc = (betas[off].to(m0.dtype) * m0[:, n * P:(n + 1) * P]
+                   + betas[off + 1].to(m1.dtype) * m1[:, n * P:(n + 1) * P])
             if n >= 1:
                 inner = getattr(self, f"inner_{n}")
                 for j in range(n):
-                    acc = acc + betas[off + 2 + j] * inner[j](
-                        nodes[j], weights_norm[off + 2 + j],
-                        weights_chg[off + 2 + j], train)
+                    y = inner[j](nodes[j], weights_norm[off + 2 + j],
+                                 weights_chg[off + 2 + j], train)
+                    acc = acc + betas[off + 2 + j].to(y.dtype) * y
             nodes.append(relu(acc))
         return self.post_process(torch.cat(nodes[-M:], dim=1), train)

@@ -7,7 +7,13 @@ caller keeps and passes, softmaxed by `normalize_arch`, to `forward`.
 
 `SenasSearch.forward` keeps the JAX package's NHWC boundary (image
 [B,H,W,C_in] -> list of logits [B,H,W,nclass]); inside it runs NCHW.
-Rematerialisation (`remat`) is not ported: this slice has no backward.
+Rematerialisation (`remat`) is not ported.
+
+`dtype` is the compute dtype of every module (None: the image's, f32);
+with `torch.bfloat16` the logits are bf16, and the weights, the BN running
+stats and the arch tables stay f32. The decoder's gamma mix follows the
+JAX package's promotion: gamma is cast to the image's dtype, so bf16
+activations are mixed in f32 and rounded once by the next cell's cast.
 """
 
 from __future__ import annotations
@@ -86,11 +92,11 @@ class SearchHead(nn.Module):
     """Up cell + segmentation conv."""
 
     def __init__(self, meta_node_num: int, double_down: int, c_in0: int,
-                 c_in1: int, nclass: int):
+                 c_in1: int, nclass: int, dtype=None):
         super().__init__()
         self.up_cell = FusedSearchCell(meta_node_num, double_down, c_in0, c_in1,
-                                       c_in1, "up")
-        self.segmentation_head = ReLUConv(c_in1, nclass, kernel_size=3)
+                                       c_in1, "up", dtype=dtype)
+        self.segmentation_head = ReLUConv(c_in1, nclass, kernel_size=3, dtype=dtype)
 
     def forward(self, s0, ot, w_up_nm, w_up, betas_up, train: bool = False):
         return self.segmentation_head(
@@ -101,13 +107,13 @@ class SenasSearch(nn.Module):
     """Weight-sharing supernet macro-net (the reference's senas_search.py:16-112).
 
     forward(x, arch_weights, train): x NHWC; arch_weights is the output of
-    `normalize_arch`. Returns a list of NHWC logits (one per head).
-    Built on `device` (None means the card) with kernels drawn from
-    `generator` (a fixed seed when None)."""
+    `normalize_arch`. Returns a list of NHWC logits (one per head), in
+    `dtype` (None: f32). Built on `device` (None means the card) with
+    kernels drawn from `generator` (a fixed seed when None)."""
 
     def __init__(self, in_channels: int, c: int, nclass: int, depth: int,
                  meta_node_num: int = 3, double_down_channel: bool = False,
-                 supervision: bool = False, *,
+                 supervision: bool = False, dtype=None, *,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         if depth < 2:
@@ -118,8 +124,8 @@ class SenasSearch(nn.Module):
         double_down = 2 if double_down_channel else 1
         c_in0 = c_in1 = c_curr = c
 
-        self.stem0 = ConvBn(in_channels, c_in0, kernel_size=7)
-        self.stem1_block = BasicBlock(c_in0, c_in1, stride=1)
+        self.stem0 = ConvBn(in_channels, c_in0, kernel_size=7, dtype=dtype)
+        self.stem1_block = BasicBlock(c_in0, c_in1, stride=1, dtype=dtype)
 
         num_filters: List[List[List]] = []
         down_f = []
@@ -130,7 +136,7 @@ class SenasSearch(nn.Module):
                 c_curr = int(double_down * c_curr)
                 down_f.append([c_in0, c_in1, c_curr, "down"])
                 setattr(self, f"down_{i}", FusedSearchCell(
-                    meta_node_num, double_down, c_in0, c_in1, c_curr, "down"))
+                    meta_node_num, double_down, c_in0, c_in1, c_curr, "down", dtype=dtype))
                 c_in0, c_in1 = c_in1, c_curr
         num_filters.append(down_f)
 
@@ -142,11 +148,12 @@ class SenasSearch(nn.Module):
                 head_in0 = sum(num_filters[k][j][2] for k in range(i))
                 up_f.append([head_in0, head_down, head_curr, "up"])
                 setattr(self, f"up_{i}_{j}", FusedSearchCell(
-                    meta_node_num, double_down, head_in0, head_down, head_curr, "up"))
+                    meta_node_num, double_down, head_in0, head_down, head_curr, "up",
+                    dtype=dtype))
             num_filters.append(up_f)
 
         self.head = SearchHead(meta_node_num, double_down, c,
-                               num_filters[-1][0][2], nclass)
+                               num_filters[-1][0][2], nclass, dtype=dtype)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_params_(self, generator)
@@ -170,15 +177,19 @@ class SenasSearch(nn.Module):
             cell_out.append(getattr(self, f"down_{i}")(
                 in0, cell_out[-1], a_dn_nm, a_dn, b_dn, train))
 
-        # decoder grid sweep with gamma-mixed dense skips
+        # decoder grid sweep with gamma-mixed dense skips, in the dtype that
+        # jnp's promotion of the activations by gamma.astype(image dtype)
+        # gives (senas_tpu/search/supernet.py:231-239); torch.cat promotes
+        # as jnp.concatenate does
+        mix, g = torch.promote_types(ot.dtype, x.dtype), gamma.to(x.dtype)
         for j in reversed(range(self.depth - 1)):
             for i in range(1, self.depth - j):
                 ides = list(range(j, i + j))
                 gamma_ides = [sum(range(k + j)) + j for k in range(1, i)]
                 in0 = torch.cat(
                     [cell_out[ides[0]]]
-                    + [cell_out[ides[k]] * gamma[idx][0]
-                       + cell_out[ides[k + 1]] * gamma[idx][1]
+                    + [cell_out[ides[k]].to(mix) * g[idx][0]
+                       + cell_out[ides[k + 1]].to(mix) * g[idx][1]
                        for k, idx in enumerate(gamma_ides)],
                     dim=1)
                 cell_out[i + j] = getattr(self, f"up_{i}_{j}")(

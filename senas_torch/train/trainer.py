@@ -6,6 +6,11 @@ step takes a state (`FixedTrainState`, `SearchTrainState`, or only the
 architecture tables for a search evaluation) and the batches. Batches are
 dicts with 'image' [B,H,W,C_in] and 'label' [B,H,W] int tensors on the
 model's device. A state's `state_dict()` is what a checkpoint holds.
+
+A bf16 model (`dtype=torch.bfloat16`) gives bf16 logits, and the loss
+takes them as they are, as in the JAX package (no cast before loss_fn).
+The gradients land on the f32 parameters through the casts at use, so
+their joint norm, the clip and the optimizers' steps are f32.
 """
 
 from __future__ import annotations
@@ -24,12 +29,18 @@ def _last(outputs):
     return outputs[-1] if isinstance(outputs, (list, tuple)) else outputs
 
 
+def _reported(loss: torch.Tensor) -> torch.Tensor:
+    """A loss to report: a bf16 model's bf16 loss in f32 (numpy has no
+    bf16), any other as it is."""
+    return loss.detach().to(torch.promote_types(loss.dtype, torch.float32))
+
+
 def _step_metrics(loss, outputs, label) -> Dict[str, torch.Tensor]:
     """loss and the last head's tp/fp/fn (per foreground class) and pixel
     accuracy, on the device."""
     last = _last(outputs)
     tp, fp, fn = confusion_counts(last, label)
-    return {"loss": loss.detach(), "tp": tp, "fp": fp, "fn": fn,
+    return {"loss": _reported(loss), "tp": tp, "fp": fp, "fn": fn,
             "acc": mean_pix_accuracy(last, label)}
 
 
@@ -247,7 +258,7 @@ def make_search_step(normalize_fn: Callable, loss_fn: Callable, grad_clip: float
         if do_arch:
             a_loss, _ = forward(state, val_batch)
             _apply(state.a_opt, tables, _grads(a_loss, tables))
-            a_loss = a_loss.detach()
+            a_loss = _reported(a_loss)
         else:
             a_loss = torch.zeros((), device=train_batch["image"].device)
 

@@ -7,7 +7,14 @@ python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
 Tolerances: the kernels sum in another order than PyTorch's reductions.
 Sums are held to 1e-5 of the plane's sum of |x| (resp. x^2, |g*x|, |g|),
 elementwise outputs (the mix, the branch gradients) to atol 1e-4 on values
-of scale ~1-10, the epilogue's gradients to rtol/atol 1e-4. norm_convs is
+of scale ~1-10, the epilogue's gradients to rtol/atol 1e-4. In bf16 the
+sums (f32) keep their bound; a bf16 output equals its plain twin's except
+on at most 1e-3 of the elements, and there within one bf16 ulp or, where
+the f32 sum cancels, within 2^-21 of the sum of its terms' magnitudes (the
+kernel fuses each multiply-add, PyTorch rounds the product first); the
+epilogue's bf16 gradients are held to the plain reference's in f32 on the
+same bf16 inputs and cotangent at rtol/atol 2e-2 (the bf16 branch
+gradients round). norm_convs is
 held to 1e-5 of the same convolutions of |x| and |w| (each output's sum of
 |products|): the kernel (3xTF32 on the tensor cores, f32 sums) and cuDNN
 sum the products in other orders."""
@@ -31,37 +38,61 @@ def dev():
     return torch.device("cuda")
 
 
-def _xs(dev, n, shape, seed=0):
+def _xs(dev, n, shape, seed=0, dtype=torch.float32):
     g = torch.Generator(device="cpu").manual_seed(seed)
-    return [(torch.randn(shape, generator=g) * (1 + o) + o).to(dev) for o in range(n)]
+    return [(torch.randn(shape, generator=g) * (1 + o) + o).to(dev, dtype) for o in range(n)]
 
 
+def _assert_bf16_close(got, want, terms):
+    """bf16 `got` against `want`: equal but on <= 1e-3 of the elements, each
+    of those within one bf16 ulp or 2^-21 of `terms` (the sum of the
+    magnitudes that the f32 result was summed from)."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    g, w = got.double(), want.double()
+    diff = (g - w).abs()
+    mag = torch.maximum(g.abs(), w.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(torch.where(mag > 0, mag, torch.ones_like(mag)))) - 7)
+    assert (diff > 0).double().mean().item() <= 1e-3
+    assert bool((diff <= torch.maximum(ulp, terms.double() * 2.0 ** -21)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n", [1, 5, 6])
 @pytest.mark.parametrize("shape", [(8, 24, 64, 64), (2, 24, 8, 8), (2, 3, 5, 7)])
-def test_branch_stats_kernel(dev, n, shape):
-    xs = _xs(dev, n, shape)
-    before = ge.branch_stats.launches
+def test_branch_stats_kernel(dev, n, shape, dtype):
+    xs = _xs(dev, n, shape, dtype=dtype)
+    key = str(dtype).removeprefix("torch.")
+    before = (ge.branch_stats.launches, ge.branch_stats.launches_by_dtype[key])
     s1, s2 = ge.branch_stats(xs)
     torch.cuda.synchronize()
-    assert ge.branch_stats.launches == before + 1
+    assert (ge.branch_stats.launches, ge.branch_stats.launches_by_dtype[key]) == (
+        before[0] + 1, before[1] + 1)
+    assert s1.dtype == s2.dtype == torch.float32
     p1, p2 = ge.branch_stats_plain(xs)
-    abs1 = torch.stack([x.abs().sum(dim=(2, 3)) for x in xs])
+    abs1 = torch.stack([x.float().abs().sum(dim=(2, 3)) for x in xs])
     assert ((s1 - p1).abs() <= 1e-5 * abs1 + 1e-6).all()
     assert ((s2 - p2).abs() <= 1e-5 * p2 + 1e-6).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n", [1, 5, 6])
 @pytest.mark.parametrize("shape", [(8, 24, 64, 64), (2, 24, 8, 8), (2, 3, 5, 7)])
-def test_apply_mix_kernel(dev, n, shape):
-    xs = _xs(dev, n, shape, seed=1)
+def test_apply_mix_kernel(dev, n, shape, dtype):
+    xs = _xs(dev, n, shape, seed=1, dtype=dtype)
     b, c = shape[:2]
     a = torch.randn(n, b, c, device=dev)
     k = torch.randn(b, c, device=dev)
     before = ge.apply_mix.launches
     out = ge.apply_mix(xs, a, k)
     torch.cuda.synchronize()
-    assert ge.apply_mix.launches == before + 1
-    torch.testing.assert_close(out, ge.apply_mix_plain(xs, a, k), rtol=0, atol=1e-4)
+    assert ge.apply_mix.launches == before + 1 and out.dtype == dtype
+    want = ge.apply_mix_plain(xs, a, k)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, rtol=0, atol=1e-4)
+    else:
+        terms = k.abs()[:, :, None, None] + sum(x.float().abs() * a[o].abs()[:, :, None, None]
+                                                for o, x in enumerate(xs))
+        _assert_bf16_close(out, want, terms)
 
 
 @pytest.mark.parametrize("train", [True, False])
@@ -90,41 +121,52 @@ def test_fused_epilogue_on_card(dev, train, se, none):
 _SHAPES = [(8, 24, 64, 64), (2, 24, 128, 128), (1, 1, 512, 512), (2, 24, 8, 8), (2, 3, 5, 7)]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n", [1, 5, 6])
 @pytest.mark.parametrize("shape", _SHAPES)
-def test_bwd_reduce_kernel(dev, n, shape):
-    xs = _xs(dev, n, shape, seed=4)
-    g = _xs(dev, 1, shape, seed=5)[0]
+def test_bwd_reduce_kernel(dev, n, shape, dtype):
+    xs = _xs(dev, n, shape, seed=4, dtype=dtype)
+    g = _xs(dev, 1, shape, seed=5, dtype=dtype)[0]
     before = ge.bwd_reduce.launches
     da, dk = ge.bwd_reduce(xs, g)
     torch.cuda.synchronize()
     assert ge.bwd_reduce.launches == before + 1
+    assert da.dtype == dk.dtype == torch.float32
     pa, pk = ge.bwd_reduce_plain(xs, g)
-    abs_a = torch.stack([(g * x).abs().sum(dim=(2, 3)) for x in xs])
+    gf = g.float()
+    abs_a = torch.stack([(gf * x.float()).abs().sum(dim=(2, 3)) for x in xs])
     assert ((da - pa).abs() <= 1e-5 * abs_a + 1e-6).all()
-    assert ((dk - pk).abs() <= 1e-5 * g.abs().sum(dim=(2, 3)) + 1e-6).all()
+    assert ((dk - pk).abs() <= 1e-5 * gf.abs().sum(dim=(2, 3)) + 1e-6).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n", [1, 5, 6])
 @pytest.mark.parametrize("shape", _SHAPES)
-def test_bwd_dx_kernel(dev, n, shape):
-    xs = _xs(dev, n, shape, seed=6)
-    g = _xs(dev, 1, shape, seed=7)[0]
+def test_bwd_dx_kernel(dev, n, shape, dtype):
+    xs = _xs(dev, n, shape, seed=6, dtype=dtype)
+    g = _xs(dev, 1, shape, seed=7, dtype=dtype)[0]
     b, c = shape[:2]
     a, ds1, ds2 = (torch.randn(n, b, c, device=dev) for _ in range(3))
     before = ge.bwd_dx.launches
     got = ge.bwd_dx(xs, g, a, ds1, ds2)
     torch.cuda.synchronize()
     assert ge.bwd_dx.launches == before + 1
+    col = lambda t: t.abs()[:, :, None, None]
     for o, want in enumerate(ge.bwd_dx_plain(xs, g, a, ds1, ds2)):
-        torch.testing.assert_close(got[o], want, rtol=0, atol=1e-4)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got[o], want, rtol=0, atol=1e-4)
+        else:
+            terms = g.float().abs() * col(a[o]) + col(ds1[o]) + 2 * xs[o].float().abs() * col(ds2[o])
+            _assert_bf16_close(got[o], want, terms)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("train", [True, False])
 @pytest.mark.parametrize("se,none", [(True, False), (False, True), (False, False)])
-def test_fused_epilogue_gradients_on_card(dev, train, se, none):
+def test_fused_epilogue_gradients_on_card(dev, train, se, none, dtype):
     """The autograd Function's gradients (K1a-K1d and the glue's VJP)
-    against torch autograd through the plain two-pass reference."""
+    against torch autograd through the plain two-pass reference; in bf16
+    the reference runs in f32 on the same bf16 branch tensors."""
     E, P, n = 3, 8, 6 if se else 5
     C = E * P
     g = torch.Generator(device="cpu").manual_seed(8)
@@ -133,7 +175,7 @@ def test_fused_epilogue_gradients_on_card(dev, train, se, none):
     if not train:
         kw.update(run_means=[0.3 * r(C) for _ in range(n)],
                   run_vars=[r(C).abs() + 0.5 for _ in range(n)])
-    diff = dict(xs=_xs(dev, n, (4, C, 16, 16), seed=9),
+    diff = dict(xs=_xs(dev, n, (4, C, 16, 16), seed=9, dtype=dtype),
                 scales=[1 + 0.1 * r(C) for _ in range(n)],
                 biases=[0.1 * r(C) for _ in range(n)],
                 alphas=[r(C).abs() for _ in range(n)])
@@ -148,19 +190,39 @@ def test_fused_epilogue_gradients_on_card(dev, train, se, none):
     call = lambda fn: fn(diff["xs"], diff["scales"], diff["biases"], diff["alphas"], **kw,
                          **{k: v for k, v in diff.items()
                             if k not in ("xs", "scales", "biases", "alphas")})
-    before = (ge.bwd_reduce.launches, ge.bwd_dx.launches)
+    key = str(dtype).removeprefix("torch.")
+    before = (ge.bwd_reduce.launches_by_dtype[key], ge.bwd_dx.launches_by_dtype[key])
     got = torch.autograd.grad((call(ge.fused_group_epilogue)[0] * readout).sum(), leaves)
     torch.cuda.synchronize()
-    assert (ge.bwd_reduce.launches, ge.bwd_dx.launches) == (before[0] + 1, before[1] + 1)
-    want = torch.autograd.grad((call(ge.group_epilogue_reference) * readout).sum(), leaves)
+    assert (ge.bwd_reduce.launches_by_dtype[key], ge.bwd_dx.launches_by_dtype[key]) == (
+        before[0] + 1, before[1] + 1)
+    assert all(t.dtype == l.dtype for t, l in zip(got, leaves))
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    # the reference's output stays f32; it gets the cotangent the bf16 output
+    # gets (the readout rounded to bf16)
+    want = torch.autograd.grad((call(lambda *a, **k: ge.group_epilogue_reference(
+        *a, out_dtype=torch.float32, **k)) * readout.to(dtype).float()).sum(), leaves)
     for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(a.float(), b.float(), **tol)
 
 
 def test_card_rejects_other_dtypes(dev):
-    xs = [x.half() for x in _xs(dev, 2, (2, 24, 8, 8))]
-    with pytest.raises(NotImplementedError):
-        ge.branch_stats(xs)
+    """bf16 branch tensors reach the bf16 kernels; f16 and f64 raise, and
+    nothing converts them."""
+    xs = _xs(dev, 2, (2, 24, 8, 8))
+    before = ge.branch_stats.launches_by_dtype["bfloat16"]
+    s1, _ = ge.branch_stats([x.bfloat16() for x in xs])
+    torch.cuda.synchronize()
+    assert ge.branch_stats.launches_by_dtype["bfloat16"] == before + 1
+    assert s1.dtype == torch.float32
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(NotImplementedError):
+            ge.branch_stats([x.to(dtype) for x in xs])
+    a, k = torch.zeros(2, 2, 24, device=dev), torch.zeros(2, 24, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        ge.apply_mix([x.bfloat16() for x in xs], a.bfloat16(), k)
+    with pytest.raises(NotImplementedError, match="dtype"):
+        ge.apply_mix([x.bfloat16() for x in xs], a, k, out_dtype=torch.float32)
 
 
 # (b, c, h, w, n): a main-sized tile, edge tiles in both directions,

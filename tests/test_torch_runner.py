@@ -93,13 +93,38 @@ def test_cli_defaults_stay_in_the_checkout():
 
 @pytest.mark.parametrize("change,match", [
     ({"multi_gpus": True}, "M13"),
-    ({"precision": "bf16"}, "bf16"),
     ({"remat": True}, "remat"),
 ])
 def test_unported_options_raise(tmp_path, change, match):
     cfg = load_config(CONFIG)
     cfg["searching"].update(change)
     with pytest.raises(NotImplementedError, match=match):
+        SearchRunner(cfg, log_root=str(tmp_path), device="cpu")
+
+
+def test_bf16_precision_computes_in_bf16_with_f32_masters(tmp_path):
+    """`precision: bf16` builds the supernet in bf16: bf16 logits, f32
+    weights, running stats and arch tables, and an f32 checkpoint."""
+    cfg = load_config(CONFIG)
+    cfg["searching"].update(precision="bf16", epoch=1)
+    runner = SearchRunner(cfg, log_root=str(tmp_path), device="cpu")
+    assert runner.dtype == torch.bfloat16
+    from senas_torch.search.supernet import normalize_arch
+    with torch.no_grad():
+        out = runner.state.model(torch.zeros(1, 64, 64, 1),
+                                 normalize_arch(runner.state.arch, runner.meta_node_num))
+    assert out[0].dtype == torch.bfloat16
+    runner.run()
+    payload = runner.ckpt.restore_raw("last")
+    for tensors in (payload["model"], payload["arch"], dict(runner.state.model.named_parameters())):
+        assert all(v.dtype == torch.float32 for v in tensors.values() if v.is_floating_point())
+
+
+@pytest.mark.parametrize("precision", ["fp16", "float16"])
+def test_unknown_precision_raises(tmp_path, precision):
+    cfg = load_config(CONFIG)
+    cfg["searching"]["precision"] = precision
+    with pytest.raises(ValueError, match="precision"):
         SearchRunner(cfg, log_root=str(tmp_path), device="cpu")
 
 

@@ -154,12 +154,32 @@ def test_genotype_resolution():
 
 @pytest.mark.parametrize("change,match", [
     ({"multi_gpus": True}, "M13"),
-    ({"precision": "bf16"}, "bf16"),
     ({"remat": True}, "remat"),
 ])
 def test_unported_options_raise(tmp_path, change, match):
     with pytest.raises(NotImplementedError, match=match):
         TrainRunner(_cfg(**change), log_root=str(tmp_path), device="cpu")
+
+
+def test_bf16_precision_computes_in_bf16_with_f32_masters(tmp_path):
+    """`precision: bf16` builds the fixed model in bf16: bf16 logits, f32
+    weights and running stats, and an f32 checkpoint."""
+    cfg = _cfg(precision="bf16")
+    cfg["training"]["epoch"] = 1
+    runner = TrainRunner(cfg, log_root=str(tmp_path), device="cpu")
+    assert runner.dtype == torch.bfloat16
+    with torch.no_grad():
+        assert runner.model(torch.zeros(1, 64, 64, 1))[0].dtype == torch.bfloat16
+    runner.run()
+    payload = runner.ckpt.restore_raw("last")
+    for tensors in (payload["model"], dict(runner.model.named_parameters())):
+        assert all(v.dtype == torch.float32 for v in tensors.values() if v.is_floating_point())
+
+
+@pytest.mark.parametrize("precision", ["fp16", "float16"])
+def test_unknown_precision_raises(tmp_path, precision):
+    with pytest.raises(ValueError, match="precision"):
+        TrainRunner(_cfg(precision=precision), log_root=str(tmp_path), device="cpu")
 
 
 def test_test_runner_needs_a_checkpoint_and_has_no_submission_path(first_run, tmp_path):

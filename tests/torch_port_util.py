@@ -73,6 +73,14 @@ def flat(tree, prefix=""):
     return out
 
 
+def flat_leaves(tree) -> np.ndarray:
+    """Every leaf of a nested dict as one float64 vector, in the order of
+    the sorted paths."""
+    leaves = flat(tree)
+    return np.concatenate([np.zeros(0)] + [np.asarray(leaves[k], np.float64).ravel()
+                                           for k in sorted(leaves)])
+
+
 def nhwc(t):
     """Port NCHW tensor -> NHWC numpy."""
     return t.detach().permute(0, 2, 3, 1).cpu().numpy()
@@ -451,3 +459,61 @@ def write_nifti(path, vol, slope=0.0, inter=0.0):
     opener = gzip.open if str(path).endswith(".gz") else open
     with opener(path, "wb") as f:
         f.write(body)
+
+
+# ---------------------------------------------------------------------------
+# bf16: how far the port's bf16 results may lie from the JAX package's
+# ---------------------------------------------------------------------------
+
+
+def as_f64(a):
+    """A torch tensor (any dtype, bf16 too) or an array -> float64 numpy."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        return a.detach().double().cpu().numpy()
+    return np.asarray(np.asarray(a).astype(np.float32), np.float64)
+
+
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| over all elements (0 when both are 0)."""
+    a, b = as_f64(a), as_f64(b)
+    den = float(np.sqrt((b ** 2).sum()))
+    num = float(np.sqrt(((a - b) ** 2).sum()))
+    return num / den if den else num
+
+
+def bf16_ulps(got, want):
+    """(share of the elements that differ, the largest difference in units
+    of the bf16 spacing at the larger of the two magnitudes)."""
+    g, w = as_f64(got), as_f64(want)
+    diff = np.abs(g - w)
+    mag = np.maximum(np.abs(g), np.abs(w))
+    spacing = np.exp2(np.floor(np.log2(np.where(mag > 0, mag, 1.0))) - 7)
+    return float((diff > 0).mean()), float((diff / spacing).max(initial=0.0))
+
+
+def assert_bf16_bits(got, want, share: float = 1e-3, what: str = ""):
+    """The module-level bound: got equals want except on at most `share`
+    of the elements, and there by at most one bf16 ulp."""
+    frac, ulps = bf16_ulps(got, want)
+    assert frac <= share and ulps <= 1.0, f"{what}: {frac:.3g} of the elements differ, " \
+                                          f"by up to {ulps:.3g} bf16 ulps"
+    return frac, ulps
+
+
+def assert_bf16_network(port_bf16, jax_bf16, jax_f32, what: str = ""):
+    """The network- and step-level bound: the two packages' bf16 results lie
+    at most twice as far apart as the JAX package's bf16 result lies from
+    its f32 one (bf16's own error), plus 1e-6 (relative L2 distances)."""
+    gap, own = rel_l2(port_bf16, jax_bf16), rel_l2(jax_bf16, jax_f32)
+    assert gap <= 2 * own + 1e-6, f"{what}: port-vs-JAX bf16 {gap:.3g}, JAX bf16-vs-f32 {own:.3g}"
+    return gap, own
+
+
+def assert_bf16_computed(bf16, f32, rtol, atol, what: str = ""):
+    """The control: the bf16 result fails 100 times the f32 parity
+    tolerance (rtol, atol of an assert_allclose) against the f32 result,
+    which an f32 computation passes: bf16 really computed."""
+    a, b = as_f64(bf16), as_f64(f32)
+    excess = float((np.abs(a - b) - 100 * (atol + rtol * np.abs(b))).max())
+    assert excess > 0, f"{what}: bf16 lies within 100x the f32 tolerance of f32"
