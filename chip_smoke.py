@@ -8,7 +8,8 @@ Phases, each of which fails the run:
   2. build: the CUDA kernels of senas_torch/csrc (grouped_epilogue.cu and
      norm_convs.cu) with nvcc (sm_90a), one nvcc per source, together;
      the SASS of norm_convs_kernel (cuobjdump) must hold tensor-core
-     instructions (HGMMA: wgmma);
+     instructions (HGMMA: wgmma), and that of norm_convs_bf16_kernel bf16
+     HGMMA only;
   3. kernels: each of the four epilogue kernels against its plain PyTorch
      version on the same tensors on the card, at the shapes the supernet
      gives it (train- and eval-mode operands), timed; the epilogue's
@@ -18,9 +19,10 @@ Phases, each of which fails the run:
      shape, timed beside its plain version and the library convolutions
      with TF32 off and on; the library with TF32 on (the control) must
      fail K2's limit, which the kernel meets;
-  4. the norm_convs path: one call of `norm_convs` at bench.py's shape, as
-     a user (and bench.py) calls it, with its launch counted: no model path
-     of either package calls K2;
+  4. the norm_convs path: one call of `norm_convs` at bench.py's shape on
+     f32 operands and one on bf16 operands, as a user (and bench.py) calls
+     it, with each dtype's launch counted: no model path of either package
+     calls K2;
   5. the eval path: the supernet's inference path at the
      configs/senas/senas_promise12.yml `searching:` geometry (batch 8 of
      256x256x1, init_channels 32, depth 5, meta_node_num 3, f32): one
@@ -97,8 +99,8 @@ Phases, each of which fails the run:
      unet_plus_plus, manet, linknet, fpn, pspnet at depth 3, pan,
      deeplab_v3_plus) at the senas_promise12.yml `training:` geometry, each
      1 + 3 train steps and the eval step on 3 batches (ms/step, peak memory,
-     the logits' shape, finite losses, every weight moved), a unet and a
-     deeplab_v3_plus step under torch.profiler; each model's train step on
+     the logits' shape, finite losses, every weight moved), a unet, an fpn
+     and a deeplab_v3_plus step under torch.profiler; each model's train step on
      the card against the CPU (batch 2, depth 3-5, 64x64 or PAN's 128x128)
      in f32 (TF32 off) and in f64, one CPU generator giving both devices the
      same dropout mask; `train_model` and `testing_model` with --model unet
@@ -122,12 +124,30 @@ Phases, each of which fails the run:
      fails phase 7's f32 limits against its f32 step; senas_synthetic.yml
      with `precision: bf16` through search_arc and train_model (1 epoch)
      and testing_model (f32) on the bf16 run's best checkpoint.
-Phases 12-13 and 16 launch none of the kernels (neither the fixed model
-nor the zoo has any).
+ 18. the zoo in bf16 and K2 in bf16: K2's bf16 kernel (one bf16 wgmma per
+     product, f32 sums, one rounding) against its twin (the f32
+     convolutions of the bf16 values, rounded once) at bench.py's shape and
+     the edge shape (equal but on <= 1e-3 of the outputs, each within one
+     bf16 ulp or 2^-21 of its sum of |products|), timed beside the f32
+     kernel, its bf16 bound and cuDNN's three bf16 convolutions; the nine
+     zoo models with `dtype=torch.bfloat16` at phase 16's geometry (1 + 3
+     train steps, the eval step on 3 batches, ms/step, peak memory, the
+     logits' dtype: fpn and pan f32, the rest bf16; a unet, an fpn and a
+     deeplab_v3_plus step under torch.profiler), beside phase 16's f32
+     numbers; each model's bf16 train step on the card against the CPU at
+     phase 16's reduced sizes (PAN at batch 4), at most twice the CPU's own
+     bf16-vs-f32 distance, with the control that the card's bf16 step
+     leaves phase 16's f32 limits of its f32 step; `train_model --model
+     unet` and `--model fpn` on senas_synthetic.yml with `precision: bf16`,
+     then `testing_model --model unet` (f32) on the bf16 checkpoint; the six
+     smp_* losses on full-size bf16 logits, card against CPU.
+Phases 12-13, 16 and 18's zoo launch none of the kernels (neither the
+fixed model nor the zoo has any).
 Every kernel variant must be launched on at least one path (phases 4-6, 9,
-14, 15, 17). The line before the last is a JSON list of the kernels, the
-bf16 variants as `<name>_bf16`; the last line is {"ok": true, "device":
-{...}}. Without a CUDA device the script exits 1 and prints no result.
+14, 15, 17; K2's bf16 variant in phase 4). The line before the last is a
+JSON list of the kernels, the bf16 variants as `<name>_bf16`; the last
+line is {"ok": true, "device": {...}}. Without a CUDA device the script
+exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -216,6 +236,10 @@ KERNELS = {
     **{name + BF16_SUFFIX: dict(wrapper=getattr(ge, name), dtype="bfloat16",
                                 source=EPILOGUE_SOURCE, replaces=replaces)
        for name, replaces in EPILOGUE_REPLACES.items()},
+    "norm_convs" + BF16_SUFFIX: dict(
+        wrapper=nc.norm_convs, dtype="bfloat16", source="senas_torch/csrc/norm_convs.cu",
+        replaces="senas_tpu/ops/pallas_kernels.py:65 (fused_norm_convs -> "
+                 "_norm_convs_kernel :37), bf16 operands"),
 }
 SOURCES = ("grouped_epilogue", "norm_convs")
 
@@ -254,8 +278,8 @@ def reset_counts():
 
 
 def counts():
-    """Launches per kernel variant: the epilogue's by dtype, K2's in all
-    (it takes f32 only)."""
+    """Launches per kernel variant, each read from its wrapper's count of
+    the variant's dtype."""
     out = {}
     for name, k in KERNELS.items():
         by_dtype = getattr(k["wrapper"], "launches_by_dtype", None)
@@ -290,7 +314,8 @@ def environment() -> str:
 
 def build() -> str:
     """Build every source; print ptxas's registers and spills. Returns the
-    tensor-core instruction that norm_convs_kernel's SASS holds."""
+    tensor-core instruction that norm_convs_kernel's SASS holds; that of
+    norm_convs_bf16_kernel must be bf16 HGMMA."""
     t0 = time.perf_counter()
     seconds = _build.build(SOURCES)
     log(f"build: {seconds} (wall {time.perf_counter() - t0:.2f} s)")
@@ -298,13 +323,16 @@ def build() -> str:
         for line in _build.build_log(name).splitlines():
             if any(k in line for k in ("registers", "spill", "error", "warning", "Function")):
                 log(f"  ptxas {name}: {line.strip()}")
+    bf16 = tensor_core_sass("norm_convs", "norm_convs_bf16_kernel", operands="BF16")
+    check(bf16 == "HGMMA", f"norm_convs_bf16_kernel holds {bf16}, not HGMMA")
     return tensor_core_sass("norm_convs", "norm_convs_kernel")
 
 
-def tensor_core_sass(source: str, kernel: str) -> str:
+def tensor_core_sass(source: str, kernel: str, operands: str = "") -> str:
     """cuobjdump --dump-sass of the built library: the tensor-core
     instructions of each function whose name holds `kernel`. Fails unless
-    every such function holds HGMMA (wgmma) or HMMA (mma.sync)."""
+    every such function holds HGMMA (wgmma) or HMMA (mma.sync), and, with
+    `operands` (e.g. "BF16"), unless every one of them names that type."""
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "--dump-sass", str(_build.library_path(source))],
                           capture_output=True, text=True, timeout=120, check=True).stdout
@@ -312,7 +340,12 @@ def tensor_core_sass(source: str, kernel: str) -> str:
     for part in sass.split("Function : ")[1:]:
         name, body = part.split("\n", 1)
         if kernel in name:
+            lines = [ln for ln in body.splitlines() if "HGMMA" in ln or "HMMA" in ln]
             found[name.strip()] = {op: body.count(op) for op in ("HGMMA", "HMMA")}
+            if operands:
+                found[name.strip()][operands] = sum(f".{operands}" in ln for ln in lines)
+                check(found[name.strip()][operands] == len(lines),
+                      f"{kernel}: tensor-core instructions without {operands}: {lines[:3]}")
     log(f"  SASS of {kernel}: {found}")
     check(bool(found), f"no function {kernel} in the SASS of {source}")
     kinds = {"HGMMA" if c["HGMMA"] else ("HMMA" if c["HMMA"] else None) for c in found.values()}
@@ -607,18 +640,23 @@ def check_norm_convs(dev, seed: int) -> dict:
 
 
 def run_norm_convs_path(dev, seed: int) -> dict:
-    """One call of norm_convs at bench.py's shape, as a user calls it; its
-    launch read from the counter."""
+    """One call of norm_convs at bench.py's shape on f32 operands and one on
+    bf16 operands, as a user calls it; the launches read from the counters
+    (each dtype its own kernel)."""
     b, c, h, w, n = K2_SHAPES["bench"]
     x, ks = _norm_inputs(dev, b, c, h, w, n, seed + 4)
+    xb, kb = x.to(BF16), [k.to(BF16) for k in ks]
     reset_counts()
     out = nc.norm_convs(x, *ks)
+    out_bf16 = nc.norm_convs(xb, *kb)
     torch.cuda.synchronize()
     got = counts()
-    want = {**{name: 0 for name in KERNELS}, "norm_convs": 1}
-    check(got == want, f"the norm_convs call launched {got}, expected {want}")
-    check(tuple(out.shape) == (b, 3 * n, h, w) and bool(torch.isfinite(out).all()),
-          "norm_convs gave non-finite values or a wrong shape")
+    want = {**{name: 0 for name in KERNELS}, "norm_convs": 1, "norm_convs" + BF16_SUFFIX: 1}
+    check(got == want, f"the norm_convs calls launched {got}, expected {want}")
+    for o, dt in ((out, torch.float32), (out_bf16, BF16)):
+        check(tuple(o.shape) == (b, 3 * n, h, w) and o.dtype == dt
+              and bool(torch.isfinite(o).all()),
+              f"norm_convs gave non-finite values or a wrong shape or dtype ({o.dtype})")
     log(f"norm_convs call [{b},{c},{h},{w}] N={n}: launches {got}")
     return dict(launches=got)
 
@@ -633,6 +671,7 @@ _KERNEL_CLASSES = (
     ("bwd_reduce (K1c)", ("bwd_reduce_partial_kernel", "bwd_reduce_finish_kernel")),
     ("bwd_dx (K1d)", ("bwd_dx_kernel",)),
     ("norm_convs (K2)", ("norm_convs_kernel",)),
+    ("norm_convs bf16 (K2)", ("norm_convs_bf16_kernel",)),
     ("matmul", ("xmma_gemm", "sgemm", "gemv")),
     # before "convolution": cuDNN's BN kernels carry "cudnn" in their names
     ("batch norm", ("batch_norm", "bn_fw", "bn_bw")),
@@ -2252,16 +2291,30 @@ SMP_LOSSES = ("smp_dice", "smp_jaccard", "smp_tversky", "smp_focal", "smp_lovasz
 SMP_LOSS_REL = 1e-4
 
 
-def _zoo_model(name, depth, dev, gen):
+def _zoo_model(name, depth, dev, gen, dtype=None):
     return get_segmentation_model(name, dataset="promise12", depth=depth, device=dev,
-                                  generator=gen)
+                                  generator=gen, dtype=dtype)
 
 
-def run_zoo_path(dev, seed: int) -> dict:
-    """The nine zoo models at the promise12 `training:` geometry: 1 + 3
-    train steps, then the eval step on 3 batches; unet's and
-    deeplab_v3_plus's step once more under torch.profiler. No kernel of the
-    port is on this path."""
+# senas_tpu's align-corners resizes keep f32 weights, so these two models
+# give f32 logits from a bf16 model; the other seven bf16 ones
+ZOO_F32_LOGITS = ("fpn", "pan")
+
+
+# profiled: the smallest host-bound step (deeplab_v3_plus), a conv-heavy one
+# (unet), and fpn, whose eval batch cost more than its train step in f32
+ZOO_PROFILED = ("unet", "fpn", "deeplab_v3_plus")
+
+
+def _logits_dtype(name, dtype):
+    return torch.float32 if dtype is None or name in ZOO_F32_LOGITS else dtype
+
+
+def run_zoo_path(dev, seed: int, dtype=None) -> dict:
+    """The nine zoo models at the promise12 `training:` geometry in `dtype`
+    (None: f32): 1 + 3 train steps, then the eval step on 3 batches; the
+    ZOO_PROFILED models' step once more under torch.profiler. No kernel of
+    the port is on this path."""
     t = load_config(CONFIG)["training"]
     bs, loss_fn = t["batch_size"], _fixed_loss(t)
     rng = np.random.RandomState(seed + 16)
@@ -2269,9 +2322,10 @@ def run_zoo_path(dev, seed: int) -> dict:
     eval_batches = _batches(rng, N_BATCHES, bs, HW, dev)
     reset_counts()
     rows, unet_state = {}, None
+    tag = "zoo" if dtype is None else "bf16 zoo"
     for name in ZOO_MODELS:
         depth = ZOO_DEPTH.get(name, t["depth"])
-        model = _zoo_model(name, depth, dev, torch.Generator().manual_seed(seed + 16))
+        model = _zoo_model(name, depth, dev, torch.Generator().manual_seed(seed + 16), dtype)
         state = FixedTrainState.create(model, t["model_optimizer"], seed=seed)
         step = make_train_step(loss_fn, grad_clip=t["grad_clip"])
         evaluate = make_eval_step(model, loss_fn)
@@ -2309,26 +2363,30 @@ def run_zoo_path(dev, seed: int) -> dict:
         shape = tuple(out[0].shape)
         check(shape == (bs, HW, HW, NCLASS) and bool(torch.isfinite(out[0]).all()),
               f"{name} logits {shape}")
+        check(out[0].dtype == _logits_dtype(name, dtype)
+              and all(p.dtype == torch.float32 for p in model.parameters()),
+              f"{tag} {name}: logits {out[0].dtype}, or weights not f32")
         depth = getattr(model, "encoder", model).depth   # deeplab_v3_plus: always 5
         row = dict(depth=depth, parameters=sum(p.numel() for p in model.parameters()),
                    step_ms=float(np.mean(times[1:])), first_ms=times[0],
                    eval_ms=float(np.mean(eval_times[1:])), peak_mib=peak / 2**20,
-                   out_shape=list(shape), losses=losses, leaves_moved=[moved, len(first)])
-        log(f"zoo {name} (depth {depth}, {row['parameters']} parameters): "
+                   out_shape=list(shape), out_dtype=str(out[0].dtype), losses=losses,
+                   leaves_moved=[moved, len(first)])
+        log(f"{tag} {name} (depth {depth}, {row['parameters']} parameters): "
             f"{row['step_ms']:.2f} ms/step (first {times[0]:.2f}), eval "
             f"{row['eval_ms']:.2f} ms/batch, peak {row['peak_mib']:.1f} MiB, logits {shape}, "
             f"loss {losses[0]:.5f} -> {losses[-1]:.5f}, {moved} of {len(first)} weight leaves "
-            "moved")
-        if name in ("unet", "deeplab_v3_plus"):
+            f"moved, logits {out[0].dtype}")
+        if name in ZOO_PROFILED:
             row["profile"] = profile(lambda: step(state, train_batches[-1]),
-                                     f"one {name} train step, batch {bs}")
+                                     f"one {tag} {name} train step, batch {bs}")
         if name == "unet":
             unet_state = state
         rows[name] = row
         del model, state, step, evaluate, first
         torch.cuda.empty_cache()
     got = counts()
-    check(not any(got.values()), f"the zoo path launched {got}")
+    check(not any(got.values()), f"the {tag} path launched {got}")
     return dict(launches=got, models=rows, unet_state=unet_state)
 
 
@@ -2833,7 +2891,8 @@ def run_bf16_clis(work: str) -> dict:
     reset_counts()
     out = _in_process(search_arc.main, "--config", config, "--epoch", "1", "--log_root", log_root)
     got = counts()
-    bf16 = {k: v for k, v in got.items() if k.endswith(BF16_SUFFIX)}
+    bf16 = {k: v for k, v in got.items()
+            if k.endswith(BF16_SUFFIX) and KERNELS[k]["source"] == EPILOGUE_SOURCE}
     check(all(bf16.values()) and not any(v for k, v in got.items() if k not in bf16),
           f"the bf16 search CLI launched {got}")
     search = _scalars(_run_dir(out))
@@ -2881,6 +2940,242 @@ def run_bf16(dev, seed: int, f32_records: dict) -> dict:
                 seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the zoo in bf16 and K2 in bf16
+# ---------------------------------------------------------------------------
+
+# H100 SXM dense bf16 on the tensor cores (data sheet, at a 700 W limit)
+PEAK_BF16_FLOPS = 989e12
+# PAN's pyramid-attention and GAU blocks batch-normalise a global pool,
+# per channel over the batch: at batch 2, in bf16, two values whose
+# difference is rounding noise (the CPU tests measure the JAX package's
+# own bf16 step there 0.79 off its f32 one), so the card-vs-CPU step takes
+# PAN at batch 4, as tests/test_torch_bf16_zoo.py does
+ZOO_BF16_BATCH = {"pan": 4}
+
+
+def check_norm_convs_bf16(dev, seed: int, f32: dict) -> dict:
+    """K2's bf16 kernel against its bf16 twin (the f32 convolutions of the
+    same bf16 values, rounded once) at each of K2_SHAPES: equal but on <=
+    BF16_SHARE of the elements, each within one bf16 ulp or 2^-21 of its
+    sum of |products|; at bench.py's shape timed in turns beside its twin
+    and cuDNN's three bf16 convolutions and the cat (the library column),
+    with the f32 kernel's time from phase 3 (`f32`) and the bf16 bound."""
+    rec = {"timed": []}
+    worst = dict(share=0.0, allowance=0.0, abs=0.0)
+    for label, (b, c, h, w, n) in K2_SHAPES.items():
+        x, ks = _norm_inputs(dev, b, c, h, w, n, seed + 30)
+        x, ks = x.to(BF16), [k.to(BF16) for k in ks]
+        got = nc.norm_convs(x, *ks)
+        want = nc.norm_convs_plain(x, *ks)
+        terms = nc.norm_convs_plain(x.float().abs(), *[k.float().abs() for k in ks])
+        torch.cuda.synchronize()
+        share, allowance, err = _bf16_err(got, want, terms)
+        check(tuple(got.shape) == (b, 3 * n, h, w), f"norm_convs bf16 gave {tuple(got.shape)}")
+        log(f"  norm_convs bf16 {label} [{b},{c},{h},{w}] N={n}: {share:.3g} of the outputs "
+            f"differ from the twin, worst {allowance:.3g} of the allowance, max abs {err:.3g}")
+        worst = dict(share=max(worst["share"], share), allowance=max(worst["allowance"], allowance),
+                     abs=max(worst["abs"], err))
+        if label != "bench":
+            continue
+        lib_share = float(((_library_norm_convs(x, ks) != want).double().mean()))
+        del got, want, terms
+        t = {"kernel": [], "plain": [], "library": []}
+        calls = dict(kernel=lambda: nc.norm_convs(x, *ks),
+                     plain=lambda: nc.norm_convs_plain(x, *ks),
+                     library=lambda: _library_norm_convs(x, ks))
+        turns = ("kernel", "plain", "library", "library", "plain", "kernel")
+        for which in turns:
+            t[which].append(time_ms(calls[which]))
+        ms = {k: float(np.mean(v)) for k, v in t.items()}
+        flops = nc.flops(x.shape, n)
+        op_ms = flops / PEAK_BF16_FLOPS * 1e3
+        byte_ms = nc.nbytes(x.shape, n, itemsize=2) / PEAK_BYTES_PER_S * 1e3
+        bound = max(op_ms, byte_ms)
+        log(f"  norm_convs bf16 times at bench.py's shape (ms, in turns {','.join(turns)}): "
+            f"{t}; f32 kernel {f32['ms']:.4f} (phase 3); bound {bound:.4f} (operations "
+            f"{op_ms:.4f}: {flops / 1e9:.2f} GFLOP at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16; "
+            f"bytes {byte_ms:.4f}: {nc.nbytes(x.shape, n, itemsize=2) / 1e6:.1f} MB at "
+            f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s); kernel at {flops / ms['kernel'] / 1e9:.2f} "
+            f"TFLOP/s, {bound / ms['kernel']:.3f} of its bound; cuDNN bf16 differs from the "
+            f"twin on {lib_share:.3g} of the outputs")
+        rec.update(ms=ms["kernel"], plain_ms=ms["plain"], library_ms=ms["library"],
+                   bound_ms=bound, bytes_bound_ms=byte_ms, f32_ms=f32["ms"],
+                   library_share_differing=lib_share, shape=[b, c, h, w], n=n,
+                   tflops=flops / ms["kernel"] / 1e9)
+        rec["timed"].append(dict(shape=[b, c, h, w], n=n, bound_ms=bound,
+                                 **{f"{k}_in_turns": v for k, v in t.items()}))
+    rec.update(max_abs_err=worst["abs"], max_share_differing=worst["share"],
+               max_allowance_used=worst["allowance"])
+    return rec
+
+
+def zoo_bf16_card_vs_cpu(dev, seed: int) -> dict:
+    """Each zoo model's train step from one state at phase 16's reduced
+    sizes, in bf16 and in f32, on the card (TF32 off) and on the CPU, one
+    CPU dropout generator for both: the card's bf16 step is held to the
+    CPU's bf16 step as the CPU tests hold the port to the JAX package (at
+    most twice the CPU's own bf16-vs-f32 distance, `_bf16_bound`'s rule);
+    the control: the card's bf16 step lies outside phase 16's f32 card-vs-CPU
+    limits of its own f32 step."""
+    t = load_config(CONFIG)["training"]
+    f32_limits = ZOO_CPU_LIMITS["float32"]
+    rows = {}
+    for name in ZOO_MODELS:
+        depth, hw = ZOO_SMALL.get(name, ZOO_SMALL_DEFAULT)
+        bs = ZOO_BF16_BATCH.get(name, 2)
+        state0 = _zoo_model(name, depth, "cpu",
+                            torch.Generator().manual_seed(seed + 31)).state_dict()
+        batch = _batches(np.random.RandomState(seed + 31), 1, bs, hw, "cpu")[0]
+
+        def run_on(d, dtype):
+            model = _zoo_model(name, depth, d, None, dtype)
+            model.load_state_dict({k: v.to(d) for k, v in state0.items()})
+            state = FixedTrainState.create(model, t["model_optimizer"], seed=seed,
+                                           rng=torch.Generator())
+            m = make_train_step(_fixed_loss(t), grad_clip=t["grad_clip"])(
+                state, {k: v.to(d) for k, v in batch.items()})
+            return ({k: m[k].cpu() for k in ("loss", "grad_norm")},
+                    {"model": {k: v.detach().cpu().clone()
+                               for k, v in model.state_dict().items()}, "arch": {}})
+
+        runs = {f"{where}_{tag}": run_on(d, dtype) for where, d in (("cpu", "cpu"), ("card", dev))
+                for tag, dtype in (("bf16", BF16), ("f32", None))}
+        before = {"model": state0, "arch": {}}
+        params = [k for k in state0 if k.rsplit(".", 1)[-1] not in ("mean", "var")]
+        after = {k: r[1]["model"] for k, r in runs.items()}
+        gap = _update_rel(state0, after["card_bf16"], after["cpu_bf16"], params)
+        own = _update_rel(state0, after["cpu_bf16"], after["cpu_f32"], params)
+        bound = {"weights": (gap, own),
+                 "bn_stats": (_stats_l2(before, runs["card_bf16"][1], runs["cpu_bf16"][1]),
+                              _stats_l2(before, runs["cpu_bf16"][1], runs["cpu_f32"][1]))}
+        for k in ("loss", "grad_norm"):
+            a, b = float(runs["card_bf16"][0][k]), float(runs["cpu_bf16"][0][k])
+            bound[k] = (abs(a - b) / max(abs(b), 1e-30), own)
+        for k, (g, o) in bound.items():
+            check(g <= 2 * o + 1e-6, f"bf16 {name} step card vs CPU: {k} {g:.3g} over twice "
+                                     f"{o:.3g}")
+        control = dict(**_metrics_rel(runs["card_bf16"][0], runs["card_f32"][0],
+                                      ("loss", "grad_norm")),
+                       weights=_update_rel(state0, after["card_bf16"], after["card_f32"], params))
+        check(any(control[k] > f32_limits[k] for k in ("loss", "grad_norm", "weights")),
+              f"bf16 {name}: the card's bf16 step lies within phase 16's f32 limits of its f32 "
+              f"step: {control}")
+        rows[name] = dict(bound={k: dict(gap=g, own=o) for k, (g, o) in bound.items()},
+                          control=control, batch=bs)
+        log(f"bf16 zoo {name} step card vs CPU (depth {depth}, {hw}x{hw}, batch {bs}): "
+            + ", ".join(f"{k} {g:.3g} (at most twice {o:.3g})" for k, (g, o) in bound.items())
+            + f"; control, card bf16 vs f32: {control}")
+    return rows
+
+
+def run_bf16_zoo_clis(work: str) -> dict:
+    """senas_synthetic.yml with `precision: bf16` under `training:`:
+    train_model --model unet and --model fpn for one epoch each (their
+    checkpoints hold f32 only), then testing_model --model unet (f32) on
+    the unet run's checkpoint."""
+    cfg = load_config(RUNNER_CONFIG)
+    cfg["training"]["precision"] = "bf16"
+    cfg["searching"]["arch_optimizer"]["betas"] = list(cfg["searching"]["arch_optimizer"]["betas"])
+    config = os.path.join(work, "senas_synthetic_bf16.yml")
+    with open(config, "w") as f:
+        yaml.safe_dump(cfg, f)
+    log_root = os.path.join(work, "logs")
+    out = {}
+    for name in ("unet", "fpn"):
+        stdout = _in_process(train_model.main, "--config", config, "--model", name, "--epoch",
+                             "1", "--log_root", log_root)
+        run_dir = _run_dir(stdout)
+        scalars = _scalars(run_dir)
+        check(all(np.isfinite(v) for v in scalars.values()), f"bf16 {name} scalars {scalars}")
+        payload = CheckpointManager(os.path.join(run_dir, "ckpt")).restore_raw("last")
+        check(all(v.dtype == torch.float32 for v in payload["model"].values()
+                  if v.is_floating_point()), f"the bf16 {name} checkpoint holds non-f32 tensors")
+        out[name] = dict(val_dice=scalars["Val/dice"], run_dir=run_dir)
+    stdout = _in_process(testing_model.main, "--config", config, "--model", "unet", "--resume",
+                         os.path.join(out["unet"]["run_dir"], "ckpt"), "--log_root", log_root,
+                         "--batch_size", str(cfg["training"]["batch_size"]))
+    tested = ast.literal_eval(stdout.strip().splitlines()[-1])
+    check(np.isfinite(tested["dice"]), f"testing_model on the bf16 unet checkpoint: {tested}")
+    log(f"bf16 zoo CLIs: unet val dice {out['unet']['val_dice']:.4f}, fpn val dice "
+        f"{out['fpn']['val_dice']:.4f}; testing_model --model unet (f32) on the bf16 "
+        f"checkpoint {tested}")
+    return dict(unet_val_dice=out["unet"]["val_dice"], fpn_val_dice=out["fpn"]["val_dice"],
+                test=tested)
+
+
+def run_bf16_smp_losses(dev, seed: int) -> dict:
+    """The six smp_* losses on one batch of full-size bf16 logits (12 x 256
+    x 256 x 2), card against CPU: each value within twice the CPU's own
+    bf16-vs-f32 distance of the CPU's bf16 value; the input gradient (but
+    Lovasz's, which follows the order of its sorted errors) the same, in
+    relative L2."""
+    rs = np.random.RandomState(seed + 32)
+    logits = torch.from_numpy(rs.randn(12, HW, HW, NCLASS).astype(np.float32)).to(BF16)
+    labels = torch.from_numpy((rs.rand(12, HW, HW) > 0.7).astype(np.int64))
+    l2 = lambda a, b: float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+    out = {}
+    for name in SMP_LOSSES:
+        fn = build_loss(name)
+        res = {}
+        for where, d, dt in (("cpu_bf16", "cpu", BF16), ("cpu_f32", "cpu", torch.float32),
+                             ("card_bf16", dev, BF16)):
+            x = logits.to(d, dt).clone().requires_grad_()
+            v = fn([x], labels.to(d))
+            v.backward()
+            check(v.dtype == dt, f"{name} on {where}: loss {v.dtype}")
+            res[where] = (v.detach().double().cpu(), x.grad.double().cpu())
+        own = abs(float(res["cpu_bf16"][0] - res["cpu_f32"][0])) / abs(float(res["cpu_f32"][0]))
+        gap = abs(float(res["card_bf16"][0] - res["cpu_bf16"][0])) / abs(float(res["cpu_bf16"][0]))
+        check(gap <= 2 * own + 1e-6, f"bf16 {name}, card vs CPU: {gap:.3g} over twice {own:.3g}")
+        grad_gap = l2(res["card_bf16"][1], res["cpu_bf16"][1])
+        grad_own = l2(res["cpu_bf16"][1], res["cpu_f32"][1])
+        if name != "smp_lovasz":
+            check(grad_gap <= 2 * grad_own + 1e-6, f"bf16 {name} input gradient, card vs CPU: "
+                                                    f"{grad_gap:.3g} over twice {grad_own:.3g}")
+        xd, ld = logits.to(dev), labels.to(dev)
+        ms = time_ms(lambda: fn([xd], ld), reps=10, warmup=2)
+        out[name] = dict(value=float(res["card_bf16"][0]), gap=gap, own=own, grad_gap=grad_gap,
+                         grad_own=grad_own, ms=ms)
+        log(f"bf16 {name} on 12x{HW}x{HW}x{NCLASS} logits: {out[name]['value']:.6f} (CPU "
+            f"{float(res['cpu_bf16'][0]):.6f}; card vs CPU {gap:.3g}, at most twice {own:.3g}; "
+            f"input gradient {grad_gap:.3g}, at most twice {grad_own:.3g}), {ms:.3f} ms on the card")
+    return out
+
+
+def run_bf16_zoo(dev, seed: int, f32_records: dict, f32_zoo: dict) -> dict:
+    """Phase 18, timed: K2 bf16, the nine models in bf16 at phase 16's
+    geometry (beside phase 16's f32 numbers, `f32_zoo`), card against CPU,
+    the CLIs and the smp losses."""
+    t0 = time.perf_counter()
+    marks = []
+
+    def mark(what):
+        marks.append(f"{what} {time.perf_counter() - t0:.1f} s")
+
+    record = check_norm_convs_bf16(dev, seed, f32_records["norm_convs"])
+    mark("K2 bf16")
+    path = run_zoo_path(dev, seed, BF16)
+    path.pop("unet_state")
+    for name, row in path["models"].items():
+        f32 = f32_zoo["models"][name]
+        log(f"bf16 zoo {name} beside f32: {row['step_ms']:.2f} ms/step (f32 {f32['step_ms']:.2f}), "
+            f"eval {row['eval_ms']:.2f} ms/batch (f32 {f32['eval_ms']:.2f}), peak "
+            f"{row['peak_mib']:.1f} MiB (f32 {f32['peak_mib']:.1f}), logits {row['out_dtype']}")
+    mark("the nine models")
+    cpu = zoo_bf16_card_vs_cpu(dev, seed)
+    mark("card vs CPU")
+    with tempfile.TemporaryDirectory() as work:
+        clis = run_bf16_zoo_clis(work)
+    mark("CLIs")
+    losses = run_bf16_smp_losses(dev, seed)
+    mark("smp losses")
+    seconds = time.perf_counter() - t0
+    log(f"phase 18 (the zoo in bf16, K2 in bf16): {seconds:.1f} s (done by: {', '.join(marks)})")
+    return dict(record=record, path=path, card_vs_cpu=cpu, clis=clis, losses=losses,
+                seconds=seconds)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2922,6 +3217,9 @@ def main(argv=None) -> int:
     zoo = paths["zoo"] = run_zoo(dev, args.seed)
     bf16 = run_bf16(dev, args.seed, records)
     records.update(bf16["records"])
+    bf16_zoo = run_bf16_zoo(dev, args.seed, records, zoo)
+    records["norm_convs" + BF16_SUFFIX] = bf16_zoo["record"]
+    paths["bf16_zoo"] = bf16_zoo["path"]
     paths["bf16_search_step"] = bf16["search"]["search"]
     paths["bf16_search_eval"] = bf16["search"]["eval"]
     paths["bf16_fixed_train_eval"] = dict(launches={
@@ -2937,7 +3235,15 @@ def main(argv=None) -> int:
                "replaces": k["replaces"], "launches": sum(by_path.values()),
                "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                "bound_ms": r["bound_ms"], "launches_by_path": by_path, "timed": r["timed"]}
-        if name == "norm_convs":
+        if name == "norm_convs" + BF16_SUFFIX:
+            row.update(bound_by="operations", library_ms=r["library_ms"],
+                       library_note="three cuDNN bf16 convolutions (F.conv2d) and torch.cat",
+                       bound_note="one bf16 product per product at 989 TFLOP/s bf16",
+                       bytes_bound_ms=r["bytes_bound_ms"], f32_ms=r["f32_ms"],
+                       tflops=r["tflops"], dtype="bfloat16", shape=r["shape"], n=r["n"],
+                       max_share_differing=r["max_share_differing"],
+                       max_allowance_used=r["max_allowance_used"])
+        elif name == "norm_convs":
             row.update(bound_by="operations", library_ms=r["library_ms"],
                        library_note="three cuDNN convolutions (F.conv2d) and torch.cat, "
                                     "TF32 off",
@@ -3022,6 +3328,18 @@ def main(argv=None) -> int:
         f"{fixed['profile'].get('busy_ms', -1):.2f}); fixed eval {bf['eval']['ms']:.2f} "
         f"ms/batch (f32 {fixed['eval_ms']:.2f}); card vs CPU "
         f"{share_of_bound} of the bound; CLIs {bf16['clis']}")
+    k2b, bz = bf16_zoo["record"], bf16_zoo["path"]["models"]
+    log(f"bf16 zoo summary ({bf16_zoo['seconds']:.1f} s): ms/step bf16 (f32) "
+        f"{ {n: (round(r['step_ms'], 2), round(zoo['models'][n]['step_ms'], 2)) for n, r in bz.items()} }; "
+        f"peak MiB bf16 (f32) "
+        f"{ {n: (round(r['peak_mib'], 1), round(zoo['models'][n]['peak_mib'], 1)) for n, r in bz.items()} }; "
+        f"logits { {n: r['out_dtype'] for n, r in bz.items()} }; profiles (idle share, busy ms, "
+        f"launches) { {n: (round(r['profile'].get('idle_share', -1), 3), round(r['profile'].get('busy_ms', -1), 2), r['profile'].get('launches')) for n, r in bz.items() if 'profile' in r} }; "
+        f"card vs CPU share of the bound "
+        f"{ {n: round(max(v['gap'] / max(2 * v['own'] + 1e-6, 1e-30) for v in r['bound'].values()), 3) for n, r in bf16_zoo['card_vs_cpu'].items()} }; "
+        f"CLIs {bf16_zoo['clis']}; norm_convs bf16 {k2b['ms']:.4f} ms (f32 kernel "
+        f"{k2b['f32_ms']:.4f}, plain {k2b['plain_ms']:.4f}, cuDNN bf16 {k2b['library_ms']:.4f}, "
+        f"bound {k2b['bound_ms']:.4f})")
     log(f"card: {smi}; total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

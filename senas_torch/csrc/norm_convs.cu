@@ -54,9 +54,36 @@
 //    alone take ~0.94 ms and its loads and copies alone ~0.39 ms, and the
 //    two hardly overlap (tools/k2_ceiling.py; PERF.md).
 //
+//   norm_convs_bf16  the same convolutions of bf16 operands (the Pallas
+//               kernel's x-dtype operands, f32 accumulation and x-dtype
+//               output, senas_tpu/ops/pallas_kernels.py:52-59): x, the
+//               kernels and out bf16, every product of two bf16 values
+//               exact in f32 and summed in f32 over all taps and
+//               channels, each output rounded once to nearest even.
+//
+// bf16 work and bound: the same 95.0 GFLOP at bench.py's shape, one bf16
+// tensor-core product each: 0.0961 ms at 989 TFLOP/s bf16, against 218 MB
+// ((B*C + 3*B*N)*H*W*2 bytes) in 0.0651 ms at 3.35 TB/s: bound by
+// operations.
+//
+// bf16 design: the f32 kernel's blocks, stages and staging, with one bf16
+// wgmma (m64nNk16, A in registers, B by descriptor) per product and no
+// split: K is 16 input channels per tap, so a stage is (branch, chunk of
+// 16 channels). A thread's fragment per M-tile is 8 bf16 in 4 registers:
+// pixels lane/4 and +8, channels 2*(lane%4) + {0,1} and + 8, the lower
+// channel in the low half. The halo'd x tile is channel-planar in shared
+// memory (24 x 80 bf16 a channel, stride 1928 = 8 mod 64 elements, so a
+// warp's four channel rows of 8 pixels fall on disjoint banks), staged
+// with 16-byte cp.async granules of 8 pixels when W % 8 == 0, else by
+// plain loads. B's core matrices are 8 output channels x 8 input channels
+// (16 bytes a row), the two K halves 128 bytes apart, groups of 8 outputs
+// 256 apart: the f32 kernel's descriptor. norm_convs_bf16_pack_kernel
+// lays the kernels out once per call in that order.
+//
 // Plain C interface (no PyTorch headers): the launcher returns
 // cudaGetLastError() and launches on the stream it is given.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -437,6 +464,299 @@ cudaError_t launch(const float* x, const float* scratch, float* out, int B, int 
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 operands
+// ---------------------------------------------------------------------------
+
+constexpr int kChunk16 = 16;               // input channels per k16 step
+// channel stride of the bf16 x tile, in elements: the least >= kInH*kInW
+// that is 8 (mod 64), so a warp's channel rows 2*tig (tig 0..3) lie 32
+// bytes apart mod 128 and their 8 pixels (<= 5 words) never share a bank
+constexpr int kChanStride16 = (kInH * kInW - 8 + 63) / 64 * 64 + 8;
+constexpr int kXElems16 = kChunk16 * kChanStride16;
+// bf16 elements of one tap's weights: NT groups x 2 K halves x 8 x 8
+__host__ __device__ constexpr int tap_elems16(int nt) { return nt * 128; }
+constexpr int kWElems16 = 25 * tap_elems16(kMaxNT);
+constexpr int kSmemBytes16 = 2 * (kXElems16 + kWElems16) * 2 + 2 * 8;
+
+static_assert(kInH * kInW <= kChanStride16 && kChanStride16 % 64 == 8, "bf16 x tile stride");
+static_assert((kXElems16 * 2) % 128 == 0 && (kWElems16 * 2) % 128 == 0, "bf16 buffer alignment");
+static_assert(kSmemBytes16 <= 232448, "bf16 shared memory");
+
+// d[64 x 8R] += a[64 x 16] * B[16 x 8R], f32 accumulate, bf16 operands; a
+// in registers, B (K-major, not transposed) from shared memory.
+template <int R> struct Mma16;
+
+template <> struct Mma16<1> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, %8, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <> struct Mma16<2> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7}, {%8,%9,%10,%11}, %12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <> struct Mma16<3> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11}, {%12,%13,%14,%15}, %16, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <> struct Mma16<4> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, {%16,%17,%18,%19}, %20, p, "
+        "1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+// Two bf16 values as one register, `lo` in the low half (the lower K index).
+__device__ __forceinline__ uint32_t pack2(unsigned short lo, unsigned short hi) {
+  return (uint32_t)lo | ((uint32_t)hi << 16);
+}
+
+// One tap's fragments for the warpgroup's M-tiles: M-tile m is output row
+// m of the warpgroup; register 0 holds pixel 16w + g at channels 2*tig and
+// 2*tig + 1, register 1 pixel + 8, registers 2 and 3 the same at channels
+// + 8. p0 points at channel 2*tig, pixel 16w + g of row 0.
+__device__ __forceinline__ void load_tap16(uint32_t (&a)[kMTiles][4],
+                                           const unsigned short* __restrict__ p0) {
+  constexpr int S = kChanStride16;
+#pragma unroll
+  for (int m = 0; m < kMTiles; ++m) {
+    const unsigned short* p = p0 + m * kInW;
+    a[m][0] = pack2(p[0], p[S]);
+    a[m][1] = pack2(p[8], p[S + 8]);
+    a[m][2] = pack2(p[8 * S], p[9 * S]);
+    a[m][3] = pack2(p[8 * S + 8], p[9 * S + 8]);
+  }
+}
+
+// One branch on one 16-channel chunk, a tap at a time (as the f32 kernel:
+// each tap waits for its wgmmas).
+template <int NT, int K, int D>
+__device__ __forceinline__ void branch_chunk16(float (&acc)[kMTiles][4 * NT],
+                                               const unsigned short* __restrict__ xs,
+                                               uint32_t w_s, int wg, int warp, int g, int tig) {
+  constexpr int pad = (K / 2) * D;
+  constexpr int tap_bytes = tap_elems16(NT) * 2;
+  const unsigned short* base = xs + 2 * tig * kChanStride16 +
+                               (kMTiles * wg + kHalo - pad) * kInW + 16 * warp + g +
+                               kColOrigin - pad;
+#pragma unroll 1
+  for (int t = 0; t < K * K; ++t) {
+    uint32_t a[kMTiles][4];
+    load_tap16(a, base + (t / K) * D * kInW + (t % K) * D);
+    const uint64_t desc = b_desc(w_s + t * tap_bytes);
+    wgmma_fence();
+#pragma unroll
+    for (int m = 0; m < kMTiles; ++m) Mma16<NT>::run(acc[m], a[m], desc);
+    wgmma_commit();
+    wgmma_wait_all();
+  }
+#pragma unroll
+  for (int m = 0; m < kMTiles; ++m) fence_regs(acc[m]);
+}
+
+// The three kernels as bf16 in the order the main kernel's stages copy
+// them: [slice][branch][chunk][tap][group][k half][8 n][8 c].
+__global__ void norm_convs_bf16_pack_kernel(const unsigned short* __restrict__ w3,
+                                            const unsigned short* __restrict__ w52,
+                                            const unsigned short* __restrict__ w53,
+                                            unsigned short* __restrict__ scratch, int C, int N,
+                                            int nt, int nps, int chunks, long long total) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int kk = (int)(i & 7), r = (int)((i >> 3) & 7), kh = (int)((i >> 6) & 1);
+    long long rest = i >> 7;
+    const int grp = (int)(rest % nt);
+    rest /= nt;
+    const int z = (int)(rest / (chunks * kAllTaps));
+    int q = (int)(rest % (chunks * kAllTaps));
+    int br = 0;
+    while (br < 2 && q >= branch_tap_base(br + 1) * chunks) ++br;
+    q -= branch_tap_base(br) * chunks;
+    const int taps = branch_taps(br);
+    const int c = q / taps, tap = q % taps;
+    const int n = z * nps + grp * 8 + r;
+    const int ch = c * kChunk16 + kh * 8 + kk;
+    const unsigned short* src = br == 0 ? w3 : (br == 1 ? w52 : w53);
+    scratch[i] = (n < N && ch < C) ? src[((long long)n * C + ch) * taps + tap] : 0;
+  }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 1)
+norm_convs_bf16_kernel(const unsigned short* __restrict__ x,
+                       const unsigned short* __restrict__ wpack, __nv_bfloat16* __restrict__ out,
+                       int C, int H, int W, int N, int nps, int chunks, int tiles_x, int vec) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned short* xs_base = reinterpret_cast<unsigned short*>(smem);    // 2 x tiles
+  unsigned short* ws_base = xs_base + 2 * kXElems16;                     // 2 weight stages
+  uint64_t* bar = reinterpret_cast<uint64_t*>(ws_base + 2 * kWElems16);
+
+  const int t = threadIdx.x;
+  const int wg = t >> 7, warp = (t >> 5) & 3, lane = t & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int b = blockIdx.y, z = blockIdx.z;
+  const int y0 = (blockIdx.x / tiles_x) * kTileH;
+  const int x0 = (blockIdx.x % tiles_x) * kTileW;
+  const long long plane = (long long)H * W;
+  const unsigned short* xb = x + (long long)b * C * plane;
+  const unsigned short* wz = wpack + (long long)z * chunks * kAllTaps * tap_elems16(NT);
+  const int stages = 3 * chunks;
+
+  if (t == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(&bar[0])));
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(&bar[1])));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Stage s = (branch s / chunks, chunk s % chunks) into buffer s & 1.
+  auto issue = [&](int s) {
+    const int buf = s & 1, br = s / chunks, c = s % chunks;
+    unsigned short* xt = xs_base + buf * kXElems16;
+    if (vec) {  // W % 8 == 0: a granule of 8 columns is all inside or all outside
+      constexpr int kGranules = kInW / 8;
+      const uint32_t xs = smem_addr(xt);
+      for (int e = t; e < kChunk16 * kInH * kGranules; e += kThreads) {
+        const int ci = e / (kInH * kGranules);
+        const int rem = e - ci * (kInH * kGranules);
+        const int rr = rem / kGranules, gi = rem - (rem / kGranules) * kGranules;
+        const int gy = y0 - kHalo + rr, gx = x0 - kColOrigin + 8 * gi, gc = c * kChunk16 + ci;
+        const bool valid = gc < C && gy >= 0 && gy < H && gx >= 0 && gx < W;
+        const unsigned short* src = valid ? xb + gc * plane + (long long)gy * W + gx : x;
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                         xs + (ci * kChanStride16 + rr * kInW + 8 * gi) * 2),
+                     "l"(src), "r"(valid ? 16 : 0)
+                     : "memory");
+      }
+    } else {
+      for (int e = t; e < kChunk16 * kInH * kInW; e += kThreads) {
+        const int ci = e / (kInH * kInW);
+        const int rem = e - ci * (kInH * kInW);
+        const int rr = rem / kInW, cc = rem - (rem / kInW) * kInW;
+        const int gy = y0 - kHalo + rr, gx = x0 - kColOrigin + cc, gc = c * kChunk16 + ci;
+        const bool valid = gc < C && gy >= 0 && gy < H && gx >= 0 && gx < W;
+        xt[ci * kChanStride16 + rr * kInW + cc] =
+            valid ? xb[gc * plane + (long long)gy * W + gx] : (unsigned short)0;
+      }
+    }
+    if (t == 0) {
+      const int taps = branch_taps(br);
+      const uint32_t bytes = taps * tap_elems16(NT) * 2;
+      const unsigned short* src =
+          wz + ((long long)branch_tap_base(br) * chunks + c * taps) * tap_elems16(NT);
+      const uint32_t mb = smem_addr(&bar[buf]);
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(mb),
+                   "r"(bytes)
+                   : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+          "[%3];\n" ::"r"(smem_addr(ws_base + buf * kWElems16)),
+          "l"(src), "r"(bytes), "r"(mb)
+          : "memory");
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  float acc[kMTiles][4 * NT];
+#pragma unroll
+  for (int m = 0; m < kMTiles; ++m)
+#pragma unroll
+    for (int i = 0; i < 4 * NT; ++i) acc[m][i] = 0.f;
+
+  issue(0);
+  for (int s = 0; s < stages; ++s) {
+    if (s + 1 < stages) {
+      issue(s + 1);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    mbar_wait(smem_addr(bar + (s & 1)), (s >> 1) & 1);
+    __syncthreads();  // every thread's x copies (or stores) of stage s have landed
+
+    const int br = s / chunks, c = s % chunks;
+    const unsigned short* xs = xs_base + (s & 1) * kXElems16;
+    const uint32_t w_s = smem_addr(ws_base + (s & 1) * kWElems16);
+    if (br == 0)
+      branch_chunk16<NT, 3, 1>(acc, xs, w_s, wg, warp, g, tig);
+    else if (br == 1)
+      branch_chunk16<NT, 5, 2>(acc, xs, w_s, wg, warp, g, tig);
+    else
+      branch_chunk16<NT, 5, 3>(acc, xs, w_s, wg, warp, g, tig);
+
+    if (c == chunks - 1) {  // the branch is summed: round once, store, restart
+#pragma unroll
+      for (int m = 0; m < kMTiles; ++m) {
+        const int yo = y0 + kMTiles * wg + m;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              // register 4j + 2h + q: M row g + 8h (pixel 16w + g + 8h),
+              // column 8j + 2*tig + q
+              const int n = z * nps + 8 * j + 2 * tig + q;
+              const int xo = x0 + 16 * warp + g + 8 * h;
+              if (n < N && yo < H && xo < W)
+                out[((long long)b * 3 * N + (long long)br * N + n) * plane +
+                    (long long)yo * W + xo] = __float2bfloat16_rn(acc[m][4 * j + 2 * h + q]);
+              acc[m][4 * j + 2 * h + q] = 0.f;
+            }
+      }
+    }
+    __syncthreads();  // buffer s & 1 is free for stage s + 2
+  }
+}
+
+template <int NT>
+cudaError_t launch16(const unsigned short* x, const unsigned short* packed, __nv_bfloat16* out,
+                     int B, int C, int H, int W, int N, int slices, int nps, int chunks,
+                     cudaStream_t stream) {
+  const int vec = W % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  cudaError_t err = cudaFuncSetAttribute(norm_convs_bf16_kernel<NT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kSmemBytes16);
+  if (err != cudaSuccess) return err;
+  const int tiles_x = ceil_div(W, kTileW);
+  const long long tiles = (long long)tiles_x * ceil_div(H, kTileH);
+  if (tiles > 0x7FFFFFFF) return cudaErrorInvalidValue;
+  dim3 grid((unsigned)tiles, B, slices);
+  norm_convs_bf16_kernel<NT><<<grid, kThreads, kSmemBytes16, stream>>>(
+      x, packed, out, C, H, W, N, nps, chunks, tiles_x, vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -473,6 +793,46 @@ int senas_norm_convs_f32(const float* x, const float* w3, const float* w52,
     case 2: return (int)launch<2>(x, scratch, out, B, C, H, W, N, slices, nps, chunks, stream);
     case 3: return (int)launch<3>(x, scratch, out, B, C, H, W, N, slices, nps, chunks, stream);
     default: return (int)launch<4>(x, scratch, out, B, C, H, W, N, slices, nps, chunks, stream);
+  }
+}
+
+// bf16 elements of the scratch buffer senas_norm_convs_bf16 needs for (C, N).
+long long senas_norm_convs_bf16_scratch_elems(int C, int N) {
+  if (C < 1 || N < 1) return 0;
+  int slices, nps, chunks;
+  plan(C, N, &slices, &nps, &chunks);
+  chunks = ceil_div(C, kChunk16);
+  return (long long)slices * chunks * kAllTaps * tap_elems16(nps / 8);
+}
+
+// x [B,C,H,W]; w3 [N,C,3,3]; w52, w53 [N,C,5,5]; out [B,3N,H,W]; all bf16.
+// scratch: senas_norm_convs_bf16_scratch_elems(C, N) bf16, 16-byte aligned.
+int senas_norm_convs_bf16(const void* x, const void* w3, const void* w52, const void* w53,
+                          void* out, int B, int C, int H, int W, int N, void* scratch,
+                          long long scratch_elems, cudaStream_t stream) {
+  if (B < 1 || C < 1 || H < 1 || W < 1 || N < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+  const long long need = senas_norm_convs_bf16_scratch_elems(C, N);
+  if (scratch_elems < need || (reinterpret_cast<uintptr_t>(scratch) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  int slices, nps, chunks;
+  plan(C, N, &slices, &nps, &chunks);
+  chunks = ceil_div(C, kChunk16);
+  if (slices > 65535) return (int)cudaErrorInvalidValue;
+  const int nt = nps / 8;
+  const int blocks = (int)((need + 255) / 256 < 2048 ? (need + 255) / 256 : 2048);
+  auto* packed = static_cast<unsigned short*>(scratch);
+  norm_convs_bf16_pack_kernel<<<blocks, 256, 0, stream>>>(
+      static_cast<const unsigned short*>(w3), static_cast<const unsigned short*>(w52),
+      static_cast<const unsigned short*>(w53), packed, C, N, nt, nps, chunks, need);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const auto* xp = static_cast<const unsigned short*>(x);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  switch (nt) {
+    case 1: return (int)launch16<1>(xp, packed, op, B, C, H, W, N, slices, nps, chunks, stream);
+    case 2: return (int)launch16<2>(xp, packed, op, B, C, H, W, N, slices, nps, chunks, stream);
+    case 3: return (int)launch16<3>(xp, packed, op, B, C, H, W, N, slices, nps, chunks, stream);
+    default: return (int)launch16<4>(xp, packed, op, B, C, H, W, N, slices, nps, chunks, stream);
   }
 }
 

@@ -18,62 +18,68 @@ from torch import nn
 
 from senas_torch.core.device import resolve_device
 from senas_torch.ops.primitives import (BatchNorm, Dense, Dropout, add_bias, add_conv_kernel,
-                                        conv2d, init_params_, kaiming_std, relu)
+                                        conv2d, init_params_, kaiming_std, log_softmax, relu,
+                                        sigmoid, softmax)
 
 
 class Conv2dReLU(nn.Module):
     """conv -> [BN] -> ReLU. Without BN the conv has a bias with torch's
-    default init."""
+    default init. The conv runs in x's dtype (the kernel cast at use) and
+    BN rounds to `dtype`, as senas_tpu's Conv2dReLU does; without BN the
+    result stays in x's dtype."""
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int = 3, stride: int = 1,
-                 use_batchnorm: bool = True):
+                 use_batchnorm: bool = True, dtype=None):
         super().__init__()
         k = kernel_size
         self.stride = stride
         add_conv_kernel(self, "kernel", (c_out, c_in, k, k))
         if use_batchnorm:
-            self.BatchNorm_0 = BatchNorm(c_out)
+            self.BatchNorm_0 = BatchNorm(c_out, dtype=dtype)
         else:
             add_bias(self, "bias", c_out, fan_in=c_in * k * k)
 
     def forward(self, x, train: bool = False):
-        x = conv2d(x, self.kernel, stride=self.stride)
+        x = conv2d(x, self.kernel.to(x.dtype), stride=self.stride)
         if hasattr(self, "BatchNorm_0"):
             x = self.BatchNorm_0(x, train)
         else:
-            x = x + self.bias[:, None, None]
+            x = x + self.bias.to(x.dtype)[:, None, None]
         return relu(x)
 
 
 class SCSEModule(nn.Module):
     """Concurrent spatial & channel SE (smp modules.py:50-73). smp's 1x1
-    convs with bias: kernels kaiming fan_out, biases torch's conv default."""
+    convs with bias: kernels kaiming fan_out, biases torch's conv default.
+    The channel SE's Dense layers compute in `dtype`, the spatial SE in x's."""
 
-    def __init__(self, c: int, reduction: int = 16):
+    def __init__(self, c: int, reduction: int = 16, dtype=None):
         super().__init__()
         mid = max(1, c // reduction)
-        self.Dense_0 = Dense(c, mid, bias=True, std=kaiming_std(mid), bias_fan_in=c)
-        self.Dense_1 = Dense(mid, c, bias=True, std=kaiming_std(c), bias_fan_in=mid)
+        self.Dense_0 = Dense(c, mid, bias=True, std=kaiming_std(mid), bias_fan_in=c,
+                             dtype=dtype)
+        self.Dense_1 = Dense(mid, c, bias=True, std=kaiming_std(c), bias_fan_in=mid,
+                             dtype=dtype)
         add_conv_kernel(self, "s_kernel", (1, c, 1, 1))
         add_bias(self, "s_bias", 1, fan_in=c)
 
     def forward(self, x):
         y = x.mean(dim=(2, 3))
         y = self.Dense_1(relu(self.Dense_0(y)))
-        cse = x * torch.sigmoid(y)[:, :, None, None]
-        sse = x * torch.sigmoid(conv2d(x, self.s_kernel) + self.s_bias[:, None, None])
-        return cse + sse
+        cse = x * sigmoid(y)[:, :, None, None]
+        s = conv2d(x, self.s_kernel.to(x.dtype)) + self.s_bias.to(x.dtype)[:, None, None]
+        return cse + x * sigmoid(s)
 
 
 class Attention(nn.Module):
     """None | 'scse' (smp modules.py:107-119)."""
 
-    def __init__(self, c: int, attention_type: Optional[str] = None):
+    def __init__(self, c: int, attention_type: Optional[str] = None, dtype=None):
         super().__init__()
         if attention_type not in (None, "scse"):
             raise ValueError(f"unknown attention {attention_type!r}")
         if attention_type == "scse":
-            self.SCSEModule_0 = SCSEModule(c)
+            self.SCSEModule_0 = SCSEModule(c, dtype=dtype)
 
     def forward(self, x):
         return self.SCSEModule_0(x) if hasattr(self, "SCSEModule_0") else x
@@ -85,30 +91,69 @@ def upsample_nearest2x(x):
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
-def resize_bilinear(x, size_hw):
+def _aligned_taps(n_in: int, n_out: int, device):
+    """The two source indices and the weight of the second one for each of
+    n_out positions with torch's align_corners=True, from senas_tpu's
+    jnp.linspace(0, n_in - 1, n_out) in f32 (its iota / (n_out - 1) times
+    n_in - 1, the last position exactly n_in - 1)."""
+    if n_out > 1:
+        pos = (n_in - 1.0) * (torch.arange(n_out, dtype=torch.float32, device=device)
+                              / (n_out - 1))
+        pos[-1] = n_in - 1.0
+    else:
+        pos = torch.zeros(1, dtype=torch.float32, device=device)
+    i0 = pos.floor().long().clamp(0, n_in - 1)
+    return i0, (i0 + 1).clamp(max=n_in - 1), pos - i0
+
+
+def resize_bilinear(x, size_hw, weight_dtype=None):
     """Bilinear resize with torch's align_corners=True: the corners of the
     input and the output coincide. senas_tpu computes it from linspace
-    indices (models/base.py:95-117, models/zoo.py:31-52); a 1x1 input is
-    broadcast in both."""
-    return F.interpolate(x, size=tuple(size_hw), mode="bilinear", align_corners=True)
+    indices with weights in `weight_dtype` (None: x's dtype), so the result
+    is in the promoted dtype of the two: senas_tpu's zoo keeps f32 weights
+    (models/zoo.py:31-48), and a bf16 map comes out f32; its heads cast them
+    to x's dtype (models/base.py:95-117). A 1x1 map is broadcast in its own
+    dtype in both.
+
+    An f32 (or f64) map takes F.interpolate. A bf16 map takes senas_tpu's
+    formula itself, two lerps with each op in the result's dtype: with bf16
+    weights the bf16 roundings fall where XLA's do; with f32 weights it is
+    f32 arithmetic on the bf16 values."""
+    th, tw = size_hw
+    if x.dtype != torch.bfloat16:
+        return F.interpolate(x.to(torch.promote_types(x.dtype, weight_dtype or x.dtype)),
+                             size=(th, tw), mode="bilinear", align_corners=True)
+    if x.shape[2] == 1 and x.shape[3] == 1:
+        return x.expand(-1, -1, th, tw)
+    out_dtype = weight_dtype or x.dtype
+    y0, y1, wy = _aligned_taps(x.shape[2], th, x.device)
+    x0, x1, wx = _aligned_taps(x.shape[3], tw, x.device)
+    g = x.to(out_dtype)
+    wy, wx = wy.to(out_dtype)[:, None], wx.to(out_dtype)
+    rows0, rows1 = g.index_select(2, y0), g.index_select(2, y1)
+    top = rows0.index_select(3, x0) * (1 - wx) + rows0.index_select(3, x1) * wx
+    bot = rows1.index_select(3, x0) * (1 - wx) + rows1.index_select(3, x1) * wx
+    return top * (1 - wy) + bot * wy
 
 
 def upsample_bilinear(x, factor: int):
-    """smp's nn.UpsamplingBilinear2d (align_corners=True) by `factor`."""
+    """smp's nn.UpsamplingBilinear2d (align_corners=True) by `factor`, its
+    weights in x's dtype."""
     return resize_bilinear(x, (x.shape[2] * factor, x.shape[3] * factor))
 
 
 def smp_activation(name):
     """smp's `Activation` dispatch (base/modules.py:76-105) as a function of
-    an NHWC tensor (the channel axis is the last, as in senas_tpu)."""
+    an NHWC tensor (the channel axis is the last, as in senas_tpu); in bf16
+    the sigmoid and softmaxes round op by op as jax.nn's."""
     if name is None or name == "identity":
         return lambda x: x
     if name == "sigmoid":
-        return torch.sigmoid
+        return sigmoid
     if name in ("softmax", "softmax2d"):
-        return lambda x: torch.softmax(x, dim=-1)
+        return softmax
     if name == "logsoftmax":
-        return lambda x: torch.log_softmax(x, dim=-1)
+        return log_softmax
     if name == "tanh":
         return torch.tanh
     if name == "argmax":
@@ -123,8 +168,8 @@ def smp_activation(name):
 
 
 class SegmentationHead(nn.Module):
-    """3x3 conv (+bias) -> optional bilinear upsample (heads.py:5-11). The
-    activation is applied at the model's NHWC boundary."""
+    """3x3 conv (+bias) -> optional bilinear upsample (heads.py:5-11), in
+    x's dtype. The activation is applied at the model's NHWC boundary."""
 
     def __init__(self, c_in: int, classes: int, kernel_size: int = 3, upsampling: int = 1):
         super().__init__()
@@ -134,24 +179,24 @@ class SegmentationHead(nn.Module):
         add_bias(self, "bias", classes, fan_in=c_in * k * k)
 
     def forward(self, x):
-        x = conv2d(x, self.kernel) + self.bias[:, None, None]
+        x = conv2d(x, self.kernel.to(x.dtype)) + self.bias.to(x.dtype)[:, None, None]
         return upsample_bilinear(x, self.upsampling) if self.upsampling > 1 else x
 
 
 class ClassificationHead(nn.Module):
     """avg/max pool -> dropout (train mode) -> linear -> optional
     activation (heads.py:14-25). The Dense is an nn.Linear under
-    weights_init: xavier_normal kernel, zero bias."""
+    weights_init: xavier_normal kernel, zero bias; it computes in `dtype`."""
 
     def __init__(self, c_in: int, classes: int, pooling: str = "avg", dropout: float = 0.2,
-                 activation: Optional[Any] = None):
+                 activation: Optional[Any] = None, dtype=None):
         super().__init__()
         if pooling not in ("max", "avg"):
             raise ValueError("Pooling should be one of ('max', 'avg'), "
                              "got {}.".format(pooling))
         self.pooling, self.activation = pooling, activation
         self.dropout = Dropout(dropout or 0.0)
-        self.Dense_0 = Dense(c_in, classes, bias=True)
+        self.Dense_0 = Dense(c_in, classes, bias=True, dtype=dtype)
 
     def forward(self, x, train: bool = False, rng: Optional[torch.Generator] = None):
         y = x.mean(dim=(2, 3)) if self.pooling == "avg" else x.amax(dim=(2, 3))
@@ -171,11 +216,11 @@ class SegmentationModel(nn.Module):
     NCHW, encoder features)`."""
 
     def _finish_init(self, aux_params: Optional[dict], deepest: int, activation,
-                     device, generator: Optional[torch.Generator]) -> None:
+                     device, generator: Optional[torch.Generator], dtype=None) -> None:
         self.activation = activation
         self.aux_params = aux_params
         if aux_params is not None:
-            self.classification_head = ClassificationHead(deepest, **aux_params)
+            self.classification_head = ClassificationHead(deepest, **aux_params, dtype=dtype)
         init_params_(self, generator if generator is not None
                      else torch.Generator().manual_seed(0))
         self.to(resolve_device(device))

@@ -21,7 +21,7 @@ from typing import List, Optional, Sequence, Tuple
 
 from torch import nn
 
-from senas_torch.ops.primitives import (BasicBlock, BatchNorm, add_conv_kernel, conv2d,
+from senas_torch.ops.primitives import (BasicBlock, BatchNorm, add_conv_kernel, cast, conv2d,
                                         max_pool_3x3, relu)
 
 NEXT_SLICE = "ROADMAP.md Queue 1, M15b: the other encoder families"
@@ -43,36 +43,40 @@ def stage_dilation(stage: int, output_stride: int) -> int:
 
 class Bottleneck(nn.Module):
     """torchvision Bottleneck (1x1 -> 3x3 (groups) -> 1x1, expansion 4).
-    Returns the pre-activation sum; the encoder applies the ReLU."""
+    Returns the pre-activation sum; the encoder applies the ReLU. x is cast
+    to `dtype` on entry, the kernels at use."""
 
     expansion = 4
 
     def __init__(self, c_in: int, planes: int, stride: int = 1, dilation: int = 1,
-                 groups: int = 1, width_per_group: int = 64, use_downsample: bool = False):
+                 groups: int = 1, width_per_group: int = 64, use_downsample: bool = False,
+                 dtype=None):
         super().__init__()
-        self.stride, self.dilation, self.groups = stride, dilation, groups
+        self.stride, self.dilation, self.groups, self.dtype = stride, dilation, groups, dtype
         width = int(planes * (width_per_group / 64.0)) * groups
         out = planes * self.expansion
         add_conv_kernel(self, "conv1", (width, c_in, 1, 1))
-        self.bn1 = BatchNorm(width)
+        self.bn1 = BatchNorm(width, dtype=dtype)
         add_conv_kernel(self, "conv2", (width, width // groups, 3, 3))
-        self.bn2 = BatchNorm(width)
+        self.bn2 = BatchNorm(width, dtype=dtype)
         add_conv_kernel(self, "conv3", (out, width, 1, 1))
-        self.bn3 = BatchNorm(out)
+        self.bn3 = BatchNorm(out, dtype=dtype)
         self.use_downsample = use_downsample
         if use_downsample:
             add_conv_kernel(self, "down_conv", (out, c_in, 1, 1))
-            self.down_bn = BatchNorm(out)
+            self.down_bn = BatchNorm(out, dtype=dtype)
 
     def forward(self, x, train: bool = False):
-        out = relu(self.bn1(conv2d(x, self.conv1), train))
-        out = conv2d(out, self.conv2, stride=self.stride, dilation=self.dilation,
+        x = cast(x, self.dtype)
+        out = relu(self.bn1(conv2d(x, self.conv1.to(x.dtype)), train))
+        out = conv2d(out, self.conv2.to(out.dtype), stride=self.stride, dilation=self.dilation,
                      groups=self.groups)
         out = relu(self.bn2(out, train))
-        out = self.bn3(conv2d(out, self.conv3), train)
+        out = self.bn3(conv2d(out, self.conv3.to(out.dtype)), train)
         residual = x
         if self.use_downsample:
-            residual = self.down_bn(conv2d(x, self.down_conv, stride=self.stride), train)
+            residual = self.down_bn(conv2d(x, self.down_conv.to(x.dtype), stride=self.stride),
+                                    train)
         return out + residual
 
 
@@ -80,18 +84,21 @@ _WIDTHS = (64, 128, 256, 512)
 
 
 class ResNetEncoder(nn.Module):
-    """forward(x NCHW, train) -> [x, f1, ..., f_depth] (NCHW)."""
+    """forward(x NCHW, train) -> [x, f1, ..., f_depth] (NCHW). The stem's
+    7x7 conv runs in x's dtype and its BN rounds to `dtype`; each block
+    casts its input to `dtype` (senas_tpu/models/encoders.py:118-123,
+    ops/primitives.py:612-614)."""
 
     def __init__(self, in_channels: int, layers: Sequence[int], depth: int = 5,
                  block: str = "basic", groups: int = 1, width_per_group: int = 64,
-                 output_stride: int = 32):
+                 output_stride: int = 32, dtype=None):
         super().__init__()
         self.depth = depth
         self.out_channels = resnet_out_channels(in_channels, depth, block)
         if depth == 0:
             return
         add_conv_kernel(self, "conv1", (64, in_channels, 7, 7))
-        self.bn1 = BatchNorm(64)
+        self.bn1 = BatchNorm(64, dtype=dtype)
         self.stage_blocks: List[List[str]] = []
         c = 64
         for stage in range(2, depth + 1):
@@ -107,11 +114,11 @@ class ResNetEncoder(nn.Module):
                     out = planes * Bottleneck.expansion
                     blk = Bottleneck(c, planes, stride=s, dilation=dilation, groups=groups,
                                      width_per_group=width_per_group,
-                                     use_downsample=s != 1 or c != out)
+                                     use_downsample=s != 1 or c != out, dtype=dtype)
                 else:
                     out = planes
                     blk = BasicBlock(c, planes, stride=s, dilation=dilation,
-                                     use_downsample=s != 1 or c != out)
+                                     use_downsample=s != 1 or c != out, dtype=dtype)
                 setattr(self, name, blk)
                 names.append(name)
                 c = out
@@ -121,7 +128,7 @@ class ResNetEncoder(nn.Module):
         features = [x]
         if self.depth == 0:
             return features
-        x = relu(self.bn1(conv2d(x, self.conv1, stride=2), train))
+        x = relu(self.bn1(conv2d(x, self.conv1.to(x.dtype), stride=2), train))
         features.append(x)
         for i, names in enumerate(self.stage_blocks):
             if i == 0:
@@ -175,23 +182,21 @@ def get_encoder_names() -> List[str]:
 def get_encoder(name: str, depth: int = 5, dtype=None, output_stride: int = 32,
                 weights: Optional[str] = None, in_channels: int = 3) -> ResNetEncoder:
     """The encoder `name` over `in_channels` input channels (the JAX package
-    infers them from its first input; a torch module is built with them).
-    senas_tpu's `dilate_last` alias of output_stride=16 has no caller and
-    is not ported."""
+    infers them from its first input; a torch module is built with them),
+    computing in `dtype` (None: the input's). senas_tpu's `dilate_last`
+    alias of output_stride=16 has no caller and is not ported."""
     if weights is not None:
         # smp loads ImageNet weights by URL here (encoders/__init__.py:64-71)
         raise ValueError(
             f"pretrained weights {weights!r} are unavailable in this "
             "environment (no network egress); pass weights=None and "
             "initialize randomly, exactly as the reference does offline")
-    if dtype is not None:
-        raise NotImplementedError("bf16 is not ported yet (ROADMAP.md Queue 1, item 5)")
     if output_stride not in (8, 16, 32):
         raise ValueError(
             "Output stride should be 16 or 8, got {}.".format(output_stride))
     if name in _ENCODERS:
         return ResNetEncoder(in_channels, depth=depth, output_stride=output_stride,
-                             **_ENCODERS[name])
+                             dtype=dtype, **_ENCODERS[name])
     if name.startswith(_UNPORTED_PREFIXES):
         raise NotImplementedError(f"encoder {name!r} is not ported yet ({NEXT_SLICE})")
     raise KeyError(f"unknown encoder {name!r}; available: {sorted(_ENCODERS)}")

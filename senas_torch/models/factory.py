@@ -30,8 +30,8 @@ def get_segmentation_model(name: str, dataset: str = "promise12", *, device=None
                            generator: Optional[torch.Generator] = None, **kwargs: Any):
     """The model `name` for `dataset`, built on `device` (None means the
     card) with its kernels drawn from `generator`. `dtype` (the compute
-    dtype, None for f32) reaches `senas`; the zoo's models raise on any
-    other than None."""
+    dtype: None for f32, or torch.bfloat16) reaches every name, as in
+    senas_tpu's factory; the weights stay f32."""
     spec = get_dataset_spec(dataset)
     nclass, in_ch = spec.num_class, spec.in_channels
     depth = kwargs.get("depth", 5)

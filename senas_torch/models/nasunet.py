@@ -9,6 +9,11 @@ the merge of two node inputs of different sizes by an integer nearest pick
 Submodules carry the flax names (`stem0`, `stem1`, `down_{i}`, `up_{i}`,
 `head`, each cell's `preprocess0/1` and `op_{i}`); `NasUnet.forward` keeps
 the NHWC boundary.
+
+`dtype` (bf16, or None for f32) is the compute dtype over f32 weights, as
+in senas_tpu: every conv runs in its input's dtype, and every GroupNorm
+and the SE gates' Dense layers compute in `dtype`, so the f32 image leaves
+the stems' GroupNorm in bf16 and the logits are bf16.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from torch import nn
 from senas_torch.core.device import resolve_device
 from senas_torch.core.genotype import Genotype
 from senas_torch.ops.primitives import (Dense, GroupNorm, add_conv_kernel, conv2d,
-                                        conv_transpose2d, init_params_, relu)
+                                        conv_transpose2d, init_params_, relu, sigmoid)
 
 NAS_UNET_V3 = Genotype(
     down=[('down_dil_conv', 1), ('down_cweight', 0), ('down_cweight', 0),
@@ -50,7 +55,7 @@ class ConvOps(nn.Module):
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int = 3, stride: int = 1,
                  dilation: int = 1, use_transpose: bool = False, use_depthwise: bool = False,
-                 ops_order: str = "weight_norm_act"):
+                 ops_order: str = "weight_norm_act", dtype=None):
         super().__init__()
         self.ops = ops_order.split("_")
         self.stride, self.dilation, self.c_in = stride, dilation, c_in
@@ -67,21 +72,22 @@ class ConvOps(nn.Module):
         else:
             add_conv_kernel(self, "conv", (c_out, c_in, k, k))
         if "norm" in self.ops:
-            self.GroupNorm_0 = GroupNorm(c_out, _gn_groups(c_out))
+            self.GroupNorm_0 = GroupNorm(c_out, _gn_groups(c_out), dtype=dtype)
 
     def _weight(self, x):
         if self.use_depthwise:
+            dw = self.depth_conv.to(x.dtype)
             if self.use_transpose:
-                x = conv_transpose2d(x, self.depth_conv, stride=self.stride, output_padding=0,
+                x = conv_transpose2d(x, dw, stride=self.stride, output_padding=0,
                                      groups=self.c_in)
             else:
-                x = conv2d(x, self.depth_conv, stride=self.stride, dilation=self.dilation,
-                           groups=self.c_in)
-            return conv2d(x, self.point_conv)
+                x = conv2d(x, dw, stride=self.stride, dilation=self.dilation, groups=self.c_in)
+            return conv2d(x, self.point_conv.to(x.dtype))
+        w = self.conv.to(x.dtype)
         if self.use_transpose:
-            return conv_transpose2d(x, self.conv, stride=self.stride, dilation=self.dilation,
+            return conv_transpose2d(x, w, stride=self.stride, dilation=self.dilation,
                                     output_padding=0)
-        return conv2d(x, self.conv, stride=self.stride, dilation=self.dilation)
+        return conv2d(x, w, stride=self.stride, dilation=self.dilation)
 
     def forward(self, x, train: bool = False):
         for op in self.ops:
@@ -99,29 +105,31 @@ class CWeightOp(nn.Module):
     GroupNorm after the gate (prim_ops_set.py:247-310). Its two Linear
     layers are xavier_normal with zero biases (weights_init)."""
 
-    def __init__(self, c: int, c_out: int, stride: int = 1, use_transpose: bool = False):
+    def __init__(self, c: int, c_out: int, stride: int = 1, use_transpose: bool = False,
+                 dtype=None):
         super().__init__()
         self.stride, self.use_transpose = stride, use_transpose
         mid = max(1, c // 16)
-        self.Dense_0 = Dense(c, mid, bias=True)
-        self.Dense_1 = Dense(mid, c_out, bias=True)
+        self.Dense_0 = Dense(c, mid, bias=True, dtype=dtype)
+        self.Dense_1 = Dense(mid, c_out, bias=True, dtype=dtype)
         if stride >= 2:
             if use_transpose:
                 add_conv_kernel(self, "conv", (c, c_out, 3, 3))
                 self.flax_layout = {"conv": "hwio_t"}
             else:
                 add_conv_kernel(self, "conv", (c_out, c, 3, 3))
-            self.GroupNorm_0 = GroupNorm(c_out, _gn_groups(c_out))
+            self.GroupNorm_0 = GroupNorm(c_out, _gn_groups(c_out), dtype=dtype)
 
     def forward(self, x, train: bool = False):
-        y = torch.sigmoid(self.Dense_1(relu(self.Dense_0(x.mean(dim=(2, 3))))))
+        y = sigmoid(self.Dense_1(relu(self.Dense_0(x.mean(dim=(2, 3))))))
         gated = x * y[:, :, None, None]
         if self.stride < 2:
             return gated
+        w = self.conv.to(gated.dtype)
         if self.use_transpose:
-            out = conv_transpose2d(gated, self.conv, stride=self.stride, output_padding=0)
+            out = conv_transpose2d(gated, w, stride=self.stride, output_padding=0)
         else:
-            out = conv2d(gated, self.conv, stride=self.stride)
+            out = conv2d(gated, w, stride=self.stride)
         return self.GroupNorm_0(out)
 
 
@@ -148,25 +156,27 @@ class IdentityOp(nn.Module):
         return x
 
 
-def make_nasunet_op(name: str, c: int) -> nn.Module:
+def make_nasunet_op(name: str, c: int, dtype=None) -> nn.Module:
+    kw = dict(dtype=dtype)
     table = {
         "none": lambda: ZeroOp(),
         "identity": lambda: IdentityOp(),
-        "cweight": lambda: CWeightOp(c, c),
-        "dil_conv": lambda: ConvOps(c, c, dilation=2),
-        "dep_conv": lambda: ConvOps(c, c, use_depthwise=True),
-        "shuffle_conv": lambda: ConvOps(c, c),
-        "conv": lambda: ConvOps(c, c),
+        "cweight": lambda: CWeightOp(c, c, **kw),
+        "dil_conv": lambda: ConvOps(c, c, dilation=2, **kw),
+        "dep_conv": lambda: ConvOps(c, c, use_depthwise=True, **kw),
+        "shuffle_conv": lambda: ConvOps(c, c, **kw),
+        "conv": lambda: ConvOps(c, c, **kw),
         "avg_pool": lambda: PoolingOp("avg"),
         "max_pool": lambda: PoolingOp("max"),
-        "down_cweight": lambda: CWeightOp(c, c, stride=2),
-        "down_dil_conv": lambda: ConvOps(c, c, stride=2, dilation=2),
-        "down_dep_conv": lambda: ConvOps(c, c, stride=2, use_depthwise=True),
-        "down_conv": lambda: ConvOps(c, c, stride=2),
-        "up_cweight": lambda: CWeightOp(c, c, stride=2, use_transpose=True),
-        "up_dep_conv": lambda: ConvOps(c, c, stride=2, use_transpose=True, use_depthwise=True),
-        "up_conv": lambda: ConvOps(c, c, stride=2, use_transpose=True),
-        "up_dil_conv": lambda: ConvOps(c, c, stride=2, dilation=2, use_transpose=True),
+        "down_cweight": lambda: CWeightOp(c, c, stride=2, **kw),
+        "down_dil_conv": lambda: ConvOps(c, c, stride=2, dilation=2, **kw),
+        "down_dep_conv": lambda: ConvOps(c, c, stride=2, use_depthwise=True, **kw),
+        "down_conv": lambda: ConvOps(c, c, stride=2, **kw),
+        "up_cweight": lambda: CWeightOp(c, c, stride=2, use_transpose=True, **kw),
+        "up_dep_conv": lambda: ConvOps(c, c, stride=2, use_transpose=True, use_depthwise=True,
+                                       **kw),
+        "up_conv": lambda: ConvOps(c, c, stride=2, use_transpose=True, **kw),
+        "up_dil_conv": lambda: ConvOps(c, c, stride=2, dilation=2, use_transpose=True, **kw),
     }
     return table[name]()
 
@@ -195,23 +205,26 @@ def _match(h1, h2):
 
 
 class NasUnetCell(nn.Module):
-    def __init__(self, genotype: Genotype, c_in0: int, c_in1: int, c: int, cell_type: str):
+    def __init__(self, genotype: Genotype, c_in0: int, c_in1: int, c: int, cell_type: str,
+                 dtype=None):
         super().__init__()
         if cell_type == "down":
             self.preprocess0 = ConvOps(c_in0, c, kernel_size=1, stride=2,
-                                       ops_order="act_weight_norm")
+                                       ops_order="act_weight_norm", dtype=dtype)
             names, idx = zip(*genotype.down)
             concat = genotype.down_concat
         else:
-            self.preprocess0 = ConvOps(c_in0, c, kernel_size=1, ops_order="act_weight_norm")
+            self.preprocess0 = ConvOps(c_in0, c, kernel_size=1, ops_order="act_weight_norm",
+                                       dtype=dtype)
             names, idx = zip(*genotype.up)
             concat = genotype.up_concat
-        self.preprocess1 = ConvOps(c_in1, c, kernel_size=1, ops_order="act_weight_norm")
+        self.preprocess1 = ConvOps(c_in1, c, kernel_size=1, ops_order="act_weight_norm",
+                                   dtype=dtype)
         self._indices = list(idx)
         self._concat = list(concat)
         self._num_meta_node = len(names) // 2
         for i, nm in enumerate(names):
-            setattr(self, f"op_{i}", make_nasunet_op(nm, c))
+            setattr(self, f"op_{i}", make_nasunet_op(nm, c, dtype))
 
     def forward(self, s0, s1, train: bool = False):
         states = [self.preprocess0(s0, train), self.preprocess1(s1, train)]
@@ -235,21 +248,21 @@ class NasUnet(nn.Module):
     def __init__(self, nclass: int, in_channels: int, c: int = 32, depth: int = 5,
                  dtype=None, *, device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if dtype is not None:
-            raise NotImplementedError("bf16 is not ported yet (ROADMAP.md Queue 1, item 5)")
         dev = resolve_device(device)
         # every cell and stem is 4c wide: stem_multiplier 4, and the cells
         # concatenate 4 nodes of c (senas_tpu's double_down_channel, which
         # no caller sets, is not ported)
         wide = 4 * c
-        self.stem0 = ConvOps(in_channels, wide, kernel_size=1, ops_order="weight_norm")
-        self.stem1 = ConvOps(in_channels, wide, kernel_size=3, stride=2, ops_order="weight_norm")
+        self.stem0 = ConvOps(in_channels, wide, kernel_size=1, ops_order="weight_norm",
+                             dtype=dtype)
+        self.stem1 = ConvOps(in_channels, wide, kernel_size=3, stride=2, ops_order="weight_norm",
+                             dtype=dtype)
         self.depth = depth
         for i in range(depth):
-            setattr(self, f"down_{i}", NasUnetCell(NASUNET, wide, wide, c, "down"))
+            setattr(self, f"down_{i}", NasUnetCell(NASUNET, wide, wide, c, "down", dtype))
         for i in range(depth + 1):
-            setattr(self, f"up_{i}", NasUnetCell(NASUNET, wide, wide, c, "up"))
-        self.head = ConvOps(wide, nclass, kernel_size=1, ops_order="weight")
+            setattr(self, f"up_{i}", NasUnetCell(NASUNET, wide, wide, c, "up", dtype))
+        self.head = ConvOps(wide, nclass, kernel_size=1, ops_order="weight", dtype=dtype)
         init_params_(self, generator if generator is not None
                      else torch.Generator().manual_seed(0))
         self.to(dev)

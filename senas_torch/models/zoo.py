@@ -18,6 +18,14 @@ Where senas_tpu departs from smp, the port follows senas_tpu:
     AdaptiveAvgPool2d (ROADMAP.md Queue 3, F3);
   * FPN's GroupNorm has eps 1e-5; Linknet's transposed conv output_padding
     0; DeepLabV3+'s ASPP applies Dropout(0.5) in train mode.
+
+`dtype` (torch.bfloat16, or None for f32) is each model's compute dtype,
+with f32 weights, as in senas_tpu: the encoder's blocks cast their input
+to it, and every BatchNorm and GroupNorm rounds its output to it; a conv
+runs in its input's dtype. senas_tpu's align-corners resizes keep f32
+weights, so a bf16 map leaves them in f32 and the blocks after one compute
+in f32 until the next norm: FPN and PAN return f32 logits from a bf16
+model, the other seven bf16 ones, as senas_tpu's do.
 """
 
 from __future__ import annotations
@@ -33,16 +41,23 @@ from senas_torch.models.base import (Attention, Conv2dReLU, SegmentationHead,
 from senas_torch.models.encoders import encoder_out_channels, get_encoder
 from senas_torch.ops.primitives import (BatchNorm, Dropout, GroupNorm, add_bias,
                                         add_conv_kernel, conv2d, conv_transpose2d, max_pool_2x2,
-                                        relu)
+                                        relu, sigmoid, softmax)
 
 
-def _check_dtype(dtype) -> None:
-    if dtype is not None:
-        raise NotImplementedError("bf16 is not ported yet (ROADMAP.md Queue 1, item 5)")
+def _bias(b, like):
+    """A [C] bias against an NCHW map, in the map's dtype."""
+    return b.to(like.dtype)[:, None, None]
 
 
-def _bias(b):
-    return b[:, None, None]
+def _conv(x, w, **kw):
+    """conv2d with the f32 kernel cast to x's dtype."""
+    return conv2d(x, w.to(x.dtype), **kw)
+
+
+def _aligned_resize(x, size_hw):
+    """senas_tpu's `_resize_bilinear` with align_corners=True: f32 weights,
+    so a bf16 map comes out f32 (a 1x1 map is broadcast in its dtype)."""
+    return resize_bilinear(x, size_hw, weight_dtype=torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -53,15 +68,15 @@ class UnetDecoderBlock(nn.Module):
     """nearest 2x -> [concat skip -> attention] -> 2 x Conv2dReLU -> attention."""
 
     def __init__(self, c_in: int, c_skip: int, c_out: int,
-                 attention_type: Optional[str] = None):
+                 attention_type: Optional[str] = None, dtype=None):
         super().__init__()
         # flax numbers the attentions it makes: the skip's only with a skip
         self.attentions = ("Attention_0", "Attention_1") if c_skip else (None, "Attention_0")
         if c_skip:
-            self.Attention_0 = Attention(c_in + c_skip, attention_type)
-        setattr(self, self.attentions[1], Attention(c_out, attention_type))
-        self.Conv2dReLU_0 = Conv2dReLU(c_in + c_skip, c_out)
-        self.Conv2dReLU_1 = Conv2dReLU(c_out, c_out)
+            self.Attention_0 = Attention(c_in + c_skip, attention_type, dtype=dtype)
+        setattr(self, self.attentions[1], Attention(c_out, attention_type, dtype=dtype))
+        self.Conv2dReLU_0 = Conv2dReLU(c_in + c_skip, c_out, dtype=dtype)
+        self.Conv2dReLU_1 = Conv2dReLU(c_out, c_out, dtype=dtype)
 
     def forward(self, x, skip=None, train: bool = False):
         x = upsample_nearest2x(x)
@@ -84,18 +99,18 @@ class Unet(SegmentationModel):
                  aux_params: Optional[dict] = None, dtype=None, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_dtype(dtype)
-        self.encoder = get_encoder(encoder_name, encoder_depth, in_channels=in_channels)
+        self.encoder = get_encoder(encoder_name, encoder_depth, dtype, in_channels=in_channels)
         feats = _pyramid(encoder_name, in_channels, encoder_depth)
         skips = feats[1:]
         self.n_dec = len(decoder_channels)
         c = feats[0]
         for i, c_out in enumerate(decoder_channels):
             c_skip = skips[i] if i < len(skips) else 0
-            setattr(self, f"dec_{i}", UnetDecoderBlock(c, c_skip, c_out, decoder_attention_type))
+            setattr(self, f"dec_{i}", UnetDecoderBlock(c, c_skip, c_out, decoder_attention_type,
+                                                       dtype))
             c = c_out
         self.SegmentationHead_0 = SegmentationHead(c, classes)
-        self._finish_init(aux_params, feats[0], activation, device, generator)
+        self._finish_init(aux_params, feats[0], activation, device, generator, dtype)
 
     def decode(self, x, train, rng):
         enc = self.encoder(x, train)
@@ -139,8 +154,7 @@ class UnetPlusPlus(SegmentationModel):
                  aux_params: Optional[dict] = None, dtype=None, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_dtype(dtype)
-        self.encoder = get_encoder(encoder_name, encoder_depth, in_channels=in_channels)
+        self.encoder = get_encoder(encoder_name, encoder_depth, dtype, in_channels=in_channels)
         feats = _pyramid(encoder_name, in_channels, encoder_depth)
         table = {"out": list(decoder_channels), "skip": feats[1:] + [0]}
         self.plan = _unetpp_plan(len(decoder_channels))
@@ -148,10 +162,10 @@ class UnetPlusPlus(SegmentationModel):
         for name, src, parts, which, idx in self.plan:
             c_out = table[which][idx]
             setattr(self, name, UnetDecoderBlock(ch[src], sum(ch[p] for p in parts), c_out,
-                                                 decoder_attention_type))
+                                                 decoder_attention_type, dtype))
             ch[("x", name)] = c_out
         self.SegmentationHead_0 = SegmentationHead(decoder_channels[-1], classes)
-        self._finish_init(aux_params, feats[0], activation, device, generator)
+        self._finish_init(aux_params, feats[0], activation, device, generator, dtype)
 
     def decode(self, x, train, rng):
         enc = self.encoder(x, train)
@@ -183,40 +197,44 @@ class PAB(nn.Module):
     def forward(self, x):
         b, c, h, w = x.shape
         hw, pc = h * w, self.pab_channels
-        top = (conv2d(x, self.top) + _bias(self.top_b)).reshape(b, pc, hw).transpose(1, 2)
-        center = (conv2d(x, self.center) + _bias(self.center_b)).reshape(b, pc, hw).transpose(1, 2)
-        bottom = (conv2d(x, self.bottom) + _bias(self.bottom_b)).reshape(b, c, hw).transpose(1, 2)
+        proj = lambda name: _conv(x, getattr(self, name)) + _bias(getattr(self, name + "_b"), x)
+        top = proj("top").reshape(b, pc, hw).transpose(1, 2)
+        center = proj("center").reshape(b, pc, hw).transpose(1, 2)
+        bottom = proj("bottom").reshape(b, c, hw).transpose(1, 2)
         sp = torch.bmm(center, top.transpose(1, 2))              # [B, HW, HW]
-        sp = torch.softmax(sp.reshape(b, -1), dim=-1).reshape(b, hw, hw)
+        sp = softmax(sp.reshape(b, -1)).reshape(b, hw, hw)
         attn = torch.bmm(sp, bottom)                             # [B, HW, C]
         # the reference's quirk (manet/decoder.py:34): the [B,HW,C] map is
         # reshaped to (B,C,H,W) without a transpose
         y = x + attn.reshape(b, c, h, w)
-        return conv2d(y, self.out) + _bias(self.out_bias)
+        return _conv(y, self.out) + _bias(self.out_bias, y)
 
 
 class MFAB(nn.Module):
     """Multi-scale fusion attention block (manet/decoder.py:40-101)."""
 
-    def __init__(self, c_in: int, skip_channels: int, c_out: int, reduction: int = 16):
+    def __init__(self, c_in: int, skip_channels: int, c_out: int, reduction: int = 16,
+                 dtype=None):
         super().__init__()
         sc = skip_channels
         red = max(1, sc // reduction)
-        self.Conv2dReLU_0 = Conv2dReLU(c_in, c_in)
-        self.Conv2dReLU_1 = Conv2dReLU(c_in, sc, kernel_size=1)
+        self.Conv2dReLU_0 = Conv2dReLU(c_in, c_in, dtype=dtype)
+        self.Conv2dReLU_1 = Conv2dReLU(c_in, sc, kernel_size=1, dtype=dtype)
         for tag in ("hl", "ll"):
             add_conv_kernel(self, f"{tag}_w1", (red, sc, 1, 1))
             add_bias(self, f"{tag}_b1", red)
             add_conv_kernel(self, f"{tag}_w2", (sc, red, 1, 1))
             add_bias(self, f"{tag}_b2", sc)
-        self.Conv2dReLU_2 = Conv2dReLU(2 * sc, c_out)
-        self.Conv2dReLU_3 = Conv2dReLU(c_out, c_out)
+        self.Conv2dReLU_2 = Conv2dReLU(2 * sc, c_out, dtype=dtype)
+        self.Conv2dReLU_3 = Conv2dReLU(c_out, c_out, dtype=dtype)
 
     def _se(self, t, tag):
+        """The SE gate in t's dtype (senas_tpu casts the weights to it)."""
         y = t.mean(dim=(2, 3))
-        w1, w2 = getattr(self, f"{tag}_w1"), getattr(self, f"{tag}_w2")
-        y = relu(y @ w1[:, :, 0, 0].t() + getattr(self, f"{tag}_b1"))
-        y = torch.sigmoid(y @ w2[:, :, 0, 0].t() + getattr(self, f"{tag}_b2"))
+        w1, w2 = (getattr(self, f"{tag}_{k}").to(t.dtype) for k in ("w1", "w2"))
+        b1, b2 = (getattr(self, f"{tag}_{k}").to(t.dtype) for k in ("b1", "b2"))
+        y = relu(y @ w1[:, :, 0, 0].t() + b1)
+        y = sigmoid(y @ w2[:, :, 0, 0].t() + b2)
         return y[:, :, None, None]
 
     def forward(self, x, skip, train: bool = False):
@@ -234,20 +252,19 @@ class MAnet(SegmentationModel):
                  aux_params: Optional[dict] = None, dtype=None, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_dtype(dtype)
-        self.encoder = get_encoder(encoder_name, encoder_depth, in_channels=in_channels)
+        self.encoder = get_encoder(encoder_name, encoder_depth, dtype, in_channels=in_channels)
         feats = _pyramid(encoder_name, in_channels, encoder_depth)
         skips = feats[1:]
         self.PAB_0 = PAB(feats[0], pab_channels)
         self.n_dec = len(decoder_channels)
         c = feats[0]
         for i, c_out in enumerate(decoder_channels):
-            blk = (MFAB(c, skips[i], c_out) if i < len(skips)
-                   else UnetDecoderBlock(c, 0, c_out))
+            blk = (MFAB(c, skips[i], c_out, dtype=dtype) if i < len(skips)
+                   else UnetDecoderBlock(c, 0, c_out, dtype=dtype))
             setattr(self, f"dec_{i}", blk)
             c = c_out
         self.SegmentationHead_0 = SegmentationHead(c, classes)
-        self._finish_init(aux_params, feats[0], activation, device, generator)
+        self._finish_init(aux_params, feats[0], activation, device, generator, dtype)
 
     def decode(self, x, train, rng):
         enc = self.encoder(x, train)
@@ -267,20 +284,20 @@ class LinknetBlock(nn.Module):
     """1x1 Conv2dReLU -> 4x4 stride-2 transposed conv (+bias) -> BN -> ReLU
     -> 1x1 Conv2dReLU [-> + skip]."""
 
-    def __init__(self, c_in: int, c_out: int):
+    def __init__(self, c_in: int, c_out: int, dtype=None):
         super().__init__()
         mid = c_in // 4
-        self.Conv2dReLU_0 = Conv2dReLU(c_in, mid, kernel_size=1)
+        self.Conv2dReLU_0 = Conv2dReLU(c_in, mid, kernel_size=1, dtype=dtype)
         add_conv_kernel(self, "tkernel", (mid, mid, 4, 4))
         self.flax_layout = {"tkernel": "hwio_t"}
         add_bias(self, "tbias", mid, fan_in=mid * 16)
-        self.BatchNorm_0 = BatchNorm(mid)
-        self.Conv2dReLU_1 = Conv2dReLU(mid, c_out, kernel_size=1)
+        self.BatchNorm_0 = BatchNorm(mid, dtype=dtype)
+        self.Conv2dReLU_1 = Conv2dReLU(mid, c_out, kernel_size=1, dtype=dtype)
 
     def forward(self, x, skip=None, train: bool = False):
         x = self.Conv2dReLU_0(x, train)
-        x = conv_transpose2d(x, self.tkernel, stride=2, output_padding=0,
-                             torch_padding=1) + _bias(self.tbias)
+        x = conv_transpose2d(x, self.tkernel.to(x.dtype), stride=2, output_padding=0,
+                             torch_padding=1) + _bias(self.tbias, x)
         x = self.Conv2dReLU_1(relu(self.BatchNorm_0(x, train)), train)
         return x + skip if skip is not None else x
 
@@ -291,15 +308,14 @@ class Linknet(SegmentationModel):
                  activation: Optional[Any] = None, aux_params: Optional[dict] = None,
                  dtype=None, *, device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_dtype(dtype)
-        self.encoder = get_encoder(encoder_name, encoder_depth, in_channels=in_channels)
+        self.encoder = get_encoder(encoder_name, encoder_depth, dtype, in_channels=in_channels)
         feats = _pyramid(encoder_name, in_channels, encoder_depth)
         channels = feats + [prefinal_channels]
         self.n_dec = encoder_depth
         for i in range(encoder_depth):
-            setattr(self, f"dec_{i}", LinknetBlock(channels[i], channels[i + 1]))
+            setattr(self, f"dec_{i}", LinknetBlock(channels[i], channels[i + 1], dtype))
         self.SegmentationHead_0 = SegmentationHead(prefinal_channels, classes)
-        self._finish_init(aux_params, feats[0], activation, device, generator)
+        self._finish_init(aux_params, feats[0], activation, device, generator, dtype)
 
     def decode(self, x, train, rng):
         enc = self.encoder(x, train)
@@ -315,18 +331,19 @@ class Linknet(SegmentationModel):
 # ---------------------------------------------------------------------------
 
 class Conv3x3GNReLU(nn.Module):
-    """3x3 conv -> GroupNorm(32, eps 1e-5) -> ReLU [-> bilinear 2x]."""
+    """3x3 conv (in x's dtype) -> GroupNorm(32, eps 1e-5; rounds to
+    `dtype`) -> ReLU [-> bilinear 2x with f32 weights]."""
 
-    def __init__(self, c_in: int, c_out: int, upsample: bool = False):
+    def __init__(self, c_in: int, c_out: int, upsample: bool = False, dtype=None):
         super().__init__()
         self.upsample = upsample
         add_conv_kernel(self, "kernel", (c_out, c_in, 3, 3))
-        self.GroupNorm_0 = GroupNorm(c_out, 32)
+        self.GroupNorm_0 = GroupNorm(c_out, 32, dtype=dtype)
 
     def forward(self, x):
-        x = relu(self.GroupNorm_0(conv2d(x, self.kernel)))
+        x = relu(self.GroupNorm_0(_conv(x, self.kernel)))
         if self.upsample:
-            x = resize_bilinear(x, (x.shape[2] * 2, x.shape[3] * 2))
+            x = _aligned_resize(x, (x.shape[2] * 2, x.shape[3] * 2))
         return x
 
 
@@ -338,8 +355,7 @@ class FPN(SegmentationModel):
                  aux_params: Optional[dict] = None, dtype=None, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_dtype(dtype)
-        self.encoder = get_encoder(encoder_name, encoder_depth, in_channels=in_channels)
+        self.encoder = get_encoder(encoder_name, encoder_depth, dtype, in_channels=in_channels)
         full = encoder_out_channels(encoder_name, encoder_depth, in_channels)
         c2, c3, c4, c5 = full[-4:]
         pc, sc = pyramid_channels, segmentation_channels
@@ -347,15 +363,15 @@ class FPN(SegmentationModel):
             add_conv_kernel(self, name, (pc, c, 1, 1))
             add_bias(self, name + "_b", pc)
         for i, ups in enumerate((3, 2, 1, 0)):
-            setattr(self, f"seg_{i}_0", Conv3x3GNReLU(pc, sc, upsample=bool(ups)))
+            setattr(self, f"seg_{i}_0", Conv3x3GNReLU(pc, sc, upsample=bool(ups), dtype=dtype))
             for j in range(1, ups):
-                setattr(self, f"seg_{i}_{j}", Conv3x3GNReLU(sc, sc, upsample=True))
+                setattr(self, f"seg_{i}_{j}", Conv3x3GNReLU(sc, sc, upsample=True, dtype=dtype))
         # the "add" merge (senas_tpu's "cat" option has no caller)
         self.SegmentationHead_0 = SegmentationHead(sc, classes, upsampling=upsampling)
-        self._finish_init(aux_params, c5, activation, device, generator)
+        self._finish_init(aux_params, c5, activation, device, generator, dtype)
 
     def _p(self, name, t):
-        return conv2d(t, getattr(self, name)) + _bias(getattr(self, name + "_b"))
+        return _conv(t, getattr(self, name)) + _bias(getattr(self, name + "_b"), t)
 
     def decode(self, x, train, rng):
         feats = self.encoder(x, train)
@@ -386,12 +402,15 @@ def psp_pool(y, size: int):
     divides the map, else jax.image.resize's linear filter, which
     antialiases when it shrinks (= F.interpolate bilinear, antialias=True,
     half-pixel centres). smp's AdaptiveAvgPool2d differs there
-    (ROADMAP.md Queue 3, F3)."""
+    (ROADMAP.md Queue 3, F3). Both keep y's dtype; a bf16 map's filter is
+    taken in f32 and rounded once (jax.image.resize rounds between its two
+    passes; PyTorch has no bf16 antialiased filter on the CPU)."""
     h, w = y.shape[2], y.shape[3]
     if h % size == 0 and w % size == 0:
         return F.avg_pool2d(y, (h // size, w // size))
-    return F.interpolate(y, size=(size, size), mode="bilinear", antialias=True,
-                         align_corners=False)
+    z = y.float() if y.dtype == torch.bfloat16 else y
+    return F.interpolate(z, size=(size, size), mode="bilinear", antialias=True,
+                         align_corners=False).to(y.dtype)
 
 
 class PSPNet(SegmentationModel):
@@ -400,23 +419,22 @@ class PSPNet(SegmentationModel):
                  activation: Optional[Any] = None, aux_params: Optional[dict] = None,
                  dtype=None, *, device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_dtype(dtype)
-        self.encoder = get_encoder(encoder_name, encoder_depth, in_channels=in_channels)
+        self.encoder = get_encoder(encoder_name, encoder_depth, dtype, in_channels=in_channels)
         c = encoder_out_channels(encoder_name, encoder_depth, in_channels)[-1]
         for si, size in enumerate(PSP_SIZES):
             setattr(self, f"psp_{si}", Conv2dReLU(c, c // len(PSP_SIZES), kernel_size=1,
-                                                  use_batchnorm=size != 1))
+                                                  use_batchnorm=size != 1, dtype=dtype))
         self.Conv2dReLU_0 = Conv2dReLU(c + len(PSP_SIZES) * (c // len(PSP_SIZES)),
-                                       psp_out_channels, kernel_size=1)
+                                       psp_out_channels, kernel_size=1, dtype=dtype)
         self.SegmentationHead_0 = SegmentationHead(psp_out_channels, classes,
                                                    upsampling=upsampling)
-        self._finish_init(aux_params, c, activation, device, generator)
+        self._finish_init(aux_params, c, activation, device, generator, dtype)
 
     def decode(self, x, train, rng):
         feats = self.encoder(x, train)
         y = feats[-1]
         h, w = y.shape[2], y.shape[3]
-        branches = [resize_bilinear(getattr(self, f"psp_{si}")(psp_pool(y, size), train), (h, w))
+        branches = [_aligned_resize(getattr(self, f"psp_{si}")(psp_pool(y, size), train), (h, w))
                     for si, size in enumerate(PSP_SIZES)]
         y = self.Conv2dReLU_0(torch.cat(branches + [y], dim=1), train)
         return self.SegmentationHead_0(y), feats
@@ -429,16 +447,17 @@ class PSPNet(SegmentationModel):
 class _SeparableConvBnReLU(nn.Module):
     """depthwise kxk (dilated) -> pointwise 1x1 -> BN -> ReLU."""
 
-    def __init__(self, c_in: int, c_out: int, kernel_size: int = 3, dilation: int = 1):
+    def __init__(self, c_in: int, c_out: int, kernel_size: int = 3, dilation: int = 1,
+                 dtype=None):
         super().__init__()
         self.dilation, self.c_in = dilation, c_in
         add_conv_kernel(self, "dw", (c_in, 1, kernel_size, kernel_size))
         add_conv_kernel(self, "pw", (c_out, c_in, 1, 1))
-        self.BatchNorm_0 = BatchNorm(c_out)
+        self.BatchNorm_0 = BatchNorm(c_out, dtype=dtype)
 
     def forward(self, x, train: bool = False):
-        x = conv2d(x, self.dw, dilation=self.dilation, groups=self.c_in)
-        return relu(self.BatchNorm_0(conv2d(x, self.pw), train))
+        x = _conv(x, self.dw, dilation=self.dilation, groups=self.c_in)
+        return relu(self.BatchNorm_0(_conv(x, self.pw), train))
 
 
 class ASPP(nn.Module):
@@ -447,14 +466,16 @@ class ASPP(nn.Module):
     as DeepLabV3+ builds it: separable; its dense-branch option has no
     caller)."""
 
-    def __init__(self, c_in: int, c_out: int, atrous_rates: Tuple[int, int, int] = (12, 24, 36)):
+    def __init__(self, c_in: int, c_out: int, atrous_rates: Tuple[int, int, int] = (12, 24, 36),
+                 dtype=None):
         super().__init__()
         self.c_out, self.n_rates = c_out, len(atrous_rates)
-        self.conv1x1 = Conv2dReLU(c_in, c_out, kernel_size=1)
+        self.conv1x1 = Conv2dReLU(c_in, c_out, kernel_size=1, dtype=dtype)
         for i, rate in enumerate(atrous_rates):
-            setattr(self, f"aspp_{i}", _SeparableConvBnReLU(c_in, c_out, 3, rate))
-        self.pool_conv = Conv2dReLU(c_in, c_out, kernel_size=1)
-        self.project = Conv2dReLU((2 + len(atrous_rates)) * c_out, c_out, kernel_size=1)
+            setattr(self, f"aspp_{i}", _SeparableConvBnReLU(c_in, c_out, 3, rate, dtype))
+        self.pool_conv = Conv2dReLU(c_in, c_out, kernel_size=1, dtype=dtype)
+        self.project = Conv2dReLU((2 + len(atrous_rates)) * c_out, c_out, kernel_size=1,
+                                  dtype=dtype)
         self.dropout = Dropout(0.5)
 
     def forward(self, x, train: bool = False, rng: Optional[torch.Generator] = None):
@@ -475,26 +496,25 @@ class DeepLabV3Plus(SegmentationModel):
                  aux_params: Optional[dict] = None, dtype=None, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_dtype(dtype)
         if output_stride not in (8, 16):
             raise ValueError("Encoder output stride should be 8 or 16, "
                              "got {}".format(output_stride))
         self.scale = 2 if output_stride == 8 else 4
-        self.encoder = get_encoder(encoder_name, encoder_depth, output_stride=output_stride,
-                                   in_channels=in_channels)
+        self.encoder = get_encoder(encoder_name, encoder_depth, dtype,
+                                   output_stride=output_stride, in_channels=in_channels)
         full = encoder_out_channels(encoder_name, encoder_depth, in_channels)
         dc = decoder_channels
-        self.ASPP_0 = ASPP(full[-1], dc, atrous_rates)
-        self.aspp_post = _SeparableConvBnReLU(dc, dc)
-        self.highres = Conv2dReLU(full[-4], 48, kernel_size=1)
-        self.fuse = _SeparableConvBnReLU(dc + 48, dc)
+        self.ASPP_0 = ASPP(full[-1], dc, atrous_rates, dtype)
+        self.aspp_post = _SeparableConvBnReLU(dc, dc, dtype=dtype)
+        self.highres = Conv2dReLU(full[-4], 48, kernel_size=1, dtype=dtype)
+        self.fuse = _SeparableConvBnReLU(dc + 48, dc, dtype=dtype)
         self.SegmentationHead_0 = SegmentationHead(dc, classes, upsampling=upsampling)
-        self._finish_init(aux_params, full[-1], activation, device, generator)
+        self._finish_init(aux_params, full[-1], activation, device, generator, dtype)
 
     def decode(self, x, train, rng):
         feats = self.encoder(x, train)
         y = self.aspp_post(self.ASPP_0(feats[-1], train, rng), train)
-        y = resize_bilinear(y, (y.shape[2] * self.scale, y.shape[3] * self.scale))
+        y = _aligned_resize(y, (y.shape[2] * self.scale, y.shape[3] * self.scale))
         y = torch.cat([y, self.highres(feats[-4], train)], dim=1)
         return self.SegmentationHead_0(self.fuse(y, train)), feats
 
@@ -506,16 +526,17 @@ class DeepLabV3Plus(SegmentationModel):
 class ConvBnReLU(nn.Module):
     """conv (+bias, torch's default init) -> BN [-> ReLU]."""
 
-    def __init__(self, c_in: int, c_out: int, kernel_size: int = 1, add_relu: bool = True):
+    def __init__(self, c_in: int, c_out: int, kernel_size: int = 1, add_relu: bool = True,
+                 dtype=None):
         super().__init__()
         k = kernel_size
         self.add_relu = add_relu
         add_conv_kernel(self, "kernel", (c_out, c_in, k, k))
         add_bias(self, "bias", c_out, fan_in=c_in * k * k)
-        self.BatchNorm_0 = BatchNorm(c_out)
+        self.BatchNorm_0 = BatchNorm(c_out, dtype=dtype)
 
     def forward(self, x, train: bool = False):
-        x = self.BatchNorm_0(conv2d(x, self.kernel) + _bias(self.bias), train)
+        x = self.BatchNorm_0(_conv(x, self.kernel) + _bias(self.bias, x), train)
         return relu(x) if self.add_relu else x
 
 
@@ -523,17 +544,17 @@ class FPABlock(nn.Module):
     """Feature pyramid attention: global-pool, mid and 3-level pyramid
     branches (pan/decoder.py:41-99)."""
 
-    def __init__(self, c_in: int, c_out: int):
+    def __init__(self, c_in: int, c_out: int, dtype=None):
         super().__init__()
         self.c_out = c_out
-        self.branch1 = ConvBnReLU(c_in, c_out, 1)
-        self.mid = ConvBnReLU(c_in, c_out, 1)
-        self.down1 = ConvBnReLU(c_in, 1, 7)
-        self.down2 = ConvBnReLU(1, 1, 5)
-        self.down3a = ConvBnReLU(1, 1, 3)
-        self.down3b = ConvBnReLU(1, 1, 3)
-        self.conv2 = ConvBnReLU(1, 1, 5)
-        self.conv1 = ConvBnReLU(1, 1, 7)
+        self.branch1 = ConvBnReLU(c_in, c_out, 1, dtype=dtype)
+        self.mid = ConvBnReLU(c_in, c_out, 1, dtype=dtype)
+        self.down1 = ConvBnReLU(c_in, 1, 7, dtype=dtype)
+        self.down2 = ConvBnReLU(1, 1, 5, dtype=dtype)
+        self.down3a = ConvBnReLU(1, 1, 3, dtype=dtype)
+        self.down3b = ConvBnReLU(1, 1, 3, dtype=dtype)
+        self.conv2 = ConvBnReLU(1, 1, 5, dtype=dtype)
+        self.conv1 = ConvBnReLU(1, 1, 7, dtype=dtype)
 
     def forward(self, x, train: bool = False):
         b, _, h, w = x.shape
@@ -542,26 +563,26 @@ class FPABlock(nn.Module):
         x1 = self.down1(max_pool_2x2(x), train)
         x2 = self.down2(max_pool_2x2(x1), train)
         x3 = self.down3b(self.down3a(max_pool_2x2(x2), train), train)
-        x3 = resize_bilinear(x3, (h // 4, w // 4))
+        x3 = _aligned_resize(x3, (h // 4, w // 4))
         y = self.conv2(x2, train) + x3
-        y = resize_bilinear(y, (h // 2, w // 2))
+        y = _aligned_resize(y, (h // 2, w // 2))
         y = y + self.conv1(x1, train)
-        y = resize_bilinear(y, (h, w))
+        y = _aligned_resize(y, (h, w))
         return y * mid + b1
 
 
 class GAUBlock(nn.Module):
     """Global attention upsample (pan/decoder.py:102-140)."""
 
-    def __init__(self, c_in: int, c_out: int):
+    def __init__(self, c_in: int, c_out: int, dtype=None):
         super().__init__()
-        self.conv2 = ConvBnReLU(c_in, c_out, 3)
-        self.conv1 = ConvBnReLU(c_out, c_out, 1, add_relu=False)
+        self.conv2 = ConvBnReLU(c_in, c_out, 3, dtype=dtype)
+        self.conv1 = ConvBnReLU(c_out, c_out, 1, add_relu=False, dtype=dtype)
 
     def forward(self, x, y, train: bool = False):
-        y_up = resize_bilinear(y, (x.shape[2], x.shape[3]))
+        y_up = _aligned_resize(y, (x.shape[2], x.shape[3]))
         x = self.conv2(x, train)
-        ya = torch.sigmoid(self.conv1(y.mean(dim=(2, 3), keepdim=True), train))
+        ya = sigmoid(self.conv1(y.mean(dim=(2, 3), keepdim=True), train))
         return y_up + x * ya
 
 
@@ -572,20 +593,19 @@ class PAN(SegmentationModel):
                  activation: Optional[Any] = None, aux_params: Optional[dict] = None,
                  dtype=None, *, device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_dtype(dtype)
         if encoder_output_stride not in (16, 32):
             raise ValueError("PAN support output stride 16 or 32, got "
                              "{}".format(encoder_output_stride))
-        self.encoder = get_encoder(encoder_name, encoder_depth,
+        self.encoder = get_encoder(encoder_name, encoder_depth, dtype,
                                    output_stride=encoder_output_stride, in_channels=in_channels)
         full = encoder_out_channels(encoder_name, encoder_depth, in_channels)
         dc = decoder_channels
-        self.FPABlock_0 = FPABlock(full[-1], dc)
-        self.gau3 = GAUBlock(full[-2], dc)
-        self.gau2 = GAUBlock(full[-3], dc)
-        self.gau1 = GAUBlock(full[-4], dc)
+        self.FPABlock_0 = FPABlock(full[-1], dc, dtype)
+        self.gau3 = GAUBlock(full[-2], dc, dtype)
+        self.gau2 = GAUBlock(full[-3], dc, dtype)
+        self.gau1 = GAUBlock(full[-4], dc, dtype)
         self.SegmentationHead_0 = SegmentationHead(dc, classes, upsampling=upsampling)
-        self._finish_init(aux_params, full[-1], activation, device, generator)
+        self._finish_init(aux_params, full[-1], activation, device, generator, dtype)
 
     def decode(self, x, train, rng):
         feats = self.encoder(x, train)

@@ -12,8 +12,10 @@ On the card it launches the hand-written kernel of csrc/norm_convs.cu, an
 implicit GEMM on Hopper's tensor cores (wgmma) in split precision: each
 operand is split into two TF32 parts and three TF32 products stand for one
 f32 product (3xTF32), so the result stays within f32 rounding of the plain
-version. On the CPU it takes `norm_convs_plain`, the counterpart of the JAX
-package's `xla_norm_convs`. The wrapper never falls back from one to the other. As in
+version. bf16 operands (the Pallas kernel takes x's dtype) go to the bf16
+kernel: one bf16 product each, summed in f32, each output rounded once to
+bf16, as the Pallas kernel's f32 accumulator is. On the CPU it takes
+`norm_convs_plain`, the counterpart of the JAX package's `xla_norm_convs`. The wrapper never falls back from one to the other. As in
 the JAX package, no model path calls it: it is forward only (no VJP), and no
 group of the supernet has exactly these three branches. Its yardstick is the
 three library convolutions (`chip_smoke.py`).
@@ -31,7 +33,13 @@ BRANCHES = ((3, 1), (5, 2), (5, 3))  # (kernel, dilation), in output order
 
 def norm_convs_plain(x: torch.Tensor, k3: torch.Tensor, k5d2: torch.Tensor,
                      k5d3: torch.Tensor) -> torch.Tensor:
-    """torch.cat of the three F.conv2d calls (padding (k//2)*d, dilation d)."""
+    """torch.cat of the three F.conv2d calls (padding (k//2)*d, dilation d).
+    bf16 operands: the f32 convolutions of their values (every product
+    exact), rounded once to bf16, as the Pallas kernel accumulates in f32
+    and writes x's dtype; not F.conv2d in bf16, whose CPU kernels round
+    otherwise."""
+    if x.dtype == torch.bfloat16:
+        return norm_convs_plain(x.float(), k3.float(), k5d2.float(), k5d3.float()).to(x.dtype)
     return torch.cat([F.conv2d(x, w, padding=(k // 2) * d, dilation=d)
                       for (k, d), w in zip(BRANCHES, (k3, k5d2, k5d3))], dim=1)
 
@@ -52,19 +60,29 @@ def _lib():
         lib.senas_norm_convs_f32.restype = i32
         lib.senas_norm_convs_scratch_floats.argtypes = [i32, i32]
         lib.senas_norm_convs_scratch_floats.restype = i64
+        lib.senas_norm_convs_bf16.argtypes = [ptr] * 5 + [i32] * 5 + [ptr, i64, ptr]
+        lib.senas_norm_convs_bf16.restype = i32
+        lib.senas_norm_convs_bf16_scratch_elems.argtypes = [i32, i32]
+        lib.senas_norm_convs_bf16_scratch_elems.restype = i64
         lib.senas_norm_convs_error_string.argtypes = [i32]
         lib.senas_norm_convs_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
 
 
+DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _check(x, k3, k5d2, k5d3):
-    """What both paths take: f32 NCHW-contiguous operands on one device,
-    with the kernels' shapes."""
+    """What both paths take: NCHW-contiguous operands of one dtype, f32 or
+    bf16 (no operand is cast: a bf16 x with f32 kernels raises), on one
+    device, with the kernels' shapes."""
     ops = (x, k3, k5d2, k5d3)
     for t in ops:
-        if t.dtype != torch.float32:
-            raise NotImplementedError(f"norm_convs takes float32 only, got {t.dtype}")
+        if t.dtype not in DTYPES or t.dtype != x.dtype:
+            raise NotImplementedError(
+                "norm_convs takes float32 or bfloat16 operands of one dtype, got "
+                f"{[str(o.dtype) for o in ops]}")
         if t.device != x.device:
             raise ValueError("norm_convs operands must be on one device")
         if not t.is_contiguous():
@@ -81,14 +99,15 @@ def _check(x, k3, k5d2, k5d3):
 def norm_convs(x: torch.Tensor, k3: torch.Tensor, k5d2: torch.Tensor,
                k5d3: torch.Tensor) -> torch.Tensor:
     """The 3x3 d1, 5x5 d2 and 5x5 d3 convolutions of x, concatenated over
-    channels: [B,C,H,W] -> [B,3N,H,W].
+    channels: [B,C,H,W] -> [B,3N,H,W], in x's dtype (f32 or bf16).
 
-    Kernel `norm_convs` (csrc/norm_convs.cu) on the card; replaces the TPU
-    kernel `_norm_convs_kernel` through `fused_norm_convs`
-    (senas_tpu/ops/pallas_kernels.py:37-99). Bound by operations:
-    2*B*H*W*C*N*59 FLOP, each as three TF32 products on the tensor cores,
-    against (B*C + 3*B*N)*H*W*4 bytes. The kernel's split weights go to a
-    scratch buffer allocated here."""
+    Kernels `norm_convs` and `norm_convs_bf16` (csrc/norm_convs.cu) on the
+    card; they replace the TPU kernel `_norm_convs_kernel` through
+    `fused_norm_convs` (senas_tpu/ops/pallas_kernels.py:37-99). Bound by
+    operations: 2*B*H*W*C*N*59 FLOP, in f32 each as three TF32 products on
+    the tensor cores, in bf16 one bf16 product, against
+    (B*C + 3*B*N)*H*W bytes of the dtype. The kernel's split (f32) or
+    packed (bf16) weights go to a scratch buffer allocated here."""
     _check(x, k3, k5d2, k5d3)
     if x.device.type == "cpu":
         return norm_convs_plain(x, k3, k5d2, k5d3)
@@ -97,22 +116,29 @@ def norm_convs(x: torch.Tensor, k3: torch.Tensor, k5d2: torch.Tensor,
     b, c, h, w = x.shape
     n = k3.shape[0]
     lib = _lib()
-    out = torch.empty((b, 3 * n, h, w), device=x.device, dtype=torch.float32)
-    scratch = torch.empty(lib.senas_norm_convs_scratch_floats(c, n), device=x.device,
-                          dtype=torch.float32)
+    out = torch.empty((b, 3 * n, h, w), device=x.device, dtype=x.dtype)
+    if x.dtype == torch.bfloat16:
+        entry = lib.senas_norm_convs_bf16
+        scratch = torch.empty(lib.senas_norm_convs_bf16_scratch_elems(c, n), device=x.device,
+                              dtype=torch.bfloat16)
+    else:
+        entry = lib.senas_norm_convs_f32
+        scratch = torch.empty(lib.senas_norm_convs_scratch_floats(c, n), device=x.device,
+                              dtype=torch.float32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.senas_norm_convs_f32(x.data_ptr(), k3.data_ptr(), k5d2.data_ptr(),
-                                      k5d3.data_ptr(), out.data_ptr(), b, c, h, w, n,
-                                      scratch.data_ptr(), scratch.numel(), stream)
+        rc = entry(x.data_ptr(), k3.data_ptr(), k5d2.data_ptr(), k5d3.data_ptr(),
+                   out.data_ptr(), b, c, h, w, n, scratch.data_ptr(), scratch.numel(), stream)
     if rc != 0:
         msg = lib.senas_norm_convs_error_string(rc).decode()
         raise RuntimeError(f"norm_convs kernel launch failed: {msg} (cudaError {rc})")
     norm_convs.launches += 1
+    norm_convs.launches_by_dtype[str(x.dtype).removeprefix("torch.")] += 1
     return out
 
 
 norm_convs.launches = 0
+norm_convs.launches_by_dtype = {str(dt).removeprefix("torch."): 0 for dt in DTYPES}
 
 
 def flops(x_shape, n: int) -> int:
@@ -122,9 +148,9 @@ def flops(x_shape, n: int) -> int:
     return 2 * b * h * w * c * n * sum(k * k for k, _ in BRANCHES)
 
 
-def nbytes(x_shape, n: int) -> int:
+def nbytes(x_shape, n: int, itemsize: int = 4) -> int:
     """Bytes one call must move: x and the kernels read once, the output
-    written once (f32)."""
+    written once, `itemsize` bytes an element (4 for f32, 2 for bf16)."""
     b, c, h, w = x_shape
     weights = n * c * sum(k * k for k, _ in BRANCHES)
-    return 4 * (b * c * h * w + weights + 3 * b * n * h * w)
+    return itemsize * (b * c * h * w + weights + 3 * b * n * h * w)

@@ -126,6 +126,44 @@ def sigmoid(x):
     return 1 / (1 + torch.exp(-x))
 
 
+def softmax(x, dim: int = -1):
+    """jax.nn.softmax over `dim`. In bf16 as XLA computes the JAX package's
+    ops: the exps rounded to bf16 in the numerator, the denominator the f32
+    sum of the unrounded exps rounded once, then the bf16 quotient. In f32
+    and f64 PyTorch's softmax."""
+    if x.dtype != torch.bfloat16:
+        return torch.softmax(x, dim=dim)
+    shifted = x - x.amax(dim=dim, keepdim=True)
+    total = torch.exp(shifted.float()).sum(dim=dim, keepdim=True)
+    return torch.exp(shifted) / total.to(x.dtype)
+
+
+def log_softmax(x, dim: int = -1):
+    """jax.nn.log_softmax over `dim`. In bf16 as XLA computes it: the shift
+    in bf16, the f32 sum of the unrounded exps rounded once, its bf16 log
+    subtracted. In f32 and f64 PyTorch's."""
+    if x.dtype != torch.bfloat16:
+        return torch.log_softmax(x, dim=dim)
+    shifted = x - x.amax(dim=dim, keepdim=True)
+    total = torch.exp(shifted.float()).sum(dim=dim, keepdim=True)
+    return shifted - torch.log(total.to(x.dtype))
+
+
+def mean_all(x):
+    """jnp.mean of all elements: in bf16 an f32 sum divided by the count,
+    rounded once; in f32 and f64 PyTorch's mean."""
+    if x.dtype != torch.bfloat16:
+        return x.mean()
+    return (x.sum(dtype=torch.float32) / x.numel()).to(x.dtype)
+
+
+def scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A Python number as JAX's weak typing applies it to `like`: in its
+    dtype (bf16(0.9) against a bf16 tensor, where PyTorch would multiply by
+    the f32 0.9), on its device."""
+    return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
 def cast(x, dtype):
     """x in `dtype`; None leaves it as it is (a module's compute dtype)."""
     return x if dtype is None else x.to(dtype)
@@ -150,9 +188,15 @@ def conv_transpose2d(x, w, stride: int = 2, dilation: int = 1,
     (H-1)*stride - 2p + dilation*(k-1) + output_padding + 1."""
     k = w.shape[-1]
     p = get_same_padding(k) * dilation if torch_padding is None else torch_padding
-    return F.conv_transpose2d(x, w, stride=stride, padding=p,
-                              output_padding=output_padding, groups=groups,
-                              dilation=dilation)
+    kw = dict(stride=stride, padding=p, output_padding=output_padding, groups=groups,
+              dilation=dilation)
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+        # PyTorch's CPU bf16 transposed convolution (oneDNN) returns NaN
+        # weight gradients now and then (seen for a 1x1 input at stride 2);
+        # the f32 one of the same bf16 values, rounded once, is the same
+        # forward value (f32 sums, one rounding)
+        return F.conv_transpose2d(x.float(), w.float(), **kw).to(x.dtype)
+    return F.conv_transpose2d(x, w, **kw)
 
 
 def avg_pool_3x3(x, stride: int = 1):
@@ -308,24 +352,32 @@ class Dense(nn.Module):
 
 class GroupNorm(nn.Module):
     """flax nn.GroupNorm (eps 1e-5, torch's default) with its variables
-    `scale` and `bias`."""
+    `scale` and `bias`. With `dtype` (bf16) it is flax's GroupNorm(dtype=):
+    x promoted to f32, normalised, scaled and biased in f32, and rounded
+    once to `dtype`, whatever x's dtype (F.group_norm in f32: flax's
+    one-sweep E[x^2] - E[x]^2 variance differs from it by f32 rounding,
+    under the bf16 rounding). Without, F.group_norm in x's dtype."""
 
-    def __init__(self, c: int, num_groups: int, eps: float = EPS):
+    def __init__(self, c: int, num_groups: int, eps: float = EPS, dtype=None):
         super().__init__()
-        self.num_groups, self.eps = num_groups, eps
+        self.num_groups, self.eps, self.dtype = num_groups, eps, dtype
         self.scale = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
 
     def forward(self, x):
-        return F.group_norm(x, self.num_groups, self.scale, self.bias, self.eps)
+        if self.dtype is None:
+            return F.group_norm(x, self.num_groups, self.scale, self.bias, self.eps)
+        return F.group_norm(x.float(), self.num_groups, self.scale, self.bias,
+                            self.eps).to(self.dtype)
 
 
 class Dropout(nn.Module):
     """flax nn.Dropout: in train mode each element is kept with probability
     1 - rate and scaled by 1 / (1 - rate). The mask is drawn from `rng`, a
     torch.Generator, on the generator's device and moved to x's, so one
-    generator gives one mask on every device. Train mode without a
-    generator raises, as flax does without a 'dropout' key."""
+    generator gives one mask on every device. It scales in x's dtype, as
+    flax does. Train mode without a generator raises, as flax does without
+    a 'dropout' key."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -338,8 +390,9 @@ class Dropout(nn.Module):
             raise ValueError("Dropout in train mode needs a torch.Generator (rng=)")
         keep = 1.0 - self.rate
         mask = torch.rand(x.shape, generator=rng, device=rng.device) < keep
-        return torch.where(mask.to(x.device), x / keep, torch.zeros((), dtype=x.dtype,
-                                                                   device=x.device))
+        # x / keep in x's dtype: bf16(0.8) against a bf16 x, as flax divides
+        return torch.where(mask.to(x.device), x / scalar(keep, x),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class SEBlock(nn.Module):

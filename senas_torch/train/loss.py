@@ -16,9 +16,9 @@ All functions take `logits` [B,H,W,C] (or a list of such) and an integer
 bf16 logits are taken as they are, and the loss is bf16, as in the JAX
 package. There its softmax, log-softmax and mean are jnp ops that round to
 bf16 one by one (the exps and a mean's terms summed in f32); PyTorch's
-fused softmax and log-softmax round once, so in bf16 `_softmax`,
-`_log_softmax` and `_mean` repeat the JAX package's ops. In f32 and f64
-they are PyTorch's own.
+fused softmax and log-softmax round once, so in bf16 the softmax,
+log-softmax and mean of `ops/primitives.py` repeat the JAX package's ops.
+In f32 and f64 they are PyTorch's own.
 """
 
 from __future__ import annotations
@@ -28,37 +28,13 @@ from typing import Callable, Sequence
 import torch
 import torch.nn.functional as F
 
+from senas_torch.ops.primitives import log_softmax, mean_all, softmax
 from senas_torch.train import smp_losses
 
 
-def _softmax(x: torch.Tensor) -> torch.Tensor:
-    """Over the last axis; in bf16 as jax.nn.softmax computes it."""
-    if x.dtype != torch.bfloat16:
-        return torch.softmax(x, dim=-1)
-    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
-    return e / e.sum(dim=-1, keepdim=True, dtype=torch.float32).to(x.dtype)
-
-
-def _log_softmax(x: torch.Tensor) -> torch.Tensor:
-    """Over the last axis; in bf16 as jax.nn.log_softmax computes it."""
-    if x.dtype != torch.bfloat16:
-        return torch.log_softmax(x, dim=-1)
-    shifted = x - x.amax(dim=-1, keepdim=True)
-    total = torch.exp(shifted).sum(dim=-1, keepdim=True, dtype=torch.float32)
-    return shifted - torch.log(total.to(x.dtype))
-
-
-def _mean(x: torch.Tensor) -> torch.Tensor:
-    """The mean of all elements; in bf16 as jnp.mean: an f32 sum divided by
-    the count, rounded once."""
-    if x.dtype != torch.bfloat16:
-        return x.mean()
-    return (x.sum(dtype=torch.float32) / x.numel()).to(x.dtype)
-
-
 def cross_entropy(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    logp = _log_softmax(logits)
-    return -_mean(logp.gather(-1, target[..., None].long()))
+    logp = log_softmax(logits)
+    return -mean_all(logp.gather(-1, target[..., None].long()))
 
 
 def _one_hot(target: torch.Tensor, nclass: int, dtype) -> torch.Tensor:
@@ -67,7 +43,7 @@ def _one_hot(target: torch.Tensor, nclass: int, dtype) -> torch.Tensor:
 
 def soft_dice_loss(logits: torch.Tensor, target: torch.Tensor,
                    do_bg: bool = False, smooth: float = 1e-5) -> torch.Tensor:
-    x = _softmax(logits)
+    x = softmax(logits)
     y = _one_hot(target, logits.shape[-1], x.dtype)
     axes = (0, 1, 2)  # batch + spatial => per-class counts
     tp = (x * y).sum(dim=axes)
@@ -76,12 +52,12 @@ def soft_dice_loss(logits: torch.Tensor, target: torch.Tensor,
     dc = (2 * tp + smooth) / (2 * tp + fp + fn + smooth + 1e-8)
     if not do_bg:
         dc = dc[1:]
-    return 1 - _mean(dc)
+    return 1 - mean_all(dc)
 
 
 def soft_dice_loss_squared(logits: torch.Tensor, target: torch.Tensor,
                            do_bg: bool = False, smooth: float = 1e-5) -> torch.Tensor:
-    x = _softmax(logits)
+    x = softmax(logits)
     y = _one_hot(target, logits.shape[-1], x.dtype)
     axes = (0, 1, 2)
     intersect = (x * y).sum(dim=axes) + smooth
@@ -89,7 +65,7 @@ def soft_dice_loss_squared(logits: torch.Tensor, target: torch.Tensor,
     dc = 2 * intersect / denominator
     if not do_bg:
         dc = dc[1:]
-    return 1 - _mean(dc)
+    return 1 - mean_all(dc)
 
 
 def dice_ce_loss(logits: torch.Tensor, target: torch.Tensor,

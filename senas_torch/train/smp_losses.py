@@ -11,6 +11,10 @@ Modes: "binary" (y_pred [B,H,W] or [B,H,W,1]), "multiclass" (y_pred
 [B,H,W,C], y_true int [B,H,W]) and "multilabel" (y_pred and y_true
 [B,H,W,C]).
 
+On bf16 inputs the log-softmax and the means round op by op, as jax.nn's
+and jnp's do (`ops/primitives.py`), so a bf16 loss equals the JAX
+package's.
+
 The Lovasz losses sort their errors (stable, descending, as jnp.argsort of
 the negated errors). Their value does not depend on the order within ties;
 their gradient does.
@@ -23,6 +27,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from senas_torch.ops.primitives import log_softmax, mean_all, scalar, softmax
 
 BINARY_MODE = "binary"
 MULTICLASS_MODE = "multiclass"
@@ -55,7 +61,9 @@ def soft_tversky_score(output, target, alpha, beta, smooth=0.0, eps=1e-7, axis=N
     tp = _sum(output * target, axis)
     fp = _sum(output * (1.0 - target), axis)
     fn = _sum((1.0 - output) * target, axis)
-    return (tp + smooth) / (tp + alpha * fp + beta * fn + smooth).clamp_min(eps)
+    # alpha and beta in the scores' dtype, as JAX's weak-typed floats are
+    return (tp + smooth) / (tp + scalar(alpha, fp) * fp + scalar(beta, fn) * fn
+                            + smooth).clamp_min(eps)
 
 
 # ---------------------------------------------------------------------------
@@ -80,7 +88,7 @@ def _flatten(mode: str, y_pred, y_true, from_logits: bool, ignore_index: Optiona
 
     if mode == MULTICLASS_MODE:
         if from_logits:
-            y_pred = torch.exp(torch.log_softmax(y_pred, dim=-1))
+            y_pred = torch.exp(log_softmax(y_pred))
         b, c = y_pred.shape[0], y_pred.shape[-1]
         y_pred = y_pred.reshape(b, -1, c).transpose(1, 2)           # [B, C, P]
         y_true = y_true.reshape(b, -1).long()
@@ -271,7 +279,7 @@ class SoftCrossEntropyLoss:
 
     def __call__(self, y_pred, y_true):
         """y_pred [B,H,W,C] logits; y_true [B,H,W] int."""
-        lprobs = torch.log_softmax(y_pred, dim=-1)
+        lprobs = log_softmax(y_pred)
         y_true = y_true.long()
         pad = None
         tgt = y_true
@@ -284,11 +292,13 @@ class SoftCrossEntropyLoss:
             nll = torch.where(pad, torch.zeros_like(nll), nll)
             smooth = torch.where(pad, torch.zeros_like(smooth), smooth)
         if self.reduction == "mean":
-            nll, smooth = nll.mean(), smooth.mean()
+            nll, smooth = mean_all(nll), mean_all(smooth)
         elif self.reduction == "sum":
             nll, smooth = nll.sum(), smooth.sum()
         eps = self.smooth_factor or 0.0
-        return (1.0 - eps) * nll + eps / y_pred.shape[-1] * smooth
+        # the weights in the loss's dtype, as JAX's weak-typed floats are
+        return (scalar(1.0 - eps, nll) * nll
+                + scalar(eps / y_pred.shape[-1], smooth) * smooth)
 
 
 # ---------------------------------------------------------------------------
@@ -383,7 +393,7 @@ class LovaszLoss:
                                       None if valid is None else valid.reshape(-1))
 
         # multiclass
-        probas = torch.softmax(y_pred, dim=-1) if self.from_logits else y_pred
+        probas = softmax(y_pred) if self.from_logits else y_pred
         b, c = probas.shape[0], probas.shape[-1]
         flat_p = probas.reshape(b, -1, c)
         flat_l = y_true.reshape(b, -1).long()

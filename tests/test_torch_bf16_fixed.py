@@ -17,8 +17,7 @@ torch.bfloat16 and fails 100 times the f32 parity tolerance of the
 matching f32 test (logits rtol/atol 1e-4, tests/test_torch_senas_model.py;
 the step's loss rtol 1e-5, tests/test_torch_train_step.py; a loss's
 gradient, 100 x the losses' rtol 1e-5, tests/test_torch_loss_metrics.py,
-as a relative L2 distance). smp_soft_ce is left out: its
-log-softmax rounds once (1 bf16 ulp off the JAX package's loss).
+as a relative L2 distance).
 Worst seen on an x86 CPU: the logits at 0.47 of the bound, the weight
 update at 0.51, the running stats at 0.49, the losses' gradients at 0.60;
 the train and eval steps' losses equal bit for bit."""
@@ -57,7 +56,7 @@ BF = torch.bfloat16
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 STEP_RTOL = 1e-5
 LOSSES = ("cross_entropy", "dice_ce", "dice_sq_ce", "dice_loss", "dice_square",
-          "smp_dice", "smp_jaccard", "smp_tversky", "smp_focal", "smp_lovasz")
+          "smp_dice", "smp_jaccard", "smp_tversky", "smp_focal", "smp_lovasz", "smp_soft_ce")
 
 
 def _jmodel(dt):
@@ -203,3 +202,23 @@ def test_losses_on_bf16_logits(name):
     assert got["bf16"][0] == want["bf16"][0], (got["bf16"][0], want["bf16"][0])
     assert_bf16_network(got["bf16"][1], want["bf16"][1], want["f32"][1], what="gradient")
     assert rel_l2(got["bf16"][1], got["f32"][1]) > 100 * 1e-5
+
+
+@pytest.mark.parametrize("smooth_factor,ignore_index", [(None, None), (0.1, 1), (0.25, -100)])
+def test_soft_ce_on_bf16_logits_with_smoothing_and_ignore(smooth_factor, ignore_index):
+    """SoftCrossEntropyLoss on bf16 logits: its log-softmax, means and
+    smoothing weights round as the JAX package's (bf16(0.9) for 1 - 0.1),
+    bit for bit, with pixels of the ignored class masked."""
+    from senas_tpu.train import smp_losses as jsmp
+    from senas_torch.train import smp_losses as tsmp
+    rng = np.random.RandomState(6)
+    logits = np.asarray(jnp.asarray((2 * rng.randn(B, 16, 16, 3)).astype(np.float32))
+                        .astype(jnp.bfloat16).astype(jnp.float32))
+    label = rng.randint(0, 3, size=(B, 16, 16)).astype(np.int32)
+    kw = dict(smooth_factor=smooth_factor, ignore_index=ignore_index)
+    want = jsmp.SoftCrossEntropyLoss(**kw)(jnp.asarray(logits).astype(jnp.bfloat16),
+                                           jnp.asarray(label))
+    got = tsmp.SoftCrossEntropyLoss(**kw)(torch.from_numpy(logits).to(BF),
+                                          torch.from_numpy(label))
+    assert got.dtype == BF
+    assert as_f64(got) == np.float64(want.astype(jnp.float32))

@@ -17,7 +17,8 @@ same bf16 inputs and cotangent at rtol/atol 2e-2 (the bf16 branch
 gradients round). norm_convs is
 held to 1e-5 of the same convolutions of |x| and |w| (each output's sum of
 |products|): the kernel (3xTF32 on the tensor cores, f32 sums) and cuDNN
-sum the products in other orders."""
+sum the products in other orders; its bf16 kernel to the bf16 bound above,
+against the f32 convolutions of the same bf16 values rounded once."""
 
 import numpy as np
 import pytest
@@ -248,11 +249,33 @@ def test_norm_convs_kernel(dev, b, c, h, w, n):
     assert ((got - want).abs() <= 1e-5 * abs_sum + 1e-6).all()
 
 
+@pytest.mark.parametrize("b,c,h,w,n", _NORM_SHAPES)
+def test_norm_convs_bf16_kernel(dev, b, c, h, w, n):
+    """The bf16 kernel (one bf16 wgmma per product, f32 sums, one rounding)
+    against its twin: the f32 convolutions of the same bf16 values, rounded
+    once; its launch counted as bf16, and no f32 kernel launched."""
+    g = torch.Generator(device="cpu").manual_seed(11)
+    x = torch.randn(b, c, h, w, generator=g).to(dev, torch.bfloat16)
+    ks = [(0.1 * torch.randn(n, c, k, k, generator=g)).to(dev, torch.bfloat16)
+          for k in (3, 5, 5)]
+    before = dict(nc.norm_convs.launches_by_dtype)
+    got = nc.norm_convs(x, *ks)
+    torch.cuda.synchronize()
+    assert nc.norm_convs.launches_by_dtype == {**before, "bfloat16": before["bfloat16"] + 1}
+    assert got.shape == (b, 3 * n, h, w)
+    terms = nc.norm_convs_plain(x.float().abs(), *[k.float().abs() for k in ks])
+    _assert_bf16_close(got, nc.norm_convs_plain(x, *ks), terms)
+
+
 def test_norm_convs_rejects_what_it_does_not_take(dev):
     x = torch.randn(1, 2, 8, 8, device=dev)
     ks = [torch.randn(3, 2, k, k, device=dev) for k in (3, 5, 5)]
     with pytest.raises(NotImplementedError):
         nc.norm_convs(x.half(), *ks)
+    before = dict(nc.norm_convs.launches_by_dtype)
+    with pytest.raises(NotImplementedError, match="one dtype"):   # no hidden cast
+        nc.norm_convs(x.bfloat16(), *ks)
+    assert nc.norm_convs.launches_by_dtype == before
     with pytest.raises(ValueError, match="contiguous"):
         nc.norm_convs(x.transpose(2, 3), *ks)
 

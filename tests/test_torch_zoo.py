@@ -172,8 +172,11 @@ def test_the_factory_builds_the_nine_names():
     assert set(FACTORY_ZOO) == {z[0] for z in ZOO}
     with pytest.raises(KeyError, match="unknown model"):
         tget("segformer", device="cpu")
-    with pytest.raises(NotImplementedError, match="bf16"):
-        tget("unet", depth=3, dtype="bfloat16", device="cpu")
+    bf16 = tget("unet", depth=3, dtype=torch.bfloat16, device="cpu")
+    with torch.no_grad():
+        out = bf16(torch.randn(1, 32, 32, 1))
+    assert out[0].dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in bf16.parameters())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tget("unet", depth=3)
