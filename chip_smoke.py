@@ -9,7 +9,8 @@ Phases, each of which fails the run:
      norm_convs.cu) with nvcc (sm_90a), one nvcc per source, together;
      the SASS of norm_convs_kernel (cuobjdump) must hold tensor-core
      instructions (HGMMA: wgmma), and that of norm_convs_bf16_kernel bf16
-     HGMMA only;
+     HGMMA only; ptxas's report of norm_convs_bf16_kernel<1..4> must show
+     0 bytes spilled and no wgmma serialized (its registers are logged);
   3. kernels: each of the four epilogue kernels against its plain PyTorch
      version on the same tensors on the card, at the shapes the supernet
      gives it (train- and eval-mode operands), timed; the epilogue's
@@ -161,6 +162,7 @@ import importlib
 import io
 import json
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -325,7 +327,41 @@ def build() -> str:
                 log(f"  ptxas {name}: {line.strip()}")
     bf16 = tensor_core_sass("norm_convs", "norm_convs_bf16_kernel", operands="BF16")
     check(bf16 == "HGMMA", f"norm_convs_bf16_kernel holds {bf16}, not HGMMA")
+    ptxas_report("norm_convs", "norm_convs_bf16_kernel", 4)
     return tensor_core_sass("norm_convs", "norm_convs_kernel")
+
+
+def ptxas_report(source: str, kernel: str, instances: int) -> dict:
+    """Registers and spilled bytes of each instantiation of `kernel` (the
+    mangled names of kernel<1..instances>) in ptxas's -v log of `source`.
+    Fails unless every one is there, spills 0 bytes and has no wgmma
+    serialized (ptxas's "Potential Performance Loss" notes)."""
+    found, name = {}, None
+    for line in _build.build_log(source).splitlines():
+        entry = re.search(r"(?:Compiling entry function '|Function properties for )(\S+?)'?(?: for|$)",
+                          line)
+        if entry:
+            name = entry.group(1)
+            continue
+        if name is None or kernel not in name:
+            continue
+        row = found.setdefault(name, {})
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            row["spill_bytes"] = int(spill.group(1)) + int(spill.group(2))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            row["registers"] = int(used.group(1))
+    serialized = [line.strip() for line in _build.build_log(source).splitlines()
+                  if "serialized" in line and kernel in line]
+    by_nt = {re.search(r"ILi(\d+)E", n).group(1): r for n, r in found.items()}
+    log(f"  ptxas {kernel}<NT>: {by_nt}")
+    check(sorted(by_nt) == [str(i) for i in range(1, instances + 1)]
+          and all("spill_bytes" in r and "registers" in r for r in by_nt.values()),
+          f"ptxas's log lacks {kernel}<1..{instances}>: {by_nt}")
+    check(all(r["spill_bytes"] == 0 for r in by_nt.values()), f"{kernel} spills: {by_nt}")
+    check(not serialized, f"ptxas serialized {kernel}'s wgmmas: {serialized[:2]}")
+    return by_nt
 
 
 def tensor_core_sass(source: str, kernel: str, operands: str = "") -> str:
@@ -517,9 +553,12 @@ _TIMED = (("branch_stats", "stats"), ("apply_mix", "mix"), ("bwd_reduce", "reduc
           ("bwd_dx", "dx"))
 
 
-# K2 shapes (B, C, H, W, N): bench.py's (bench_pallas_norm_convs), and edge
-# tiles in both directions (100 = 12*8 + 4 rows, 70 = 2*32 + 6 columns).
-K2_SHAPES = {"bench": (64, 32, 128, 128, 24), "edge": (5, 32, 100, 70, 24)}
+# K2 shapes (B, C, H, W, N): bench.py's (bench_pallas_norm_convs), edge
+# tiles in both directions (100 = 12*8 + 4 rows, 70 = 2*32 + 6 columns), and
+# C 20 (a 16-channel chunk whose second K half is partial) with N 32 (one
+# slice at NT 4, the widest wgmma) at W 70 (not a multiple of 8).
+K2_SHAPES = {"bench": (64, 32, 128, 128, 24), "edge": (5, 32, 100, 70, 24),
+             "nt4": (2, 20, 30, 70, 32)}
 # K2 against its plain version: within this share of each output's sum of
 # |products| (the same convolutions of |x| and |w|): both sum the 59*C
 # products in f32, in other orders, the kernel each product as three TF32

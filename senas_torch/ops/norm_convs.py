@@ -14,7 +14,12 @@ operand is split into two TF32 parts and three TF32 products stand for one
 f32 product (3xTF32), so the result stays within f32 rounding of the plain
 version. bf16 operands (the Pallas kernel takes x's dtype) go to the bf16
 kernel: one bf16 product each, summed in f32, each output rounded once to
-bf16, as the Pallas kernel's f32 accumulator is. On the CPU it takes
+bf16, as the Pallas kernel's f32 accumulator is. It first copies x into a
+channel-inner layout ([B][ceil(C/8)][H][W][8], 8 channels a 16-byte row),
+from which TMA stages each tile and its halo, so that a tap's shift is the
+start address of a wgmma descriptor and A and B are both read from shared
+memory; a producer warpgroup fills a ring of 3 stages for two consumer
+warpgroups (csrc/norm_convs.cu's header note). On the CPU it takes
 `norm_convs_plain`, the counterpart of the JAX package's `xla_norm_convs`. The wrapper never falls back from one to the other. As in
 the JAX package, no model path calls it: it is forward only (no VJP), and no
 group of the supernet has exactly these three branches. Its yardstick is the
@@ -62,7 +67,7 @@ def _lib():
         lib.senas_norm_convs_scratch_floats.restype = i64
         lib.senas_norm_convs_bf16.argtypes = [ptr] * 5 + [i32] * 5 + [ptr, i64, ptr]
         lib.senas_norm_convs_bf16.restype = i32
-        lib.senas_norm_convs_bf16_scratch_elems.argtypes = [i32, i32]
+        lib.senas_norm_convs_bf16_scratch_elems.argtypes = [i32] * 5
         lib.senas_norm_convs_bf16_scratch_elems.restype = i64
         lib.senas_norm_convs_error_string.argtypes = [i32]
         lib.senas_norm_convs_error_string.restype = ctypes.c_char_p
@@ -106,8 +111,10 @@ def norm_convs(x: torch.Tensor, k3: torch.Tensor, k5d2: torch.Tensor,
     `fused_norm_convs` (senas_tpu/ops/pallas_kernels.py:37-99). Bound by
     operations: 2*B*H*W*C*N*59 FLOP, in f32 each as three TF32 products on
     the tensor cores, in bf16 one bf16 product, against
-    (B*C + 3*B*N)*H*W bytes of the dtype. The kernel's split (f32) or
-    packed (bf16) weights go to a scratch buffer allocated here."""
+    (B*C + 3*B*N)*H*W bytes of the dtype. Scratch allocated here: the
+    split weights (f32); the packed weights and x in the channel-inner
+    layout [B][ceil(C/8)][H][W][8], from which TMA stages each tile
+    (bf16: B*ceil(C/8)*H*W*8 elements beside the weights)."""
     _check(x, k3, k5d2, k5d3)
     if x.device.type == "cpu":
         return norm_convs_plain(x, k3, k5d2, k5d3)
@@ -119,8 +126,8 @@ def norm_convs(x: torch.Tensor, k3: torch.Tensor, k5d2: torch.Tensor,
     out = torch.empty((b, 3 * n, h, w), device=x.device, dtype=x.dtype)
     if x.dtype == torch.bfloat16:
         entry = lib.senas_norm_convs_bf16
-        scratch = torch.empty(lib.senas_norm_convs_bf16_scratch_elems(c, n), device=x.device,
-                              dtype=torch.bfloat16)
+        scratch = torch.empty(lib.senas_norm_convs_bf16_scratch_elems(b, c, h, w, n),
+                              device=x.device, dtype=torch.bfloat16)
     else:
         entry = lib.senas_norm_convs_f32
         scratch = torch.empty(lib.senas_norm_convs_scratch_floats(c, n), device=x.device,

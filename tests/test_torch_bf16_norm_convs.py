@@ -9,9 +9,10 @@ rounded once. Bound: equal but on at most 1e-3 of the elements, each by one
 bf16 ulp (f32 sums in other orders); the probe that planned this found 0.
 
 The card's bf16 kernel (csrc/norm_convs.cu, norm_convs_bf16_kernel) is
-mirrored in NumPy: its weight packing, the halo'd tile, each thread's
-k16 fragments, the B descriptor's core matrices and the store, held to
-the twin by the same bound."""
+mirrored in NumPy: its layout pass, weight packing, TMA boxes in a ring of
+stage buffers, the A and B descriptors of every tap and M-tile read as
+wgmma reads them, and the store, held by the same bound to the twin's
+function summed in f64."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -100,15 +101,31 @@ def test_bf16_work_and_bound_at_the_bench_shape():
 
 
 # ---------------------------------------------------------------------------
-# A NumPy mirror of norm_convs_bf16_kernel's index arithmetic
+# A NumPy mirror of norm_convs_bf16_kernel
 # ---------------------------------------------------------------------------
 
-HALO, COL_ORIGIN, TILE_W, WARP_GROUPS, M_TILES = 6, 8, 64, 3, 4
-TILE_H = WARP_GROUPS * M_TILES
-IN_H, IN_W = TILE_H + 2 * HALO, TILE_W + 2 * COL_ORIGIN
+TILE_W, M_TILES, CONSUMERS, STAGES = 64, 4, 2, 3
+TILE_H = CONSUMERS * M_TILES
 CHUNK, MAX_NT = 16, 4
-STRIDE = (IN_H * IN_W - 8 + 63) // 64 * 64 + 8
-TAPS, TAP_BASE, ALL_TAPS = (9, 25, 25), (0, 9, 34), 59
+PADS, TAPS, TAP_BASE, ALL_TAPS = (1, 4, 6), (9, 25, 25), (0, 9, 34), 59
+BOX_BYTES = tuple((TILE_H + 2 * p) * (TILE_W + 2 * p) * 16 for p in PADS)
+LBO_A = BOX_BYTES[2]                      # kBoxBytes: the second K half's box
+X_BYTES = 2 * LBO_A
+STAGE_BYTES = X_BYTES + 25 * MAX_NT * 128 * 2
+SMEM_BYTES = STAGES * STAGE_BYTES + 3 * STAGES * 8
+OUT_PITCH = TILE_W + 8                    # staged sums: 144 bytes an output channel
+
+
+def test_kernel_shared_memory_plan():
+    """The ring fits a block's 232,448 bytes; every TMA destination is
+    128-byte aligned; a descriptor's 14-bit start address (16-byte units)
+    reaches every byte of it; 12 rows (3 consumers) would not fit; the
+    staged sums of NT 4 fit a stage buffer."""
+    assert (LBO_A, STAGE_BYTES, SMEM_BYTES) == (24320, 74240, 222792)
+    assert TILE_H * 8 * MAX_NT * OUT_PITCH * 2 <= STAGE_BYTES
+    assert SMEM_BYTES <= 232448 < STAGES * (2 * 24 * 76 * 16 + 25600)
+    assert LBO_A % 128 == X_BYTES % 128 == STAGE_BYTES % 128 == 0
+    assert SMEM_BYTES < (1 << 14) * 16
 
 
 def _plan(c, n):
@@ -136,82 +153,151 @@ def _pack_mirror(ks, c, n):
     return w
 
 
-def _kernel_mirror(x: np.ndarray, ks) -> torch.Tensor:
-    """norm_convs_bf16_kernel on every block at once: the staged tiles, each
-    thread's 8 fragment values per M-tile and tap (4 registers of 2), B
-    through the descriptor's LBO/SBO, the products summed in f64, and the
-    accumulator layout at the store, rounded once to bf16."""
+def _layout_mirror(x):
+    """norm_convs_bf16_layout_kernel: xl element i (8 bf16, 16 bytes) is
+    pixel i % (H*W) of channel group (i / (H*W)) % C8 of image
+    i / (H*W*C8); channels past C zero. Returns xl flat, 8 values a row."""
+    bsz, c, h, w = x.shape
+    c8, plane = -(-c // 8), h * w
+    xl = np.zeros((bsz * c8 * plane, 8), np.float32)
+    flat = x.reshape(bsz, c, plane)
+    i = np.arange(bsz * c8 * plane)
+    p, bc = i % plane, i // plane
+    c0, b = (bc % c8) * 8, bc // c8
+    for k in range(8):
+        ok = c0 + k < c
+        xl[ok, k] = flat[b[ok], c0[ok] + k, p[ok]]
+    return xl
+
+
+def _tma_box(xmap, x2, y0, c8, b, rows, cols2):
+    """cp.async.bulk.tensor.4d of a box {cols2, rows, 1, 1} at coordinates
+    (x2, y0, c8, b) of the map (2W, H, C8, B) of 8-byte elements (4 bf16):
+    zeros for every coordinate outside it, negative ones too. Returns the
+    box flat, as it lands in shared memory."""
+    bsz, ngroups, h, w2, _ = xmap.shape
+    box = np.zeros((rows, cols2, 4), np.float32)
+    if 0 <= c8 < ngroups and 0 <= b < bsz:
+        ys, xs = np.arange(y0, y0 + rows), np.arange(x2, x2 + cols2)
+        iy, ix = (ys >= 0) & (ys < h), (xs >= 0) & (xs < w2)
+        box[np.ix_(iy, ix)] = xmap[b, c8][np.ix_(ys[iy], xs[ix])]
+    return box.ravel()
+
+
+def _desc(addr, lbo, sbo):
+    """kmajor_desc / b_desc: start address, LBO and SBO in 16-byte units."""
+    return ((addr & 0x3FFFF) >> 4) | ((lbo >> 4) << 16) | ((sbo >> 4) << 32)
+
+
+def _operand(smem, descs, rows):
+    """What wgmma reads through no-swizzle K-major descriptors: per
+    descriptor a [rows x 16] bf16 matrix, element (r, k) at byte start +
+    (r // 8) * SBO + (k // 8) * LBO + (r % 8) * 16 + (k % 8) * 2."""
+    descs = np.asarray(descs, np.int64)[..., None, None]
+    start = (descs & 0x3FFF) << 4
+    lbo, sbo = ((descs >> 16) & 0x3FFF) << 4, ((descs >> 32) & 0x3FFF) << 4
+    r, k = np.arange(rows)[:, None], np.arange(16)[None, :]
+    return smem[(start + (r // 8) * sbo + (k // 8) * lbo + (r % 8) * 16 + (k % 8) * 2) // 2]
+
+
+def _kernel_mirror(x: np.ndarray, ks, sms: int = 3) -> torch.Tensor:
+    """norm_convs_bf16_kernel, block by block of a persistent grid of `sms`
+    blocks: the layout pass; each stage's TMA boxes and packed weights
+    written into a ring of 3 stage buffers in a byte-addressed shared
+    memory (NaN where nothing was written); A and B read through the
+    consumers' descriptors at each tap and M-tile, the products summed in
+    f64 (scale-d 0 at a branch's first tap); the sums rounded once and
+    staged in the last stage's buffer by stmatrix's addresses, and the
+    storers' copy of 8-pixel rows to global memory."""
     bsz, c, h, w = x.shape
     n = ks[0].shape[0]
     slices, nps, nt, chunks = _plan(c, n)
     scratch, tap_e = _pack_mirror(ks, c, n), nt * 128
-    ty, tx = -(-h // TILE_H), -(-w // TILE_W)
-    xpad = np.zeros((bsz, chunks * CHUNK, ty * TILE_H + 2 * HALO,
-                     tx * TILE_W + 2 * COL_ORIGIN), np.float32)
-    xpad[:, :c, HALO:HALO + h, COL_ORIGIN:COL_ORIGIN + w] = x
-    t = np.arange(128 * WARP_GROUPS)
-    wg, warp, lane = t >> 7, (t >> 5) & 3, t & 31
-    g, tig = lane >> 2, lane & 3
-    # the 8 values of a thread's 4 registers: M row, K index, offset from p
-    row = np.stack([16 * warp + g + d for d in (0, 0, 8, 8, 0, 0, 8, 8)], 1)
-    kidx = np.stack([2 * tig + d for d in (0, 1, 0, 1, 8, 9, 8, 9)], 1)
-    off = np.array([0, STRIDE, 8, STRIDE + 8, 8 * STRIDE, 9 * STRIDE, 8 * STRIDE + 8,
-                    9 * STRIDE + 8])
-    kb, nb = np.arange(16)[:, None], np.arange(8 * nt)[None, :]
-    b_off = (nb // 8) * 128 + (kb // 8) * 64 + (nb % 8) * 8 + kb % 8      # LBO 128 B, SBO 256 B
-    jj, hh, qq = (a.ravel() for a in np.meshgrid(np.arange(nt), np.arange(2), np.arange(2),
-                                                  indexing="ij"))
-    out = torch.zeros((bsz, 3 * n, h, w), dtype=BF)
-    for z in range(slices):
-        wz = scratch[z * chunks * ALL_TAPS * tap_e:]
-        for br, ((k, d), taps) in enumerate(zip(nc.BRANCHES, TAPS)):
-            pad = (k // 2) * d
-            acc = np.zeros((bsz, ty, tx, WARP_GROUPS, M_TILES, 64, 8 * nt))
-            for cc in range(chunks):
-                tiles = np.zeros((bsz, ty, tx, CHUNK * STRIDE), np.float32)
-                for yy in range(ty):
-                    for xx in range(tx):
-                        win = xpad[:, cc * CHUNK:(cc + 1) * CHUNK,
-                                   yy * TILE_H:yy * TILE_H + IN_H, xx * TILE_W:xx * TILE_W + IN_W]
-                        tiles[:, yy, xx].reshape(bsz, CHUNK, STRIDE)[:, :, :IN_H * IN_W] = \
-                            win.reshape(bsz, CHUNK, -1)
-                ws = wz[(TAP_BASE[br] * chunks + cc * taps) * tap_e:][:taps * tap_e]
-                base = (2 * tig * STRIDE + (M_TILES * wg + HALO - pad) * IN_W
-                        + 16 * warp + g + COL_ORIGIN - pad)
-                for tap_i in range(taps):
-                    dy, dx = divmod(tap_i, k)
-                    bmat = ws[tap_i * tap_e:][b_off].astype(np.float64)
-                    for m in range(M_TILES):
-                        v = tiles[..., base[:, None] + m * IN_W + dy * d * IN_W + dx * d
-                                  + off[None]]                              # [b, ty, tx, t, 8]
-                        a = np.zeros((bsz, ty, tx, WARP_GROUPS, 64, 16))
-                        a[:, :, :, wg[:, None], row, kidx] = v
-                        acc[:, :, :, :, m] += a @ bmat
-            # register 4j + 2h + q of thread t: M row 16*warp + g + 8h,
-            # column 8j + 2*tig + q
-            srow = (16 * warp + g)[:, None] + 8 * hh[None]
-            col = (2 * tig)[:, None] + (8 * jj + qq)[None]
-            chan = z * nps + col
-            for yy in range(ty):
-                for xx in range(tx):
-                    for m in range(M_TILES):
-                        yo = np.broadcast_to((yy * TILE_H + M_TILES * wg + m)[:, None], srow.shape)
-                        xo = xx * TILE_W + srow
-                        keep = (chan < n) & (yo < h) & (xo < w)
-                        vals = torch.from_numpy(acc[:, yy, xx, wg[:, None], m, srow, col][:, keep])
-                        out[:, br * n + chan[keep], yo[keep], xo[keep]] = vals.to(BF)
+    c8 = -(-c // 8)
+    xl = _layout_mirror(x).reshape(-1)
+    # the map: dimensions (2W, H, C8, B) of 8 bytes, strides 16W, 16WH,
+    # 16WHC8 bytes (an element here is 4 bytes of the float32 copy)
+    xmap = np.lib.stride_tricks.as_strided(
+        xl, (bsz, c8, h, 2 * w, 4), [e * 4 for e in (8 * w * h * c8, 8 * w * h, 8 * w, 4, 1)])
+    tiles_x, tiles_y = -(-w // TILE_W), -(-h // TILE_H)
+    items = slices * bsz * tiles_x * tiles_y
+    e = np.arange(TILE_H * nps * 8)                          # the storers' 16-byte rows
+    k8, ech, er = e & 7, (e >> 3) % nps, (e >> 3) // nps
+    out = torch.full((bsz, 3 * n, h, w), float("nan"), dtype=BF)
+    for block in range(min(items, sms)):
+        smem = np.full(STAGES * STAGE_BYTES // 2, np.nan)
+        g = 0
+        for item in range(block, items, sms):
+            tx, ty = item % tiles_x, (item // tiles_x) % tiles_y
+            rest = item // (tiles_x * tiles_y)
+            b, z = rest % bsz, rest // bsz
+            wz = scratch[z * chunks * ALL_TAPS * tap_e:]
+            acc = np.zeros((CONSUMERS, M_TILES, 64, 8 * nt))
+            for s in range(3 * chunks):
+                slot, br, cc = g % STAGES, s // chunks, s % chunks
+                g += 1
+                (k, d), pad, taps = nc.BRANCHES[br], PADS[br], TAPS[br]
+                buf = slot * STAGE_BYTES
+                # the producer: two boxes, then the chunk's taps
+                rows, cols = TILE_H + 2 * pad, TILE_W + 2 * pad
+                for half in range(2):
+                    e0 = (buf + half * LBO_A) // 2
+                    smem[e0:e0 + rows * cols * 8] = _tma_box(
+                        xmap, 2 * (tx * TILE_W - pad), ty * TILE_H - pad, 2 * cc + half, b, rows,
+                        2 * cols)
+                wsrc = wz[(TAP_BASE[br] * chunks + cc * taps) * tap_e:][:taps * tap_e]
+                e0 = (buf + X_BYTES) // 2
+                smem[e0:e0 + wsrc.size] = wsrc
+                # the consumers: per tap the 8 M-tiles' descriptors
+                pitch = TILE_W + 2 * pad
+                cw, m = np.divmod(np.arange(CONSUMERS * M_TILES), M_TILES)
+                a0 = _desc(buf + M_TILES * cw * pitch * 16, LBO_A, 128)
+                b0 = _desc(buf + X_BYTES, 128, 256)
+                for dy in range(k):
+                    for dx in range(k):
+                        a_op = _operand(smem, a0 + dy * d * pitch + dx * d + m * pitch, 64)
+                        b_op = _operand(smem, [b0 + (dy * k + dx) * nt * 16], 8 * nt)[0]
+                        prod = (a_op @ b_op.T).reshape(acc.shape)
+                        acc = prod if cc == 0 and dy == 0 and dx == 0 else acc + prod
+                if cc < chunks - 1:
+                    continue
+                # the consumers stage the rounded sums in this buffer by
+                # stmatrix .x2 .trans: matrix (j, h) of M-tile m holds pixels
+                # 16*warp + 8h + p, channels 8j + i; its stored row i (the
+                # address of lane 8h + i) takes them at pixels p = 0..7
+                rounded = torch.from_numpy(acc).to(BF).double().numpy()
+                i, p = np.arange(8)[:, None], np.arange(8)[None, :]
+                for cw_, m_, w_, j, h_ in np.ndindex(CONSUMERS, M_TILES, 4, nt, 2):
+                    r = M_TILES * cw_ + m_
+                    addr = buf + ((r * nps + 8 * j + i) * OUT_PITCH + 16 * w_ + 8 * h_) * 2
+                    smem[addr // 2 + p] = rounded[cw_, m_][16 * w_ + 8 * h_ + p, 8 * j + i]
+                # ... and the storers copy them, 8 pixels of a channel a row
+                nn, yo, xo = z * nps + ech, ty * TILE_H + er, tx * TILE_W + 8 * k8
+                for i in np.flatnonzero((nn < n) & (yo < h) & (xo < w)):
+                    v = smem[buf // 2 + (er[i] * nps + ech[i]) * OUT_PITCH + 8 * k8[i]:][:8]
+                    span = min(8, w - xo[i])
+                    out[b, br * n + nn[i], yo[i], xo[i]:xo[i] + span] = torch.from_numpy(v[:span])
     return out
 
 
 # (b, c, h, w, n): one partial tile in both directions with a partial
 # channel chunk (20 = 16 + 4) and N not a multiple of 8; N over 32 (two
-# slices); a width not a multiple of 8 (the plain-load staging)
-@pytest.mark.parametrize("b,c,h,w,n", [(1, 20, 14, 70, 12), (1, 8, 13, 9, 40), (2, 3, 5, 7, 5)])
+# slices); a small image (every box mostly halo); C 5 (one channel group,
+# 3 channels zero, the second K half all past C); an image narrower than
+# an 8-pixel granule with N 36 (two slices); the card's NT 4 shape (C 20,
+# N 32, W 70)
+@pytest.mark.parametrize("b,c,h,w,n", [(1, 20, 14, 70, 12), (1, 8, 13, 9, 40), (2, 3, 5, 7, 5),
+                                       (2, 5, 11, 16, 8), (1, 6, 9, 5, 36),
+                                       (2, 20, 30, 70, 32)])
 def test_kernel_mirror_reproduces_the_bf16_twin(b, c, h, w, n):
     rs = np.random.RandomState(b + c + h + w + n)
     x = torch.from_numpy(rs.randn(b, c, h, w).astype(np.float32)).to(BF)
     ks = [(0.1 * torch.from_numpy(rs.randn(n, c, k, k).astype(np.float32))).to(BF)
           for k, _ in nc.BRANCHES]
     got = _kernel_mirror(x.float().numpy(), [k.float().numpy() for k in ks])
-    want = nc.norm_convs_plain(x, *ks)
+    # the mirror sums in f64, so it is held to the twin's function in f64
+    # (the convolutions of the bf16 values, rounded once); the f32 twin is
+    # many ulps off where a sum cancels, as the card's bound allows
+    want = nc.norm_convs_plain(x.double(), *[k.double() for k in ks]).to(BF)
+    assert bool(torch.isfinite(got).all())       # no read of a byte no copy wrote
     assert_bf16_bits(as_f64(got), as_f64(want), what="the kernel's mirror")

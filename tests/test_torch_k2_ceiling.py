@@ -1,6 +1,7 @@
-"""tools/k2_ceiling.py on the CPU: every ablation's text patch applies to the
-committed K2 source exactly once (so the tool measures the kernel as it
-is), and the tool refuses to run without a CUDA device."""
+"""tools/k2_ceiling.py on the CPU: every ablation's text patch, of the f32
+kernel and of the bf16 one, applies to the committed K2 source exactly
+once (so the tool measures the kernel as it is), and the tool refuses to
+run without a CUDA device in either mode."""
 
 import importlib.util
 import os
@@ -19,9 +20,10 @@ def tool():
     return mod
 
 
-def test_every_ablation_patches_the_kernel_once(tool):
+@pytest.mark.parametrize("table", ["ABLATIONS", "ABLATIONS_BF16"])
+def test_every_ablation_patches_the_kernel_once(tool, table):
     source = tool.SOURCE.read_text()
-    for name, patches in tool.ABLATIONS.items():
+    for name, patches in getattr(tool, table).items():
         text = tool.patched(patches)
         assert (text == source) == (not patches), name
         for old, new in patches:
@@ -34,6 +36,7 @@ def test_a_missing_anchor_raises(tool, monkeypatch):
         tool.patched(tool.ABLATIONS["bad"])
 
 
-def test_needs_a_card(tool, capsys):
-    assert tool.main([]) == 1
+@pytest.mark.parametrize("argv", [[], ["--bf16"]])
+def test_needs_a_card(tool, capsys, argv):
+    assert tool.main(argv) == 1
     assert "no CUDA device" in capsys.readouterr().err

@@ -229,9 +229,12 @@ def test_card_rejects_other_dtypes(dev):
 # (b, c, h, w, n): a main-sized tile, edge tiles in both directions,
 # partial channel chunks and groups, images smaller than the 13-pixel
 # receptive field, n > 32 (channel slices over two blocks), and
-# chip_smoke.py's edge shape (100 = 12*8 + 4 rows, 70 = 64 + 6 columns)
+# chip_smoke.py's edge shapes (100 = 12*8 + 4 rows, 70 = 64 + 6 columns;
+# C 20, a 16-channel chunk whose second K half is partial, with N 32, one
+# slice of NT 4)
 _NORM_SHAPES = [(2, 32, 64, 64, 24), (1, 10, 9, 35, 12), (2, 3, 5, 7, 4),
-                (3, 10, 8, 1, 8), (1, 2, 17, 40, 40), (5, 32, 100, 70, 24)]
+                (3, 10, 8, 1, 8), (1, 2, 17, 40, 40), (5, 32, 100, 70, 24),
+                (2, 20, 30, 70, 32)]
 
 
 @pytest.mark.parametrize("b,c,h,w,n", _NORM_SHAPES)
