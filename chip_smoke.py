@@ -142,10 +142,30 @@ Phases, each of which fails the run:
      unet` and `--model fpn` on senas_synthetic.yml with `precision: bf16`,
      then `testing_model --model unet` (f32) on the bf16 checkpoint; the six
      smp_* losses on full-size bf16 logits, card against CPU.
+ 19. the config keys and SENAS_PALLAS_BN (the environment variable set and
+     restored inside the phase): BatchNorm with the gate on (K1a-K1d at
+     n=1) against the same path on the kernels' plain twins and against
+     the gate off, at every BatchNorm shape of the fixed model and at
+     [2,64,1,1], [2,64,3,3], [2,64,6,6], [2,512,8,8] and [12,32,256,256],
+     train and eval, f32 and bf16, forward, backward and running stats;
+     K1a-K1d at n=1 on [12,32,256,256] timed beside their twins, their byte
+     bounds and F.batch_norm's forward and backward, with the launches of
+     one BatchNorm forward and backward each way; the promise12-fixed-train
+     step, the fixed step in bf16 and the zoo's unet step in bf16 with the
+     gate on and off in turns (each gated step's K1 launches held to its
+     BatchNorm calls), one step each way under torch.profiler; one fixed
+     step card against CPU at phase 10's size with the gate on and with
+     each of adamax, adadelta, adagrad, rmsprop, asgd and adabound, within
+     phase 7's limits; remat at full width (the search step with do_arch
+     and the fixed step, off and on: ms/step, peak memory, the recompute's
+     launches) and at phase 7's size under cuDNN's deterministic algorithms
+     (the same metrics and state on and off); senas_synthetic.yml through
+     search_arc (beta_mode grouped, multi_gpus, mesh_spatial 2, adabound)
+     and train_model (remat, rmsprop) for one epoch each.
 Phases 12-13, 16 and 18's zoo launch none of the kernels (neither the
-fixed model nor the zoo has any).
+fixed model nor the zoo has any, unless SENAS_PALLAS_BN=1).
 Every kernel variant must be launched on at least one path (phases 4-6, 9,
-14, 15, 17; K2's bf16 variant in phase 4). The line before the last is a
+14, 15, 17, 19; K2's bf16 variant in phase 4). The line before the last is a
 JSON list of the kernels, the bf16 variants as `<name>_bf16`; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits 1 and prints no result.
@@ -191,6 +211,7 @@ from senas_torch.models.senas_model import SenasModel
 from senas_torch.ops import _build
 from senas_torch.ops import grouped_epilogue as ge
 from senas_torch.ops import norm_convs as nc
+from senas_torch.ops.primitives import BatchNorm
 from senas_torch.runner.test import TestRunner
 from senas_torch.search.fused_cell import GroupedMixedOp
 from senas_torch.search.supernet import (SenasSearch, derive_genotype,
@@ -198,6 +219,7 @@ from senas_torch.search.supernet import (SenasSearch, derive_genotype,
 from senas_torch.serve import Predictor, export_predict_fn, save_artifact
 from senas_torch.train.checkpoint import CheckpointManager
 from senas_torch.train.loss import build_loss
+from senas_torch.train.optim import build_optimizer
 from senas_torch.train.trainer import (FixedTrainState, SearchTrainState,
                                        make_eval_step, make_search_eval_step,
                                        make_search_step, make_train_step)
@@ -869,16 +891,18 @@ def expected_launches(model, suffix: str = "") -> dict:
             "backward": {**zero, "bwd_reduce" + suffix: g, "bwd_dx" + suffix: g}}
 
 
-def per_step(expect: dict, do_arch: bool) -> dict:
-    """A search step: one train-mode forward and backward, two with do_arch."""
-    k = 2 if do_arch else 1
-    return {name: k * (expect["train"][name] + expect["backward"][name]) for name in KERNELS}
+def per_step(expect: dict, do_arch: bool, remat: bool = False) -> dict:
+    """A search step: one train-mode forward and backward, two with do_arch;
+    with remat each backward runs every cell's forward once more."""
+    k, forwards = (2 if do_arch else 1), (2 if remat else 1)
+    return {name: k * (forwards * expect["train"][name] + expect["backward"][name])
+            for name in KERNELS}
 
 
-def _supernet(s, dev, gen, dtype=None):
+def _supernet(s, dev, gen, dtype=None, remat=False):
     return SenasSearch(IN_CHANNELS, s["init_channels"], NCLASS, s["depth"], s["meta_node_num"],
                        double_down_channel=s["double_down_channel"],
-                       supervision=s["deep_supervision"], dtype=dtype, device=dev,
+                       supervision=s["deep_supervision"], dtype=dtype, remat=remat, device=dev,
                        generator=gen)
 
 
@@ -1267,12 +1291,12 @@ FIXED_STEPS = 4      # 1 + 3 train steps
 CARD_CPU_LOGIT_TOL = dict(rtol=1e-3, atol=1e-3)
 
 
-def _fixed_model(t, dev, gen, dtype=None):
+def _fixed_model(t, dev, gen, dtype=None, remat=False):
     return SenasModel(NCLASS, IN_CHANNELS, c=t["init_channels"], depth=t["depth"],
                       supervision=t["deep_supervision"],
                       genotype=getattr(geno_searched, t["geno_type"]),
-                      double_down_channel=t["double_down_channel"], dtype=dtype, device=dev,
-                      generator=gen)
+                      double_down_channel=t["double_down_channel"], dtype=dtype, remat=remat,
+                      device=dev, generator=gen)
 
 
 def _fixed_loss(t):
@@ -1360,41 +1384,47 @@ def run_fixed_path(dev, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def fixed_card_vs_cpu(dev, seed: int) -> dict:
-    t = dict(load_config(CONFIG)["training"], depth=3, init_channels=8)
-    model0 = _fixed_model(t, "cpu", torch.Generator().manual_seed(seed + 5)).state_dict()
-    batch = _batches(np.random.RandomState(seed + 5), 1, 2, 64, "cpu")[0]
-
-    def snap(model):
-        return {"model": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
-                "arch": {}}
-
-    def run_on(d):
-        model = _fixed_model(t, d, None)
-        model.load_state_dict({k: v.to(d) for k, v in model0.items()})
-        state = FixedTrainState.create(model, t["model_optimizer"])
-        before = snap(model)
-        m = make_train_step(_fixed_loss(t), grad_clip=t["grad_clip"])(
-            state, {k: v.to(d) for k, v in batch.items()})
-        return before, {k: v.cpu() for k, v in m.items()}, snap(model)
-
-    keys = ("loss", "grad_norm")
-    before, m_cpu, after_cpu = run_on("cpu")
-    _, m_card, after_card = run_on(dev)
-    rel_m, rel_s = _metrics_rel(m_card, m_cpu, keys), _state_rel(before, after_card, after_cpu)
+    """`fixed_step_card_vs_cpu` with TF32 off (held to CARD_CPU_LIMITS) and
+    once more with TF32 on (which the limits must catch)."""
+    rel_m, rel_s = fixed_step_card_vs_cpu(dev, seed)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        _, m_tf32, after_tf32 = run_on(dev)
+        tf32_m, tf32_s = fixed_step_card_vs_cpu(dev, seed)
     finally:
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    tf32_m, tf32_s = _metrics_rel(m_tf32, m_cpu, keys), _state_rel(before, after_tf32, after_cpu)
-    log(f"fixed training step card vs CPU (depth 3, c 8, 64x64, batch 2): metrics "
-        f"{({k: float(m_card[k]) for k in keys})} rel {rel_m}, state {rel_s}; with TF32 on: "
-        f"metrics rel {tf32_m}, state {tf32_s} (limits {CARD_CPU_LIMITS})")
+    log(f"fixed training step card vs CPU (depth 3, c 8, 64x64, batch 2): metrics rel "
+        f"{rel_m}, state {rel_s}; with TF32 on: metrics rel {tf32_m}, state {tf32_s} "
+        f"(limits {CARD_CPU_LIMITS})")
     check(_within(rel_m, rel_s),
           f"card and CPU fixed steps disagree: metrics {rel_m}, state {rel_s}")
     check(not _within(tf32_m, tf32_s),
           "the fixed card-vs-CPU limits let a step with TF32 on pass")
     return dict(metrics=rel_m, state=rel_s, tf32=dict(metrics=tf32_m, state=tf32_s))
+
+
+def fixed_step_card_vs_cpu(dev, seed: int, **training) -> tuple:
+    """One fixed train step (depth 3, c 8, 64x64, batch 2, the `training:`
+    section updated by `training`) from identical state on the CPU and on
+    the card: (metrics rel, state rel)."""
+    t = dict(load_config(CONFIG)["training"], depth=3, init_channels=8, **training)
+    model0 = _fixed_model(t, "cpu", torch.Generator().manual_seed(seed + 5)).state_dict()
+    batch = _batches(np.random.RandomState(seed + 5), 1, 2, 64, "cpu")[0]
+
+    def run_on(d):
+        model = _fixed_model(t, d, None)
+        model.load_state_dict({k: v.to(d) for k, v in model0.items()})
+        state = FixedTrainState.create(model, t["model_optimizer"])
+        m = make_train_step(_fixed_loss(t), grad_clip=t["grad_clip"])(
+            state, {k: v.to(d) for k, v in batch.items()})
+        return ({k: v.cpu() for k, v in m.items()},
+                {"model": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+                 "arch": {}})
+
+    before = {"model": {k: v.clone() for k, v in model0.items()}, "arch": {}}
+    m_cpu, after_cpu = run_on("cpu")
+    m_card, after_card = run_on(dev)
+    return (_metrics_rel(m_card, m_cpu, ("loss", "grad_norm")),
+            _state_rel(before, after_card, after_cpu))
 
 
 # ---------------------------------------------------------------------------
@@ -3215,6 +3245,664 @@ def run_bf16_zoo(dev, seed: int, f32_records: dict, f32_zoo: dict) -> dict:
                 seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the SENAS_PALLAS_BN path, remat and the config keys
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def pallas_bn(on: bool):
+    """SENAS_PALLAS_BN at "1" (on) or "0" inside; the process's value
+    restored after, so that no other phase runs with the gate."""
+    kept = os.environ.get("SENAS_PALLAS_BN")
+    os.environ["SENAS_PALLAS_BN"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if kept is None:
+            del os.environ["SENAS_PALLAS_BN"]
+        else:
+            os.environ["SENAS_PALLAS_BN"] = kept
+
+
+# BatchNorm shapes held beyond the fixed model's own: the 1x1 planes of
+# PSPNet's pooled pyramid and DeepLabV3+'s image pool, PSP pool sizes 3 and 6
+# (9 and 36, not multiples of the vector width), the encoders' deepest stage
+# and a large plane; the last is also the timed shape.
+BN_EXTRA_SHAPES = ((2, 64, 1, 1), (2, 64, 3, 3), (2, 64, 6, 6), (2, 512, 8, 8),
+                   (12, 32, 256, 256))
+BN_TIMED_SHAPE = (12, 32, 256, 256)
+BN_PROFILED = 10
+BN_MODES = ("kernels", "twins", "off")
+
+
+@contextlib.contextmanager
+def bn_inputs(model):
+    """Within it, the shapes of the 4-D inputs that `model`'s BatchNorms are
+    called on, in call order, collect in the yielded list."""
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append(tuple(args[0].shape)) if args[0].dim() == 4 else None)
+        for m in model.modules() if isinstance(m, BatchNorm)]
+    try:
+        yield seen
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def _bn_case(dev, shape, seed, dtype):
+    g = torch.Generator().manual_seed(seed)
+    c = shape[1]
+    x = (torch.randn(shape, generator=g) * (1 + torch.rand(c, generator=g))[:, None, None]
+         + 0.3 * torch.randn(c, generator=g)[:, None, None])
+    state = {"scale": 0.5 + torch.rand(c, generator=g), "bias": 0.2 * torch.randn(c, generator=g),
+             "mean": 0.2 * torch.randn(c, generator=g), "var": 0.5 + torch.rand(c, generator=g)}
+    readout = torch.randn(shape, generator=g)
+    return (x.to(dev, dtype), {k: v.to(dev) for k, v in state.items()},
+            readout.to(dev, dtype))
+
+
+def _bn_run(x, state, readout, train, dtype, mode):
+    """One BatchNorm(dtype) forward and backward from `state` on x: the gate
+    on ("kernels"), the gate on with the kernels' plain twins in their
+    place ("twins"), or off ("off": F.batch_norm). Returns y and the
+    gradients of x, scale and bias, and the running stats after."""
+    bn = BatchNorm(x.shape[1], dtype=dtype).to(x.device)
+    bn.load_state_dict(state)
+    xi = x.detach().clone().requires_grad_()
+    with pallas_bn(mode != "off"), (twins_swapped() if mode == "twins"
+                                    else contextlib.nullcontext()):
+        y = bn(xi, train=train)
+        grads = torch.autograd.grad(y, (xi, bn.scale, bn.bias), readout.to(y.dtype))
+    return dict(y=y.detach(), dx=grads[0], dscale=grads[1], dbias=grads[2],
+                mean=bn.mean.clone(), var=bn.var.clone())
+
+
+def _bn_f64(x, g, state, train, shift=0.0):
+    """BatchNorm's output and the gradients of x and scale for cotangent g,
+    in f64, with the batch mean and variance (train mode) moved by `shift`
+    times a few f32 ulps of the channel's second moment: d_mu = 2^-20
+    sqrt(E[x^2]), d_var = 2^-20 E[x^2]: what the one-sweep variance (against
+    the two-pass form) or another summation order may move them by."""
+    xd, gd = x.double(), g.double()
+    col = lambda t: t.double()[None, :, None, None]
+    dims = (0, 2, 3)
+    if train:
+        m2 = (xd ** 2).mean(dim=dims, keepdim=True)
+        mu = xd.mean(dim=dims, keepdim=True) + shift * 2.0 ** -20 * m2.sqrt()
+        var = ((xd - xd.mean(dim=dims, keepdim=True)) ** 2).mean(dim=dims, keepdim=True) \
+            + shift * 2.0 ** -20 * m2
+    else:
+        mu, var = col(state["mean"]), col(state["var"])
+    inv = (var + 1e-5).rsqrt()
+    xhat = (xd - mu) * inv
+    y = xhat * col(state["scale"]) + col(state["bias"])
+    if train:
+        dx = col(state["scale"]) * inv * (gd - gd.mean(dim=dims, keepdim=True)
+                                          - xhat * (gd * xhat).mean(dim=dims, keepdim=True))
+    else:
+        dx = col(state["scale"]) * inv * gd
+    return dict(y=y, dx=dx, dscale=(gd * xhat).sum(dim=dims), dbias=gd.sum(dim=dims))
+
+
+def _bn_allowance(x, g, state, train) -> tuple:
+    """Per element of y and of each gradient, how far two f32 evaluations of
+    BatchNorm may lie apart: 1e-5 of |y| + 1 (each gradient: 1e-4 of its
+    largest magnitude), plus, in train mode, how far the batch stats moved
+    by a few f32 ulps (`_bn_f64`) move it. Returns (allowances, the f64
+    values)."""
+    exact = _bn_f64(x, g, state, train)
+    allow = {"y": 1e-5 * (exact["y"].abs() + 1)}
+    for k in ("dx", "dscale", "dbias"):
+        allow[k] = 1e-4 * exact[k].abs().max().clamp_min(1e-30).expand_as(exact[k])
+    if train:
+        for shift in (1.0, -1.0):
+            moved = _bn_f64(x, g, state, train, shift)
+            for k in allow:
+                allow[k] = allow[k] + (moved[k] - exact[k]).abs()
+    return allow, exact
+
+
+def check_bn_path(dev, seed: int, shapes) -> dict:
+    """BatchNorm with the gate on held, at each shape, train and eval, f32
+    and bf16, forward and backward with the running stats, against the same
+    path on the kernels' plain twins and against the gate off: f32 outputs
+    within `_bn_allowance` of both, and so their gradients; bf16 outputs
+    against the twins at the bf16 bound (equal but on max(1, 1e-3 of the
+    elements), each within one bf16 ulp or 2^-21 of |y| + 1, plus the
+    allowance), bf16 gradients within 2e-2 of the largest magnitude;
+    running stats within 1e-5 of their largest magnitude."""
+    worst = {"y": 0.0, "y_off": 0.0, "dx": 0.0, "dx_off": 0.0, "stats": 0.0, "bf16_share": 0.0,
+             "bf16_grad_rel": 0.0}
+    for i, shape in enumerate(shapes):
+        for dtype in (torch.float32, BF16):
+            for train in (True, False):
+                x, state, readout = _bn_case(dev, shape, seed + i, dtype)
+                runs = {mode: _bn_run(x, state, readout, train, dtype, mode) for mode in BN_MODES}
+                allow, exact = _bn_allowance(x.float(), readout.float(), state, train)
+                got = runs["kernels"]
+                what = f"BatchNorm {list(shape)} {dtype} train={train}"
+                for ref in ("twins", "off"):
+                    want = runs[ref]
+                    suffix = "" if ref == "twins" else "_off"
+                    if dtype == torch.float32:
+                        over = {k: ((got[k].double() - want[k].double()).abs() / allow[k]).max()
+                                .item() for k in ("y", "dx", "dscale", "dbias")}
+                        check(max(over.values()) <= 1.0,
+                              f"{what}: against {ref}, parts of the allowance {over}")
+                        worst["y" + suffix] = max(worst["y" + suffix], over["y"])
+                        worst["dx" + suffix] = max(worst["dx" + suffix],
+                                                   over["dx"], over["dscale"], over["dbias"])
+                    else:
+                        grad = max(rel_err(got[k].float(), want[k].float())
+                                   for k in ("dx", "dscale", "dbias"))
+                        check(grad <= BF16_GRAD_REL, f"{what}: gradients against {ref} rel "
+                                                     f"{grad:.3g}")
+                        worst["bf16_grad_rel"] = max(worst["bf16_grad_rel"], grad)
+                    stats = max(float((got[k] - want[k]).abs().max()
+                                      / want[k].abs().max().clamp_min(1.0)) for k in ("mean", "var"))
+                    check(stats <= 1e-5, f"{what}: running stats against {ref}: {stats:.3g}")
+                    worst["stats"] = max(worst["stats"], stats)
+                if dtype == BF16:
+                    diff = (got["y"].double() - runs["twins"]["y"].double()).abs()
+                    mag = torch.maximum(got["y"].double().abs(), runs["twins"]["y"].double().abs())
+                    ulp = torch.exp2(torch.floor(torch.log2(torch.where(
+                        mag > 0, mag, torch.ones_like(mag)))) - 7)
+                    terms = exact["y"].abs() + 1
+                    n_diff = int((diff > 0).sum())
+                    check(n_diff <= max(1, int(BF16_SHARE * diff.numel()))
+                          and bool((diff <= torch.maximum(ulp, terms * 2.0 ** -21)
+                                    + allow["y"]).all()),
+                          f"{what}: {n_diff} of {diff.numel()} bf16 outputs differ from the "
+                          f"twins', worst {diff.max().item():.3g}")
+                    worst["bf16_share"] = max(worst["bf16_share"], n_diff / diff.numel())
+        log(f"  BatchNorm gate on at {list(shape)}: held to its twins and to the gate off "
+            f"(worst so far {({k: float(f'{v:.3g}') for k, v in worst.items()})})")
+        torch.cuda.empty_cache()
+    return worst
+
+
+def time_bn_kernels(dev, seed: int) -> dict:
+    """K1a-K1d at n=1 on BN_TIMED_SHAPE in f32 and bf16, beside their plain
+    twins, their byte bounds, the gated BatchNorm's forward and backward
+    (glue included) and F.batch_norm's (cuDNN: the library call computing
+    the same function); the kernel launches of one forward and one backward
+    each way (torch.profiler)."""
+    b, c, h, w = BN_TIMED_SHAPE
+    out = {}
+    for dtype in (torch.float32, BF16):
+        e = torch.finfo(dtype).bits // 8
+        x, state, g = _bn_case(dev, BN_TIMED_SHAPE, seed, dtype)
+        xs = [x]
+        a, k = state["scale"][None, None, :].expand(1, b, c).contiguous(), \
+            state["bias"][None, :].expand(b, c).contiguous()
+        ds = [0.01 * state["bias"][None, None, :].expand(1, b, c).contiguous()] * 2
+        n, planes = b * c * h * w, b * c
+        nbytes = dict(stats=n * e + 2 * planes * 4, mix=2 * n * e + 2 * planes * 4,
+                      reduce=2 * n * e + 2 * planes * 4, dx=3 * n * e + 3 * planes * 4)
+        t = dict(stats=time_ms(lambda: ge.branch_stats(xs)),
+                 stats_plain=time_ms(lambda: ge.branch_stats_plain(xs)),
+                 mix=time_ms(lambda: ge.apply_mix(xs, a, k)),
+                 mix_plain=time_ms(lambda: ge.apply_mix_plain(xs, a, k)),
+                 reduce=time_ms(lambda: ge.bwd_reduce(xs, g)),
+                 reduce_plain=time_ms(lambda: ge.bwd_reduce_plain(xs, g)),
+                 dx=time_ms(lambda: ge.bwd_dx(xs, g, a, *ds)),
+                 dx_plain=time_ms(lambda: ge.bwd_dx_plain(xs, g, a, *ds)))
+        modules, launches = {}, {}
+        for on in (True, False):
+            bn = BatchNorm(c, dtype=dtype).to(dev)
+            bn.load_state_dict(state)
+            xi = x.detach().clone().requires_grad_()
+            with pallas_bn(on):
+                fwd = lambda: bn(xi, train=True)
+                y = fwd()
+                params = (xi, bn.scale, bn.bias)
+                bwd = lambda: torch.autograd.grad(y, params, g, retain_graph=True)
+                key = "gate" if on else "library"
+                modules[f"{key}_fwd"] = time_ms(fwd)
+                modules[f"{key}_bwd"] = time_ms(bwd)
+                # launches a call: the profiler over BN_PROFILED calls (it may
+                # record no device time over a single short call)
+                for part, fn in (("fwd", fwd), ("bwd", bwd)):
+                    n = profile(lambda: [fn() for _ in range(BN_PROFILED)],
+                                f"{BN_PROFILED} BatchNorm {part} calls, gate {on}, "
+                                f"{dtype}").get("launches")
+                    launches[f"{key}_{part}"] = None if n is None else n / BN_PROFILED
+        bound = {key: nb / PEAK_BYTES_PER_S * 1e3 for key, nb in nbytes.items()}
+        suffix = "" if dtype == torch.float32 else BF16_SUFFIX
+        for name, key in _TIMED:
+            pair = "fwd" if key in ("stats", "mix") else "bwd"
+            out[name + suffix] = dict(
+                shape=list(BN_TIMED_SHAPE), n=1, ms=t[key], plain_ms=t[f"{key}_plain"],
+                bound_ms=bound[key], pass_=pair,
+                pair_ms=t["stats"] + t["mix"] if pair == "fwd" else t["reduce"] + t["dx"],
+                pair_bound_ms=(bound["stats"] + bound["mix"] if pair == "fwd"
+                               else bound["reduce"] + bound["dx"]),
+                gated_module_ms=modules[f"gate_{pair}"], library_ms=modules[f"library_{pair}"],
+                launches_per_call=dict(gate=launches[f"gate_{pair}"],
+                                       library=launches[f"library_{pair}"]))
+        log(f"  BatchNorm n=1 at {list(BN_TIMED_SHAPE)} {dtype} (ms / plain / bound): "
+            + " | ".join(f"{name} {t[key]:.4f} / {t[key + '_plain']:.4f} / {bound[key]:.4f}"
+                         for name, key in _TIMED)
+            + f" | gated module fwd {modules['gate_fwd']:.4f} bwd {modules['gate_bwd']:.4f}"
+            f" | F.batch_norm fwd {modules['library_fwd']:.4f} bwd {modules['library_bwd']:.4f}"
+            f" | launches {launches}")
+        torch.cuda.empty_cache()
+    return out
+
+
+def _gate_turns(label, step_fn, bn_count, reps: int = 3) -> dict:
+    """Steps with the gate on and off in turns (on, off, off, on), `reps`
+    a turn after one warm-up call each way; the wrapper counts of one gated
+    step held to `bn_count` (each 4-D BatchNorm: K1a and K1b forward, K1c
+    and K1d backward), and the inputs it copied (to NCHW or to f32)
+    (`BatchNorm.pallas_copies`); then one step each way under
+    torch.profiler."""
+    times = {True: [], False: []}
+    for on in (True, False):
+        with pallas_bn(on):
+            step_fn()
+    torch.cuda.synchronize()
+    for on in (True, False, False, True):
+        with pallas_bn(on):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                step_fn()
+            torch.cuda.synchronize()
+            times[on].append((time.perf_counter() - t0) * 1e3 / reps)
+    reset_counts()
+    copies = BatchNorm.pallas_copies
+    with pallas_bn(True):
+        step_fn()
+    torch.cuda.synchronize()
+    copies = BatchNorm.pallas_copies - copies
+    got = {k: v for k, v in counts().items() if v}
+    by_kernel = {}
+    for name, v in got.items():
+        by_kernel[name.removesuffix(BF16_SUFFIX)] = by_kernel.get(name.removesuffix(BF16_SUFFIX),
+                                                                   0) + v
+    check(by_kernel == {name: bn_count for name, _ in _TIMED},
+          f"{label}: a gated step launched {got}, expected {bn_count} of each K1 kernel")
+    profiles = {}
+    for on in (True, False):
+        with pallas_bn(on):
+            prof = profile(step_fn, f"{label}, gate {'on' if on else 'off'}")
+        classes = prof.get("by_class_ms", {})
+        prof["bn_class_ms"] = sum(v for c, v in classes.items()
+                                  if c == "batch norm" or "(K1" in c)
+        profiles["on" if on else "off"] = prof
+    log(f"{label}: ms/step gate on {[round(t, 2) for t in times[True]]}, off "
+        f"{[round(t, 2) for t in times[False]]} (in turns on, off, off, on); launches of a "
+        f"gated step {got}; inputs the gated BatchNorms copied (to NCHW or to f32) {copies}")
+    return dict(ms_on=float(np.mean(times[True])), ms_off=float(np.mean(times[False])),
+                turns=dict(on=times[True], off=times[False]), launches=got,
+                profile=profiles, nchw_copies=copies)
+
+
+def run_bn_gate_steps(dev, seed: int) -> dict:
+    """The promise12-fixed-train step (f32), the same in bf16 and the zoo's
+    unet step in bf16, each with the gate on and off in turns."""
+    t = load_config(CONFIG)["training"]
+    bs = t["batch_size"]
+    batch = _batches(np.random.RandomState(seed + 19), 1, bs, HW, dev)[0]
+    out, total = {}, {name: 0 for name in KERNELS}
+    for label, make in (
+            ("fixed f32", lambda g: _fixed_model(t, dev, g)),
+            ("fixed bf16", lambda g: _fixed_model(t, dev, g, BF16)),
+            ("unet bf16", lambda g: _zoo_model("unet", t["depth"], dev, g, BF16))):
+        model = make(torch.Generator().manual_seed(seed + 19))
+        state = FixedTrainState.create(model, t["model_optimizer"], seed=seed)
+        step = make_train_step(_fixed_loss(t), grad_clip=t["grad_clip"])
+        with bn_inputs(model) as seen, pallas_bn(False):
+            step(state, batch)
+        out[label] = _gate_turns(f"{label} step, batch {bs}", lambda: step(state, batch),
+                                 len(seen))
+        out[label]["bn_calls"] = len(seen)
+        out[label]["bn_shapes"] = sorted(set(seen))
+        add_counts(total, {k: out[label]["launches"].get(k, 0) for k in KERNELS})
+        del model, state, step
+        torch.cuda.empty_cache()
+    return dict(steps=out, launches=total)
+
+
+# the six optimizers of the port beyond sgd and adam, one fixed step each
+OTHER_OPTIMIZERS = {
+    "adamax": {"name": "adamax", "lr": 2e-3, "weight_decay": 5e-4},
+    "adadelta": {"name": "adadelta", "lr": 1.0, "rho": 0.9, "weight_decay": 5e-4},
+    "adagrad": {"name": "adagrad", "lr": 1e-2, "weight_decay": 5e-4},
+    "rmsprop": {"name": "rmsprop", "lr": 1e-3, "momentum": 0.9, "weight_decay": 5e-4},
+    "asgd": {"name": "asgd", "lr": 6e-3, "weight_decay": 5e-4},
+    "adabound": {"name": "adabound", "lr": 1e-3, "weight_decay": 5e-4},
+}
+
+
+@contextlib.contextmanager
+def module_outputs(model, forced=None):
+    """Within it, every tensor that a module of `model` returns is kept, in
+    call order, in the yielded list (on the CPU); with `forced` (such a list
+    from another run) each is replaced by the forced value, exactly, with
+    the gradient passing through the module's own output."""
+    seen, hooks = [], []
+
+    def hook(mod, args, out):
+        if not torch.is_tensor(out) or not out.is_floating_point():
+            return None
+        seen.append(out.detach().cpu().clone())
+        if forced is None:
+            return None
+        want = forced[len(seen) - 1].to(out.device, out.dtype)
+        return out - out.detach() + want
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()]
+    try:
+        yield seen
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def split_step_card_vs_cpu(dev, seed: int, optimizers=None) -> dict:
+    """One fixed train step (phase 7's: depth 3, c 8, 64x64, batch 2) on the
+    card and on the CPU from identical state, held to CARD_CPU_LIMITS in
+    three parts, since the step's gradients are discontinuous at that
+    scale: an input of a ReLU or a max pool that lies within rounding of a
+    kink sends a whole gradient element another way. (The gated BatchNorm's
+    one-sweep variance moves the forward by ~1e-6, which at this seed flips
+    such a kink: the gradients jump by 1.3e-3, as the CPU's own do when one
+    BatchNorm output moves by 1e-6 noise. An adaptive optimizer's first
+    step, lr g/|g| on gradients at rounding level, does the same to the
+    update.)
+    - forward: the loss and the running stats, card against the CPU's step;
+    - gradients: their norm and their relative difference (as the weights'
+      update is measured), card against the CPU's step with its forward
+      forced to the card's module outputs (`module_outputs`), so that both
+      take every kink the same way;
+    - update: the weights after the card's step against the CPU's
+      optimizer stepped from the same state on the card's gradients, for
+      the config's optimizer and for each of `optimizers` (name -> config:
+      the card's step once more with it; the forward and the gradients of
+      a first step do not depend on it).
+    Returns the parts' numbers and the plain comparison's."""
+    t = dict(load_config(CONFIG)["training"], depth=3, init_channels=8)
+    model0 = _fixed_model(t, "cpu", torch.Generator().manual_seed(seed + 5)).state_dict()
+    batch = _batches(np.random.RandomState(seed + 5), 1, 2, 64, "cpu")[0]
+    before = {"model": {k: v.clone() for k, v in model0.items()}, "arch": {}}
+    cpu = lambda d: {k: v.detach().cpu().clone() for k, v in d.items()}
+
+    def run_on(d, opt_cfg, forced=None):
+        model = _fixed_model(t, d, None)
+        model.load_state_dict({k: v.to(d) for k, v in model0.items()})
+        state = FixedTrainState.create(model, opt_cfg)
+        names = {id(p): k for k, p in model.named_parameters()}
+        grads = {}
+        state.opt.register_step_pre_hook(lambda opt, args, kw: grads.update(
+            {names[id(p)]: p.grad.detach().cpu().clone() for g in opt.param_groups
+             for p in g["params"]}))
+        with module_outputs(model, forced) as seen:
+            m = make_train_step(_fixed_loss(t), grad_clip=t["grad_clip"])(
+                state, {k: v.to(d) for k, v in batch.items()})
+        return cpu(m), {"model": cpu(model.state_dict()), "arch": {}}, grads, seen
+
+    def update_rel(opt_cfg, after_card, g_card):
+        """The card's update against the CPU's optimizer on g_card."""
+        model = _fixed_model(t, "cpu", None)
+        model.load_state_dict(model0)
+        opt = build_optimizer(list(model.parameters()), opt_cfg)
+        for k, p in model.named_parameters():
+            p.grad = g_card[k]
+        opt.step()
+        return _state_rel(before, after_card, {"model": cpu(model.state_dict()),
+                                               "arch": {}})["weights"]
+
+    m_card, after_card, g_card, seen = run_on(dev, t["model_optimizer"])
+    m_cpu, after_cpu, _, _ = run_on("cpu", t["model_optimizer"])
+    m_forced, _, g_forced, _ = run_on("cpu", t["model_optimizer"], forced=seen)
+    forward = _metrics_rel(m_card, m_cpu, ("loss",))
+    forward["bn_stats"] = _state_rel(before, after_card, after_cpu)["bn_stats"]
+    grads = _metrics_rel(m_card, m_forced, ("grad_norm",))
+    grads["weights"] = _update_rel({k: torch.zeros_like(v) for k, v in g_forced.items()},
+                                   g_card, g_forced, list(g_forced))
+    update = {t["model_optimizer"]["name"]: update_rel(t["model_optimizer"], after_card, g_card)}
+    for name, opt_cfg in (optimizers or {}).items():
+        _, after, g, _ = run_on(dev, opt_cfg)
+        update[name] = update_rel(opt_cfg, after, g)
+    plain = dict(metrics=_metrics_rel(m_card, m_cpu, ("loss", "grad_norm")),
+                 state=_state_rel(before, after_card, after_cpu))
+    return dict(forward=forward, grads=grads, update=update, plain=plain)
+
+
+def run_config_keys_card_vs_cpu(dev, seed: int) -> dict:
+    """`split_step_card_vs_cpu` with the gate on (the kernels on the card,
+    their twins on the CPU), and with it off for the updates of the six
+    other optimizers, each part held to CARD_CPU_LIMITS (metrics: loss,
+    grad_norm; weights: the gradients and each update; bn_stats); then the
+    gated step with TF32 on, which the limits must catch."""
+    lim = CARD_CPU_LIMITS
+    within = lambda r: (r["forward"]["loss"] <= lim["metrics"]
+                        and r["forward"]["bn_stats"] <= lim["bn_stats"]
+                        and r["grads"]["grad_norm"] <= lim["metrics"]
+                        and r["grads"]["weights"] <= lim["weights"]
+                        and max(r["update"].values()) <= lim["weights"])
+    out = {}
+    with pallas_bn(True):
+        out["pallas_bn"] = split_step_card_vs_cpu(dev, seed)
+    out["optimizers"] = split_step_card_vs_cpu(dev, seed, OTHER_OPTIMIZERS)
+    for name, r in out.items():
+        log(f"  fixed step card vs CPU ({name}): forward {r['forward']}, gradients (forward "
+            f"forced) {r['grads']}, updates on the card's gradients {r['update']}; the plain "
+            f"comparison {r['plain']}")
+        check(within(r), f"card and CPU fixed steps disagree ({name}): {r} (limits {lim})")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pallas_bn(True):
+            tf32 = split_step_card_vs_cpu(dev, seed)
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"  the same with the gate on and TF32 on: forward {tf32['forward']}, gradients "
+        f"{tf32['grads']}, update {tf32['update']}")
+    check(not within(tf32), "the split card-vs-CPU limits let a step with TF32 on pass")
+    out["pallas_bn_tf32"] = tf32
+    return out
+
+
+def _remat_pair(build, step_fn, batches, want_fn, reps: int = 2) -> dict:
+    """For remat off and on: a state from `build(remat)` and its steps
+    (the first a warm-up), host-clock ms/step, the peak memory, and the
+    launches of the `reps` timed steps held to want_fn(state, remat)."""
+    out = {}
+    for remat in (False, True):
+        state = build(remat)
+        step_fn(state, batches[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        times = []
+        for batch in batches[1:reps + 1]:
+            t0 = time.perf_counter()
+            m = step_fn(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            check(np.isfinite(float(m["loss"])), f"remat={remat} step: loss {float(m['loss'])}")
+        got, want = counts(), want_fn(state, remat)
+        check(got == want, f"{reps} steps with remat={remat} launched {got}, expected {want}")
+        out[remat] = dict(ms=float(np.mean(times)), peak_mib=torch.cuda.max_memory_allocated()
+                          / 2**20, launches=got)
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_remat(dev, seed: int) -> dict:
+    """remat at full width: the search step (do_arch) and the fixed step,
+    off then on, ms/step and peak memory (the search step's kernel launches
+    held to the count with the recompute: K1a and K1b twice a pass); at
+    phase 7's reduced size under cuDNN's deterministic algorithms, the
+    search and fixed steps with remat on against off, three runs off and
+    two on in turns: the forward (loss, arch loss, running stats) equal to
+    1e-6, the gradient norm, weights and arch tables within phase 7's
+    limits (CARD_CPU_LIMITS), beside the spread of the runs with it off.
+    The card's max-pool and bilinear-upsampling backwards add with
+    atomics, so the weights differ run to run (~5e-6 of their update) with
+    or without remat; on the CPU the steps are equal."""
+    s = load_config(CONFIG)["searching"]
+    t = load_config(CONFIG)["training"]
+    rng = np.random.RandomState(seed + 21)
+    sb = [(tb, vb) for tb, vb in zip(*[iter(_batches(rng, 6, s["batch_size"], HW, dev))] * 2)]
+    fb = _batches(rng, 3, t["batch_size"], HW, dev)
+    meta, depth = s["meta_node_num"], s["depth"]
+
+    def build_search(remat):
+        gen = torch.Generator().manual_seed(seed + 21)
+        model = _supernet(s, dev, gen, remat=remat)
+        arch = init_arch_params(meta, depth, use_sharing=s["sharing_normal"], generator=gen,
+                                device=dev)
+        return SearchTrainState.create(model, arch, s["model_optimizer"], s["arch_optimizer"])
+
+    search_step = make_search_step(lambda a: normalize_arch(a, meta),
+                                   build_loss(s["loss"]["name"]), grad_clip=s["grad_clip"])
+    search = _remat_pair(build_search, lambda st, b: search_step(st, *b, True), sb,
+                         lambda st, remat: {name: 2 * v for name, v in per_step(
+                             expected_launches(st.model), True, remat).items()})
+    fixed_step = make_train_step(_fixed_loss(t), grad_clip=t["grad_clip"])
+    fixed = _remat_pair(lambda remat: FixedTrainState.create(
+        _fixed_model(t, dev, torch.Generator().manual_seed(seed + 22), remat=remat),
+        t["model_optimizer"]), fixed_step, fb, lambda st, remat: {name: 0 for name in KERNELS})
+    for label, pair in (("search step (do_arch)", search), ("fixed step", fixed)):
+        log(f"remat {label} at full width: off {pair[False]['ms']:.2f} ms/step, peak "
+            f"{pair[False]['peak_mib']:.1f} MiB; on {pair[True]['ms']:.2f} ms/step, peak "
+            f"{pair[True]['peak_mib']:.1f} MiB")
+
+    # reduced size: the same step with remat off and on in turns (off, on,
+    # off, on, off), deterministic cuDNN
+    rs = dict(s, depth=3, init_channels=8)
+    rt = dict(t, depth=3, init_channels=8)
+    gen = torch.Generator().manual_seed(seed + 23)
+    s0 = _supernet(rs, "cpu", gen).state_dict()
+    arch0 = init_arch_params(rs["meta_node_num"], 3, use_sharing=False, generator=gen, device="cpu")
+    f0 = _fixed_model(rt, "cpu", gen).state_dict()
+    tb, vb = _batches(np.random.RandomState(seed + 23), 2, 2, 64, dev)
+
+    def search_run(remat):
+        model = _supernet(rs, dev, None, remat=remat)
+        model.load_state_dict({k: v.to(dev) for k, v in s0.items()})
+        state = SearchTrainState.create(model, {k: v.clone().to(dev) for k, v in arch0.items()},
+                                        rs["model_optimizer"], rs["arch_optimizer"])
+        before = _snapshot(state)
+        m = search_step(state, tb, vb, True)
+        return before, {k: v.cpu() for k, v in m.items()}, _snapshot(state)
+
+    def fixed_run(remat):
+        model = _fixed_model(rt, dev, None, remat=remat)
+        model.load_state_dict({k: v.to(dev) for k, v in f0.items()})
+        state = FixedTrainState.create(model, rt["model_optimizer"])
+        snap = lambda: {"model": {k: v.clone() for k, v in model.state_dict().items()}, "arch": {}}
+        before = snap()
+        m = fixed_step(state, tb)
+        return before, {k: v.cpu() for k, v in m.items()}, snap()
+
+    equal = {}
+    with deterministic_cudnn():
+        for label, run, keys in (("search", search_run, ("loss", "arch_loss", "grad_norm")),
+                                 ("fixed", fixed_run, ("loss", "grad_norm"))):
+            runs = [(remat, run(remat)) for remat in (False, True, False, True, False)]
+            dist = lambda a, b: {**_metrics_rel(a[1], b[1], keys),
+                                 **_state_rel(b[0], a[2], b[2])}
+            pairs = lambda x, y: [dist(a, b) for i, (ra, a) in enumerate(runs)
+                                  for j, (rb, b) in enumerate(runs)
+                                  if i < j and (ra, rb) in ((x, y), (y, x))]
+            worst = lambda ds: {k: max(d[k] for d in ds) for k in ds[0]}
+            equal[label] = dict(on_vs_off=worst(pairs(True, False)),
+                                off_vs_off=worst(pairs(False, False)))
+    for label, r in equal.items():
+        log(f"  {label} step, remat on vs off (depth 3, c 8, 64x64, batch 2, deterministic "
+            f"cuDNN; the largest of 6 pairs): {r['on_vs_off']}; off vs off, the card's own "
+            f"spread (3 pairs): {r['off_vs_off']}")
+        on, lim = r["on_vs_off"], CARD_CPU_LIMITS
+        check(all(on[k] <= 1e-6 for k in ("loss", "arch_loss", "bn_stats") if k in on)
+              and on["grad_norm"] <= lim["metrics"] and on["weights"] <= lim["weights"]
+              and on["arch"] <= lim["arch"],
+              f"{label} step: remat on and off differ: {r} (the forward within 1e-6, the "
+              f"rest within {lim})")
+    return dict(search=search, fixed=fixed, equal=equal)
+
+
+def run_config_clis(work: str) -> dict:
+    """configs/senas/senas_synthetic.yml with the keys the port used to
+    refuse, through the CLIs in this process: search_arc for one epoch with
+    `beta_mode: grouped`, `multi_gpus: true`, `mesh_spatial: 2` and
+    `arch_optimizer: adabound`, then train_model for one epoch with
+    `remat: true` and `model_optimizer: rmsprop`."""
+    cfg = load_config(RUNNER_CONFIG)
+    cfg["searching"].update(beta_mode="grouped", multi_gpus=True, mesh_spatial=2)
+    cfg["searching"]["arch_optimizer"] = dict(cfg["searching"]["arch_optimizer"],
+                                              name="adabound")
+    cfg["searching"]["arch_optimizer"]["betas"] = list(cfg["searching"]["arch_optimizer"]["betas"])
+    cfg["training"]["remat"] = True
+    cfg["training"]["model_optimizer"] = dict(cfg["training"]["model_optimizer"],
+                                              name="rmsprop", lr=1e-3)
+    config = os.path.join(work, "senas_synthetic_keys.yml")
+    with open(config, "w") as f:
+        yaml.safe_dump(cfg, f)
+    log_root = os.path.join(work, "logs")
+    out = _in_process(search_arc.main, "--config", config, "--epoch", "1", "--log_root", log_root)
+    search_dir = _run_dir(out)
+    genotype = parse_genotype(out.split("best genotype: ")[1].strip())
+    with open(os.path.join(search_dir, "run.log")) as f:
+        text = f.read()
+    check("beta_mode = grouped" in text and "only 1 device visible" in text,
+          "the search run's log lacks its beta_mode or multi_gpus line")
+    out = _in_process(train_model.main, "--config", config, "--epoch", "1", "--log_root", log_root)
+    train = _scalars(_run_dir(out))
+    search = _scalars(search_dir)
+    check(all(np.isfinite(v) for v in (*search.values(), *train.values())),
+          f"config-key CLI scalars {search} {train}")
+    log(f"config-key CLIs: search val dice {search['Val/dice']:.4f}, genotype {genotype!r}; "
+        f"train (remat, rmsprop) val dice {train['Val/dice']:.4f}")
+    return dict(search_val_dice=search["Val/dice"], train_val_dice=train["Val/dice"],
+                genotype=repr(genotype))
+
+
+def run_config_keys(dev, seed: int) -> dict:
+    """Phase 19, timed: the gated BatchNorm path's checks and times, the
+    gate on and off in three steps, card against CPU (gate, optimizers),
+    remat and the CLIs."""
+    t0 = time.perf_counter()
+    marks = []
+
+    def mark(what):
+        marks.append(f"{what} {time.perf_counter() - t0:.1f} s")
+        log(f"phase 19: {marks[-1]}")
+
+    t = load_config(CONFIG)["training"]
+    model = _fixed_model(t, dev, torch.Generator().manual_seed(seed + 18))
+    batch = _batches(np.random.RandomState(seed + 18), 1, t["batch_size"], HW, dev)[0]
+    with bn_inputs(model) as seen, torch.no_grad():
+        model(batch["image"], train=True)
+    shapes = sorted(set(seen)) + [s for s in BN_EXTRA_SHAPES if s not in seen]
+    del model
+    log(f"BatchNorm shapes held: {len(shapes)} ({len(set(seen))} of the fixed model's "
+        f"{len(seen)} calls) + {list(BN_EXTRA_SHAPES)}")
+    worst = check_bn_path(dev, seed, shapes)
+    mark("BN checks")
+    timed = time_bn_kernels(dev, seed)
+    mark("BN times")
+    steps = run_bn_gate_steps(dev, seed)
+    mark("gate on/off steps")
+    card_cpu = run_config_keys_card_vs_cpu(dev, seed)
+    mark("card vs CPU")
+    remat = run_remat(dev, seed)
+    mark("remat")
+    with tempfile.TemporaryDirectory() as work:
+        clis = run_config_clis(work)
+    mark("CLIs")
+    seconds = time.perf_counter() - t0
+    log(f"phase 19 (config keys, SENAS_PALLAS_BN, remat): {seconds:.1f} s ({', '.join(marks)})")
+    return dict(checks=worst, timed=timed, steps=steps["steps"], launches=steps["launches"],
+                card_vs_cpu=card_cpu, remat=remat, clis=clis, seconds=seconds,
+                bn_shapes=[list(s) for s in shapes])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3264,6 +3952,10 @@ def main(argv=None) -> int:
     paths["bf16_fixed_train_eval"] = dict(launches={
         k: bf16["fixed"]["train"]["launches"][k] + bf16["fixed"]["eval"]["launches"][k]
         for k in KERNELS})
+    keys = run_config_keys(dev, args.seed)
+    paths["pallas_bn_steps"] = dict(launches=keys["launches"])
+    paths["remat_search_steps"] = dict(launches={
+        k: sum(keys["remat"]["search"][r]["launches"][k] for r in (False, True)) for k in KERNELS})
 
     kernels = []
     for name, k in KERNELS.items():
@@ -3303,6 +3995,7 @@ def main(argv=None) -> int:
                        launches_per_search_step=per_search_step)
             if "f32_ms" in r:
                 row["f32_ms"] = r["f32_ms"]
+            row["bn_n1"] = keys["timed"][name]
         if "max_rel_err" in r:
             row["max_rel_err"] = r["max_rel_err"]
         kernels.append(row)
@@ -3379,6 +4072,16 @@ def main(argv=None) -> int:
         f"CLIs {bf16_zoo['clis']}; norm_convs bf16 {k2b['ms']:.4f} ms (f32 kernel "
         f"{k2b['f32_ms']:.4f}, plain {k2b['plain_ms']:.4f}, cuDNN bf16 {k2b['library_ms']:.4f}, "
         f"bound {k2b['bound_ms']:.4f})")
+    steps = keys["steps"]
+    log(f"phase 19 summary ({keys['seconds']:.1f} s): gate on/off ms/step "
+        f"{ {n: (round(r['ms_on'], 2), round(r['ms_off'], 2)) for n, r in steps.items()} }; "
+        f"busy ms, idle share, BN-class ms, launches on/off "
+        f"{ {n: [(round(p.get('busy_ms', -1), 2), round(p.get('idle_share', -1), 3), round(p.get('bn_class_ms', -1), 2), p.get('launches')) for p in r['profile'].values()] for n, r in steps.items()} }; "
+        f"BatchNorm calls a step { {n: r['bn_calls'] for n, r in steps.items()} }; checks "
+        f"{keys['checks']}; remat ms/step, peak MiB off/on "
+        f"{ {n: [(round(r['ms'], 2), round(r['peak_mib'], 1)) for r in keys['remat'][n].values()] for n in ('search', 'fixed')} }; "
+        f"remat equal {keys['remat']['equal']}; card vs CPU {keys['card_vs_cpu']}; "
+        f"CLIs {keys['clis']}")
     log(f"card: {smi}; total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

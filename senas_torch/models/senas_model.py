@@ -11,8 +11,9 @@ later cell takes only the cells that were. Submodules carry the flax names
 (`stem0`, `stem1_block`, `down_{i}`, `up_{i}_{j}`, `head.up_cell`,
 `head.segmentation_head`, each cell's `op_{i}`), so `senas_torch.convert`
 carries the weights leaf by leaf. `SenasModel.forward` keeps the JAX
-package's NHWC boundary and runs NCHW inside. `remat` and a
-`dropout_prob` above 0 are not ported and raise. `dtype` is every
+package's NHWC boundary and runs NCHW inside. `remat` recomputes every
+cell (the head's included) in the backward (`primitives.remat`); a
+`dropout_prob` above 0 is not ported and raises. `dtype` is every
 module's compute dtype, as in the JAX package (None: f32; with
 `torch.bfloat16` the logits are bf16 and the weights and running stats
 stay f32).
@@ -29,7 +30,7 @@ from senas_torch.core.device import resolve_device
 from senas_torch.core.genotype import Genotype
 from senas_torch.ops.primitives import (BasicBlock, ConvBn, OpType, RectifyBlock,
                                         RectifyResample, ReLUConv, ShrinkBlock,
-                                        init_params_, make_op, max_pool_3x3, relu)
+                                        init_params_, make_op, max_pool_3x3, relu, remat)
 
 
 class BuildCell(nn.Module):
@@ -78,17 +79,21 @@ class BuildCell(nn.Module):
 
 
 class Head(nn.Module):
-    """Final up cell + 3x3 segmentation conv (senas_model.py:67-75)."""
+    """Final up cell + 3x3 segmentation conv (senas_model.py:67-75); with
+    `remat` the up cell is recomputed in the backward, as every other
+    cell."""
 
     def __init__(self, genotype: Genotype, double_down: int, c_in0: int, c_in1: int,
-                 nclass: int, dtype=None):
+                 nclass: int, dtype=None, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.up_cell = BuildCell(genotype, double_down, c_in0, c_in1, c_in1, "up",
                                  dtype=dtype)
         self.segmentation_head = ReLUConv(c_in1, nclass, kernel_size=3, dtype=dtype)
 
     def forward(self, s0, ot, train: bool = False):
-        return self.segmentation_head(self.up_cell(s0, ot, train), train)
+        return self.segmentation_head(remat(self.up_cell, s0, ot, train, enabled=self.remat),
+                                      train)
 
 
 def _pruned(gamma, depth: int, i: int, j: int) -> bool:
@@ -116,11 +121,8 @@ class SenasModel(nn.Module):
             raise ValueError(f"depth must be >= 2, got {depth}")
         if genotype is None:
             raise ValueError("SenasModel needs a genotype")
-        if remat:
-            raise NotImplementedError("remat is not ported yet (ROADMAP.md Queue 1, "
-                                      "M11 deferred: remat)")
         dev = resolve_device(device)
-        self.depth, self.supervision = depth, supervision
+        self.depth, self.supervision, self.remat = depth, supervision, remat
         self.gamma = list(genotype.gamma)
         double_down = 2 if double_down_channel else 1
         c_in0 = c_in1 = c_curr = c
@@ -156,7 +158,7 @@ class SenasModel(nn.Module):
                                                        dropout_prob, dtype))
             num_filters.append(up_f)
 
-        self.head = Head(genotype, double_down, c, num_filters[-1][0][2], nclass, dtype)
+        self.head = Head(genotype, double_down, c, num_filters[-1][0][2], nclass, dtype, remat)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_params_(self, generator)
@@ -173,7 +175,8 @@ class SenasModel(nn.Module):
         cell_out = [ot]
         for i in range(1, self.depth):
             in0 = s0 if len(cell_out) == 1 else cell_out[-2]
-            cell_out.append(getattr(self, f"down_{i}")(in0, cell_out[-1], train))
+            cell_out.append(remat(getattr(self, f"down_{i}"), in0, cell_out[-1], train,
+                                  enabled=self.remat))
 
         for j in reversed(range(self.depth - 1)):
             for i in range(1, self.depth - j):
@@ -182,7 +185,8 @@ class SenasModel(nn.Module):
                     continue
                 in0 = torch.cat([cell_out[k] for k in range(j, i + j)
                                  if cell_out[k] is not None], dim=1)
-                cell_out[i + j] = getattr(self, f"up_{i}_{j}")(in0, cell_out[i + j], train)
+                cell_out[i + j] = remat(getattr(self, f"up_{i}_{j}"), in0, cell_out[i + j],
+                                        train, enabled=self.remat)
 
         heads = [o for o in cell_out if o is not None] if self.supervision else cell_out[-1:]
         return [self.head(s0, o, train).permute(0, 2, 3, 1) for o in heads]

@@ -341,20 +341,24 @@ def _glue(s1, s2, g, bb, al, se_w1, se_w2, none_k, rm, rv, *, b: int,
     a_bn = torch.rsqrt(var + EPS) * g                       # [n, C]
     k_bn = bb - mu * a_bn                                   # [n, C]
 
-    # SE: scale per (b, c) from the post-BN spatial mean, an affine of the
-    # raw per-(b, c) mean (senas_tpu/ops/grouped_epilogue.py:308-319).
-    s_scale = [torch.ones((b, c), device=g.device)] * n
-    if se_index is not None:
+    if se_index is None:
+        # no per-(b, c) scale: the affines are per channel, broadcast over B
+        # (the same values as the SE form's products with ones, in fewer ops)
+        a_full = (al * a_bn)[:, None, :].expand(n, b, c)     # [n, B, C]
+        k_full = (al * k_bn).sum(dim=0).expand(b, c)         # [B, C]
+    else:
+        # SE: scale per (b, c) from the post-BN spatial mean, an affine of
+        # the raw per-(b, c) mean (senas_tpu/ops/grouped_epilogue.py:308-319).
+        s_scale = [torch.ones((b, c), device=g.device)] * n
         mean_raw = s1[se_index] / hw                        # [B, C]
         m = (mean_raw * a_bn[se_index] + k_bn[se_index]).reshape(b, E, P)
         hid = torch.relu(torch.einsum("bep,epm->bem", m, se_w1.float()))
         sig = torch.sigmoid(torch.einsum("bem,emp->bep", hid, se_w2.float()))
         s_scale[se_index] = sig.reshape(b, c)
-    s_scale = torch.stack(s_scale)                          # [n, B, C]
-
-    # Fold everything into per-(b, c) affines.
-    a_full = (al * a_bn)[:, None, :] * s_scale              # [n, B, C]
-    k_full = ((al * k_bn)[:, None, :] * s_scale).sum(dim=0)  # [B, C]
+        s_scale = torch.stack(s_scale)                      # [n, B, C]
+        # Fold everything into per-(b, c) affines.
+        a_full = (al * a_bn)[:, None, :] * s_scale          # [n, B, C]
+        k_full = ((al * k_bn)[:, None, :] * s_scale).sum(dim=0)  # [B, C]
     if none_k is not None:
         k_full = k_full + none_k
     return a_full, k_full, mu, var

@@ -24,19 +24,27 @@ in PyTorch idiom:
     and its weights at use, so the parameters stay f32 masters. BatchNorm
     takes its statistics and running-stat update in f32 and rounds its
     output once to `dtype`.
+  * `SENAS_PALLAS_BN=1` in the environment (read at each call, default
+    off, as in the JAX package) routes every 4-D BatchNorm through the
+    fused epilogue's kernels at n=1 (`BatchNorm`).
+  * `remat(fn, *args)` is the JAX package's `nn.remat` of a cell.
 """
 
 from __future__ import annotations
 
+import contextlib
 import enum
 import math
+import os
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from senas_torch.core.genotype import DownOps, NormOps, UpOps
+from senas_torch.ops.grouped_epilogue import fused_group_epilogue
 
 EPS = 1e-5
 
@@ -224,6 +232,47 @@ def upsample2x(x):
 # BatchNorm
 # ---------------------------------------------------------------------------
 
+def use_pallas_bn() -> bool:
+    """The JAX package's gate `SENAS_PALLAS_BN=1`: every 4-D BatchNorm
+    normalises through the fused epilogue's kernels at n=1 (K1a's sums and
+    K1b's affine forward, K1c and K1d backward). Off by default there, as
+    the JAX package measured it slower on its own chip; off here too."""
+    return os.environ.get("SENAS_PALLAS_BN", "0") == "1"
+
+
+# True while `remat` recomputes a forward in the backward: the running
+# stats then stay where the first forward left them. A process-wide flag,
+# since autograd may run the recompute on a device thread of its own.
+_RECOMPUTING = False
+
+
+@contextlib.contextmanager
+def _recomputing():
+    global _RECOMPUTING
+    before, _RECOMPUTING = _RECOMPUTING, True
+    try:
+        yield
+    finally:
+        _RECOMPUTING = before
+
+
+def remat(fn, *args, enabled: bool = True):
+    """fn(*args) with its activations recomputed in the backward instead of
+    kept (`torch.utils.checkpoint`, non-reentrant): the JAX package's
+    `nn.remat` of a cell. A plain call when not `enabled` or when autograd
+    records nothing. The same values and gradients, less live memory,
+    one more forward. The recompute leaves the running stats alone
+    (BatchNorm and the epilogue's BNs advance them once a step, as flax's
+    lifted remat updates batch_stats once). `checkpoint` replays only the
+    global RNG states: an op that draws from an explicit `torch.Generator`
+    (the zoo's dropout; a SENAS `dropout_prob` above 0, not ported) would
+    need that generator's state replayed in the recompute as well."""
+    if not (enabled and torch.is_grad_enabled()):
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), _recomputing()))
+
+
 class BatchNorm(nn.Module):
     """BatchNorm with torch nn.BatchNorm2d semantics and the flax layout.
 
@@ -233,7 +282,19 @@ class BatchNorm(nn.Module):
     `scale`, `bias`; buffers `mean`, `var` (all f32, [C]). The output is in
     `dtype`, else in x's dtype: a bf16 x is normalised in f32 (PyTorch's
     mixed batch norm) and rounded once, as the flax module's
-    `y.astype(self.dtype or x.dtype)` does."""
+    `y.astype(self.dtype or x.dtype)` does.
+
+    With `use_pallas_bn()` a 4-D x goes through `fused_group_epilogue([x],
+    [scale], [bias], [ones])`, as the JAX module's `_pallas_path` does: in
+    train mode its one-sweep batch variance max(E[x^2] - mu^2, 0) (the
+    default path's is two-pass), in eval mode an affine of the running
+    stats with no stats sweep. The kernels write their input's dtype, so
+    where `dtype` differs from x's the path runs in f32 (a bf16 x widened,
+    exactly) and rounds once to `dtype`. A non-contiguous x is copied to
+    NCHW; `pallas_copies` counts the copies the path makes. Other ranks
+    keep `F.batch_norm`, as in the JAX module."""
+
+    pallas_copies = 0
 
     def __init__(self, c: int, momentum: float = 0.1, eps: float = EPS, dtype=None):
         super().__init__()
@@ -246,10 +307,45 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(c))
 
     def forward(self, x, train: bool = False):
-        # F.batch_norm updates `mean`/`var` in place in train mode.
-        y = F.batch_norm(x, self.mean, self.var, self.scale, self.bias,
+        if x.dim() == 4 and use_pallas_bn():
+            return self._kernel_path(x, train)
+        # F.batch_norm updates the running stats it is given in place in
+        # train mode; a remat recompute gives it copies.
+        mean, var = ((self.mean.clone(), self.var.clone()) if train and _RECOMPUTING
+                     else (self.mean, self.var))
+        y = F.batch_norm(x, mean, var, self.scale, self.bias,
                          training=train, momentum=self.momentum, eps=self.eps)
         return y if self.dtype is None else y.to(self.dtype)
+
+    def _kernel_path(self, x, train: bool):
+        out_dtype = self.dtype or x.dtype
+        xk = x if x.dtype == out_dtype else x.float()
+        if not xk.is_contiguous():
+            xk = xk.contiguous()
+        BatchNorm.pallas_copies += (xk is not x)
+        ones = torch.ones_like(self.scale)
+        if not train:
+            y, _ = fused_group_epilogue([xk], [self.scale], [self.bias], [ones], train=False,
+                                        run_means=[self.mean], run_vars=[self.var],
+                                        out_dtype=xk.dtype)
+        else:
+            y, (mu, var) = fused_group_epilogue([xk], [self.scale], [self.bias], [ones],
+                                                train=True, out_dtype=xk.dtype)
+            self.advance(mu[0], var[0], x.numel() // x.shape[1])
+        return y.to(out_dtype)
+
+    @torch.no_grad()
+    def advance(self, mu, var, count: int):
+        """Move the running stats from biased batch stats (mu, var) over
+        `count` values: momentum 0.1, the unbiased variance. In place (on
+        the CPU and on the card), as nn.BatchNorm2d does; the JAX package
+        returns new arrays instead. Not while `remat` recomputes."""
+        if _RECOMPUTING:
+            return
+        unbiased = var * (count / max(count - 1, 1))
+        m = self.momentum
+        self.mean.mul_(1 - m).add_(m * mu)
+        self.var.mul_(1 - m).add_(m * unbiased)
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,15 @@
 """Shared runner plumbing: config resolution, batch placement, eval loop.
 
 Port of the parts of `senas_tpu/runner/common.py` that the search, train
-and test runners use. The device mesh (`multi_gpus`, `mesh_spatial`) is not
-ported.
+and test runners use. `multi_gpus` runs on the one visible device, as the
+JAX runner does without a second one; a mesh over two or more cards is not
+ported (ROADMAP.md M13) and raises.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -78,15 +79,25 @@ def run_eval_loop(eval_step_fn, loader: DataLoader, nclass: int, place_fn):
     return metric, loss_meter
 
 
-def check_unported(section: Dict[str, Any]) -> None:
-    """Raise on the options of a `searching:` or `training:` section that the
-    port does not have yet."""
-    if section.get("multi_gpus", False) or int(section.get("mesh_spatial", 1)) > 1:
-        raise NotImplementedError("multi_gpus / mesh_spatial are not ported yet "
-                                  "(ROADMAP.md Queue 1, M13)")
-    if section.get("remat", False):
-        raise NotImplementedError("remat is not ported yet (ROADMAP.md Queue 1)")
-    resolve_precision(section.get("precision"))
+def visible_devices(device: torch.device) -> int:
+    """The devices a mesh on `device`'s kind could span: the visible cards,
+    or 1 for the CPU."""
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def multi_gpus_note(section: Dict[str, Any], device: torch.device) -> Optional[str]:
+    """`multi_gpus` of a `searching:` or `training:` section, for a run on
+    `device`. With `multi_gpus: true` and one visible device the run stays
+    on it, and the line the JAX runner logs then is returned for the
+    caller's log (`mesh_spatial` is read only for a mesh); with two or more
+    it raises, rather than use one of them quietly. None otherwise."""
+    if not section.get("multi_gpus", False):
+        return None
+    n = visible_devices(device)
+    if n >= 2:
+        raise NotImplementedError(f"multi_gpus over {n} {device.type} devices is not "
+                                  "ported yet (ROADMAP.md M13)")
+    return f"multi_gpus requested but only {n} device visible — running single-device"
 
 
 def resolve_precision(name):

@@ -22,10 +22,10 @@ import torch
 from senas_torch.core.device import resolve_device
 from senas_torch.data import DataLoader, PrefetchLoader, get_dataset, get_dataset_spec
 from senas_torch.runner.common import (DEFAULT_LOG_ROOT, DeferredMetrics,
-                                       check_unported, make_batch_placer,
+                                       make_batch_placer, multi_gpus_note,
                                        resolve_dataset_kwargs, resolve_precision,
                                        run_eval_loop)
-from senas_torch.search.supernet import (SenasSearch, derive_genotype,
+from senas_torch.search.supernet import (SenasSearch, beta_group_start, derive_genotype,
                                          init_arch_params, normalize_arch)
 from senas_torch.train.checkpoint import CheckpointManager
 from senas_torch.train.loss import build_loss
@@ -38,25 +38,24 @@ from senas_torch.utils.logging import (ScalarWriter, calc_time, close_logger,
 from senas_torch.utils.misc import StepTimer, calc_parameters_count, set_seed, steady_share
 
 
-def _check_supported(s: Dict[str, Any]) -> None:
-    """Raise on the `searching:` options the port does not have yet."""
-    check_unported(s)
-    if s.get("beta_mode", "reference") != "reference":
-        raise NotImplementedError("only beta_mode 'reference' is ported")
-
-
 class SearchRunner:
     def __init__(self, cfg: Dict[str, Any], config_path: Optional[str] = None,
                  data_root: Optional[str] = None, log_root: str = DEFAULT_LOG_ROOT,
                  device=None, dtype=None):
         self.cfg = cfg
         s = cfg["searching"]
-        _check_supported(s)
+        self.device = resolve_device(device)
+        device_note = multi_gpus_note(s, self.device)
+        # beta grouping: "reference" reproduces the reference's overlapping
+        # softmax groups, "grouped" is the disjoint variant (an unknown mode
+        # raises ValueError here)
+        self.beta_mode = s.get("beta_mode", "reference")
+        beta_group_start(0, self.beta_mode)
         # the compute dtype: the caller's, else `precision:` (None: f32)
-        self.dtype = dtype if dtype is not None else resolve_precision(s.get("precision"))
+        precision = resolve_precision(s.get("precision"))
+        self.dtype = dtype if dtype is not None else precision
         seed = cfg.get("seed", 0)
         set_seed(seed)
-        self.device = resolve_device(device)
 
         # dataset: ONE trainset split (train_portion) into train/val index
         # sets (search_arc.py:78-94)
@@ -67,6 +66,8 @@ class SearchRunner:
         self.run_dir = make_run_dir(log_root, cfg["model"]["arch"], "search",
                                     ds_name, config_path)
         self.logger = get_logger(self.run_dir)
+        if device_note:
+            self.logger.info(device_note)
         self.writer = ScalarWriter(self.run_dir)
         self.ckpt = CheckpointManager(os.path.join(self.run_dir, "ckpt"))
         spec = get_dataset_spec(ds_name)
@@ -88,7 +89,8 @@ class SearchRunner:
                           self.depth, self.meta_node_num,
                           double_down_channel=s.get("double_down_channel", False),
                           supervision=s.get("deep_supervision", False),
-                          dtype=self.dtype, device=self.device, generator=gen)
+                          remat=s.get("remat", False), dtype=self.dtype, device=self.device,
+                          generator=gen)
         arch = init_arch_params(self.meta_node_num, self.depth,
                                 use_sharing=s.get("sharing_normal", True),
                                 generator=gen, device=self.device)
@@ -96,7 +98,8 @@ class SearchRunner:
 
         loss_name = s["loss"]["name"] if isinstance(s.get("loss"), dict) else "dice_ce"
         loss_fn = build_loss(loss_name, supervision=s.get("deep_supervision", False))
-        normalize = lambda a: normalize_arch(a, self.meta_node_num)
+        self.logger.info("beta_mode = %s", self.beta_mode)
+        normalize = lambda a: normalize_arch(a, self.meta_node_num, self.beta_mode)
         base_lr = float(s.get("model_optimizer", {}).get("lr", 1e-2))
         self.scheduler = build_scheduler(base_lr, {"name": "cos", "T_max": s["epoch"]})
         # reference mode (default): the weight SGD also updates the arch
@@ -133,7 +136,8 @@ class SearchRunner:
         return self._eval(self.state.arch, batch)
 
     def derive(self):
-        return derive_genotype(self.state.arch, self.meta_node_num, self.depth)
+        return derive_genotype(self.state.arch, self.meta_node_num, self.depth,
+                               beta_mode=self.beta_mode)
 
     # ------------------------------------------------------------------
     def run(self) -> str:

@@ -21,7 +21,7 @@ from senas_torch.challenge import predict_test, volumetric_metrics
 from senas_torch.core.device import resolve_device
 from senas_torch.data import DataLoader, get_dataset, get_dataset_spec
 from senas_torch.models.factory import get_segmentation_model
-from senas_torch.runner.common import (DEFAULT_LOG_ROOT, make_batch_placer,
+from senas_torch.runner.common import (DEFAULT_LOG_ROOT, multi_gpus_note, make_batch_placer,
                                        resolve_dataset_kwargs)
 from senas_torch.runner.train import loss_name, resolve_genotype
 from senas_torch.train.checkpoint import CheckpointManager
@@ -49,6 +49,9 @@ class TestRunner:
         self.cfg = cfg
         t = cfg["training"]
         self.device = resolve_device(device)
+        # `multi_gpus` as the train runner reads it (the JAX runner's mesh
+        # evaluation)
+        device_note = multi_gpus_note(t, self.device)
         ds_name = cfg["data"]["dataset"]
         valset = get_dataset(ds_name, path=data_root, split=cfg["data"].get("split", "val"),
                              mode="val", **resolve_dataset_kwargs(cfg))
@@ -58,6 +61,8 @@ class TestRunner:
 
         self.run_dir = make_run_dir(log_root, model_name, "testing", ds_name, config_path)
         self.logger = get_logger(self.run_dir)
+        if device_note:
+            self.logger.info(device_note)
         self.image_dir = os.path.join(self.run_dir, "images")
         os.makedirs(self.image_dir, exist_ok=True)
 

@@ -24,7 +24,7 @@ from senas_torch.core.genotype import parse_genotype
 from senas_torch.data import DataLoader, PrefetchLoader, get_dataset, get_dataset_spec
 from senas_torch.models import geno_searched
 from senas_torch.models.factory import get_segmentation_model
-from senas_torch.runner.common import (DEFAULT_LOG_ROOT, DeferredMetrics, check_unported,
+from senas_torch.runner.common import (DEFAULT_LOG_ROOT, DeferredMetrics, multi_gpus_note,
                                        make_batch_placer, resolve_dataset_kwargs,
                                        resolve_precision, run_eval_loop)
 from senas_torch.train.checkpoint import CheckpointManager
@@ -59,12 +59,13 @@ class TrainRunner:
                  ft: bool = False, device=None, dtype=None):
         self.cfg = cfg
         t = cfg["training"]
-        check_unported(t)
+        self.device = resolve_device(device)
+        device_note = multi_gpus_note(t, self.device)
         # the compute dtype: the caller's, else `precision:` (None: f32)
-        self.dtype = dtype if dtype is not None else resolve_precision(t.get("precision"))
+        precision = resolve_precision(t.get("precision"))
+        self.dtype = dtype if dtype is not None else precision
         seed = cfg.get("seed", 0)
         set_seed(seed)
-        self.device = resolve_device(device)
         ds_name = cfg["data"]["dataset"]
         dkw = resolve_dataset_kwargs(cfg)
         trainset = get_dataset(ds_name, path=data_root,
@@ -76,6 +77,8 @@ class TrainRunner:
         self.model_name = model_name
         self.run_dir = make_run_dir(log_root, model_name, "train", ds_name, config_path)
         self.logger = get_logger(self.run_dir)
+        if device_note:
+            self.logger.info(device_note)
         self.writer = ScalarWriter(self.run_dir)
         self.ckpt = CheckpointManager(os.path.join(self.run_dir, "ckpt"))
         self.n_classes = get_dataset_spec(ds_name).num_class

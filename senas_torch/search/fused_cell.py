@@ -55,22 +55,14 @@ _DEPSEP = {"dep_sep_conv_3": 3, "dep_sep_conv_5": 5}
 
 class _EpilogueBN(BatchNorm):
     """BatchNorm's exact variables (scale, bias; mean, var) for a branch
-    whose BN runs inside the fused epilogue. `advance` moves the running
-    stats from the epilogue's biased batch stats with torch momentum-0.1 /
-    unbiased-variance semantics (senas_tpu fused_cell.py:90-114)."""
+    whose BN runs inside the fused epilogue. `advance` (BatchNorm's) moves
+    the running stats from the epilogue's biased batch stats with torch
+    momentum-0.1 / unbiased-variance semantics (senas_tpu
+    fused_cell.py:90-114)."""
 
     def forward(self, x, train: bool = False):
         raise RuntimeError("_EpilogueBN holds variables; the fused epilogue "
                            "computes its BN")
-
-    @torch.no_grad()
-    def advance(self, mu, var, count: int):
-        # In-place buffer update (on the CPU and on the card), as
-        # nn.BatchNorm2d does; the JAX package returns new arrays instead.
-        unbiased = var * (count / max(count - 1, 1))
-        m = self.momentum
-        self.mean.mul_(1 - m).add_(m * mu)
-        self.var.mul_(1 - m).add_(m * unbiased)
 
 
 class GroupedMixedOp(nn.Module):

@@ -7,7 +7,11 @@ caller keeps and passes, softmaxed by `normalize_arch`, to `forward`.
 
 `SenasSearch.forward` keeps the JAX package's NHWC boundary (image
 [B,H,W,C_in] -> list of logits [B,H,W,nclass]); inside it runs NCHW.
-Rematerialisation (`remat`) is not ported.
+`remat` recomputes every cell (the head's included) in the backward
+(`primitives.remat`); `fused=False` builds the per-edge `SearchCell`s the
+JAX package's `fused=False` builds, the grouped `FusedSearchCell`s
+otherwise. `beta_mode` picks the beta softmax groups: "reference"
+(overlapping, as the reference computes them) or "grouped" (disjoint).
 
 `dtype` is the compute dtype of every module (None: the image's, f32);
 with `torch.bfloat16` the logits are bf16, and the weights, the BN running
@@ -27,7 +31,8 @@ from torch import nn
 from senas_torch.core.device import resolve_device
 from senas_torch.core.genotype import DownOps, Genotype, GenoParser, NormOps, UpOps
 from senas_torch.ops.primitives import (BasicBlock, ConvBn, ReLUConv,
-                                        init_params_, max_pool_3x3, relu)
+                                        init_params_, max_pool_3x3, relu, remat)
+from senas_torch.search.cell import SearchCell
 from senas_torch.search.fused_cell import FusedSearchCell
 
 
@@ -61,18 +66,32 @@ def init_arch_params(meta_node_num: int, depth: int, use_sharing: bool = True, *
             for name, shape in shapes.items()}
 
 
-def _group_softmax(beta: torch.Tensor, meta_node_num: int) -> torch.Tensor:
-    """Per-node-group softmax over edge betas (groups of size 2, 3, 4, ...).
-    Node i's group starts at i, not at the cumulative offset, as in the
-    reference (the JAX package's beta_mode="reference"): the groups are
-    [0:2], [1:4], [2:6], ... -- overlapping, and the last raw betas are
-    never read."""
-    return torch.cat([torch.softmax(beta[i:i + 2 + i], dim=0)
-                      for i in range(meta_node_num)], dim=0)
+def beta_group_start(i: int, mode: str) -> int:
+    """Start index of node i's beta softmax group.
+
+    "reference" replicates the reference: its offset is the loop index, so
+    the groups are [0:2], [1:4], [2:6], ... -- overlapping, and the last
+    raw betas are never read. "grouped" gives the disjoint groups [0:2],
+    [2:5], [5:9], ... Any other mode raises ValueError."""
+    if mode == "reference":
+        return i
+    if mode == "grouped":
+        return sum(2 + j for j in range(i))
+    raise ValueError(f"unknown beta_mode {mode!r}")
 
 
-def normalize_arch(arch: Dict[str, torch.Tensor], meta_node_num: int
-                   ) -> Dict[str, torch.Tensor]:
+def _group_softmax(beta: torch.Tensor, meta_node_num: int,
+                   beta_mode: str = "reference") -> torch.Tensor:
+    """Per-node-group softmax over edge betas (groups of size 2, 3, 4, ...)."""
+    parts = []
+    for i in range(meta_node_num):
+        start = beta_group_start(i, beta_mode)
+        parts.append(torch.softmax(beta[start:start + 2 + i], dim=0))
+    return torch.cat(parts, dim=0)
+
+
+def normalize_arch(arch: Dict[str, torch.Tensor], meta_node_num: int,
+                   beta_mode: str = "reference") -> Dict[str, torch.Tensor]:
     """Softmax all architecture parameters (NAS.forward)."""
     alphas_dn_nm = torch.softmax(arch["alphas_dn_nm"], dim=-1)
     alphas_up_nm = (torch.softmax(arch["alphas_up_nm"], dim=-1)
@@ -82,25 +101,30 @@ def normalize_arch(arch: Dict[str, torch.Tensor], meta_node_num: int
         "alphas_up_nm": alphas_up_nm,
         "alphas_dn": torch.softmax(arch["alphas_dn"], dim=-1),
         "alphas_up": torch.softmax(arch["alphas_up"], dim=-1),
-        "betas_dn": _group_softmax(arch["betas_dn"], meta_node_num),
-        "betas_up": _group_softmax(arch["betas_up"], meta_node_num),
+        "betas_dn": _group_softmax(arch["betas_dn"], meta_node_num, beta_mode),
+        "betas_up": _group_softmax(arch["betas_up"], meta_node_num, beta_mode),
         "gamma": torch.softmax(arch["gamma"], dim=-1),
     }
 
 
 class SearchHead(nn.Module):
-    """Up cell + segmentation conv."""
+    """Up cell + segmentation conv; with `remat` the up cell is recomputed
+    in the backward, as every other cell."""
 
     def __init__(self, meta_node_num: int, double_down: int, c_in0: int,
-                 c_in1: int, nclass: int, dtype=None):
+                 c_in1: int, nclass: int, dtype=None, fused: bool = True,
+                 remat: bool = False):
         super().__init__()
-        self.up_cell = FusedSearchCell(meta_node_num, double_down, c_in0, c_in1,
-                                       c_in1, "up", dtype=dtype)
+        cell = FusedSearchCell if fused else SearchCell
+        self.remat = remat
+        self.up_cell = cell(meta_node_num, double_down, c_in0, c_in1, c_in1, "up",
+                            dtype=dtype)
         self.segmentation_head = ReLUConv(c_in1, nclass, kernel_size=3, dtype=dtype)
 
     def forward(self, s0, ot, w_up_nm, w_up, betas_up, train: bool = False):
-        return self.segmentation_head(
-            self.up_cell(s0, ot, w_up_nm, w_up, betas_up, train), train)
+        out = remat(self.up_cell, s0, ot, w_up_nm, w_up, betas_up, train,
+                    enabled=self.remat)
+        return self.segmentation_head(out, train)
 
 
 class SenasSearch(nn.Module):
@@ -113,14 +137,16 @@ class SenasSearch(nn.Module):
 
     def __init__(self, in_channels: int, c: int, nclass: int, depth: int,
                  meta_node_num: int = 3, double_down_channel: bool = False,
-                 supervision: bool = False, dtype=None, *,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 supervision: bool = False, dtype=None, fused: bool = True,
+                 remat: bool = False, *, device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         if depth < 2:
             raise ValueError(f"depth must be >= 2, got {depth}")
         dev = resolve_device(device)
         self.depth, self.meta_node_num = depth, meta_node_num
-        self.supervision = supervision
+        self.supervision, self.remat = supervision, remat
+        cell = FusedSearchCell if fused else SearchCell
         double_down = 2 if double_down_channel else 1
         c_in0 = c_in1 = c_curr = c
 
@@ -135,7 +161,7 @@ class SenasSearch(nn.Module):
             else:
                 c_curr = int(double_down * c_curr)
                 down_f.append([c_in0, c_in1, c_curr, "down"])
-                setattr(self, f"down_{i}", FusedSearchCell(
+                setattr(self, f"down_{i}", cell(
                     meta_node_num, double_down, c_in0, c_in1, c_curr, "down", dtype=dtype))
                 c_in0, c_in1 = c_in1, c_curr
         num_filters.append(down_f)
@@ -147,13 +173,13 @@ class SenasSearch(nn.Module):
                 head_down = num_filters[i - 1][j + 1][2]
                 head_in0 = sum(num_filters[k][j][2] for k in range(i))
                 up_f.append([head_in0, head_down, head_curr, "up"])
-                setattr(self, f"up_{i}_{j}", FusedSearchCell(
+                setattr(self, f"up_{i}_{j}", cell(
                     meta_node_num, double_down, head_in0, head_down, head_curr, "up",
                     dtype=dtype))
             num_filters.append(up_f)
 
-        self.head = SearchHead(meta_node_num, double_down, c,
-                               num_filters[-1][0][2], nclass, dtype=dtype)
+        self.head = SearchHead(meta_node_num, double_down, c, num_filters[-1][0][2], nclass,
+                               dtype=dtype, fused=fused, remat=remat)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_params_(self, generator)
@@ -174,8 +200,8 @@ class SenasSearch(nn.Module):
         cell_out = [ot]
         for i in range(1, self.depth):
             in0 = s0 if len(cell_out) == 1 else cell_out[-2]
-            cell_out.append(getattr(self, f"down_{i}")(
-                in0, cell_out[-1], a_dn_nm, a_dn, b_dn, train))
+            cell_out.append(remat(getattr(self, f"down_{i}"), in0, cell_out[-1], a_dn_nm,
+                                  a_dn, b_dn, train, enabled=self.remat))
 
         # decoder grid sweep with gamma-mixed dense skips, in the dtype that
         # jnp's promotion of the activations by gamma.astype(image dtype)
@@ -192,8 +218,8 @@ class SenasSearch(nn.Module):
                        + cell_out[ides[k + 1]].to(mix) * g[idx][1]
                        for k, idx in enumerate(gamma_ides)],
                     dim=1)
-                cell_out[i + j] = getattr(self, f"up_{i}_{j}")(
-                    in0, cell_out[i + j], a_up_nm, a_up, b_up, train)
+                cell_out[i + j] = remat(getattr(self, f"up_{i}_{j}"), in0, cell_out[i + j],
+                                        a_up_nm, a_up, b_up, train, enabled=self.remat)
 
         heads = cell_out if self.supervision else cell_out[-1:]
         return [self.head(s0, ot, a_up_nm, a_up, b_up, train).permute(0, 2, 3, 1)
@@ -216,7 +242,8 @@ def _to_numpy(v) -> np.ndarray:
     return np.asarray(v, dtype=np.float64)
 
 
-def derive_genotype(arch: Dict[str, Any], meta_node_num: int, depth: int) -> Genotype:
+def derive_genotype(arch: Dict[str, Any], meta_node_num: int, depth: int,
+                    beta_mode: str = "reference") -> Genotype:
     """Discretize continuous arch params into a Genotype (host-side numpy)."""
     arch = {k: _to_numpy(v) for k, v in arch.items()}
     alphas_dn_nm = _np_softmax(arch["alphas_dn_nm"])
@@ -227,9 +254,10 @@ def derive_genotype(arch: Dict[str, Any], meta_node_num: int, depth: int) -> Gen
     alphas_up = _np_softmax(arch["alphas_up"])
 
     betas_dn, betas_up = [], []
-    for i in range(meta_node_num):   # overlapping groups, as in _group_softmax
-        betas_dn.append(_np_softmax(arch["betas_dn"][i:i + 2 + i], axis=0))
-        betas_up.append(_np_softmax(arch["betas_up"][i:i + 2 + i], axis=0))
+    for i in range(meta_node_num):   # the groups of _group_softmax
+        start = beta_group_start(i, beta_mode)
+        betas_dn.append(_np_softmax(arch["betas_dn"][start:start + 2 + i], axis=0))
+        betas_up.append(_np_softmax(arch["betas_up"][start:start + 2 + i], axis=0))
     betas_dn = np.concatenate(betas_dn)
     betas_up = np.concatenate(betas_up)
 

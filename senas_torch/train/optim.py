@@ -1,20 +1,24 @@
 """Optimizers and learning-rate schedules.
 
-Port of `senas_tpu/train/optim.py` for what the search path uses:
+Port of `senas_tpu/train/optim.py`:
 
-  * `build_optimizer(params, cfg)` for `sgd` (momentum, no Nesterov, no
-    dampening) and `adam` (the `betas` tuple from the YAML, `eps`). The JAX
-    package chains optax `add_decayed_weights` before the base transform
-    (coupled L2: wd*param added to the gradient before momentum or moment
-    estimation); `torch.optim.SGD`/`Adam` with `weight_decay` compute the
-    same update, and tests/test_torch_optim.py holds them to optax.
+  * `build_optimizer(params, cfg)` for every name the JAX package builds:
+    `sgd` (momentum, no Nesterov, no dampening), `adam` (the `betas` tuple
+    from the YAML, `eps`), `adamax`, `adadelta`, `adagrad`, `rmsprop`,
+    `asgd` and `adabound`. Weight decay is coupled L2 (wd*param added to
+    the gradient before momentum or moment estimation), as optax's
+    `add_decayed_weights` placed before the base transform does.
+    `torch.optim.SGD`/`Adam` with `weight_decay` compute that for sgd, adam
+    and asgd (plain SGD: the JAX package drops ASGD's averaging, which
+    never feeds back into the trajectory). The other five follow optax
+    0.2.6's transforms, which differ from `torch.optim`'s namesakes (eps
+    inside the root, adagrad's 0.1 start, the lr scale before rmsprop's
+    momentum), as `torch.optim.Optimizer` subclasses; adabound is the JAX
+    package's own transform. tests/test_torch_optim.py holds each to optax.
   * `set_learning_rate` / `get_learning_rate` over the param groups, set by
     the host between epochs.
   * The epoch-indexed schedules, `warmup` and `build_scheduler`: plain
     Python, copied.
-
-The other optimizers of the JAX package (adamax, adadelta, adagrad,
-rmsprop, asgd, adabound) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -22,34 +26,195 @@ from __future__ import annotations
 import math
 from typing import Any, Callable, Dict, Iterable, Optional
 
+import numpy as np
 import torch
 
 Schedule = Callable[[int], float]
 
-_QUEUED = ("adamax", "adadelta", "adagrad", "rmsprop", "asgd", "adabound")
+
+def _f32(x) -> float:
+    """A scalar rounded to f32, as the JAX package's traced hyperparameters
+    and step counts compute their coefficients."""
+    return float(np.float32(x))
+
+
+class _OptaxChain(torch.optim.Optimizer):
+    """add_decayed_weights(wd) (where wd > 0) -> `_direction` -> p += u,
+    per parameter, in the parameter's dtype. A subclass gives `_init` (its
+    state of one parameter) and `_direction` (the update u added to the
+    parameter, the lr's sign and scale included)."""
+
+    def __init__(self, params, lr: float, weight_decay: float = 0.0, **defaults):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay, **defaults))
+
+    def _init(self, p: torch.Tensor, group: dict) -> dict:
+        raise NotImplementedError
+
+    def _direction(self, g: torch.Tensor, state: dict, group: dict) -> torch.Tensor:
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            wd = group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad if wd <= 0 else p.grad + wd * p
+                state = self.state[p]
+                if not state:
+                    state.update(self._init(p, group))
+                p.add_(self._direction(g, state, group))
+        return loss
+
+
+class Adamax(_OptaxChain):
+    """optax.adamax: mu = b1*mu + (1-b1)*g; nu = max(b2*nu, |g| + eps);
+    u = -lr * mu / (1 - b1^t) / nu. The JAX package passes no eps (optax's
+    1e-8), whatever the config says."""
+
+    def __init__(self, params, lr, betas=(0.9, 0.999), weight_decay=0.0):
+        super().__init__(params, lr, weight_decay, betas=tuple(betas), eps=1e-8)
+
+    def _init(self, p, group):
+        return dict(count=0, mu=torch.zeros_like(p), nu=torch.zeros_like(p))
+
+    def _direction(self, g, state, group):
+        b1, b2 = group["betas"]
+        state["count"] += 1
+        mu = state["mu"].mul_(b1).add_((1 - b1) * g)
+        nu = torch.maximum(g.abs() + group["eps"], b2 * state["nu"])
+        state["nu"] = nu
+        bc1 = _f32(1 - np.float32(b1) ** np.float32(state["count"]))
+        return (mu / bc1 / nu) * -group["lr"]
+
+
+class Adadelta(_OptaxChain):
+    """optax.adadelta: e_g = rho*e_g + (1-rho)*g^2; u = sqrt(e_x + eps) /
+    sqrt(e_g + eps) * g; e_x = rho*e_x + (1-rho)*u^2; then -lr * u. eps is
+    optax's 1e-6 (the JAX package passes none)."""
+
+    def __init__(self, params, lr, rho=0.9, weight_decay=0.0):
+        super().__init__(params, lr, weight_decay, rho=float(rho), eps=1e-6)
+
+    def _init(self, p, group):
+        return dict(e_g=torch.zeros_like(p), e_x=torch.zeros_like(p))
+
+    def _direction(self, g, state, group):
+        rho, eps = group["rho"], group["eps"]
+        e_g = state["e_g"].mul_(rho).add_((1 - rho) * g * g)
+        u = torch.sqrt(state["e_x"] + eps) / torch.sqrt(e_g + eps) * g
+        state["e_x"].mul_(rho).add_((1 - rho) * u * u)
+        return u * -group["lr"]
+
+
+class Adagrad(_OptaxChain):
+    """optax.adagrad: the sum of squares starts at 0.1; u = g *
+    rsqrt(sum + 1e-7) where sum > 0 (else 0); then -lr * u."""
+
+    def __init__(self, params, lr, weight_decay=0.0):
+        super().__init__(params, lr, weight_decay, initial_accumulator_value=0.1, eps=1e-7)
+
+    def _init(self, p, group):
+        return dict(sum_of_squares=torch.full_like(p, group["initial_accumulator_value"]))
+
+    def _direction(self, g, state, group):
+        s = state["sum_of_squares"].add_(g * g)
+        scale = torch.where(s > 0, torch.rsqrt(s + group["eps"]), torch.zeros_like(s))
+        return scale * g * -group["lr"]
+
+
+class RMSprop(_OptaxChain):
+    """optax.rmsprop (eps_in_sqrt, not centered): nu = decay*nu +
+    (1-decay)*g^2; u = -lr * g * rsqrt(nu + eps); then trace(momentum):
+    t = u + momentum * t, so the lr scales before the momentum, as in
+    optax (torch.optim.RMSprop puts eps outside the root)."""
+
+    def __init__(self, params, lr, alpha=0.99, eps=1e-8, momentum=0.0, weight_decay=0.0):
+        super().__init__(params, lr, weight_decay, alpha=float(alpha), eps=float(eps),
+                         momentum=float(momentum))
+
+    def _init(self, p, group):
+        return dict(nu=torch.zeros_like(p), trace=torch.zeros_like(p))
+
+    def _direction(self, g, state, group):
+        a = group["alpha"]
+        nu = state["nu"].mul_(a).add_((1 - a) * g * g)
+        u = g * torch.rsqrt(nu + group["eps"]) * -group["lr"]
+        return state["trace"].mul_(group["momentum"]).add_(u)
+
+
+class AdaBound(_OptaxChain):
+    """The JAX package's `scale_by_adabound` (Luo et al. 2019): Adam's
+    moments, step_size = lr * sqrt(1 - b2^t) / (1 - b1^t), each element's
+    step_size / (sqrt(nu) + eps) clipped to [lower, upper] with
+        lower = final_lr * lr/base_lr * (1 - 1 / (gamma*t + 1)),
+        upper = final_lr * lr/base_lr * (1 + 1 / (gamma*t)),
+    u = -clip(...) * mu. `base_lr` is the lr at build time and stays put
+    when `set_learning_rate` moves `lr`, so the band follows lr/base_lr."""
+
+    def __init__(self, params, lr, betas=(0.9, 0.999), final_lr=0.1, gamma=1e-3,
+                 weight_decay=0.0):
+        super().__init__(params, lr, weight_decay, betas=tuple(betas), final_lr=float(final_lr),
+                         gamma=float(gamma), base_lr=float(lr), eps=1e-8)
+
+    def _init(self, p, group):
+        return dict(count=0, mu=torch.zeros_like(p), nu=torch.zeros_like(p))
+
+    def _direction(self, g, state, group):
+        b1, b2 = group["betas"]
+        state["count"] += 1
+        mu = state["mu"].mul_(b1).add_((1 - b1) * g)
+        nu = state["nu"].mul_(b2).add_((1 - b2) * g * g)
+        f = np.float32
+        c, lr = f(state["count"]), f(group["lr"])
+        bc1, bc2 = f(1) - f(b1) ** c, f(1) - f(b2) ** c
+        bound = f(group["final_lr"]) * (lr / f(group["base_lr"]))
+        lower = _f32(bound * (f(1) - f(1) / (f(group["gamma"]) * c + f(1))))
+        upper = _f32(bound * (f(1) + f(1) / (f(group["gamma"]) * c)))
+        step_size = _f32(lr * np.sqrt(bc2) / bc1)
+        step = torch.clamp(step_size / (torch.sqrt(nu) + group["eps"]), lower, upper)
+        return -(step * mu)
 
 
 def build_optimizer(params: Iterable, opt_cfg: Optional[Dict[str, Any]]
                     ) -> torch.optim.Optimizer:
     """A torch optimizer over `params` from a reference-schema config dict
-    ({"name", "lr", "weight_decay", "momentum" | "betas", "eps"})."""
+    ({"name", "lr", "weight_decay", and per name "momentum", "betas", "eps",
+    "rho", "alpha", "final_lr", "gamma"}), read as the JAX package's
+    `build_optimizer` reads it."""
     if opt_cfg is None:
         opt_cfg = {"name": "sgd", "lr": 0.01}
     cfg = dict(opt_cfg)
     name = cfg.pop("name", "sgd").lower()
     lr = float(cfg.pop("lr", 1e-3))
     wd = float(cfg.pop("weight_decay", 0.0))
+    betas = lambda: tuple(float(b) for b in cfg.pop("betas", (0.9, 0.999)))
     if name == "sgd":
         return torch.optim.SGD(params, lr=lr, momentum=float(cfg.pop("momentum", 0.0) or 0.0),
                                weight_decay=wd, nesterov=False)
     if name == "adam":
-        betas = tuple(float(b) for b in cfg.pop("betas", (0.9, 0.999)))
-        return torch.optim.Adam(params, lr=lr, betas=betas,
+        return torch.optim.Adam(params, lr=lr, betas=betas(),
                                 eps=float(cfg.pop("eps", 1e-8)), weight_decay=wd)
-    if name in _QUEUED:
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet (ROADMAP.md Queue 1, M7: "
-            "the other six optimizers)")
+    if name == "adamax":
+        return Adamax(params, lr, betas=betas(), weight_decay=wd)
+    if name == "adadelta":
+        return Adadelta(params, lr, rho=float(cfg.pop("rho", 0.9)), weight_decay=wd)
+    if name == "adagrad":
+        return Adagrad(params, lr, weight_decay=wd)
+    if name == "rmsprop":
+        return RMSprop(params, lr, alpha=float(cfg.pop("alpha", 0.99)),
+                       eps=float(cfg.get("eps", 1e-8)),
+                       momentum=float(cfg.pop("momentum", 0.0)), weight_decay=wd)
+    if name == "asgd":
+        return torch.optim.SGD(params, lr=lr, weight_decay=wd)
+    if name == "adabound":
+        return AdaBound(params, lr, betas=betas(), final_lr=float(cfg.pop("final_lr", 0.1)),
+                        gamma=float(cfg.pop("gamma", 1e-3)), weight_decay=wd)
     raise NotImplementedError(f"Optimizer {name} not implemented")
 
 

@@ -91,15 +91,42 @@ def test_cli_defaults_stay_in_the_checkout():
     assert os.path.exists(search_arc.DEFAULT_CONFIG)
 
 
-@pytest.mark.parametrize("change,match", [
-    ({"multi_gpus": True}, "M13"),
-    ({"remat": True}, "remat"),
-])
-def test_unported_options_raise(tmp_path, change, match):
+def _log(run_dir):
+    with open(os.path.join(run_dir, "run.log")) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("mesh_spatial", [1, 2])
+def test_multi_gpus_on_one_device_runs_there(tmp_path, mesh_spatial):
+    """multi_gpus with one visible device (the CPU counts as one) runs on
+    it and logs the JAX runner's line; mesh_spatial is not read."""
     cfg = load_config(CONFIG)
-    cfg["searching"].update(change)
-    with pytest.raises(NotImplementedError, match=match):
+    cfg["searching"].update(multi_gpus=True, mesh_spatial=mesh_spatial, epoch=1)
+    runner = SearchRunner(cfg, log_root=str(tmp_path), device="cpu")
+    runner.run()
+    assert runner.state.step == len(runner.train_queue) > 0
+    assert "multi_gpus requested but only 1 device visible" in _log(runner.run_dir)
+
+
+def test_multi_gpus_over_two_devices_raises(tmp_path, monkeypatch):
+    from senas_torch.runner import common
+    monkeypatch.setattr(common, "visible_devices", lambda device: 2)
+    cfg = load_config(CONFIG)
+    cfg["searching"].update(multi_gpus=True)
+    with pytest.raises(NotImplementedError, match="M13"):
         SearchRunner(cfg, log_root=str(tmp_path), device="cpu")
+
+
+def test_remat_search_runs(tmp_path):
+    """searching.remat builds the supernet with its cells recomputed in the
+    backward; an epoch runs and the arch tables move."""
+    cfg = load_config(CONFIG)
+    cfg["searching"].update(remat=True, epoch=2)
+    runner = SearchRunner(cfg, log_root=str(tmp_path), device="cpu")
+    assert runner.state.model.remat and runner.state.model.head.remat
+    arch0 = {k: v.clone() for k, v in runner.state.arch.items()}
+    parse_genotype(runner.run())
+    assert any(not torch.equal(v, arch0[k]) for k, v in runner.state.arch.items())
 
 
 def test_bf16_precision_computes_in_bf16_with_f32_masters(tmp_path):

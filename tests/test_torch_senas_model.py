@@ -118,8 +118,7 @@ def test_factory():
         get_segmentation_model("no_such_model", dataset="synthetic", device="cpu")
 
 
-@pytest.mark.parametrize("knob,match", [({"remat": True}, "remat"),
-                                         ({"dropout_prob": 0.1}, "dropout")])
+@pytest.mark.parametrize("knob,match", [({"dropout_prob": 0.1}, "dropout")])
 def test_unported_knobs_raise(knob, match):
     with pytest.raises(NotImplementedError, match=match):
         SenasModel(nclass=2, in_channels=1, c=4, depth=2, genotype=tgs.senas,

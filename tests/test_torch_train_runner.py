@@ -152,13 +152,52 @@ def test_genotype_resolution():
     assert repr(resolve_genotype(cfg, s)) == s
 
 
-@pytest.mark.parametrize("change,match", [
-    ({"multi_gpus": True}, "M13"),
-    ({"remat": True}, "remat"),
-])
-def test_unported_options_raise(tmp_path, change, match):
-    with pytest.raises(NotImplementedError, match=match):
-        TrainRunner(_cfg(**change), log_root=str(tmp_path), device="cpu")
+def _log(run_dir):
+    with open(os.path.join(run_dir, "run.log")) as f:
+        return f.read()
+
+
+ONE_DEVICE = "multi_gpus requested but only 1 device visible"
+
+
+@pytest.mark.parametrize("mesh_spatial", [1, 2])
+def test_multi_gpus_on_one_device_runs_there(tmp_path, first_run, mesh_spatial):
+    """multi_gpus with one visible device (the CPU counts as one) runs on
+    it and logs the JAX runner's line, in TrainRunner and TestRunner;
+    mesh_spatial is not read."""
+    cfg = _cfg(multi_gpus=True, mesh_spatial=mesh_spatial)
+    cfg["training"]["epoch"] = 1
+    runner = TrainRunner(cfg, log_root=str(tmp_path), device="cpu")
+    runner.run()
+    assert runner.state.step == len(runner.train_queue) > 0
+    assert ONE_DEVICE in _log(runner.run_dir)
+    tester = TestRunner(cfg, resume=first_run["runner"].ckpt.directory,
+                        log_root=str(tmp_path), device="cpu")
+    assert ONE_DEVICE in _log(tester.run_dir)
+
+
+@pytest.mark.parametrize("runner_cls", ["train", "test"])
+def test_multi_gpus_over_two_devices_raises(tmp_path, monkeypatch, first_run, runner_cls):
+    from senas_torch.runner import common
+    monkeypatch.setattr(common, "visible_devices", lambda device: 2)
+    with pytest.raises(NotImplementedError, match="M13"):
+        if runner_cls == "train":
+            TrainRunner(_cfg(multi_gpus=True), log_root=str(tmp_path), device="cpu")
+        else:
+            TestRunner(_cfg(multi_gpus=True), resume=first_run["runner"].ckpt.directory,
+                       log_root=str(tmp_path), device="cpu")
+
+
+def test_remat_training_runs(tmp_path):
+    """training.remat builds the fixed model with its cells recomputed in the
+    backward; an epoch runs and every kernel moves."""
+    cfg = _cfg(remat=True)
+    cfg["training"]["epoch"] = 1
+    runner = TrainRunner(cfg, log_root=str(tmp_path), device="cpu")
+    assert runner.model.remat and runner.model.head.remat
+    w0 = {k: v.clone() for k, v in runner.model.state_dict().items() if k.endswith("kernel")}
+    runner.run()
+    assert all(not torch.equal(runner.model.state_dict()[k], v) for k, v in w0.items())
 
 
 def test_bf16_precision_computes_in_bf16_with_f32_masters(tmp_path):

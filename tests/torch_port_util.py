@@ -517,3 +517,87 @@ def assert_bf16_computed(bf16, f32, rtol, atol, what: str = ""):
     a, b = as_f64(bf16), as_f64(f32)
     excess = float((np.abs(a - b) - 100 * (atol + rtol * np.abs(b))).max())
     assert excess > 0, f"{what}: bf16 lies within 100x the f32 tolerance of f32"
+
+
+def search_step_pair(w_cfg, a_cfg, *, beta_mode="reference", remat=False,
+                     do_arch=(True, True), M=2, D=2, C=8, HW=16, B=2, seed=0):
+    """The bilevel search step of both packages from the same numpy-made
+    weights, arch tables and batches (tests/test_torch_search_step.py's
+    setup): one step per entry of `do_arch`, with the weight and arch
+    optimizer configs `w_cfg`, `a_cfg`, the beta grouping `beta_mode` and
+    `remat` in both. Returns the JAX state and per-step metrics, the port's
+    state and metrics, and the starting arch tables and variables."""
+    import jax.numpy as jnp
+    import torch
+
+    from senas_tpu.search import supernet as jsn
+    from senas_tpu.train.loss import build_loss as jbuild_loss
+    from senas_tpu.train.optim import build_optimizer as jbuild_optimizer
+    from senas_tpu.train.trainer import SearchTrainState as JState
+    from senas_tpu.train.trainer import make_search_step as jmake_step
+    from senas_torch import convert
+    from senas_torch.search import supernet as tsn
+    from senas_torch.train.loss import build_loss as tbuild_loss
+    from senas_torch.train.trainer import SearchTrainState, make_search_step
+
+    rng = np.random.RandomState(seed)
+    arch = {k: (0.5 * rng.randn(*v)).astype(np.float32)
+            for k, v in jsn.arch_param_count(M, D).items()}
+    mk = lambda: {"image": rng.randn(B, HW, HW, 1).astype(np.float32),
+                  "label": (rng.rand(B, HW, HW) > 0.6).astype(np.int32)}
+    batches = [(mk(), mk()) for _ in do_arch]
+    jm = jsn.SenasSearch(in_channels=1, c=C, nclass=2, depth=D, meta_node_num=M,
+                         remat=remat)
+    variables = random_variables(jm, rng, jnp.asarray(batches[0][0]["image"]),
+                                 jsn.normalize_arch(arch, M, beta_mode), False)
+
+    w_tx, a_tx = jbuild_optimizer(dict(w_cfg)), jbuild_optimizer(dict(a_cfg))
+    jstep = jmake_step(jm.apply, lambda a: jsn.normalize_arch(a, M, beta_mode),
+                       jbuild_loss("dice_ce"), w_tx, a_tx, grad_clip=5.0, donate=False)
+    jstate = JState.create(variables, arch, w_tx, a_tx)
+    jmetrics = []
+    for (tb, vb), arch_step in zip(batches, do_arch):
+        jstate, m = jstep(jstate, {k: jnp.asarray(v) for k, v in tb.items()},
+                          {k: jnp.asarray(v) for k, v in vb.items()}, arch_step)
+        jmetrics.append({k: np.asarray(v) for k, v in m.items()})
+
+    tm = convert.load_variables(
+        tsn.SenasSearch(in_channels=1, c=C, nclass=2, depth=D, meta_node_num=M,
+                        remat=remat, device="cpu"), variables)
+    state = SearchTrainState.create(tm, convert.arch_to_torch(arch, "cpu"), w_cfg, a_cfg)
+    tstep = make_search_step(lambda a: tsn.normalize_arch(a, M, beta_mode),
+                             tbuild_loss("dice_ce"), grad_clip=5.0)
+    tmetrics = [{k: v.numpy() for k, v in tstep(
+        state, {k: torch.from_numpy(v) for k, v in tb.items()},
+        {k: torch.from_numpy(v) for k, v in vb.items()}, arch_step).items()}
+        for (tb, vb), arch_step in zip(batches, do_arch)]
+    return dict(jstate=jstate, jm=jmetrics, state=state, tm=tmetrics, arch=arch,
+                variables=variables)
+
+
+def assert_search_steps_match(runs, M=2, D=2, beta_mode="reference",
+                              step_rtol=1e-5, state_atol=1e-5):
+    """tests/test_torch_search_step.py's limits on a `search_step_pair`: the
+    per-step loss, arch loss, grad norm and accuracy within rtol 1e-5, the
+    confusion counts equal, the weights, running stats and arch tables after
+    the steps within atol 1e-5, and the derived genotype identical."""
+    from senas_tpu.search import supernet as jsn
+    from senas_torch import convert
+    from senas_torch.search import supernet as tsn
+
+    for i, (got, want) in enumerate(zip(runs["tm"], runs["jm"])):
+        for k in ("loss", "arch_loss", "grad_norm", "acc"):
+            np.testing.assert_allclose(got[k], want[k], rtol=step_rtol, err_msg=f"step {i} {k}")
+        for k in ("tp", "fp", "fn"):
+            np.testing.assert_array_equal(got[k], want[k], err_msg=f"step {i} {k}")
+    want_arch = {k: np.asarray(v) for k, v in runs["jstate"].arch.items()}
+    got_arch = convert.arch_to_numpy(runs["state"].arch)
+    for k in want_arch:
+        np.testing.assert_allclose(got_arch[k], want_arch[k], rtol=0, atol=state_atol,
+                                   err_msg=k)
+    got = convert.state_dict_to_variables(runs["state"].model)
+    assert_trees_close(got["params"], runs["jstate"].params, rtol=0, atol=state_atol)
+    assert_trees_close(got["batch_stats"], runs["jstate"].batch_stats, rtol=0,
+                       atol=state_atol)
+    assert repr(tsn.derive_genotype(runs["state"].arch, M, D, beta_mode=beta_mode)) == repr(
+        jsn.derive_genotype(want_arch, M, D, beta_mode=beta_mode))
