@@ -36,8 +36,12 @@ Phases, each of which fails the run:
      yml's SGD and Adam): one bilevel step with do_arch=False, then 3 with
      do_arch=True, with launch counts checked per step; one step under
      torch.profiler; the same step from one saved state with the kernels
-     (twice: the card's own spread), with the kernels' plain twins and with
-     the plain epilogue, compared leaf by leaf, and timed in turns;
+     (twice), with the kernels' plain twins and with the plain epilogue,
+     compared leaf by leaf: with the default algorithms from the main
+     path's state (the card's spread, logged), and under deterministic
+     algorithms from the four steps replayed from the initial state (the
+     kernels twice must agree exactly; twins and plain within limits);
+     timed in turns;
   7. a search training step on the card held to the same step on the CPU,
      at a reduced size (depth 3, c 8, 64x64, batch 2) from identical state,
      with TF32 off; the same step with TF32 on must fail the same limits;
@@ -162,10 +166,27 @@ Phases, each of which fails the run:
      (the same metrics and state on and off); senas_synthetic.yml through
      search_arc (beta_mode grouped, multi_gpus, mesh_spatial 2, adabound)
      and train_model (remat, rmsprop) for one epoch each.
-Phases 12-13, 16 and 18's zoo launch none of the kernels (neither the
-fixed model nor the zoo has any, unless SENAS_PALLAS_BN=1).
+ 20. the encoder families: a Unet on each of vgg13_bn, densenet121,
+     mobilenet_v2, efficientnet-b0, se_resnext50_32x4d, xception,
+     inceptionv4, inceptionresnetv2, dpn68, timm-mobilenetv3_large_100 and
+     timm-resnest14d at the promise12 `training:` geometry, 1 + 3 train
+     steps in f32 and in bf16 (ms/step, peak memory, device launches a
+     step); each one's train step on the card against the CPU at depth 5,
+     batch 2, 64x64: in f64 whole (phase 16's f64 limits), in f32 split
+     into the forward, the gradients (the CPU's forward forced to the
+     card's module outputs) and the update; DeepLabV3+ on efficientnet-b0
+     at output stride 16, one f32 step; SENAS_PALLAS_BN on timm-resnest14d
+     and dpn68: K1a-K1d held to their twins at every shape their encoders'
+     BatchNorms see (the 1x1 attention planes included), K1a and K1c timed
+     at the largest and the smallest plane and at phase 19's shape (the
+     call back to back, and the device time of calls queued behind a
+     spin kernel),
+     each Unet's f32 step with the gate on and off in turns.
+Phases 12-13, 16, 18's zoo and 20's ungated steps launch none of the
+kernels (neither the fixed model nor the zoo has any, unless
+SENAS_PALLAS_BN=1).
 Every kernel variant must be launched on at least one path (phases 4-6, 9,
-14, 15, 17, 19; K2's bf16 variant in phase 4). The line before the last is a
+14, 15, 17, 19, 20; K2's bf16 variant in phase 4). The line before the last is a
 JSON list of the kernels, the bf16 variants as `<name>_bf16`; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits 1 and prints no result.
@@ -205,7 +226,7 @@ from senas_torch.data.imfile import float_to_l, read_image, write_png_l
 from senas_torch.data.io import MetaImage, read_mhd, read_nifti, write_mhd
 from senas_torch.data.msd import extract_task
 from senas_torch.utils.logging import write_png
-from senas_torch.models import geno_searched
+from senas_torch.models import geno_searched, zoo
 from senas_torch.models.factory import get_segmentation_model
 from senas_torch.models.senas_model import SenasModel
 from senas_torch.ops import _build
@@ -1070,11 +1091,15 @@ def _metrics_rel(a: dict, b: dict, keys=("loss", "arch_loss", "grad_norm")) -> d
 
 
 # Limits of the full-width step with the kernels against the same step with
-# their plain twins or the plain epilogue, from one state. The card's own
-# spread sets them: the kernels' step run twice from one state differs by
-# 7.9e-4 (weight update) and 1.2e-3 (arch update) on an H100, spread evenly
-# over the leaves (each ~2e-3 of its own update), and the twins and the
-# plain epilogue sit at that spread (1.1e-3 to 1.4e-3).
+# their plain twins or the plain epilogue, from one state, both under
+# deterministic algorithms (`deterministic_algorithms`). The full-width
+# backward amplifies a change of sum order (~1e-7) to ~1e-3 of every
+# leaf's update, evenly: the twins and the plain epilogue read 1.2e-3 to
+# 3.0e-3 (arch update) from the main path's state on an H100, the kernels'
+# step run twice 0.9e-3 to 1.7e-3 with the default algorithms (the
+# library's atomics). Compared from a state that deterministic steps
+# reached, the distance is one number for a seed, and the kernels' step
+# run twice must read exactly 0.
 STEP_LIMITS = dict(metrics=1e-3, weights=5e-3, arch=5e-3, bn_stats=1e-5)
 
 
@@ -1094,6 +1119,7 @@ def run_search_path(dev, seed: int) -> dict:
     rng = np.random.RandomState(seed + 1)
     pairs = [tuple(_batches(rng, 2, bs, HW, dev)) for _ in DO_ARCH]
     arch0 = {k: v.detach().clone() for k, v in arch.items()}
+    initial = _snapshot(state)
     log(f"search step: batch {bs} train + {bs} val, {HW}x{HW}x{IN_CHANNELS}, SGD "
         f"{s['model_optimizer']} over weights and arch tables, Adam {s['arch_optimizer']}, "
         f"clip {s['grad_clip']}; expected launches per step: do_arch=False "
@@ -1130,34 +1156,54 @@ def run_search_path(dev, seed: int) -> dict:
     tb, vb = pairs[-1]
     prof = profile(lambda: step(state, tb, vb, True), f"one search step, do_arch, batch {bs}")
 
-    # the same step from one saved state: with the kernels twice (the card's
-    # own spread from run to run: the step's library kernels do not sum in
-    # a fixed order), with the kernels' plain twins in the same Function
-    # (the order of the kernels' sums alone), and with the plain two-pass
-    # epilogue (that and the one-sweep variance)
+    # the same step from one saved state: with the kernels twice, with the
+    # kernels' plain twins in the same Function (the order of the kernels'
+    # sums alone), and with the plain two-pass epilogue (that and the
+    # one-sweep variance); first with the default algorithms from the main
+    # path's state (the card's spread from run to run, logged), then under
+    # deterministic algorithms from the main path's steps replayed from
+    # its initial state (held to STEP_LIMITS)
     before = _snapshot(state)
+    variants = (("kernels", contextlib.nullcontext), ("kernels_again", contextlib.nullcontext),
+                ("twins", twins_swapped), ("plain", plain_epilogue_swapped))
 
-    def from_before(ctx):
-        _restore(state, before)
-        with ctx:
-            m = step(state, tb, vb, True)
-        return m, _snapshot(state)
+    def from_state(snap):
+        out = {}
+        for name, ctx in variants:
+            _restore(state, snap)
+            with ctx():
+                m = step(state, tb, vb, True)
+            out[name] = (m, _snapshot(state))
+        return out
 
-    m_k, after_k = from_before(contextlib.nullcontext())
-    m_k2, after_k2 = from_before(contextlib.nullcontext())
-    m_t, after_t = from_before(twins_swapped())
-    m_p, after_p = from_before(plain_epilogue_swapped())
+    def spread_of(runs, snap):
+        m_k, after_k = runs["kernels"]
+        return {name: (_metrics_rel(m_k, m), _state_rel(snap, after_k, after))
+                for name, (m, after) in runs.items() if name != "kernels"}
+
+    default = spread_of(from_state(before), before)
+    with deterministic_algorithms():
+        _restore(state, initial)
+        for (b_t, b_v), do_arch in zip(pairs, DO_ARCH):
+            step(state, b_t, b_v, do_arch)
+        replayed = _snapshot(state)
+        runs = from_state(replayed)
+    spread = spread_of(runs, replayed)
     _restore(state, before)
-    spread = dict(kernels_again=(_metrics_rel(m_k, m_k2), _state_rel(before, after_k, after_k2)),
-                  twins=(_metrics_rel(m_k, m_t), _state_rel(before, after_k, after_t)),
-                  plain=(_metrics_rel(m_k, m_p), _state_rel(before, after_k, after_p)))
-    for name, (rm, rs) in spread.items():
-        log(f"search step from one state, kernels vs {name}: metrics rel {rm}, state {rs}")
-    for name, after in (("kernels_again", after_k2), ("plain", after_p)):
-        log(f"  kernels vs {name}, leaves that carry the weight and arch update difference "
-            "(share of it, the leaf's own rel, the leaf's share of the update):")
-        for k, share, rel, upd in _leaf_rel(before, after_k, after, top=8):
+    for label, rows in (("default algorithms, the main path's state", default),
+                        ("deterministic algorithms, the replayed state", spread)):
+        for name, (rm, rs) in rows.items():
+            log(f"search step from one state ({label}), kernels vs {name}: metrics rel {rm}, "
+                f"state {rs}")
+    m_k, after_k = runs["kernels"]
+    for name in ("twins", "plain"):
+        log(f"  kernels vs {name} (deterministic), leaves that carry the weight and arch update "
+            "difference (share of it, the leaf's own rel, the leaf's share of the update):")
+        for k, share, rel, upd in _leaf_rel(replayed, after_k, runs[name][1], top=8):
             log(f"    {share:.3f}  rel {rel:.3g}  update share {upd:.3g}  {k}")
+    rel_m, rel_s = spread["kernels_again"]
+    check(not any(rel_m.values()) and not any(rel_s.values()),
+          f"the kernels' step run twice under deterministic algorithms differs: {rel_m} {rel_s}")
     for name in ("twins", "plain"):
         rel_m, rel_s = spread[name]
         check(max(rel_m.values()) <= STEP_LIMITS["metrics"],
@@ -1166,7 +1212,8 @@ def run_search_path(dev, seed: int) -> dict:
               f"the steps with the kernels and with {name} moved the state apart: {rel_s}")
     turns = in_turns(lambda: step(state, tb, vb, True), "search step (do_arch)", reps=2)
     return dict(launches=total, per_step=read, step_ms=float(np.mean(steady)),
-                peak_mib=peak / 2**20, profile=prof, turns=turns, spread=spread)
+                peak_mib=peak / 2**20, profile=prof, turns=turns, spread=spread,
+                default_spread=default)
 
 
 # ---------------------------------------------------------------------------
@@ -1474,6 +1521,21 @@ SERVE_TOL = dict(rtol=1e-4, atol=1e-4)
 # the TF32 control: a backend-default artifact run with TF32 on must stray
 # from the CPU at least this many times further than the --f32 one does
 TF32_CONTROL_FACTOR = 10.0
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """PyTorch's deterministic algorithms inside (cuDNN's and cuBLAS's among
+    them; an op that has none raises), the process's choice restored.
+    cuBLAS needs CUBLAS_WORKSPACE_CONFIG, which `main` sets."""
+    kept = torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(kept[0])
+        torch.backends.cudnn.deterministic = kept[1]
 
 
 @contextlib.contextmanager
@@ -3903,6 +3965,352 @@ def run_config_keys(dev, seed: int) -> dict:
                 bn_shapes=[list(s) for s in shapes])
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the encoder families
+# ---------------------------------------------------------------------------
+
+# one encoder of each class of models/encoders_{extra,families,mnv3,resnest}.py
+FAMILY_NAMES = ("vgg13_bn", "densenet121", "mobilenet_v2", "efficientnet-b0",
+                "se_resnext50_32x4d", "xception", "inceptionv4", "inceptionresnetv2", "dpn68",
+                "timm-mobilenetv3_large_100", "timm-resnest14d")
+# the card-vs-CPU step: depth 5, batch 2, 64x64
+FAMILY_SMALL_HW = 64
+# the gated BatchNorm's steps (SENAS_PALLAS_BN=1 against off, in turns)
+FAMILY_GATED = ("timm-resnest14d", "dpn68")
+FAMILY_DEEPLAB = "efficientnet-b0"
+
+
+def _family_unet(name, dev, gen, dtype=None, depth=5):
+    """A Unet on the encoder `name` at the promise12 `training:` decoder
+    widths (256, 128, 64, 32, 16)[:depth]."""
+    return zoo.Unet(classes=NCLASS, in_channels=IN_CHANNELS, encoder_name=name,
+                    encoder_depth=depth, decoder_channels=(256, 128, 64, 32, 16)[:depth],
+                    dtype=dtype, device=dev, generator=gen)
+
+
+def device_launches(fn) -> int:
+    """The device kernels one call of fn() launches (torch.profiler, CUDA
+    activity only), after one warm-up call; -1 where the profiler records
+    none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+    return n if n else -1
+
+
+def run_family_steps(dev, seed: int) -> dict:
+    """Each FAMILY_NAMES Unet at the promise12 `training:` geometry (batch
+    12 of 256x256x1, depth 5, SGD 6e-3 / 0.9 / 5e-4, clip 5, dice_ce), 1 + 3
+    train steps in f32 (TF32 off) and in bf16: ms/step, peak memory and
+    device launches a step; finite losses and logits of the right shape and
+    dtype; no port kernel launched (the BatchNorm gate is off)."""
+    t = load_config(CONFIG)["training"]
+    bs, loss_fn = t["batch_size"], _fixed_loss(t)
+    batches = _batches(np.random.RandomState(seed + 20), FIXED_STEPS, bs, HW, dev)
+    reset_counts()
+    rows = {}
+    for name in FAMILY_NAMES:
+        for tag, dtype in (("f32", None), ("bf16", BF16)):
+            model = _family_unet(name, dev, torch.Generator().manual_seed(seed + 20), dtype)
+            state = FixedTrainState.create(model, t["model_optimizer"], seed=seed)
+            step = make_train_step(loss_fn, grad_clip=t["grad_clip"])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times, losses = [], []
+            for i, batch in enumerate(batches):
+                t0 = time.perf_counter()
+                m = step(state, batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(m["loss"]))
+                check(np.isfinite(losses[-1]) and np.isfinite(float(m["grad_norm"])),
+                      f"{tag} unet on {name} step {i}: loss {losses[-1]}")
+            peak = torch.cuda.max_memory_allocated()
+            launches = device_launches(lambda: step(state, batches[-1]))
+            with torch.inference_mode():
+                out = model(batches[0]["image"], train=False)[0]
+            want = torch.float32 if dtype is None else dtype
+            check(tuple(out.shape) == (bs, HW, HW, NCLASS) and out.dtype == want
+                  and bool(torch.isfinite(out).all())
+                  and all(p.dtype == torch.float32 for p in model.parameters()),
+                  f"{tag} unet on {name}: logits {tuple(out.shape)} {out.dtype}")
+            row = dict(step_ms=float(np.mean(times[1:])), first_ms=times[0],
+                       peak_mib=peak / 2**20, launches_per_step=launches, losses=losses,
+                       parameters=sum(p.numel() for p in model.parameters()))
+            rows.setdefault(name, {})[tag] = row
+            log(f"{tag} unet on {name} ({row['parameters']} parameters, batch {bs}, {HW}x{HW}): "
+                f"{row['step_ms']:.2f} ms/step (first {times[0]:.1f}), peak "
+                f"{row['peak_mib']:.1f} MiB, {launches} device launches a step, loss "
+                f"{losses[0]:.5f} -> {losses[-1]:.5f}")
+            del model, state, step, out
+            torch.cuda.empty_cache()
+    got = counts()
+    check(not any(got.values()), f"the encoder families' steps launched {got}")
+    return rows
+
+
+# The card-vs-CPU step's limits: phase 16's, in f32 and in f64. Each may
+# widen to FAMILY_SPREAD times the CPU's own f32-vs-f64 distance (in f64,
+# that distance scaled by 2^-29, the ratio of the two unit roundoffs):
+# train-mode BatchNorm over the 8 values a channel of the 2x2 maps of
+# batch 2 at 64x64 makes the deepest maps ill-conditioned (the CPU tests:
+# inceptionv4's 2x2 map 0.12 of its magnitude off its f64 run in f32, its
+# f64 step 8.8e-9 apart on the card and the CPU in the grad norm). The
+# distance is the CPU's alone, so a fault of the card's path does not
+# widen it. InceptionV4 runs at 128x128 (4x4 maps), where the check still
+# means something.
+FAMILY_F32_LIMITS = dict(loss=1e-5, bn_stats=1e-4, grad_norm=1e-3, weights=2e-2)
+FAMILY_F64_LIMITS = dict(ZOO_CPU_LIMITS["float64"])
+FAMILY_SPREAD = 5.0
+FAMILY_SMALL_HW_OF = {"inceptionv4": 128}
+
+
+def family_card_vs_cpu(dev, seed: int) -> dict:
+    """Each FAMILY_NAMES Unet's train step (depth 5, batch 2, 64x64; see
+    FAMILY_SMALL_HW_OF) on the card and on the CPU from one state: in f64
+    the whole step; in f32 (TF32 off) in three parts, as phase 19 splits
+    it (`split_step_card_vs_cpu`): the forward (loss, running stats), the
+    gradients with the CPU's forward forced to the card's module outputs,
+    and the update (SGD on the card's gradients). Limits: phase 16's, or
+    FAMILY_SPREAD times the CPU's own f32-vs-f64 distance where larger."""
+    t = load_config(CONFIG)["training"]
+    opt = t["model_optimizer"]
+    rows = {}
+    cpu = lambda d: {k: v.detach().cpu().clone() for k, v in d.items()}
+    for name in FAMILY_NAMES:
+        hw = FAMILY_SMALL_HW_OF.get(name, FAMILY_SMALL_HW)
+        model0 = _family_unet(name, "cpu", torch.Generator().manual_seed(seed + 21)).state_dict()
+        batch = _batches(np.random.RandomState(seed + 21), 1, 2, hw, "cpu")[0]
+        params = [k for k in model0 if k.rsplit(".", 1)[-1] not in ("mean", "var")]
+        stats = [k for k in model0 if k not in params]
+
+        def run_on(d, dtype, forced=None):
+            model = _family_unet(name, d, None)
+            model.load_state_dict({k: v.to(d) for k, v in model0.items()})
+            model.to(dtype)
+            state = FixedTrainState.create(model, opt)
+            names = {id(p): k for k, p in model.named_parameters()}
+            grads = {}
+            state.opt.register_step_pre_hook(lambda o, a, kw: grads.update(
+                {names[id(p)]: p.grad.detach().cpu().clone() for g in o.param_groups
+                 for p in g["params"]}))
+            with module_outputs(model, forced) as seen:
+                m = make_train_step(_fixed_loss(t), grad_clip=t["grad_clip"])(
+                    state, {"image": batch["image"].to(d, dtype), "label": batch["label"].to(d)})
+            return cpu(m), cpu(model.state_dict()), grads, seen
+
+        def stats_rel(a, b):
+            return max(float((a[k].double() - b[k].double()).abs().max()
+                             / b[k].double().abs().max().clamp_min(1.0)) for k in stats)
+
+        def step_rel(ma, sa, mb, sb, before):
+            return dict(**_metrics_rel(ma, mb, ("loss", "grad_norm")),
+                        weights=_update_rel(before, sa, sb, params), bn_stats=stats_rel(sa, sb))
+
+        before64 = {k: v.double() for k, v in model0.items()}
+        m64c, s64c, _, _ = run_on("cpu", torch.float64)
+        m_cpu, s_cpu, _, _ = run_on("cpu", torch.float32)
+        own = step_rel(m_cpu, s_cpu, m64c, s64c, before64)
+        lim32 = {k: max(v, FAMILY_SPREAD * own[k]) for k, v in FAMILY_F32_LIMITS.items()}
+        lim64 = {k: max(v, FAMILY_SPREAD * own[k] * 2.0 ** -29)
+                 for k, v in FAMILY_F64_LIMITS.items()}
+        m64d, s64d, _, _ = run_on(dev, torch.float64)
+        f64 = step_rel(m64d, s64d, m64c, s64c, before64)
+        check(all(f64[k] <= lim64[k] for k in lim64),
+              f"unet on {name}: f64 step card vs CPU {f64} (limits {lim64}; CPU f32 vs f64 {own})")
+        m_card, s_card, g_card, seen = run_on(dev, torch.float32)
+        m_forced, _, g_forced, _ = run_on("cpu", torch.float32, forced=seen)
+        forward = dict(**_metrics_rel(m_card, m_cpu, ("loss",)), bn_stats=stats_rel(s_card, s_cpu))
+        grads = dict(**_metrics_rel(m_card, m_forced, ("grad_norm",)),
+                     weights=_update_rel({k: torch.zeros_like(v) for k, v in g_forced.items()},
+                                         g_card, g_forced, list(g_forced)))
+        model = _family_unet(name, "cpu", None)
+        model.load_state_dict(model0)
+        sgd = build_optimizer(list(model.parameters()), opt)
+        for k, p in model.named_parameters():
+            p.grad = g_card[k]
+        sgd.step()
+        update = _update_rel(model0, s_card, cpu(model.state_dict()), params)
+        got = dict(loss=forward["loss"], bn_stats=forward["bn_stats"],
+                   grad_norm=grads["grad_norm"], weights=max(grads["weights"], update))
+        check(all(got[k] <= lim32[k] for k in lim32),
+              f"unet on {name}: f32 step card vs CPU {got} (limits {lim32}; CPU f32 vs f64 {own})")
+        rows[name] = dict(hw=hw, f64=f64, forward=forward, grads=grads, update=update,
+                          cpu_own=own, limits=dict(f32=lim32, f64=lim64))
+        log(f"unet on {name} step card vs CPU (depth 5, {hw}x{hw}, batch 2): f64 {f64} (limits "
+            f"{lim64}); f32 forward {forward}, gradients (forward forced) {grads}, update "
+            f"{update:.3g} (limits {lim32}); CPU f32 vs f64 {own}")
+    return rows
+
+
+def run_family_deeplab(dev, seed: int) -> dict:
+    """One f32 train step of DeepLabV3+ on FAMILY_DEEPLAB at output stride 16
+    (its deepest stage dilated) at the promise12 `training:` geometry."""
+    t = load_config(CONFIG)["training"]
+    bs = t["batch_size"]
+    batch = _batches(np.random.RandomState(seed + 22), 1, bs, HW, dev)[0]
+    model = zoo.DeepLabV3Plus(classes=NCLASS, in_channels=IN_CHANNELS,
+                              encoder_name=FAMILY_DEEPLAB, output_stride=16,
+                              device=dev, generator=torch.Generator().manual_seed(seed + 22))
+    enc = model.encoder
+    check([f.shape[-1] for f in enc(batch["image"].permute(0, 3, 1, 2)[:1])] ==
+          [HW, HW // 2, HW // 4, HW // 8, HW // 16, HW // 16],
+          "deeplab_v3_plus: the efficientnet-b0 pyramid is not at output stride 16")
+    state = FixedTrainState.create(model, t["model_optimizer"], seed=seed)
+    step = make_train_step(_fixed_loss(t), grad_clip=t["grad_clip"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = step(state, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    m2 = step(state, batch)
+    torch.cuda.synchronize()
+    ms2 = (time.perf_counter() - t0) * 1e3
+    loss = float(m["loss"])
+    check(np.isfinite(loss) and np.isfinite(float(m2["loss"])),
+          f"deeplab_v3_plus on {FAMILY_DEEPLAB}: loss {loss}")
+    with torch.inference_mode():
+        out = model(batch["image"], train=False)[0]
+    check(tuple(out.shape) == (bs, HW, HW, NCLASS) and bool(torch.isfinite(out).all()),
+          f"deeplab_v3_plus on {FAMILY_DEEPLAB}: logits {tuple(out.shape)}")
+    row = dict(first_ms=ms, step_ms=ms2, loss=loss, peak_mib=torch.cuda.max_memory_allocated()
+               / 2**20)
+    log(f"deeplab_v3_plus on {FAMILY_DEEPLAB} at output stride 16, batch {bs}: first step "
+        f"{ms:.1f} ms, second {ms2:.2f} ms, loss {loss:.5f}, peak {row['peak_mib']:.1f} MiB")
+    del model, state
+    torch.cuda.empty_cache()
+    return row
+
+
+# ~10 ms of GPU time at the H100's 1.98 GHz boost clock: long enough for
+# the host to queue the timed calls behind it
+QUEUE_SLEEP_CYCLES = 20_000_000
+
+
+def queued_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device time of one call of fn(), from CUDA events around `reps`
+    calls queued behind a spin kernel (`torch.cuda._sleep`): the host
+    enqueues them all while the card spins, so the events read the calls'
+    device work back to back, where `time_ms` reads the wrapper's host cost
+    once that exceeds the kernel's time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# K1a and K1c at n=1 beside phase 19's timed shape
+K1_FAMILY_REFERENCE = BN_TIMED_SHAPE
+
+
+def time_k1_at(dev, shape, seed: int) -> dict:
+    """K1a (branch_stats) and K1c (bwd_reduce: its partial and finish
+    kernels) at n=1 on `shape` in f32 and bf16: the call's ms (CUDA events
+    around 20 back-to-back calls, as phase 19 times them), the device ms
+    (`queued_ms`), the plain twin's ms, the byte bound (each input read
+    once, each output written once), and the device time's share of it."""
+    b, c, h, w = shape
+    out = {}
+    for dtype in (torch.float32, BF16):
+        e = torch.finfo(dtype).bits // 8
+        x, _, g = _bn_case(dev, shape, seed, dtype)
+        xs, n, planes = [x], b * c * h * w, b * c
+        for name, fn, plain, nbytes in (
+                ("branch_stats", lambda: ge.branch_stats(xs), lambda: ge.branch_stats_plain(xs),
+                 n * e + 2 * planes * 4),
+                ("bwd_reduce", lambda: ge.bwd_reduce(xs, g), lambda: ge.bwd_reduce_plain(xs, g),
+                 2 * n * e + 2 * planes * 4)):
+            ms, plain_ms = time_ms(fn), time_ms(plain)
+            device = queued_ms(fn)
+            bound = nbytes / PEAK_BYTES_PER_S * 1e3
+            key = name + ("" if dtype == torch.float32 else BF16_SUFFIX)
+            out[key] = dict(shape=list(shape), ms=ms, device_ms=device, plain_ms=plain_ms,
+                            bound_ms=bound, share_of_bound=bound / device)
+    log(f"  K1a / K1c at n=1 on {list(shape)} (call ms / device ms / plain ms / bound ms / "
+        f"device share of bound): "
+        + " | ".join(f"{k} {r['ms']:.4f} / {r['device_ms']:.4f} / {r['plain_ms']:.4f} / "
+                     f"{r['bound_ms']:.5f} / {r['share_of_bound']:.3f}" for k, r in out.items()))
+    return out
+
+
+def run_family_gate(dev, seed: int) -> dict:
+    """The gated BatchNorm on FAMILY_GATED: K1a-K1d held to their plain
+    twins (and to the gate off) at every shape the encoders' BatchNorms see
+    in a step (their 1x1 attention planes included), K1a's and K1c's times
+    at the largest and the smallest plane and at phase 19's shape, and each
+    Unet's f32 step with the gate on and off in turns (`_gate_turns`)."""
+    t = load_config(CONFIG)["training"]
+    bs = t["batch_size"]
+    batch = _batches(np.random.RandomState(seed + 23), 1, bs, HW, dev)[0]
+    out, total, shapes = {}, {name: 0 for name in KERNELS}, set()
+    for name in FAMILY_GATED:
+        model = _family_unet(name, dev, torch.Generator().manual_seed(seed + 23))
+        state = FixedTrainState.create(model, t["model_optimizer"], seed=seed)
+        step = make_train_step(_fixed_loss(t), grad_clip=t["grad_clip"])
+        with bn_inputs(model.encoder) as enc_seen, pallas_bn(False):
+            step(state, batch)
+        with bn_inputs(model) as seen, pallas_bn(False):
+            step(state, batch)
+        shapes |= set(enc_seen)
+        out[name] = _gate_turns(f"unet on {name} f32 step, batch {bs}",
+                                lambda: step(state, batch), len(seen))
+        out[name].update(bn_calls=len(seen), encoder_bn_shapes=sorted(set(enc_seen)))
+        add_counts(total, {k: out[name]["launches"].get(k, 0) for k in KERNELS})
+        del model, state, step
+        torch.cuda.empty_cache()
+    shapes = sorted(shapes, key=lambda s: (s[2] * s[3], s[1], s[0]))
+    log(f"encoder BatchNorm shapes of {', '.join(FAMILY_GATED)} at batch {bs}: {len(shapes)} "
+        f"({shapes})")
+    worst = check_bn_path(dev, seed + 23, shapes)
+    planes = {"smallest": shapes[0], "largest": max(shapes, key=lambda s: (s[2] * s[3], s[1])),
+              "phase 19's": K1_FAMILY_REFERENCE}
+    timed = {label: time_k1_at(dev, shape, seed + 24) for label, shape in planes.items()}
+    return dict(steps=out, launches=total, checks=worst, timed=timed,
+                shapes=[list(s) for s in shapes])
+
+
+def run_encoder_families(dev, seed: int) -> dict:
+    """Phase 20, timed: the eleven families' Unet steps in f32 and bf16,
+    card against CPU, DeepLabV3+ at output stride 16, the gated
+    BatchNorm."""
+    t0 = time.perf_counter()
+    marks = []
+
+    def mark(what):
+        marks.append(f"{what} {time.perf_counter() - t0:.1f} s")
+        log(f"phase 20: {marks[-1]}")
+
+    steps = run_family_steps(dev, seed)
+    mark("full-width steps")
+    card_cpu = family_card_vs_cpu(dev, seed)
+    mark("card vs CPU")
+    deeplab = run_family_deeplab(dev, seed)
+    mark("deeplab")
+    gate = run_family_gate(dev, seed)
+    mark("gate")
+    seconds = time.perf_counter() - t0
+    log(f"phase 20 (the encoder families): {seconds:.1f} s ({', '.join(marks)})")
+    return dict(steps=steps, card_vs_cpu=card_cpu, deeplab=deeplab, gate=gate,
+                launches=gate["launches"], seconds=seconds)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3916,6 +4324,9 @@ def main(argv=None) -> int:
     # f32 and its results can be held to the CPU's.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # cuBLAS's fixed workspace (32 MiB, its default on Hopper), read at the
+    # first cuBLAS call, which `deterministic_algorithms` needs
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     dev = torch.device("cuda")
 
     t_start = time.perf_counter()
@@ -3956,6 +4367,8 @@ def main(argv=None) -> int:
     paths["pallas_bn_steps"] = dict(launches=keys["launches"])
     paths["remat_search_steps"] = dict(launches={
         k: sum(keys["remat"]["search"][r]["launches"][k] for r in (False, True)) for k in KERNELS})
+    families = run_encoder_families(dev, args.seed)
+    paths["encoder_families"] = dict(launches=families["launches"])
 
     kernels = []
     for name, k in KERNELS.items():
@@ -3996,6 +4409,9 @@ def main(argv=None) -> int:
             if "f32_ms" in r:
                 row["f32_ms"] = r["f32_ms"]
             row["bn_n1"] = keys["timed"][name]
+            if name.removesuffix(BF16_SUFFIX) in ("branch_stats", "bwd_reduce"):
+                row["bn_n1_families"] = {label: r[name]
+                                         for label, r in families["gate"]["timed"].items()}
         if "max_rel_err" in r:
             row["max_rel_err"] = r["max_rel_err"]
         kernels.append(row)
@@ -4082,6 +4498,17 @@ def main(argv=None) -> int:
         f"{ {n: [(round(r['ms'], 2), round(r['peak_mib'], 1)) for r in keys['remat'][n].values()] for n in ('search', 'fixed')} }; "
         f"remat equal {keys['remat']['equal']}; card vs CPU {keys['card_vs_cpu']}; "
         f"CLIs {keys['clis']}")
+    fam = families["steps"]
+    log(f"phase 20 summary ({families['seconds']:.1f} s): unet ms/step f32, bf16 "
+        f"{ {n: (round(r['f32']['step_ms'], 2), round(r['bf16']['step_ms'], 2)) for n, r in fam.items()} }; "
+        f"peak MiB f32, bf16 "
+        f"{ {n: (round(r['f32']['peak_mib'], 1), round(r['bf16']['peak_mib'], 1)) for n, r in fam.items()} }; "
+        f"device launches a step f32, bf16 "
+        f"{ {n: (r['f32']['launches_per_step'], r['bf16']['launches_per_step']) for n, r in fam.items()} }; "
+        f"deeplab_v3_plus os 16 {families['deeplab']}; gate on/off ms/step "
+        f"{ {n: (round(r['ms_on'], 2), round(r['ms_off'], 2)) for n, r in families['gate']['steps'].items()} }; "
+        f"gated BN checks {families['gate']['checks']}; K1a/K1c device ms, share of bound "
+        f"{ {lab: {k: (round(v['device_ms'], 4), v['share_of_bound']) for k, v in r.items()} for lab, r in families['gate']['timed'].items()} }")
     log(f"card: {smi}; total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

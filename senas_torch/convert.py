@@ -20,7 +20,10 @@ The baseline zoo adds no layout of its own: a grouped (ResNeXt) kernel
 (k,k,I/g,O) and a depthwise one (k,k,1,C) are "hwio" to (O,I/g,k,k) and
 (C,1,k,k); Linknet's and nasunet's transposed kernels are "hwio_t", a
 depthwise transposed one "dw_t"; nasunet's CWeightOp is two Dense layers
-and a (transposed) conv.
+and a (transposed) conv. Nor do the other encoder families: rectangular
+(1x7, 7x1), grouped, dilated and depthwise kernels are "hwio"; the
+squeeze-excite Dense kernels of SE-Net and EfficientNet stay (I, O),
+"copy"; MobileNetV3's and ResNeSt's are 1x1 convs, "hwio".
 
 A module whose kernel is not a plain conv names its layout in its
 `flax_layout` dict. The vmapped inner edges of a fused cell (flax

@@ -1,30 +1,39 @@
-"""ResNet / ResNeXt encoders of the baseline zoo in PyTorch (NCHW inside).
+"""The encoders of the baseline zoo in PyTorch (NCHW inside), and their
+registry.
 
-Port of the resnet part of `senas_tpu/models/encoders.py` (the reference's
-modified smp encoder stack): the custom `resnet10` (BasicBlock,
-layers (1,1,1,1)) that every factory model uses, resnet18/34, and the
-Bottleneck family (resnet50/101/152, resnext*) with `groups` and
+Port of `senas_tpu/models/encoders.py` (the reference's modified smp
+encoder stack). This file holds the resnet family: the custom `resnet10`
+(BasicBlock, layers (1,1,1,1)) that every factory model uses, resnet18/34,
+and the Bottleneck family (resnet50/101/152, resnext*) with `groups` and
 `width_per_group`. Stages follow ResNetEncoder.get_stages (smp
 encoders/resnet.py:47-56): [identity, conv7x7+bn+relu, maxpool+layer1,
 layer2, layer3, layer4]; forward returns depth+1 feature maps. smp's
 `make_dilated` (output stride 16 or 8) replaces a stage's strides by
 dilation. Grouped convolutions are `F.conv2d(groups=)`.
 
-The other encoder families of senas_tpu (VGG, DenseNet, MobileNet,
-EfficientNet, SE-Net, Xception, Inception, DPN, ResNeSt, Res2Net, RegNet,
-SK-Net, GERNet) are not ported yet and raise NotImplementedError.
+`get_encoder` also builds the families of `encoders_extra.py` (VGG,
+DenseNet, MobileNetV2, EfficientNet), `encoders_families.py` (SE-Net,
+Xception, InceptionV4, InceptionResNetV2, DPN), `encoders_mnv3.py`
+(MobileNetV3) and `encoders_resnest.py` (ResNeSt), and the `tu-` names
+that resolve to a ported architecture. senas_tpu's timm residual variants
+(Res2Net, RegNet, SK-Net, GERNet) are not ported yet and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
 
+import functools
+import inspect
 from typing import List, Optional, Sequence, Tuple
 
+import torch
 from torch import nn
 
 from senas_torch.ops.primitives import (BasicBlock, BatchNorm, add_conv_kernel, cast, conv2d,
                                         max_pool_3x3, relu)
 
-NEXT_SLICE = "ROADMAP.md Queue 1, M15b: the other encoder families"
+NEXT_SLICE = ("ROADMAP.md Queue 1, M15c: the timm residual variants (Res2Net, RegNet, "
+              "SK-Net, GERNet)")
 
 
 def stage_dilation(stage: int, output_stride: int) -> int:
@@ -94,7 +103,6 @@ class ResNetEncoder(nn.Module):
                  output_stride: int = 32, dtype=None):
         super().__init__()
         self.depth = depth
-        self.out_channels = resnet_out_channels(in_channels, depth, block)
         if depth == 0:
             return
         add_conv_kernel(self, "conv1", (64, in_channels, 7, 7))
@@ -160,31 +168,85 @@ _ENCODERS = {
                           "groups": 32, "width_per_group": 48},
 }
 
-# The names of senas_tpu's other registries (models/encoders_extra.py,
-# encoders_families.py, encoders_mnv3.py, encoders_resnest.py,
-# encoders_timm2.py) and its timm prefixes: known, not ported yet.
-_UNPORTED_PREFIXES = (
-    "vgg", "densenet", "mobilenet", "efficientnet", "timm-", "tu-", "se_resnet",
-    "se_resnext", "senet", "xception", "inception", "dpn", "res2net", "res2next",
-    "regnet", "skresnet", "skresnext", "gernet", "resnest")
+# senas_tpu's timm residual variants (its models/encoders_timm2.py): known,
+# not ported yet
+_UNPORTED = tuple(
+    [f"timm-res2net{v}" for v in ("50_26w_4s", "101_26w_4s", "50_26w_6s", "50_26w_8s",
+                                  "50_48w_2s", "50_14w_8s")]
+    + ["timm-res2next50"]
+    + [f"timm-regnet{k}_{s}" for k in "xy" for s in ("002", "004", "006", "008", "016", "032",
+                                                     "040", "064", "080", "120", "160", "320")]
+    + ["timm-skresnet18", "timm-skresnet34", "timm-skresnext50_32x4d"]
+    + [f"timm-gernet_{s}" for s in "sml"])
 
 
-def resnet_out_channels(in_channels: int, depth: int, block: str = "basic") -> Tuple[int, ...]:
-    e = 1 if block == "basic" else Bottleneck.expansion
-    return (in_channels, 64, 64 * e, 128 * e, 256 * e, 512 * e)[:depth + 1]
+def _registries() -> tuple:
+    from senas_torch.models.encoders_extra import EXTRA_ENCODERS
+    from senas_torch.models.encoders_families import FAMILY_ENCODERS
+    from senas_torch.models.encoders_mnv3 import MNV3_ENCODERS
+    from senas_torch.models.encoders_resnest import RESNEST_ENCODERS
+    return EXTRA_ENCODERS, FAMILY_ENCODERS, RESNEST_ENCODERS, MNV3_ENCODERS
+
+
+def _resolve_tu_alias(name: str, known) -> Optional[str]:
+    """Map a ``tu-<timm_name>`` onto a name in `known`.
+
+    The reference's TimmUniversalEncoder (encoders/timm_universal.py) is a
+    thin ``timm.create_model(features_only=True)`` wrapper whose forward
+    returns ``[x] + features``, the pyramid every encoder here returns; so
+    ``tu-<name>`` resolves to the ported architecture of that timm name
+    (senas_tpu/models/encoders.py:183-209)."""
+    base = name[3:]
+    candidates = [base, f"timm-{base}"]
+    # timm underscore spellings -> smp registry spellings
+    if base.startswith("efficientnet_b"):
+        candidates.append("efficientnet-" + base[len("efficientnet_"):])
+    if base.startswith("seresnet"):
+        candidates.append("se_resnet" + base[len("seresnet"):])
+    if base.startswith("seresnext"):
+        candidates.append("se_resnext" + base[len("seresnext"):])
+    if base.startswith("mobilenetv2"):
+        candidates.append("mobilenet_v2")
+    return next((c for c in candidates if c in known), None)
+
+
+# the reference's error text for the encoders whose make_dilated raises
+# (encoders/{densenet,vgg,inceptionv4,inceptionresnetv2,xception,
+# timm_res2net,timm_resnest}.py)
+_DILATED_UNSUPPORTED_MSG = {
+    "DenseNetEncoder": "DenseNet encoders do not support dilated mode "
+                       "due to pooling operation for downsampling!",
+    "VGGEncoder": "'VGG' models do not support dilated mode due to Max "
+                  "Pooling operations for downsampling!",
+    "InceptionV4Encoder": "InceptionV4 encoder does not support dilated "
+                          "mode due to pooling operation for downsampling!",
+    "InceptionResNetV2Encoder": "InceptionResNetV2 encoder does not "
+                                "support dilated mode "
+                                "due to pooling operation for downsampling!",
+    "XceptionEncoder": "Xception encoder does not support dilated mode "
+                       "due to pooling operation for downsampling!",
+    "ResNestEncoder": "ResNest encoders do not support dilated mode",
+}
 
 
 def get_encoder_names() -> List[str]:
-    """The encoder names the port builds."""
-    return list(_ENCODERS)
+    """The encoder names the port builds (smp encoders/__init__.py:85-86),
+    in senas_tpu's order without its unported ones."""
+    names = list(_ENCODERS)
+    extra, families, resnest, mnv3 = _registries()
+    for r in (extra, families, resnest, mnv3):
+        names.extend(r)
+    return names
 
 
 def get_encoder(name: str, depth: int = 5, dtype=None, output_stride: int = 32,
-                weights: Optional[str] = None, in_channels: int = 3) -> ResNetEncoder:
+                weights: Optional[str] = None, in_channels: int = 3) -> nn.Module:
     """The encoder `name` over `in_channels` input channels (the JAX package
     infers them from its first input; a torch module is built with them),
-    computing in `dtype` (None: the input's). senas_tpu's `dilate_last`
-    alias of output_stride=16 has no caller and is not ported."""
+    computing in `dtype` (None: the input's). A family without
+    dilated mode raises the reference's ValueError at output stride 16 or
+    8. senas_tpu's `dilate_last` alias of output_stride=16 has no caller
+    and is not ported."""
     if weights is not None:
         # smp loads ImageNet weights by URL here (encoders/__init__.py:64-71)
         raise ValueError(
@@ -197,15 +259,46 @@ def get_encoder(name: str, depth: int = 5, dtype=None, output_stride: int = 32,
     if name in _ENCODERS:
         return ResNetEncoder(in_channels, depth=depth, output_stride=output_stride,
                              dtype=dtype, **_ENCODERS[name])
-    if name.startswith(_UNPORTED_PREFIXES):
+    registries = _registries()
+    entry = next((r[name] for r in registries if name in r), None)
+    if entry is not None:
+        cls = entry["cls"]
+        dilatable = "output_stride" in inspect.signature(cls).parameters
+        if output_stride != 32 and not dilatable:
+            raise ValueError(_DILATED_UNSUPPORTED_MSG.get(
+                cls.__name__, f"{name!r} does not support dilated mode"))
+        kw = dict(entry["kw"])
+        if dilatable:
+            kw["output_stride"] = output_stride
+        return cls(in_channels, depth=depth, dtype=dtype, **kw)
+    if name in _UNPORTED:
         raise NotImplementedError(f"encoder {name!r} is not ported yet ({NEXT_SLICE})")
-    raise KeyError(f"unknown encoder {name!r}; available: {sorted(_ENCODERS)}")
+    if name.startswith("tu-"):
+        known = set(_ENCODERS).union(*registries, _UNPORTED)
+        resolved = _resolve_tu_alias(name, known)
+        if resolved is not None:
+            return get_encoder(resolved, depth=depth, dtype=dtype, output_stride=output_stride,
+                               in_channels=in_channels)
+        from senas_torch.models.encoders_extra import GATED_FAMILIES
+        if name.startswith(GATED_FAMILIES):
+            raise KeyError(
+                f"{name!r} names a timm model with no natively-ported "
+                "architecture; the timm pretrained registry "
+                "(TimmUniversalEncoder) is not available in this environment. "
+                "tu-<name> works for every natively-ported architecture "
+                "(e.g. tu-resnet34, tu-resnest50d, tu-tf_efficientnet_lite0); "
+                "see senas_torch/models/encoders_extra.py GATED_FAMILIES")
+    raise KeyError(f"unknown encoder {name!r}; available: {sorted(get_encoder_names())}")
 
 
+@functools.lru_cache(maxsize=None)
 def encoder_out_channels(name: str, depth: int = 5, in_channels: int = 3) -> Tuple[int, ...]:
     """Per-stage channel pyramid of the named encoder (smp's
-    `out_channels`): the channels of the depth+1 maps its forward returns.
+    `out_channels`): the channels of the depth+1 maps its forward returns,
+    read off a forward of the encoder built on the meta device at 256x256
+    (no memory, no arithmetic), as senas_tpu reads them off `jax.eval_shape`.
     Names that `get_encoder` refuses raise the same here."""
-    if name not in _ENCODERS:
-        get_encoder(name, depth=depth, in_channels=in_channels)
-    return resnet_out_channels(in_channels, depth, _ENCODERS[name].get("block", "basic"))
+    with torch.device("meta"):
+        enc = get_encoder(name, depth=depth, in_channels=in_channels)
+        feats = enc(torch.empty(1, in_channels, 256, 256), train=False)
+    return tuple(int(f.shape[1]) for f in feats)

@@ -292,7 +292,8 @@ class BatchNorm(nn.Module):
     where `dtype` differs from x's the path runs in f32 (a bf16 x widened,
     exactly) and rounds once to `dtype`. A non-contiguous x is copied to
     NCHW; `pallas_copies` counts the copies the path makes. Other ranks
-    keep `F.batch_norm`, as in the JAX module."""
+    keep `F.batch_norm`, as in the JAX module, and so does a tensor on the
+    meta device (a shape-only forward)."""
 
     pallas_copies = 0
 
@@ -307,7 +308,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(c))
 
     def forward(self, x, train: bool = False):
-        if x.dim() == 4 and use_pallas_bn():
+        if x.dim() == 4 and use_pallas_bn() and not x.is_meta:
             return self._kernel_path(x, train)
         # F.batch_norm updates the running stats it is given in place in
         # train mode; a remat recompute gives it copies.

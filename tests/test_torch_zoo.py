@@ -308,8 +308,12 @@ def test_nasunet_ops_outside_the_genotype_match(op):
 
 
 def test_preprocessing_matches():
-    for name in ("resnet34", "resnext50_32x4d"):
-        assert t_prep_params(name) == j_prep_params(name)
+    for name in ("resnet34", "resnext50_32x4d", "xception", "inceptionv4", "inceptionresnetv2",
+                 "dpn68", "se_resnext50_32x4d", "vgg11", "efficientnet-b0", "mobilenet_v2",
+                 "timm-resnest14d", "timm-mobilenetv3_large_100"):
+        assert t_prep_params(name) == j_prep_params(name), name
+    assert t_prep_params("efficientnet-b3", "advprop") == \
+        j_prep_params("efficientnet-b3", "advprop")
     x = np.random.RandomState(0).rand(4, 4, 3) * 255
     params = t_prep_params("resnet10")
     np.testing.assert_array_equal(t_preprocess(x, **params), j_preprocess(x, **params))
@@ -317,5 +321,5 @@ def test_preprocessing_matches():
         t_prep_params("resnet34", pretrained="other")
     with pytest.raises(KeyError):
         t_prep_params("nope")
-    with pytest.raises(NotImplementedError, match="M15b"):
-        t_prep_params("xception")
+    with pytest.raises(NotImplementedError, match="M15c"):
+        t_prep_params("timm-regnetx_002")

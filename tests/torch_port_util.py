@@ -601,3 +601,172 @@ def assert_search_steps_match(runs, M=2, D=2, beta_mode="reference",
                        atol=state_atol)
     assert repr(tsn.derive_genotype(runs["state"].arch, M, D, beta_mode=beta_mode)) == repr(
         jsn.derive_genotype(want_arch, M, D, beta_mode=beta_mode))
+
+
+# ---------------------------------------------------------------------------
+# encoders: one name in both packages
+# ---------------------------------------------------------------------------
+
+def encoder_pair(name, output_stride=32, seed=0, depth=5, hw=32, batch=2):
+    """(x NHWC, senas_tpu's encoder, its numpy-made variables, the port's
+    encoder with them) for the encoder `name`."""
+    import jax.numpy as jnp
+    import torch
+    from senas_torch import convert
+    from senas_torch.models import encoders as tenc
+    from senas_torch.ops.primitives import init_params_
+    from senas_tpu.models import encoders as jenc
+
+    rng = np.random.RandomState(seed)
+    x = rng.randn(batch, hw, hw, 3).astype(np.float32)
+    jm = jenc.get_encoder(name, depth=depth, output_stride=output_stride)
+    variables = random_variables(jm, rng, jnp.asarray(x), False)
+    tm = tenc.get_encoder(name, depth=depth, output_stride=output_stride, in_channels=3)
+    init_params_(tm, torch.Generator().manual_seed(0))
+    convert.load_variables(tm, variables)
+    return x, jm, variables, tm
+
+
+def port_f64(module, x, train: bool):
+    """(output, the f64 copy) of the port module run in f64 on a copy of
+    it; the module's own running stats stay as they are, the copy's
+    advance in train mode."""
+    import copy
+    import torch
+    twin = copy.deepcopy(module).double()
+    with torch.no_grad():
+        return twin(nchw(x).double(), train=train), twin
+
+
+def assert_encoder_eval_matches(name, output_stride=32, rel=2e-5, depth=5):
+    """The port's eval-mode pyramid of the encoder `name` against senas_tpu's
+    (jitted) at batch 2 of 32x32x3 (`assert_pyramid_close`); returns it."""
+    x, jm, variables, tm = encoder_pair(name, output_stride, depth=depth)
+    want = jax.jit(lambda v, x: jm.apply(v, x, False))(variables, x)
+    assert len(want) == depth + 1
+    got = tm(nchw(x), train=False)
+    assert_pyramid_close(got, want, rel, port_f64(tm, x, False)[0], what=name)
+    return got
+
+
+def assert_encoder_train_matches(name, hw=64, rel=2e-4, rtol=1e-4, atol=2e-5):
+    """The port's train-mode pyramid of the encoder `name` and the running
+    stats it leaves against senas_tpu's at batch 2 of hw x hw x 3
+    (`assert_pyramid_close`, `assert_stats_close`)."""
+    from senas_torch import convert
+    x, jm, variables, tm = encoder_pair(name, 32, seed=1, hw=hw)
+    want, mutated = jax.jit(lambda v, x: jm.apply(v, x, True, mutable=["batch_stats"]))(
+        variables, x)
+    exact, twin = port_f64(tm, x, True)
+    got = tm(nchw(x), train=True)
+    assert_pyramid_close(got, want, rel, exact, what=name)
+    assert_stats_close(convert.state_dict_to_variables(tm)["batch_stats"],
+                       jax.device_get(mutated.get("batch_stats", {})),
+                       convert.state_dict_to_variables(twin)["batch_stats"],
+                       rtol=rtol, atol=atol, what=name)
+
+
+def assert_dilation_error_matches(name, output_stride):
+    """senas_tpu's ValueError text for a dilated encoder of an undilatable
+    family, from both packages."""
+    from senas_torch.models import encoders as tenc
+    from senas_tpu.models import encoders as jenc
+    with pytest.raises(ValueError) as want:
+        jenc.get_encoder(name, output_stride=output_stride)
+    with pytest.raises(ValueError) as got:
+        tenc.get_encoder(name, output_stride=output_stride)
+    assert str(got.value) == str(want.value) and "dilated mode" in str(got.value)
+
+
+# How far two f32 evaluations of one ill-conditioned map may lie apart, in
+# units of the port's own f32 distance from its f64 run: senas_tpu's f32
+# map (XLA:CPU's summation orders) lies up to 4x as far from that run as
+# the port's does on the deep train-mode maps of the encoder tests.
+F32_SPREAD = 5.0
+
+
+def assert_pyramid_close(got, want, rel, exact=None, what=""):
+    """Each port map (NCHW) within `rel` of the largest magnitude of
+    senas_tpu's (NHWC) map of the same level. With `exact` (the port's f64
+    pyramid, `port_f64`) a level may lie F32_SPREAD times the port's own
+    f32 distance from it away, where that is larger: a map that
+    BatchNorms over few values make ill-conditioned in f32. (A fault of
+    the port moves its f32 and f64 maps alike, away from senas_tpu's.)"""
+    assert len(got) == len(want), (what, len(got), len(want))
+    for level, (g, w) in enumerate(zip(got, want)):
+        g, w = nhwc(g), np.asarray(w)
+        assert g.shape == w.shape, (what, level, g.shape, w.shape)
+        scale = np.abs(w).max()
+        bound = rel
+        if exact is not None:
+            own = np.abs(g - nhwc(exact[level])).max() / scale
+            bound = max(rel, F32_SPREAD * own)
+        err = np.abs(g - w).max() / scale
+        assert err <= bound, (what, level, err, bound)
+
+
+def assert_stats_close(got, want, exact, rtol, atol, what=""):
+    """Running stats (flax trees): each element within atol + rtol |want|
+    of senas_tpu's, or within F32_SPREAD times the port's own largest
+    distance on that leaf from its f64 run (`exact`) where that is
+    larger."""
+    g, w, e = flat(got), flat(want), flat(exact)
+    assert g.keys() == w.keys() == e.keys(), sorted(set(g) ^ set(w))
+    for k in w:
+        bound = np.maximum(atol + rtol * np.abs(w[k]), F32_SPREAD * np.abs(g[k] - e[k]).max())
+        over = np.abs(g[k] - w[k]) - bound
+        assert over.max() <= 0, (what, k, float(over.max()))
+
+
+def bf16_pyramids(name, train: bool, hw: int = 32):
+    """The encoder `name` in bf16 and f32 in both packages (senas_tpu's
+    jitted) from one set of numpy-made variables: {jax,port}_{bf16,f32} ->
+    (the maps as f64 NHWC arrays, the running stats left as one f64
+    vector). The port's maps but the input are in the compute dtype, its
+    weights and stats f32."""
+    import jax.numpy as jnp
+    import torch
+    from senas_torch import convert
+    from senas_torch.models import encoders as tenc
+    from senas_tpu.models import encoders as jenc
+
+    x, _, variables, _ = encoder_pair(name, seed=1 if train else 0, hw=hw)
+    out = {}
+    for key, dt in (("bf16", jnp.bfloat16), ("f32", None)):
+        jm = jenc.get_encoder(name, dtype=dt)
+        feats, mut = jax.jit(lambda v, x: jm.apply(v, x, train, mutable=["batch_stats"]))(
+            variables, x)
+        out[f"jax_{key}"] = ([as_f64(f) for f in feats],
+                             flat_leaves(jax.device_get(mut.get("batch_stats", {}))))
+    for key, dt in (("bf16", torch.bfloat16), ("f32", None)):
+        tm = convert.load_variables(tenc.get_encoder(name, dtype=dt, in_channels=3), variables)
+        with torch.no_grad():
+            feats = tm(nchw(x), train=train)
+        want = dt or torch.float32
+        first = 0 if name.startswith("vgg") else 1     # VGG's first map is a block's
+        assert all(f.dtype == want for f in feats[first:]), [f.dtype for f in feats]
+        assert all(p.dtype == torch.float32 for p in tm.parameters())
+        assert all(b.dtype == torch.float32 for b in tm.buffers())
+        out[f"port_{key}"] = ([as_f64(f.permute(0, 2, 3, 1)) for f in feats],
+                              flat_leaves(convert.state_dict_to_variables(tm)
+                                          .get("batch_stats", {})))
+    return out
+
+
+def assert_bf16_pyramid(r, stats: bool, rel: float = 2e-5):
+    """Each map of the port's bf16 pyramid (`bf16_pyramids`) within
+    ROADMAP's bf16 bound of senas_tpu's (the input itself equal), the
+    running stats too with `stats`; the control: the deepest bf16 map lies
+    beyond 100 times the f32 tolerance `rel` of the port's f32 one."""
+    for level, (pb, jb, jf) in enumerate(zip(r["port_bf16"][0], r["jax_bf16"][0],
+                                             r["jax_f32"][0])):
+        if np.array_equal(jb, jf):     # the input itself
+            np.testing.assert_array_equal(pb, jb)
+            continue
+        assert_bf16_network(pb, jb, jf, what=f"level {level}")
+    if stats and r["jax_f32"][1].size:
+        assert_bf16_network(r["port_bf16"][1], r["jax_bf16"][1], r["jax_f32"][1],
+                            what="running stats")
+    deepest = r["port_f32"][0][-1]
+    assert_bf16_computed(r["port_bf16"][0][-1], deepest, rtol=0,
+                         atol=rel * np.abs(deepest).max(), what="deepest map")
