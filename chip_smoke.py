@@ -182,11 +182,28 @@ Phases, each of which fails the run:
      call back to back, and the device time of calls queued behind a
      spin kernel),
      each Unet's f32 step with the gate on and off in turns.
-Phases 12-13, 16, 18's zoo and 20's ungated steps launch none of the
-kernels (neither the fixed model nor the zoo has any, unless
+ 21. the timm residual variants: a Unet on each of timm-res2net50_26w_4s,
+     timm-regnety_016, timm-skresnet18 and timm-gernet_s at the promise12
+     `training:` geometry, 1 + 3 train steps in f32 and in bf16 (ms/step,
+     peak memory, device launches a step); every one of the 37 names
+     (Res2Net, RegNet X/Y, SK-Net, GERNet) built on the card, one eval-mode
+     Unet forward at batch 2 of 64x64x1 in f32 and in bf16 (finite logits,
+     the pyramid's channels those of `encoder_out_channels`); card against
+     CPU as phase 20 holds it for the four, timm-res2next50 and
+     timm-skresnext50_32x4d, and DeepLabV3+ on timm-regnetx_002 at output
+     stride 8; DeepLabV3+ on timm-skresnet18 at output stride 16 at full
+     width; SENAS_PALLAS_BN on timm-regnety_016 and timm-skresnet18:
+     K1a-K1d held to their twins at every shape their encoders'
+     BatchNorms see, K1a and K1c timed at the largest plane phase 20 did
+     not see, each Unet's f32 step with the gate on and off in turns, its
+     BatchNorm calls equal to its `BatchNorm` modules (SK-Net's attention
+     BatchNorm, flax's rules, is not one and never reaches K1).
+Each phase's seconds are logged as it ends, and all of them at the end.
+Phases 12-13, 16, 18's zoo and 20's and 21's ungated steps launch none of
+the kernels (neither the fixed model nor the zoo has any, unless
 SENAS_PALLAS_BN=1).
 Every kernel variant must be launched on at least one path (phases 4-6, 9,
-14, 15, 17, 19, 20; K2's bf16 variant in phase 4). The line before the last is a
+14, 15, 17, 19-21; K2's bf16 variant in phase 4). The line before the last is a
 JSON list of the kernels, the bf16 variants as `<name>_bf16`; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits 1 and prints no result.
@@ -198,6 +215,7 @@ import argparse
 import ast
 import contextlib
 import copy
+import functools
 import gzip
 import importlib
 import io
@@ -227,6 +245,8 @@ from senas_torch.data.io import MetaImage, read_mhd, read_nifti, write_mhd
 from senas_torch.data.msd import extract_task
 from senas_torch.utils.logging import write_png
 from senas_torch.models import geno_searched, zoo
+from senas_torch.models.encoders import encoder_out_channels
+from senas_torch.models.encoders_timm2 import TIMM2_ENCODERS
 from senas_torch.models.factory import get_segmentation_model
 from senas_torch.models.senas_model import SenasModel
 from senas_torch.ops import _build
@@ -1210,7 +1230,7 @@ def run_search_path(dev, seed: int) -> dict:
               f"the steps with the kernels and with {name} disagree: {rel_m}")
         check(all(rel_s[k] <= STEP_LIMITS[k] for k in ("weights", "arch", "bn_stats")),
               f"the steps with the kernels and with {name} moved the state apart: {rel_s}")
-    turns = in_turns(lambda: step(state, tb, vb, True), "search step (do_arch)", reps=2)
+    turns = in_turns(lambda: step(state, tb, vb, True), "search step (do_arch)", reps=1)
     return dict(launches=total, per_step=read, step_ms=float(np.mean(steady)),
                 peak_mib=peak / 2**20, profile=prof, turns=turns, spread=spread,
                 default_spread=default)
@@ -3553,7 +3573,7 @@ def time_bn_kernels(dev, seed: int) -> dict:
     return out
 
 
-def _gate_turns(label, step_fn, bn_count, reps: int = 3) -> dict:
+def _gate_turns(label, step_fn, bn_count, reps: int = 2) -> dict:
     """Steps with the gate on and off in turns (on, off, off, on), `reps`
     a turn after one warm-up call each way; the wrapper counts of one gated
     step held to `bn_count` (each 4-D BatchNorm: K1a and K1b forward, K1c
@@ -4005,18 +4025,20 @@ def device_launches(fn) -> int:
     return n if n else -1
 
 
-def run_family_steps(dev, seed: int) -> dict:
-    """Each FAMILY_NAMES Unet at the promise12 `training:` geometry (batch
-    12 of 256x256x1, depth 5, SGD 6e-3 / 0.9 / 5e-4, clip 5, dice_ce), 1 + 3
-    train steps in f32 (TF32 off) and in bf16: ms/step, peak memory and
-    device launches a step; finite losses and logits of the right shape and
-    dtype; no port kernel launched (the BatchNorm gate is off)."""
+def run_family_steps(dev, seed: int, names=None) -> dict:
+    """A Unet on each encoder of `names` at the promise12 `training:`
+    geometry (batch 12 of 256x256x1, depth 5, SGD 6e-3 / 0.9 / 5e-4, clip 5,
+    dice_ce), 1 + 3 train steps in f32 (TF32 off) and in bf16: ms/step,
+    peak memory and device launches a step; finite losses and logits of the
+    right shape and dtype; no port kernel launched (the BatchNorm gate is
+    off). `names` None: FAMILY_NAMES."""
+    names = names or FAMILY_NAMES
     t = load_config(CONFIG)["training"]
     bs, loss_fn = t["batch_size"], _fixed_loss(t)
     batches = _batches(np.random.RandomState(seed + 20), FIXED_STEPS, bs, HW, dev)
     reset_counts()
     rows = {}
-    for name in FAMILY_NAMES:
+    for name in names:
         for tag, dtype in (("f32", None), ("bf16", BF16)):
             model = _family_unet(name, dev, torch.Generator().manual_seed(seed + 20), dtype)
             state = FixedTrainState.create(model, t["model_optimizer"], seed=seed)
@@ -4052,7 +4074,7 @@ def run_family_steps(dev, seed: int) -> dict:
             del model, state, step, out
             torch.cuda.empty_cache()
     got = counts()
-    check(not any(got.values()), f"the encoder families' steps launched {got}")
+    check(not any(got.values()), f"the steps on {', '.join(names)} launched {got}")
     return rows
 
 
@@ -4070,32 +4092,45 @@ FAMILY_F32_LIMITS = dict(loss=1e-5, bn_stats=1e-4, grad_norm=1e-3, weights=2e-2)
 FAMILY_F64_LIMITS = dict(ZOO_CPU_LIMITS["float64"])
 FAMILY_SPREAD = 5.0
 FAMILY_SMALL_HW_OF = {"inceptionv4": 128}
+# SK-Net's attention BatchNorm normalises 2 values a channel at batch 2
+# with flax's one-sweep variance: timm-skresnext50_32x4d's step is then
+# chaotic (the CPU's own f32 grad norm 0.78 off its f64 one, the card's f64
+# weights 1.7e-7 off the CPU's, where the f32 distance scaled by 2^-29
+# allows 1.8e-8); at batch 4 the CPU's own f32 distance is 2.0e-4.
+FAMILY_SMALL_BATCH_OF = {"timm-skresnext50_32x4d": 4}
 
 
-def family_card_vs_cpu(dev, seed: int) -> dict:
-    """Each FAMILY_NAMES Unet's train step (depth 5, batch 2, 64x64; see
-    FAMILY_SMALL_HW_OF) on the card and on the CPU from one state: in f64
-    the whole step; in f32 (TF32 off) in three parts, as phase 19 splits
-    it (`split_step_card_vs_cpu`): the forward (loss, running stats), the
-    gradients with the CPU's forward forced to the card's module outputs,
-    and the update (SGD on the card's gradients). Limits: phase 16's, or
-    FAMILY_SPREAD times the CPU's own f32-vs-f64 distance where larger."""
+def family_card_vs_cpu(dev, seed: int, cases=None) -> dict:
+    """Each case's train step (by default a Unet on each FAMILY_NAMES
+    encoder; depth 5, batch 2, 64x64, see FAMILY_SMALL_HW_OF and
+    FAMILY_SMALL_BATCH_OF) on the card
+    and on the CPU from one state: in f64 the whole step; in f32 (TF32 off)
+    in three parts, as phase 19 splits it (`split_step_card_vs_cpu`): the
+    forward (loss, running stats), the gradients with the CPU's forward
+    forced to the card's module outputs, and the update (SGD on the card's
+    gradients). Limits: phase 16's, or FAMILY_SPREAD times the CPU's own
+    f32-vs-f64 distance where larger. `cases` maps a label to a function
+    (device, generator) -> model."""
     t = load_config(CONFIG)["training"]
     opt = t["model_optimizer"]
     rows = {}
     cpu = lambda d: {k: v.detach().cpu().clone() for k, v in d.items()}
-    for name in FAMILY_NAMES:
+    if cases is None:
+        cases = {name: functools.partial(_family_unet, name) for name in FAMILY_NAMES}
+    for name, build_model in cases.items():
         hw = FAMILY_SMALL_HW_OF.get(name, FAMILY_SMALL_HW)
-        model0 = _family_unet(name, "cpu", torch.Generator().manual_seed(seed + 21)).state_dict()
-        batch = _batches(np.random.RandomState(seed + 21), 1, 2, hw, "cpu")[0]
+        bs = FAMILY_SMALL_BATCH_OF.get(name, 2)
+        model0 = build_model("cpu", torch.Generator().manual_seed(seed + 21)).state_dict()
+        batch = _batches(np.random.RandomState(seed + 21), 1, bs, hw, "cpu")[0]
         params = [k for k in model0 if k.rsplit(".", 1)[-1] not in ("mean", "var")]
         stats = [k for k in model0 if k not in params]
 
         def run_on(d, dtype, forced=None):
-            model = _family_unet(name, d, None)
+            model = build_model(d, None)
             model.load_state_dict({k: v.to(d) for k, v in model0.items()})
             model.to(dtype)
-            state = FixedTrainState.create(model, opt)
+            # one CPU generator: the same dropout masks on both devices
+            state = FixedTrainState.create(model, opt, rng=torch.Generator())
             names = {id(p): k for k, p in model.named_parameters()}
             grads = {}
             state.opt.register_step_pre_hook(lambda o, a, kw: grads.update(
@@ -4124,14 +4159,14 @@ def family_card_vs_cpu(dev, seed: int) -> dict:
         m64d, s64d, _, _ = run_on(dev, torch.float64)
         f64 = step_rel(m64d, s64d, m64c, s64c, before64)
         check(all(f64[k] <= lim64[k] for k in lim64),
-              f"unet on {name}: f64 step card vs CPU {f64} (limits {lim64}; CPU f32 vs f64 {own})")
+              f"{name}: f64 step card vs CPU {f64} (limits {lim64}; CPU f32 vs f64 {own})")
         m_card, s_card, g_card, seen = run_on(dev, torch.float32)
         m_forced, _, g_forced, _ = run_on("cpu", torch.float32, forced=seen)
         forward = dict(**_metrics_rel(m_card, m_cpu, ("loss",)), bn_stats=stats_rel(s_card, s_cpu))
         grads = dict(**_metrics_rel(m_card, m_forced, ("grad_norm",)),
                      weights=_update_rel({k: torch.zeros_like(v) for k, v in g_forced.items()},
                                          g_card, g_forced, list(g_forced)))
-        model = _family_unet(name, "cpu", None)
+        model = build_model("cpu", None)
         model.load_state_dict(model0)
         sgd = build_optimizer(list(model.parameters()), opt)
         for k, p in model.named_parameters():
@@ -4141,28 +4176,30 @@ def family_card_vs_cpu(dev, seed: int) -> dict:
         got = dict(loss=forward["loss"], bn_stats=forward["bn_stats"],
                    grad_norm=grads["grad_norm"], weights=max(grads["weights"], update))
         check(all(got[k] <= lim32[k] for k in lim32),
-              f"unet on {name}: f32 step card vs CPU {got} (limits {lim32}; CPU f32 vs f64 {own})")
-        rows[name] = dict(hw=hw, f64=f64, forward=forward, grads=grads, update=update,
+              f"{name}: f32 step card vs CPU {got} (limits {lim32}; CPU f32 vs f64 {own})")
+        rows[name] = dict(hw=hw, batch=bs, f64=f64, forward=forward, grads=grads, update=update,
                           cpu_own=own, limits=dict(f32=lim32, f64=lim64))
-        log(f"unet on {name} step card vs CPU (depth 5, {hw}x{hw}, batch 2): f64 {f64} (limits "
+        log(f"{name} step card vs CPU (depth 5, {hw}x{hw}, batch {bs}): f64 {f64} (limits "
             f"{lim64}); f32 forward {forward}, gradients (forward forced) {grads}, update "
             f"{update:.3g} (limits {lim32}); CPU f32 vs f64 {own}")
     return rows
 
 
-def run_family_deeplab(dev, seed: int) -> dict:
-    """One f32 train step of DeepLabV3+ on FAMILY_DEEPLAB at output stride 16
-    (its deepest stage dilated) at the promise12 `training:` geometry."""
+def run_family_deeplab(dev, seed: int, name=None) -> dict:
+    """One f32 train step of DeepLabV3+ on the encoder `name` at output
+    stride 16 (its deepest stage dilated) at the promise12 `training:`
+    geometry, and a second one timed. `name` None: FAMILY_DEEPLAB."""
+    name = name or FAMILY_DEEPLAB
     t = load_config(CONFIG)["training"]
     bs = t["batch_size"]
     batch = _batches(np.random.RandomState(seed + 22), 1, bs, HW, dev)[0]
     model = zoo.DeepLabV3Plus(classes=NCLASS, in_channels=IN_CHANNELS,
-                              encoder_name=FAMILY_DEEPLAB, output_stride=16,
+                              encoder_name=name, output_stride=16,
                               device=dev, generator=torch.Generator().manual_seed(seed + 22))
     enc = model.encoder
     check([f.shape[-1] for f in enc(batch["image"].permute(0, 3, 1, 2)[:1])] ==
           [HW, HW // 2, HW // 4, HW // 8, HW // 16, HW // 16],
-          "deeplab_v3_plus: the efficientnet-b0 pyramid is not at output stride 16")
+          f"deeplab_v3_plus: the {name} pyramid is not at output stride 16")
     state = FixedTrainState.create(model, t["model_optimizer"], seed=seed)
     step = make_train_step(_fixed_loss(t), grad_clip=t["grad_clip"])
     torch.cuda.synchronize()
@@ -4177,14 +4214,14 @@ def run_family_deeplab(dev, seed: int) -> dict:
     ms2 = (time.perf_counter() - t0) * 1e3
     loss = float(m["loss"])
     check(np.isfinite(loss) and np.isfinite(float(m2["loss"])),
-          f"deeplab_v3_plus on {FAMILY_DEEPLAB}: loss {loss}")
+          f"deeplab_v3_plus on {name}: loss {loss}")
     with torch.inference_mode():
         out = model(batch["image"], train=False)[0]
     check(tuple(out.shape) == (bs, HW, HW, NCLASS) and bool(torch.isfinite(out).all()),
-          f"deeplab_v3_plus on {FAMILY_DEEPLAB}: logits {tuple(out.shape)}")
+          f"deeplab_v3_plus on {name}: logits {tuple(out.shape)}")
     row = dict(first_ms=ms, step_ms=ms2, loss=loss, peak_mib=torch.cuda.max_memory_allocated()
                / 2**20)
-    log(f"deeplab_v3_plus on {FAMILY_DEEPLAB} at output stride 16, batch {bs}: first step "
+    log(f"deeplab_v3_plus on {name} at output stride 16, batch {bs}: first step "
         f"{ms:.1f} ms, second {ms2:.2f} ms, loss {loss:.5f}, peak {row['peak_mib']:.1f} MiB")
     del model, state
     torch.cuda.empty_cache()
@@ -4250,17 +4287,26 @@ def time_k1_at(dev, shape, seed: int) -> dict:
     return out
 
 
-def run_family_gate(dev, seed: int) -> dict:
-    """The gated BatchNorm on FAMILY_GATED: K1a-K1d held to their plain
-    twins (and to the gate off) at every shape the encoders' BatchNorms see
-    in a step (their 1x1 attention planes included), K1a's and K1c's times
-    at the largest and the smallest plane and at phase 19's shape, and each
-    Unet's f32 step with the gate on and off in turns (`_gate_turns`)."""
+K1_FAMILY_PLANES = ("smallest", "largest", "phase 19's")
+
+
+def run_family_gate(dev, seed: int, names=None, planes=K1_FAMILY_PLANES,
+                    known=()) -> dict:
+    """The gated BatchNorm on a Unet on each encoder of `names`: K1a-K1d held
+    to their plain twins (and to the gate off) at every shape the encoders'
+    BatchNorms see in a step (their 1x1 attention planes included), K1a's
+    and K1c's device times at `planes` (of the largest and the smallest
+    plane, the largest of the shapes not in `known`, and phase 19's shape),
+    and each Unet's f32 step with the gate on
+    and off in turns (`_gate_turns`), whose K1 launches a step must equal
+    its BatchNorm calls, one for each `BatchNorm` module of the model.
+    `names` None: FAMILY_GATED."""
+    names = names or FAMILY_GATED
     t = load_config(CONFIG)["training"]
     bs = t["batch_size"]
     batch = _batches(np.random.RandomState(seed + 23), 1, bs, HW, dev)[0]
     out, total, shapes = {}, {name: 0 for name in KERNELS}, set()
-    for name in FAMILY_GATED:
+    for name in names:
         model = _family_unet(name, dev, torch.Generator().manual_seed(seed + 23))
         state = FixedTrainState.create(model, t["model_optimizer"], seed=seed)
         step = make_train_step(_fixed_loss(t), grad_clip=t["grad_clip"])
@@ -4268,20 +4314,26 @@ def run_family_gate(dev, seed: int) -> dict:
             step(state, batch)
         with bn_inputs(model) as seen, pallas_bn(False):
             step(state, batch)
+        modules = sum(isinstance(m, BatchNorm) for m in model.modules())
+        check(len(seen) == modules, f"unet on {name}: {len(seen)} BatchNorm calls a step, "
+                                    f"{modules} BatchNorm modules")
         shapes |= set(enc_seen)
         out[name] = _gate_turns(f"unet on {name} f32 step, batch {bs}",
                                 lambda: step(state, batch), len(seen))
-        out[name].update(bn_calls=len(seen), encoder_bn_shapes=sorted(set(enc_seen)))
+        out[name].update(bn_calls=len(seen), bn_modules=modules,
+                         encoder_bn_shapes=sorted(set(enc_seen)))
         add_counts(total, {k: out[name]["launches"].get(k, 0) for k in KERNELS})
         del model, state, step
         torch.cuda.empty_cache()
     shapes = sorted(shapes, key=lambda s: (s[2] * s[3], s[1], s[0]))
-    log(f"encoder BatchNorm shapes of {', '.join(FAMILY_GATED)} at batch {bs}: {len(shapes)} "
+    log(f"encoder BatchNorm shapes of {', '.join(names)} at batch {bs}: {len(shapes)} "
         f"({shapes})")
     worst = check_bn_path(dev, seed + 23, shapes)
-    planes = {"smallest": shapes[0], "largest": max(shapes, key=lambda s: (s[2] * s[3], s[1])),
-              "phase 19's": K1_FAMILY_REFERENCE}
-    timed = {label: time_k1_at(dev, shape, seed + 24) for label, shape in planes.items()}
+    plane = lambda s: (s[2] * s[3], s[1])
+    at = {"smallest": shapes[0], "largest": max(shapes, key=plane),
+          "largest new": max([s for s in shapes if s not in set(known)] or shapes, key=plane),
+          "phase 19's": K1_FAMILY_REFERENCE}
+    timed = {label: time_k1_at(dev, at[label], seed + 24) for label in planes}
     return dict(steps=out, launches=total, checks=worst, timed=timed,
                 shapes=[list(s) for s in shapes])
 
@@ -4311,6 +4363,106 @@ def run_encoder_families(dev, seed: int) -> dict:
                 launches=gate["launches"], seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the timm residual variants
+# ---------------------------------------------------------------------------
+
+# one encoder of each class of models/encoders_timm2.py
+TIMM2_NAMES = ("timm-res2net50_26w_4s", "timm-regnety_016", "timm-skresnet18", "timm-gernet_s")
+# the card-vs-CPU steps: a Unet on each of those and on the grouped Res2Net
+# and SK-Net; a RegNet dilated to output stride 8 under DeepLabV3+ (the Unet
+# has no output stride)
+TIMM2_CARD_CPU = TIMM2_NAMES + ("timm-res2next50", "timm-skresnext50_32x4d")
+TIMM2_DILATED = "timm-regnetx_002"
+TIMM2_GATED = ("timm-regnety_016", "timm-skresnet18")
+# DeepLabV3+ at output stride 16 at full width: both SK paths at the
+# deepest stage's dilation (the reference's quirk)
+TIMM2_DEEPLAB = "timm-skresnet18"
+# every name's eval forward: batch 2 of 64x64x1
+TIMM2_EVERY_HW = 64
+
+
+def _deeplab_os8(name, dev, gen):
+    return zoo.DeepLabV3Plus(classes=NCLASS, in_channels=IN_CHANNELS, encoder_name=name,
+                             output_stride=8, device=dev, generator=gen)
+
+
+def run_timm2_every_name(dev, seed: int) -> dict:
+    """Each of the 37 names of models/encoders_timm2.py: a Unet (depth 5, the
+    promise12 decoder widths) built on the card in f32 (its weights drawn
+    from the seed) and in bf16 (built on the meta device and given the f32
+    model's weights), one eval-mode forward each at batch 2 of 64x64x1:
+    finite logits of the right shape and dtype, and the encoder's pyramid
+    channels equal to `encoder_out_channels`. Seconds each (build and
+    forward)."""
+    image = _batches(np.random.RandomState(seed + 25), 1, 2, TIMM2_EVERY_HW, dev)[0]["image"]
+    rows = {}
+    for name in TIMM2_ENCODERS:
+        want = encoder_out_channels(name, 5, IN_CHANNELS)
+        row, weights = {}, None
+        for tag, dtype in (("f32", None), ("bf16", BF16)):
+            t0 = time.perf_counter()
+            if weights is None:
+                model = _family_unet(name, dev, torch.Generator().manual_seed(seed + 25), dtype)
+                weights = model.state_dict()
+            else:
+                with torch.device("meta"):
+                    model = _family_unet(name, "meta", None, dtype)
+                model = model.to_empty(device=dev)
+                model.load_state_dict(weights)
+            with torch.inference_mode():
+                feats = model.encoder(image.permute(0, 3, 1, 2).contiguous(), train=False)
+                out = model(image, train=False)[0]
+            torch.cuda.synchronize()
+            got = tuple(int(f.shape[1]) for f in feats)
+            check(got == want, f"{tag} {name}: pyramid channels {got}, encoder_out_channels {want}")
+            check(tuple(out.shape) == (2, TIMM2_EVERY_HW, TIMM2_EVERY_HW, NCLASS)
+                  and out.dtype == (dtype or torch.float32) and bool(torch.isfinite(out).all()),
+                  f"{tag} unet on {name}: logits {tuple(out.shape)} {out.dtype}")
+            row[tag] = dict(s=time.perf_counter() - t0,
+                            parameters=sum(p.numel() for p in model.parameters()))
+            del model, feats, out
+        rows[name] = row
+        del weights
+    torch.cuda.empty_cache()
+    log(f"every timm residual variant (unet, eval, batch 2, {TIMM2_EVERY_HW}x{TIMM2_EVERY_HW}, "
+        f"f32 and bf16): {len(rows)} names; seconds (build + forward) f32, bf16 and parameters "
+        f"{ {n: (round(r['f32']['s'], 2), round(r['bf16']['s'], 2), r['f32']['parameters']) for n, r in rows.items()} }")
+    return rows
+
+
+def run_timm_residual_variants(dev, seed: int, known_shapes=()) -> dict:
+    """Phase 21, timed: the four class representatives' Unet steps in f32
+    and bf16, every name's forward, card against CPU (and DeepLabV3+ on
+    TIMM2_DILATED at output stride 8), DeepLabV3+ at output stride 16 on
+    TIMM2_DEEPLAB, the gated BatchNorm on TIMM2_GATED (K1a/K1c timed at the
+    largest BN plane not among `known_shapes`)."""
+    t0 = time.perf_counter()
+    marks = []
+
+    def mark(what):
+        marks.append(f"{what} {time.perf_counter() - t0:.1f} s")
+        log(f"phase 21: {marks[-1]}")
+
+    steps = run_family_steps(dev, seed, TIMM2_NAMES)
+    mark("full-width steps")
+    every = run_timm2_every_name(dev, seed)
+    mark("every name")
+    cases = {name: functools.partial(_family_unet, name) for name in TIMM2_CARD_CPU}
+    cases[f"deeplab_v3_plus on {TIMM2_DILATED} at output stride 8"] = functools.partial(
+        _deeplab_os8, TIMM2_DILATED)
+    card_cpu = family_card_vs_cpu(dev, seed, cases)
+    mark("card vs CPU")
+    deeplab = run_family_deeplab(dev, seed, TIMM2_DEEPLAB)
+    mark("deeplab")
+    gate = run_family_gate(dev, seed, TIMM2_GATED, planes=("largest new",), known=known_shapes)
+    mark("gate")
+    seconds = time.perf_counter() - t0
+    log(f"phase 21 (the timm residual variants): {seconds:.1f} s ({', '.join(marks)})")
+    return dict(steps=steps, every_name=every, card_vs_cpu=card_cpu, deeplab=deeplab, gate=gate,
+                launches=gate["launches"], seconds=seconds)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -4330,32 +4482,42 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
 
     t_start = time.perf_counter()
-    smi = environment()
-    found = libraries()
-    sass = build()
-    records = check_kernels(dev)
-    records["norm_convs"] = check_norm_convs(dev, args.seed)
-    paths = {"norm_convs_call": run_norm_convs_path(dev, args.seed)}
-    evald = paths["eval"] = run_eval_path(dev, args.seed)
-    search = paths["search_step"] = run_search_path(dev, args.seed)
-    card_cpu = train_card_vs_cpu(dev, args.seed)
-    runner = run_runner()
-    fixed = paths["fixed_train_eval"] = run_fixed_path(dev, args.seed)
-    fixed_cpu = fixed_card_vs_cpu(dev, args.seed)
-    fixed_clis = run_fixed_clis()
+    phase_s = {}
+
+    def phase(n, fn, *a):
+        """fn(*a), its seconds added to phase n's and logged."""
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phase_s[n] = round(phase_s.get(n, 0.0) + time.perf_counter() - t0, 1)
+        log(f"phase {n}: {phase_s[n]:.1f} s")
+        return out
+
+    smi = phase(1, environment)
+    found = phase(1, libraries)
+    sass = phase(2, build)
+    records = phase(3, check_kernels, dev)
+    records["norm_convs"] = phase(3, check_norm_convs, dev, args.seed)
+    paths = {"norm_convs_call": phase(4, run_norm_convs_path, dev, args.seed)}
+    evald = paths["eval"] = phase(5, run_eval_path, dev, args.seed)
+    search = paths["search_step"] = phase(6, run_search_path, dev, args.seed)
+    card_cpu = phase(7, train_card_vs_cpu, dev, args.seed)
+    runner = phase(8, run_runner)
+    fixed = paths["fixed_train_eval"] = phase(9, run_fixed_path, dev, args.seed)
+    fixed_cpu = phase(10, fixed_card_vs_cpu, dev, args.seed)
+    fixed_clis = phase(11, run_fixed_clis)
     with tempfile.TemporaryDirectory() as work:
-        serve = paths["serve"] = run_serve_path(dev, fixed, args.seed, work)
-        paths["submission"] = run_submission(dev, serve.pop("pred"), work, args.seed)
+        serve = paths["serve"] = phase(12, run_serve_path, dev, fixed, args.seed, work)
+        paths["submission"] = phase(13, run_submission, dev, serve.pop("pred"), work, args.seed)
     with tempfile.TemporaryDirectory() as work:
-        data = paths["promise12_data"] = run_promise12_path(dev, evald["expect"], work,
-                                                            args.seed, found)
+        data = paths["promise12_data"] = phase(14, run_promise12_path, dev, evald["expect"], work,
+                                               args.seed, found)
     with tempfile.TemporaryDirectory() as work:
-        shipped = paths["shipped_configs"] = run_shipped_configs(dev, evald["expect"], work,
-                                                                 args.seed)
-    zoo = paths["zoo"] = run_zoo(dev, args.seed)
-    bf16 = run_bf16(dev, args.seed, records)
+        shipped = paths["shipped_configs"] = phase(15, run_shipped_configs, dev,
+                                                   evald["expect"], work, args.seed)
+    zoo = paths["zoo"] = phase(16, run_zoo, dev, args.seed)
+    bf16 = phase(17, run_bf16, dev, args.seed, records)
     records.update(bf16["records"])
-    bf16_zoo = run_bf16_zoo(dev, args.seed, records, zoo)
+    bf16_zoo = phase(18, run_bf16_zoo, dev, args.seed, records, zoo)
     records["norm_convs" + BF16_SUFFIX] = bf16_zoo["record"]
     paths["bf16_zoo"] = bf16_zoo["path"]
     paths["bf16_search_step"] = bf16["search"]["search"]
@@ -4363,12 +4525,15 @@ def main(argv=None) -> int:
     paths["bf16_fixed_train_eval"] = dict(launches={
         k: bf16["fixed"]["train"]["launches"][k] + bf16["fixed"]["eval"]["launches"][k]
         for k in KERNELS})
-    keys = run_config_keys(dev, args.seed)
+    keys = phase(19, run_config_keys, dev, args.seed)
     paths["pallas_bn_steps"] = dict(launches=keys["launches"])
     paths["remat_search_steps"] = dict(launches={
         k: sum(keys["remat"]["search"][r]["launches"][k] for r in (False, True)) for k in KERNELS})
-    families = run_encoder_families(dev, args.seed)
+    families = phase(20, run_encoder_families, dev, args.seed)
     paths["encoder_families"] = dict(launches=families["launches"])
+    timm2 = phase(21, run_timm_residual_variants, dev, args.seed,
+                  {tuple(s) for s in families["gate"]["shapes"]})
+    paths["timm_residual_variants"] = dict(launches=timm2["launches"])
 
     kernels = []
     for name, k in KERNELS.items():
@@ -4412,6 +4577,8 @@ def main(argv=None) -> int:
             if name.removesuffix(BF16_SUFFIX) in ("branch_stats", "bwd_reduce"):
                 row["bn_n1_families"] = {label: r[name]
                                          for label, r in families["gate"]["timed"].items()}
+                row["bn_n1_timm2"] = {label: r[name]
+                                      for label, r in timm2["gate"]["timed"].items()}
         if "max_rel_err" in r:
             row["max_rel_err"] = r["max_rel_err"]
         kernels.append(row)
@@ -4509,6 +4676,21 @@ def main(argv=None) -> int:
         f"{ {n: (round(r['ms_on'], 2), round(r['ms_off'], 2)) for n, r in families['gate']['steps'].items()} }; "
         f"gated BN checks {families['gate']['checks']}; K1a/K1c device ms, share of bound "
         f"{ {lab: {k: (round(v['device_ms'], 4), v['share_of_bound']) for k, v in r.items()} for lab, r in families['gate']['timed'].items()} }")
+    t2 = timm2["steps"]
+    log(f"phase 21 summary ({timm2['seconds']:.1f} s): unet ms/step f32, bf16 "
+        f"{ {n: (round(r['f32']['step_ms'], 2), round(r['bf16']['step_ms'], 2)) for n, r in t2.items()} }; "
+        f"peak MiB f32, bf16 "
+        f"{ {n: (round(r['f32']['peak_mib'], 1), round(r['bf16']['peak_mib'], 1)) for n, r in t2.items()} }; "
+        f"device launches a step f32, bf16 "
+        f"{ {n: (r['f32']['launches_per_step'], r['bf16']['launches_per_step']) for n, r in t2.items()} }; "
+        f"every name {len(timm2['every_name'])}; deeplab_v3_plus os 16 {timm2['deeplab']}; gate "
+        f"on/off ms/step "
+        f"{ {n: (round(r['ms_on'], 2), round(r['ms_off'], 2)) for n, r in timm2['gate']['steps'].items()} }; "
+        f"BatchNorm calls, modules "
+        f"{ {n: (r['bn_calls'], r['bn_modules']) for n, r in timm2['gate']['steps'].items()} }; "
+        f"gated BN checks {timm2['gate']['checks']}; K1a/K1c device ms, share of bound "
+        f"{ {lab: {k: (r2['shape'], round(r2['device_ms'], 4), r2['share_of_bound']) for k, r2 in r.items()} for lab, r in timm2['gate']['timed'].items()} }")
+    log(f"phase seconds {phase_s}")
     log(f"card: {smi}; total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,14 @@ depthwise transposed one "dw_t"; nasunet's CWeightOp is two Dense layers
 and a (transposed) conv. Nor do the other encoder families: rectangular
 (1x7, 7x1), grouped, dilated and depthwise kernels are "hwio"; the
 squeeze-excite Dense kernels of SE-Net and EfficientNet stay (I, O),
-"copy"; MobileNetV3's and ResNeSt's are 1x1 convs, "hwio".
+"copy"; MobileNetV3's and ResNeSt's are 1x1 convs, "hwio". Nor do the
+timm residual variants (Res2Net, RegNet, SK-Net, GERNet): their grouped,
+dilated and depthwise kernels and the 1x1 kernels of RegNet's SE
+(`se_fc1`, `se_fc2`) and SK-Net's attention (`fc_reduce`, `fc_select`),
+each (1,1,I,O), are "hwio", their biases "copy"; SK-Net's attention
+BatchNorm (`attn_bn`, flax's `nn.BatchNorm` rules in the port's
+`encoders_timm2.FlaxBatchNorm`) keeps flax's leaves `scale`, `bias`,
+`mean`, `var`, "copy".
 
 A module whose kernel is not a plain conv names its layout in its
 `flax_layout` dict. The vmapped inner edges of a fused cell (flax

@@ -13,11 +13,10 @@ dilation. Grouped convolutions are `F.conv2d(groups=)`.
 
 `get_encoder` also builds the families of `encoders_extra.py` (VGG,
 DenseNet, MobileNetV2, EfficientNet), `encoders_families.py` (SE-Net,
-Xception, InceptionV4, InceptionResNetV2, DPN), `encoders_mnv3.py`
-(MobileNetV3) and `encoders_resnest.py` (ResNeSt), and the `tu-` names
-that resolve to a ported architecture. senas_tpu's timm residual variants
-(Res2Net, RegNet, SK-Net, GERNet) are not ported yet and raise
-NotImplementedError.
+Xception, InceptionV4, InceptionResNetV2, DPN), `encoders_resnest.py`
+(ResNeSt), `encoders_timm2.py` (Res2Net, RegNet X/Y, SK-Net, GERNet) and
+`encoders_mnv3.py` (MobileNetV3), and the `tu-` names that resolve to one
+of them: every encoder name of senas_tpu, in its order.
 """
 
 from __future__ import annotations
@@ -31,10 +30,6 @@ from torch import nn
 
 from senas_torch.ops.primitives import (BasicBlock, BatchNorm, add_conv_kernel, cast, conv2d,
                                         max_pool_3x3, relu)
-
-NEXT_SLICE = ("ROADMAP.md Queue 1, M15c: the timm residual variants (Res2Net, RegNet, "
-              "SK-Net, GERNet)")
-
 
 def stage_dilation(stage: int, output_stride: int) -> int:
     """Dilation rate smp's ``EncoderMixin.make_dilated`` gives the 1-based
@@ -168,24 +163,14 @@ _ENCODERS = {
                           "groups": 32, "width_per_group": 48},
 }
 
-# senas_tpu's timm residual variants (its models/encoders_timm2.py): known,
-# not ported yet
-_UNPORTED = tuple(
-    [f"timm-res2net{v}" for v in ("50_26w_4s", "101_26w_4s", "50_26w_6s", "50_26w_8s",
-                                  "50_48w_2s", "50_14w_8s")]
-    + ["timm-res2next50"]
-    + [f"timm-regnet{k}_{s}" for k in "xy" for s in ("002", "004", "006", "008", "016", "032",
-                                                     "040", "064", "080", "120", "160", "320")]
-    + ["timm-skresnet18", "timm-skresnet34", "timm-skresnext50_32x4d"]
-    + [f"timm-gernet_{s}" for s in "sml"])
-
 
 def _registries() -> tuple:
     from senas_torch.models.encoders_extra import EXTRA_ENCODERS
     from senas_torch.models.encoders_families import FAMILY_ENCODERS
     from senas_torch.models.encoders_mnv3 import MNV3_ENCODERS
     from senas_torch.models.encoders_resnest import RESNEST_ENCODERS
-    return EXTRA_ENCODERS, FAMILY_ENCODERS, RESNEST_ENCODERS, MNV3_ENCODERS
+    from senas_torch.models.encoders_timm2 import TIMM2_ENCODERS
+    return EXTRA_ENCODERS, FAMILY_ENCODERS, RESNEST_ENCODERS, TIMM2_ENCODERS, MNV3_ENCODERS
 
 
 def _resolve_tu_alias(name: str, known) -> Optional[str]:
@@ -225,16 +210,16 @@ _DILATED_UNSUPPORTED_MSG = {
                                 "due to pooling operation for downsampling!",
     "XceptionEncoder": "Xception encoder does not support dilated mode "
                        "due to pooling operation for downsampling!",
+    "Res2NetEncoder": "Res2Net encoders do not support dilated mode",
     "ResNestEncoder": "ResNest encoders do not support dilated mode",
 }
 
 
 def get_encoder_names() -> List[str]:
-    """The encoder names the port builds (smp encoders/__init__.py:85-86),
-    in senas_tpu's order without its unported ones."""
+    """The encoder names (smp encoders/__init__.py:85-86), in senas_tpu's
+    order."""
     names = list(_ENCODERS)
-    extra, families, resnest, mnv3 = _registries()
-    for r in (extra, families, resnest, mnv3):
+    for r in _registries():
         names.extend(r)
     return names
 
@@ -271,10 +256,8 @@ def get_encoder(name: str, depth: int = 5, dtype=None, output_stride: int = 32,
         if dilatable:
             kw["output_stride"] = output_stride
         return cls(in_channels, depth=depth, dtype=dtype, **kw)
-    if name in _UNPORTED:
-        raise NotImplementedError(f"encoder {name!r} is not ported yet ({NEXT_SLICE})")
     if name.startswith("tu-"):
-        known = set(_ENCODERS).union(*registries, _UNPORTED)
+        known = set(_ENCODERS).union(*registries)
         resolved = _resolve_tu_alias(name, known)
         if resolved is not None:
             return get_encoder(resolved, depth=depth, dtype=dtype, output_stride=output_stride,

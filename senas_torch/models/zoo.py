@@ -2,8 +2,8 @@
 FPN, PSPNet, DeepLabV3+, PAN.
 
 Port of `senas_tpu/models/zoo.py` (the reference's vendored smp
-*/decoder.py) over the encoders of `models/encoders.py` (every family
-senas_tpu builds but its timm residual variants). Every model
+*/decoder.py) over the encoders of `models/encoders.py` (every name
+senas_tpu builds). Every model
 is a `SegmentationModel`: NHWC in, a singleton list of NHWC logits out
 (`([masks], labels)` with `aux_params`), NCHW inside. A torch module is
 built with its channel counts, so each model plans its decoder's widths

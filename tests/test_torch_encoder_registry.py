@@ -2,10 +2,12 @@
 senas_tpu's: the pyramid channels (`encoder_out_channels`, read off a
 forward on the meta device) of every name of the SE-Net / Xception /
 Inception / DPN, MobileNetV3 and ResNeSt registries (the VGG / DenseNet /
-MobileNetV2 / EfficientNet names: tests/test_torch_encoders_extra.py),
-`get_encoder_names`, the `tu-` aliases, the gated and unknown names, and
-the timm residual variants (Res2Net, RegNet, SK-Net, GERNet), which the
-port does not build yet and refuses naming ROADMAP's M15c."""
+MobileNetV2 / EfficientNet names: tests/test_torch_encoders_extra.py; the
+timm residual variants against senas_tpu's forward:
+tests/test_torch_encoders_{timm2,sknet_gernet}.py), `get_encoder_names`,
+the `tu-` aliases, the gated and unknown names. The timm residual
+variants, which the port once refused, build as senas_tpu's do: the same
+class and stated pyramid for each name and `tu-` alias."""
 
 import pytest
 
@@ -20,7 +22,10 @@ from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 TU_ALIASES = ["tu-resnet34", "tu-resnest14d", "tu-tf_efficientnet_lite0", "tu-efficientnet_b0",
               "tu-seresnet50", "tu-seresnext50_32x4d", "tu-mobilenetv2_100", "tu-vgg11_bn",
-              "tu-dpn68", "tu-mobilenetv3_large_100", "tu-efficientnet-b3", "tu-xception"]
+              "tu-dpn68", "tu-mobilenetv3_large_100", "tu-efficientnet-b3", "tu-xception",
+              "tu-res2net50_48w_2s", "tu-regnetx_002", "tu-skresnet34", "tu-gernet_m"]
+TIMM2_ALIASES = ["tu-res2net50_26w_4s", "tu-regnety_016", "tu-skresnet18", "tu-gernet_s",
+                 "tu-res2next50"]
 
 
 @pytest.mark.parametrize("name", sorted({**FAMILY_ENCODERS, **MNV3_ENCODERS,
@@ -30,9 +35,10 @@ def test_encoder_out_channels_match(name):
 
 
 def test_the_port_builds_every_name_but_the_timm_residual_variants():
-    assert tenc.get_encoder_names() == [n for n in jenc.get_encoder_names()
-                                        if n not in TIMM2_ENCODERS]
-    assert set(tenc._UNPORTED) == set(TIMM2_ENCODERS)
+    """The timm residual variants included now: senas_tpu's names, in its
+    order."""
+    assert tenc.get_encoder_names() == jenc.get_encoder_names()
+    assert set(TIMM2_ENCODERS) <= set(tenc.get_encoder_names())
 
 
 @pytest.mark.parametrize("name", TU_ALIASES)
@@ -44,14 +50,17 @@ def test_tu_aliases_resolve_as_in_senas_tpu(name):
     assert tenc.encoder_out_channels(name) == jenc.encoder_out_channels(name)
 
 
-@pytest.mark.parametrize("name", sorted(TIMM2_ENCODERS)
-                         + ["tu-res2net50_26w_4s", "tu-regnety_016", "tu-skresnet18",
-                            "tu-gernet_s", "tu-res2next50"])
+@pytest.mark.parametrize("name", sorted(TIMM2_ENCODERS) + TIMM2_ALIASES)
 def test_timm_residual_variants_name_the_next_slice(name):
-    jenc.get_encoder(name)   # senas_tpu builds them
-    for fn in (tenc.get_encoder, tenc.encoder_out_channels):
-        with pytest.raises(NotImplementedError, match="M15c"):
-            fn(name)
+    """The names that named the next slice (ROADMAP's M15c) before the port
+    built them: senas_tpu's class and its stated pyramid (the module's
+    `out_channels`; the forward's: `test_encoder_out_channels_match`)."""
+    want = jenc.get_encoder(name)
+    got = tenc.get_encoder(name, in_channels=3)
+    assert type(got).__name__ == type(want).__name__
+    assert tenc.encoder_out_channels(name) == tuple(want.out_channels)
+    if name.startswith("tu-"):
+        assert tenc.encoder_out_channels(name) == jenc.encoder_out_channels(name)
 
 
 def test_gated_and_unknown_names_raise_key_errors():

@@ -321,5 +321,6 @@ def test_preprocessing_matches():
         t_prep_params("resnet34", pretrained="other")
     with pytest.raises(KeyError):
         t_prep_params("nope")
-    with pytest.raises(NotImplementedError, match="M15c"):
-        t_prep_params("timm-regnetx_002")
+    for name in ("timm-res2net50_26w_4s", "timm-regnetx_002", "timm-regnety_016",
+                 "timm-skresnet18", "timm-gernet_s"):
+        assert t_prep_params(name) == j_prep_params(name), name
