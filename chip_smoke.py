@@ -198,12 +198,20 @@ Phases, each of which fails the run:
      not see, each Unet's f32 step with the gate on and off in turns, its
      BatchNorm calls equal to its `BatchNorm` modules (SK-Net's attention
      BatchNorm, flax's rules, is not one and never reaches K1).
+ 22. data parallelism (senas_torch/parallel): the promise12 search step
+     (do_arch, global batch 8) and fixed step (global batch 12) at full
+     width over two gloo ranks sharing the card (this script started
+     twice with --dp-rank, 4 and 6 rows each) and over one NCCL rank in
+     this process, each held to the single-process step on the global
+     batch from one state (both under deterministic algorithms,
+     `DP_LIMITS`); K1a-K1d launched on every rank; ms/step of each, and
+     the share of a step inside the collectives' calls (timed around each).
 Each phase's seconds are logged as it ends, and all of them at the end.
 Phases 12-13, 16, 18's zoo and 20's and 21's ungated steps launch none of
 the kernels (neither the fixed model nor the zoo has any, unless
 SENAS_PALLAS_BN=1).
 Every kernel variant must be launched on at least one path (phases 4-6, 9,
-14, 15, 17, 19-21; K2's bf16 variant in phase 4). The line before the last is a
+14, 15, 17, 19-22; K2's bf16 variant in phase 4). The line before the last is a
 JSON list of the kernels, the bf16 variants as `<name>_bf16`; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits 1 and prints no result.
@@ -215,6 +223,7 @@ import argparse
 import ast
 import contextlib
 import copy
+import datetime
 import functools
 import gzip
 import importlib
@@ -789,15 +798,18 @@ _KERNEL_CLASSES = (
 
 def profile(fn, label: str) -> dict:
     """fn() under torch.profiler after one warm-up call: device busy and
-    idle share over its wall time, and kernel time by class."""
+    idle share over its wall time, kernel time by class, the kernels that
+    take the most device time and the most launches. Device activity only:
+    the host's operators (with their shapes) made the analysis of a
+    search step's profile take 38-57 s, the profiled call itself 3 s."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                       record_shapes=True) as prof:
+    t_start = time.perf_counter()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -816,32 +828,25 @@ def profile(fn, label: str) -> dict:
             cur_e = max(cur_e, e_)
     busy += cur_e - cur_s
     by_class: dict = {}
+    by_kernel: dict = {}
     for e in kernels:
-        name = e.name
+        name, dur = e.name, e.time_range.end - e.time_range.start
         cls = next((c for c, keys in _KERNEL_CLASSES
                     if any(k.lower() in name.lower() for k in keys)), "other")
-        t, n = by_class.get(cls, (0.0, 0))
-        by_class[cls] = (t + e.time_range.end - e.time_range.start, n + 1)
+        for table, key in ((by_class, cls), (by_kernel, name)):
+            t, n = table.get(key, (0.0, 0))
+            table[key] = (t + dur, n + 1)
     idle = 1 - busy / wall_us
     log(f"profile ({label}): wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms, "
         f"idle share {idle:.3f}, {len(kernels)} kernel launches")
     for cls, (t, n) in sorted(by_class.items(), key=lambda kv: -kv[1][0]):
         log(f"  {cls:20s} {t / 1e3:8.3f} ms  {n:5d} launches  {t / busy:.3f} of busy")
-    top = sorted(prof.key_averages(), key=lambda a: -a.self_device_time_total)[:8]
-    for a in top:
-        log(f"  top: {a.self_device_time_total / 1e3:8.3f} ms  x{a.count:<4d} {a.key[:100]}")
+    for name, (t, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"  top: {t / 1e3:8.3f} ms  x{n:<4d} {name[:100]}")
     # the kernels launched most often, which the host pays for
-    launched: dict = {}
-    for e in kernels:
-        launched[e.name] = launched.get(e.name, 0) + 1
-    for name, n in sorted(launched.items(), key=lambda kv: -kv[1])[:6]:
+    for name, (_, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:6]:
         log(f"  most launched: x{n:<5d} {name[:100]}")
-    # the heaviest operators with the shapes they were called on
-    ops = [a for a in prof.key_averages(group_by_input_shape=True)
-           if a.key.startswith("aten::")]
-    for a in sorted(ops, key=lambda a: -a.device_time_total)[:6]:
-        log(f"  by shape: {a.device_time_total / 1e3:8.3f} ms  x{a.count:<4d} {a.key} "
-            f"{str(a.input_shapes)[:160]}")
+    log(f"  (the profiled call and its analysis took {time.perf_counter() - t_start:.1f} s)")
     return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3, idle_share=idle, launches=len(kernels),
                 by_class_ms={c: t / 1e3 for c, (t, _) in by_class.items()})
 
@@ -4118,6 +4123,7 @@ def family_card_vs_cpu(dev, seed: int, cases=None) -> dict:
     if cases is None:
         cases = {name: functools.partial(_family_unet, name) for name in FAMILY_NAMES}
     for name, build_model in cases.items():
+        t_case = time.perf_counter()
         hw = FAMILY_SMALL_HW_OF.get(name, FAMILY_SMALL_HW)
         bs = FAMILY_SMALL_BATCH_OF.get(name, 2)
         model0 = build_model("cpu", torch.Generator().manual_seed(seed + 21)).state_dict()
@@ -4181,7 +4187,8 @@ def family_card_vs_cpu(dev, seed: int, cases=None) -> dict:
                           cpu_own=own, limits=dict(f32=lim32, f64=lim64))
         log(f"{name} step card vs CPU (depth 5, {hw}x{hw}, batch {bs}): f64 {f64} (limits "
             f"{lim64}); f32 forward {forward}, gradients (forward forced) {grads}, update "
-            f"{update:.3g} (limits {lim32}); CPU f32 vs f64 {own}")
+            f"{update:.3g} (limits {lim32}); CPU f32 vs f64 {own} "
+            f"({time.perf_counter() - t_case:.1f} s)")
     return rows
 
 
@@ -4463,15 +4470,278 @@ def run_timm_residual_variants(dev, seed: int, known_shapes=()) -> dict:
                 launches=gate["launches"], seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: data parallelism (senas_torch/parallel)
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2
+# steps each run times after the compared one, its collectives timed
+DP_TIMED = 1
+# the gloo ranks' whole job, their start-up and build included
+DP_TIMEOUT_S = 300
+# Limits of the data-parallel steps against the single-process step from one
+# state, both under deterministic algorithms. The ranks' batch statistics
+# and the gradient are the same sums in another order (the synced
+# BatchNorm's two passes, the epilogue's sums over the ranks, the all-reduce
+# of the partial gradients): near init the pre-BN kernels' gradients cancel,
+# so f32 rounding moves the update by O(1e-3) (phase 6's kernels against
+# their twins: 1.1e-3 to 1.3e-3 at full width). A CPU rehearsal of this
+# comparison at c 8, depth 3, 64x64 (the full width does not run on the
+# CPU) read: search step grad norm 7.2e-6, weight update 2.7e-3, arch
+# update 1.2e-3, running stats 4.1e-7; fixed step weight update 1.5e-5,
+# running stats 1.1e-7. The limits: phase 6's for the metrics and running
+# stats, 1e-2 for the updates. The CPU tests hold the same steps in f64 to
+# 1e-10 (tests/test_torch_mesh_steps.py); a rank on the wrong rows or a
+# statistic over one rank's rows moves them by O(1).
+DP_LIMITS = dict(STEP_LIMITS, weights=1e-2, arch=1e-2)
+# tp, fp and fn may differ by this share of the batch's pixels: a pixel
+# whose two logits lie within f32 rounding of each other may flip (the
+# fixed step over one NCCL rank read fp 133158 against 133157 of 786,432
+# pixels on an H100)
+DP_COUNT_SHARE = 1e-5
+DP_KERNELS = ("branch_stats", "apply_mix", "bwd_reduce", "bwd_dx")
+
+
+def _dp_search(dev, seed: int, mesh=None) -> dict:
+    """The promise12 search step (do_arch) at full width from the seed's
+    state, under `mesh` (None: one process on the global batch of 8): the
+    compared step under deterministic algorithms (its metrics, the state
+    before and after on the host, the kernels' launches), then DP_TIMED
+    steps timed on the host clock, with the time inside the collectives."""
+    from senas_torch.parallel.mesh import place_state, shard_batch, shard_train_step
+    s = load_config(CONFIG)["searching"]
+    meta, bs = s["meta_node_num"], s["batch_size"]
+    gen = torch.Generator().manual_seed(seed + 22)
+    model = _supernet(s, dev, gen)
+    arch = init_arch_params(meta, s["depth"], use_sharing=s["sharing_normal"], generator=gen,
+                            device=dev)
+    state = SearchTrainState.create(model, arch, s["model_optimizer"], s["arch_optimizer"])
+    step = make_search_step(lambda a: normalize_arch(a, meta),
+                            build_loss(s["loss"]["name"], s["deep_supervision"]),
+                            grad_clip=s["grad_clip"])
+    rng = np.random.RandomState(seed + 22)
+    pairs = [tuple(_batches(rng, 2, bs, HW, dev)) for _ in range(1 + DP_TIMED)]
+    if mesh is not None:
+        place_state(mesh, state)
+        step = shard_train_step(step, mesh)
+        pairs = [tuple(shard_batch(mesh, b) for b in p) for p in pairs]
+    return _dp_steps(state, lambda p: step(state, p[0], p[1], True), pairs, mesh)
+
+
+def _dp_fixed(dev, seed: int, mesh=None) -> dict:
+    """The promise12 fixed train step (`training:`, global batch 12) as
+    `_dp_search` runs the search step."""
+    from senas_torch.parallel.mesh import place_state, shard_batch, shard_train_step
+    t = load_config(CONFIG)["training"]
+    model = _fixed_model(t, dev, torch.Generator().manual_seed(seed + 23))
+    state = FixedTrainState.create(model, t["model_optimizer"], rng=torch.Generator())
+    step = make_train_step(_fixed_loss(t), grad_clip=t["grad_clip"])
+    batches = _batches(np.random.RandomState(seed + 23), 1 + DP_TIMED, t["batch_size"], HW, dev)
+    if mesh is not None:
+        place_state(mesh, state)
+        step = shard_train_step(step, mesh)
+        batches = [shard_batch(mesh, b) for b in batches]
+    return _dp_steps(state, lambda b: step(state, b), batches, mesh)
+
+
+def _dp_snapshot(state) -> dict:
+    arch = getattr(state, "arch", {})
+    return {"model": {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
+            "arch": {k: v.detach().cpu().clone() for k, v in arch.items()}}
+
+
+def _dp_steps(state, run, inputs, mesh) -> dict:
+    before = _dp_snapshot(state)
+    reset_counts()
+    with deterministic_algorithms():
+        m = run(inputs[0])
+    torch.cuda.synchronize()
+    launches = counts()
+    out = dict(metrics={k: v.detach().cpu() for k, v in m.items()}, before=before,
+               after=_dp_snapshot(state), launches=launches)
+    timed = [collective_share(lambda: run(x)) for x in inputs[1:]]
+    out["ms"] = [t["wall_ms"] for t in timed]
+    out["collectives"] = timed[-1] if mesh is not None else {}
+    return out
+
+
+def collective_share(fn) -> dict:
+    """fn()'s wall time on the host clock, and the time inside the process
+    group's calls (`senas_torch.parallel.collectives._all_reduce_`, every
+    sum the step makes, timed around each call): a gloo call returns when
+    its sum is done, an NCCL call when the sum is queued on the stream.
+    torch.profiler's host view of the same calls reads the same time, but
+    its analysis of a search step over gloo (~10^5 host events) cost more
+    seconds than the step."""
+    from senas_torch.parallel import collectives
+    inner, spent = collectives._all_reduce_, []
+
+    def timed(t, mesh):
+        t0 = time.perf_counter()
+        out = inner(t, mesh)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    collectives._all_reduce_ = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        collectives._all_reduce_ = inner
+    inside_ms = sum(spent) * 1e3
+    return dict(wall_ms=wall_ms, inside_ms=inside_ms, calls=len(spent),
+                share=inside_ms / wall_ms)
+
+
+def _dp_rank_main(rank: int, port: int, out: str, seed: int) -> int:
+    """One gloo rank of phase 22 on card 0 (`chip_smoke.py --dp-rank`)."""
+    import torch.distributed as dist
+
+    from senas_torch.parallel.mesh import INIT_TIMEOUT, make_mesh
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=DP_RANKS, rank=rank, timeout=INIT_TIMEOUT)
+    mesh = make_mesh(device=dev)
+    check(mesh.backend == "gloo" and mesh.world_size == DP_RANKS, f"rank {rank}: mesh {mesh}")
+    res = {"search": _dp_search(dev, seed, mesh), "fixed": _dp_fixed(dev, seed, mesh)}
+    torch.save(res, out)
+    dist.destroy_process_group()
+    return 0
+
+
+def _dp_compare(label: str, got: dict, want: dict, keys, pixels: int) -> dict:
+    rel_m = _metrics_rel(got["metrics"], want["metrics"], keys)
+    counts_off = max(float((got["metrics"][k] - want["metrics"][k]).abs().max())
+                     for k in ("tp", "fp", "fn"))
+    check(counts_off <= DP_COUNT_SHARE * pixels,
+          f"{label}: tp/fp/fn {[got['metrics'][k].tolist() for k in ('tp', 'fp', 'fn')]} "
+          f"against {[want['metrics'][k].tolist() for k in ('tp', 'fp', 'fn')]}")
+    check(all(torch.equal(got["before"][p][k], want["before"][p][k])
+              for p in ("model", "arch") for k in want["before"][p]),
+          f"{label}: the runs did not start from one state")
+    rel_s = _state_rel(want["before"], got["after"], want["after"])
+    if not want["after"]["arch"]:
+        rel_s.pop("arch")
+    check(max(rel_m.values()) <= DP_LIMITS["metrics"]
+          and all(v <= DP_LIMITS[k] for k, v in rel_s.items()),
+          f"{label}: metrics {rel_m}, state {rel_s} (limits {DP_LIMITS})")
+    return dict(metrics=rel_m, state=rel_s, counts_off=counts_off)
+
+
+def run_data_parallel(dev, seed: int) -> dict:
+    """Phase 22: the search step (do_arch) and the fixed step at full width
+    over two gloo ranks sharing the card (each a process, 4 and 6 rows of
+    the global batches 8 and 12) and over one NCCL rank in this process,
+    each held to the single-process step on the global batch from one
+    state, both under deterministic algorithms; K1a-K1d launched on every
+    rank; ms/step on each and the share of a step inside the collectives."""
+    import torch.distributed as dist
+
+    from senas_torch.parallel.launch import free_port
+    from senas_torch.parallel.mesh import make_mesh
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        port = free_port()
+        outs = [os.path.join(work, f"rank{r}.pt") for r in range(DP_RANKS)]
+        logs = [open(os.path.join(work, f"rank{r}.log"), "w+") for r in range(DP_RANKS)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+                                   "--dp-port", str(port), "--dp-out", outs[r],
+                                   "--seed", str(seed)], stdout=logs[r],
+                                  stderr=subprocess.STDOUT, cwd=ROOT)
+                 for r in range(DP_RANKS)]
+        try:
+            single = {"search": _dp_search(dev, seed), "fixed": _dp_fixed(dev, seed)}
+            nccl_port = free_port()
+            dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{nccl_port}",
+                                    world_size=1, rank=0, timeout=datetime.timedelta(seconds=60))
+            try:
+                mesh = make_mesh(device=torch.device("cuda", torch.cuda.current_device()))
+                check(mesh.backend == "nccl" and mesh.group is not None, f"NCCL mesh {mesh}")
+                nccl = {"search": _dp_search(dev, seed, mesh), "fixed": _dp_fixed(dev, seed, mesh)}
+            finally:
+                dist.destroy_process_group()
+            deadline = time.perf_counter() + DP_TIMEOUT_S
+            while any(p.poll() is None for p in procs) and time.perf_counter() < deadline:
+                if any(p.poll() not in (None, 0) for p in procs):
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        for r, (p, f) in enumerate(zip(procs, logs)):
+            f.seek(0)
+            text = f.read()
+            f.close()
+            check(p.returncode == 0, f"data-parallel rank {r} exited {p.returncode}:\n"
+                                     f"{text[-4000:]}")
+        ranks = [torch.load(o, weights_only=False) for o in outs]
+    rows = {}
+    cfg = load_config(CONFIG)
+    for name, keys, bs in (("search", ("loss", "arch_loss", "grad_norm"),
+                            cfg["searching"]["batch_size"]),
+                           ("fixed", ("loss", "grad_norm"), cfg["training"]["batch_size"])):
+        want, pixels = single[name], bs * HW * HW
+        rows[name] = {"nccl": _dp_compare(f"{name} step, one NCCL rank", nccl[name], want, keys,
+                                          pixels)}
+        for r, got in enumerate(ranks):
+            rows[name][f"gloo{r}"] = _dp_compare(f"{name} step, gloo rank {r} of {DP_RANKS}",
+                                                 got[name], want, keys, pixels)
+        for r, a in enumerate(ranks[1:], 1):
+            check(all(torch.equal(a[name]["after"][p][k], ranks[0][name]["after"][p][k])
+                      for p in ("model", "arch") for k in a[name]["after"][p]),
+                  f"{name} step: the gloo ranks' states differ after the step")
+        runs = {"single": want, "nccl": nccl[name],
+                **{f"gloo{r}": got[name] for r, got in enumerate(ranks)}}
+        for label, run in runs.items():
+            k1 = {k: run["launches"][k] for k in DP_KERNELS}
+            if name == "search":
+                check(all(v > 0 for v in k1.values()),
+                      f"search step ({label}): K1a-K1d launches {k1}")
+            col = run["collectives"]
+            log(f"{name} step ({label}): {np.mean(run['ms']):.2f} ms/step "
+                f"{[round(x, 2) for x in run['ms']]}, K1a-K1d launches {k1}"
+                + (f", collectives {col['inside_ms']:.2f} of {col['wall_ms']:.2f} ms "
+                   f"({col['share']:.3f} of the step, {col['calls']} calls)" if col else ""))
+        log(f"{name} step against one process: " + ", ".join(
+            f"{lbl} metrics {r['metrics']} state {r['state']}" for lbl, r in rows[name].items())
+            + f" (limits {DP_LIMITS})")
+    seconds = time.perf_counter() - t0
+    return dict(rows=rows, seconds=seconds,
+                launches={k: nccl["search"]["launches"][k] + nccl["fixed"]["launches"][k]
+                          for k in KERNELS},
+                ms={name: {label: float(np.mean(run["ms"])) for label, run in (
+                    ("single", single[name]), ("nccl", nccl[name]),
+                    *((f"gloo{r}", got[name]) for r, got in enumerate(ranks)))}
+                    for name in ("search", "fixed")},
+                collectives={name: {"nccl": nccl[name]["collectives"],
+                                    **{f"gloo{r}": got[name]["collectives"]
+                                       for r, got in enumerate(ranks)}}
+                             for name in ("search", "fixed")})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights, arch tables and batches")
+    # phase 22 starts this script as its gloo ranks with these
+    ap.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-port", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-out", type=str, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
               file=sys.stderr)
         return 1
+    if args.dp_rank is not None:
+        return _dp_rank_main(args.dp_rank, args.dp_port, args.dp_out, args.seed)
     # TF32 off for convolutions and matmuls, so that the card computes in
     # f32 and its results can be held to the CPU's.
     torch.backends.cudnn.allow_tf32 = False
@@ -4534,6 +4804,8 @@ def main(argv=None) -> int:
     timm2 = phase(21, run_timm_residual_variants, dev, args.seed,
                   {tuple(s) for s in families["gate"]["shapes"]})
     paths["timm_residual_variants"] = dict(launches=timm2["launches"])
+    dp = phase(22, run_data_parallel, dev, args.seed)
+    paths["data_parallel"] = dict(launches=dp["launches"])
 
     kernels = []
     for name, k in KERNELS.items():
@@ -4690,6 +4962,11 @@ def main(argv=None) -> int:
         f"{ {n: (r['bn_calls'], r['bn_modules']) for n, r in timm2['gate']['steps'].items()} }; "
         f"gated BN checks {timm2['gate']['checks']}; K1a/K1c device ms, share of bound "
         f"{ {lab: {k: (r2['shape'], round(r2['device_ms'], 4), r2['share_of_bound']) for k, r2 in r.items()} for lab, r in timm2['gate']['timed'].items()} }")
+    log(f"phase 22 summary ({dp['seconds']:.1f} s): ms/step (one process, one NCCL rank, "
+        f"each gloo rank) { {n: {k: round(v, 2) for k, v in r.items()} for n, r in dp['ms'].items()} }; "
+        f"share of a step inside the collectives "
+        f"{ {n: {k: round(v['share'], 3) for k, v in r.items()} for n, r in dp['collectives'].items()} }; "
+        f"against one process {dp['rows']}")
     log(f"phase seconds {phase_s}")
     log(f"card: {smi}; total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

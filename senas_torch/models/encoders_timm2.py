@@ -35,6 +35,7 @@ from torch import nn
 from senas_torch.models.encoders import stage_dilation
 from senas_torch.models.encoders_families import ConvBnAct, _conv, _max_pool
 from senas_torch.ops.primitives import EPS, add_bias, add_conv_kernel, relu, sigmoid, softmax
+from senas_torch.parallel.collectives import active_mesh, all_reduce_sum, global_count
 
 
 # ---------------------------------------------------------------------------
@@ -317,7 +318,9 @@ class FlaxBatchNorm(nn.Module):
     rounded once to `dtype` (None: x's dtype promoted with the
     parameters'). Variables: parameters `scale`, `bias`; buffers `mean`,
     `var`. It is not a `primitives.BatchNorm`, so `SENAS_PALLAS_BN` never
-    routes it through the epilogue's kernels, as in senas_tpu."""
+    routes it through the epilogue's kernels, as in senas_tpu. Under an
+    active mesh (`senas_torch.parallel`) E[x] and E[x^2] are the global
+    batch's."""
 
     def __init__(self, c: int, momentum: float = 0.99, eps: float = EPS, dtype=None):
         super().__init__()
@@ -330,9 +333,17 @@ class FlaxBatchNorm(nn.Module):
     def forward(self, x, train: bool = False):
         ct = torch.promote_types(x.dtype, torch.float32)
         xs = x.to(ct)
-        if train:
+        if train and active_mesh() is not None:
+            # the global batch's E[x] and E[x^2]: both sums in one collective
+            count = global_count(x.numel() // x.shape[1])
+            sums = all_reduce_sum(torch.stack([xs.sum(dim=(0, 2, 3)),
+                                               (xs * xs).sum(dim=(0, 2, 3))])) / count
+            mu = sums[0]
+            var = torch.clamp_min(sums[1] - mu * mu, 0.0)
+        elif train:
             mu = xs.mean(dim=(0, 2, 3))
             var = torch.clamp_min((xs * xs).mean(dim=(0, 2, 3)) - mu * mu, 0.0)
+        if train:
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mu.to(self.mean.dtype))

@@ -34,7 +34,14 @@ kernel, and f16 or f64 raises. Every wrapper counts its launches in all
 
 The batch variance is the one-sweep max(E[x^2] - mu^2, 0) in f32, as in
 the JAX package; `group_epilogue_reference` uses the two-pass form and the
-tests hold the two to f32 rounding.
+tests hold the two to f32 rounding. f64 branches (a CPU model in f64, for
+the tests) keep f64 throughout the plain versions.
+
+Under an active mesh (`senas_torch.parallel`) train mode normalises by the
+statistics of the GLOBAL batch, as the JAX package does under GSPMD: the
+kernels run on each rank's rows, and between K1a and K1b the glue sums the
+batch sums over the ranks (`_FusedEpilogue`). The SE scale is per sample
+and stays local.
 """
 
 from __future__ import annotations
@@ -44,6 +51,8 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 from torch.autograd.function import once_differentiable
+
+from senas_torch.parallel.collectives import active_mesh, all_reduce_sum, global_count
 
 EPS = 1e-5
 MAX_BRANCHES = 6
@@ -57,10 +66,16 @@ _REDUCE_BLOCKS = 8 * 132
 # ---------------------------------------------------------------------------
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """t in the plain versions' accumulation dtype: f64 stays f64, every
+    other dtype goes to f32."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def branch_stats_plain(xs: Sequence[torch.Tensor]):
     """n tensors [B,C,H,W] -> (s1, s2), each [n,B,C] f32: per-plane sums
     of x and x^2 over H and W."""
-    xf = [x.float() for x in xs]
+    xf = [_wide(x) for x in xs]
     return (torch.stack([x.sum(dim=(2, 3)) for x in xf]),
             torch.stack([(x * x).sum(dim=(2, 3)) for x in xf]))
 
@@ -70,15 +85,15 @@ def apply_mix_plain(xs: Sequence[torch.Tensor], a: torch.Tensor,
     """out = k[b,c] + sum_o a[o,b,c] * x_o  (a: [n,B,C], k: [B,C] f32)."""
     acc = k[:, :, None, None].expand(xs[0].shape)
     for o, x in enumerate(xs):
-        acc = acc + x.float() * a[o][:, :, None, None]
+        acc = acc + _wide(x) * a[o][:, :, None, None]
     return acc.to(out_dtype or xs[0].dtype)
 
 
 def bwd_reduce_plain(xs: Sequence[torch.Tensor], g: torch.Tensor):
     """n tensors and g [B,C,H,W] -> (dA [n,B,C], dK [B,C]) f32:
     dA[o] = sum_hw g * x_o, dK = sum_hw g."""
-    gf = g.float()
-    return (torch.stack([(gf * x.float()).sum(dim=(2, 3)) for x in xs]),
+    gf = _wide(g)
+    return (torch.stack([(gf * _wide(x)).sum(dim=(2, 3)) for x in xs]),
             gf.sum(dim=(2, 3)))
 
 
@@ -86,9 +101,9 @@ def bwd_dx_plain(xs: Sequence[torch.Tensor], g: torch.Tensor, a: torch.Tensor,
                  ds1: torch.Tensor, ds2: torch.Tensor):
     """dx_o = g * a[o] + ds1[o] + 2 * x_o * ds2[o] with a, ds1, ds2 [n,B,C]
     f32 broadcast over H and W; each dx_o in its x's dtype."""
-    gf = g.float()
+    gf = _wide(g)
     col = lambda t: t[:, :, None, None]
-    return [(gf * col(a[o]) + col(ds1[o]) + 2.0 * x.float() * col(ds2[o])).to(x.dtype)
+    return [(gf * col(a[o]) + col(ds1[o]) + 2.0 * _wide(x) * col(ds2[o])).to(x.dtype)
             for o, x in enumerate(xs)]
 
 
@@ -326,16 +341,27 @@ def bwd_dx(xs: Sequence[torch.Tensor], g: torch.Tensor, a: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _glue(s1, s2, g, bb, al, se_w1, se_w2, none_k, rm, rv, *, b: int,
-          hw: int, train: bool, se_index: Optional[int], E: int, P: int):
-    """s1, s2: [n,B,C] f32 per-plane sums (None in eval mode without SE);
-    g, bb, al: [n,C] BN scale, bias and alpha columns; none_k: [C] or None.
+def _batch_sums(s1, s2, mesh):
+    """[n,B,C] per-plane sums -> (S1, S2) [n,C], their sums over the
+    batch; under `mesh` over every rank's rows, in one collective."""
+    S1, S2 = s1.sum(dim=1), s2.sum(dim=1)
+    if mesh is None:
+        return S1, S2
+    S = all_reduce_sum(torch.stack([S1, S2]), mesh)
+    return S[0], S[1]
+
+
+def _glue(s1, S1, S2, g, bb, al, se_w1, se_w2, none_k, rm, rv, *, b: int,
+          hw: int, cnt: int, train: bool, se_index: Optional[int], E: int, P: int):
+    """s1: [n,B,C] f32 per-plane sums (None in eval mode without SE); S1,
+    S2: [n,C] the sums of x and x^2 over the batch's cnt values a channel
+    (train mode; None in eval mode); g, bb, al: [n,C] BN scale, bias and
+    alpha columns; none_k: [C] or None.
     Returns (a_full [n,B,C], k_full [B,C], mu [n,C], var [n,C])."""
     n, c = g.shape
     if train:
-        cnt = b * hw
-        mu = s1.sum(dim=1) / cnt                            # [n, C]
-        var = torch.clamp(s2.sum(dim=1) / cnt - mu * mu, min=0.0)
+        mu = S1 / cnt                                       # [n, C]
+        var = torch.clamp(S2 / cnt - mu * mu, min=0.0)
     else:
         mu, var = rm, rv
     a_bn = torch.rsqrt(var + EPS) * g                       # [n, C]
@@ -349,11 +375,11 @@ def _glue(s1, s2, g, bb, al, se_w1, se_w2, none_k, rm, rv, *, b: int,
     else:
         # SE: scale per (b, c) from the post-BN spatial mean, an affine of
         # the raw per-(b, c) mean (senas_tpu/ops/grouped_epilogue.py:308-319).
-        s_scale = [torch.ones((b, c), device=g.device)] * n
+        s_scale = [torch.ones((b, c), dtype=g.dtype, device=g.device)] * n
         mean_raw = s1[se_index] / hw                        # [B, C]
         m = (mean_raw * a_bn[se_index] + k_bn[se_index]).reshape(b, E, P)
-        hid = torch.relu(torch.einsum("bep,epm->bem", m, se_w1.float()))
-        sig = torch.sigmoid(torch.einsum("bem,emp->bep", hid, se_w2.float()))
+        hid = torch.relu(torch.einsum("bep,epm->bem", m, _wide(se_w1)))
+        sig = torch.sigmoid(torch.einsum("bem,emp->bep", hid, _wide(se_w2)))
         s_scale[se_index] = sig.reshape(b, c)
         s_scale = torch.stack(s_scale)                      # [n, B, C]
         # Fold everything into per-(b, c) affines.
@@ -382,28 +408,38 @@ class _FusedEpilogue(torch.autograd.Function):
     senas_tpu/ops/grouped_epilogue.py:334-378) as an autograd Function.
 
     forward(cfg, g, bb, al, se_w1, se_w2, none_k, rm, rv, *xs) -> (mixed,
-    mu, var). Saves xs, the sums s1/s2, the parameters and A. The backward
-    runs `bwd_reduce` for dA, dK; recomputes the glue under autograd on
-    detached copies of s1, s2 and the parameters (the forward ran with
-    gradients off) and takes its vector-Jacobian product with (dA, dK, dmu,
-    dvar), which gives the parameters' gradients and ds1, ds2; then runs
-    `bwd_dx` for the branch tensors. Running stats get no gradient."""
+    mu, var). Saves xs, the per-plane sums s1, the batch sums S1/S2 (over
+    every rank's rows under an active mesh), the parameters and A. The
+    backward runs `bwd_reduce` for dA, dK; recomputes the glue under
+    autograd on detached copies of s1, S1, S2 and the parameters (the
+    forward ran with gradients off; the recompute runs no collective) and
+    takes its vector-Jacobian product with (dA, dK, dmu, dvar), which gives
+    the parameters' gradients and dS1, dS2; under a mesh it sums dS1, dS2
+    over the ranks (the backward of the forward's sum over ranks); ds1 is
+    dS1 over each plane plus the SE branch's own term, ds2 is dS2; then
+    `bwd_dx` gives the branch tensors' gradients. Running stats get no
+    gradient."""
 
     @staticmethod
     def forward(ctx, cfg: _Config, g, bb, al, se_w1, se_w2, none_k, rm, rv, *xs):
         b, c, h, w = xs[0].shape
         # Eval mode without SE is a pure affine in the running stats: the
         # stats sweep is skipped (senas_tpu/ops/grouped_epilogue.py:341-350).
-        s1 = s2 = None
+        s1 = s2 = S1 = S2 = None
         if cfg.train or cfg.se_index is not None:
             s1, s2 = branch_stats(xs)
-        a_full, k_full, mu, var = _glue(s1, s2, g, bb, al, se_w1, se_w2, none_k,
-                                        rm, rv, b=b, hw=h * w, train=cfg.train,
+        # train mode: the batch statistics span every rank's rows under a mesh
+        ctx.mesh = active_mesh() if cfg.train else None
+        ctx.cnt = b * h * w * (1 if ctx.mesh is None else ctx.mesh.world_size)
+        if cfg.train:
+            S1, S2 = _batch_sums(s1, s2, ctx.mesh)
+        a_full, k_full, mu, var = _glue(s1, S1, S2, g, bb, al, se_w1, se_w2, none_k,
+                                        rm, rv, b=b, hw=h * w, cnt=ctx.cnt, train=cfg.train,
                                         se_index=cfg.se_index, E=cfg.E, P=cfg.P)
         a_full = a_full.contiguous()
         mixed = apply_mix(xs, a_full, k_full.contiguous(), cfg.out_dtype)
         ctx.cfg = cfg
-        ctx.save_for_backward(s1, s2, g, bb, al, se_w1, se_w2, none_k, rm, rv,
+        ctx.save_for_backward(s1, S1, S2, g, bb, al, se_w1, se_w2, none_k, rm, rv,
                               a_full, *xs)
         if not cfg.train:
             # the running stats pass through and take no gradient
@@ -415,18 +451,20 @@ class _FusedEpilogue(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dmixed, dmu, dvar):
         cfg = ctx.cfg
-        s1, s2, g, bb, al, se_w1, se_w2, none_k, rm, rv, a_full, *xs = ctx.saved_tensors
+        s1, S1, S2, g, bb, al, se_w1, se_w2, none_k, rm, rv, a_full, *xs = ctx.saved_tensors
         # the incoming gradient may be non-contiguous or channels_last
         dmixed = dmixed.contiguous()
         dA, dK = bwd_reduce(xs, dmixed)
 
-        named = dict(zip(("s1", "s2") + _PARAMS, (s1, s2, g, bb, al, se_w1, se_w2, none_k)))
+        named = dict(zip(("s1", "S1", "S2") + _PARAMS,
+                         (s1, S1, S2, g, bb, al, se_w1, se_w2, none_k)))
         leaves = {k: v.detach().requires_grad_() for k, v in named.items() if v is not None}
         b, c, h, w = xs[0].shape
         with torch.enable_grad():
-            outs = _glue(leaves.get("s1"), leaves.get("s2"),
+            outs = _glue(leaves.get("s1"), leaves.get("S1"), leaves.get("S2"),
                          *(leaves.get(k) for k in _PARAMS), rm, rv, b=b, hw=h * w,
-                         train=cfg.train, se_index=cfg.se_index, E=cfg.E, P=cfg.P)
+                         cnt=ctx.cnt, train=cfg.train, se_index=cfg.se_index, E=cfg.E,
+                         P=cfg.P)
         # in eval mode mu and var are the running stats: nothing to push back
         pairs = [(o, ct) for o, ct in zip(outs, (dA, dK, dmu, dvar)) if o.requires_grad]
         grads = torch.autograd.grad([o for o, _ in pairs], list(leaves.values()),
@@ -435,12 +473,19 @@ class _FusedEpilogue(torch.autograd.Function):
 
         dxs = [None] * len(xs)
         if any(ctx.needs_input_grad[9:]):
-            # ds1/ds2 are constant over each plane; None where the glue did
-            # not read the sum (eval mode: s2, and s1 off the SE branch)
+            # ds1/ds2 are constant over each plane; zero where the glue did
+            # not read the sum (eval mode: S1, S2, and s1 off the SE branch)
             zeros = torch.zeros_like(dA)
-            ds1 = zeros if got.get("s1") is None else got["s1"].contiguous()
-            ds2 = zeros if got.get("s2") is None else got["s2"].contiguous()
-            dxs = bwd_dx(xs, dmixed, a_full, ds1, ds2)
+            ds1 = zeros if got.get("s1") is None else got["s1"]
+            ds2 = zeros
+            if got.get("S1") is not None or got.get("S2") is not None:
+                dS = torch.stack([zeros[:, 0] if got.get(k) is None else got[k]
+                                  for k in ("S1", "S2")])
+                if ctx.mesh is not None:
+                    dS = all_reduce_sum(dS, ctx.mesh)
+                ds1 = dS[0][:, None, :] + ds1
+                ds2 = dS[1][:, None, :] + ds2
+            dxs = bwd_dx(xs, dmixed, a_full, ds1.contiguous(), ds2.contiguous())
         return (None, *(got.get(k) for k in _PARAMS), None, None, *dxs)
 
 
@@ -469,16 +514,16 @@ def fused_group_epilogue(xs, scales, biases, alphas_cols, *,
     'none' inputs (through `_FusedEpilogue`).
     """
     _check_branches(xs)
-    g = torch.stack(list(scales)).float()
-    bb = torch.stack(list(biases)).float()
-    al = torch.stack(list(alphas_cols)).float()
+    g = _wide(torch.stack(list(scales)))
+    bb = _wide(torch.stack(list(biases)))
+    al = _wide(torch.stack(list(alphas_cols)))
     rm = rv = None
     if not train:
-        rm = torch.stack(list(run_means)).float()
-        rv = torch.stack(list(run_vars)).float()
+        rm = _wide(torch.stack(list(run_means)))
+        rv = _wide(torch.stack(list(run_vars)))
     none_k = None
     if none_alpha_col is not None:
-        none_k = none_alpha_col.float() * none_bias.float()
+        none_k = _wide(none_alpha_col) * _wide(none_bias)
     if se_index is None:
         se_w1 = se_w2 = None
     cfg = _Config(bool(train), se_index, E, P, out_dtype)
@@ -496,13 +541,19 @@ def group_epilogue_reference(xs, scales, biases, alphas_cols, *,
                              out_dtype=None):
     """The unfused epilogue, branch by branch (mirrors
     senas_tpu/ops/grouped_epilogue.py:429-464): per-branch BN with the
-    two-pass variance -> optional SE -> alpha-weighted sum (+ 'none')."""
+    two-pass variance -> optional SE -> alpha-weighted sum (+ 'none').
+    Under an active mesh the mean and variance are the global batch's."""
     b, c, h, w = xs[0].shape
     dt = out_dtype or xs[0].dtype
-    acc = torch.zeros((b, c, h, w), dtype=torch.float32, device=xs[0].device)
+    acc = torch.zeros((b, c, h, w), dtype=_wide(xs[0]).dtype, device=xs[0].device)
+    mesh = active_mesh()
     for o, (x, g, bb, a) in enumerate(zip(xs, scales, biases, alphas_cols)):
-        xf = x.float()
-        if train:
+        xf = _wide(x)
+        if train and mesh is not None:
+            cnt = global_count(b * h * w)
+            mu = all_reduce_sum(xf.sum(dim=(0, 2, 3))) / cnt
+            var = all_reduce_sum(((xf - mu[:, None, None]) ** 2).sum(dim=(0, 2, 3))) / cnt
+        elif train:
             mu = xf.mean(dim=(0, 2, 3))
             var = ((xf - mu[:, None, None]) ** 2).mean(dim=(0, 2, 3))
         else:
@@ -514,7 +565,7 @@ def group_epilogue_reference(xs, scales, biases, alphas_cols, *,
             hid = torch.relu(torch.einsum("bep,epm->bem", m, se_w1.to(y.dtype)))
             sig = torch.sigmoid(torch.einsum("bem,emp->bep", hid, se_w2.to(y.dtype)))
             y = (y.reshape(b, E, P, h, w) * sig[..., None, None]).reshape(b, c, h, w)
-        acc = acc + a.float()[:, None, None] * y.float()
+        acc = acc + _wide(a)[:, None, None] * _wide(y)
     if none_alpha_col is not None:
-        acc = acc + (none_alpha_col.float() * none_bias.float())[:, None, None]
+        acc = acc + (_wide(none_alpha_col) * _wide(none_bias))[:, None, None]
     return acc.to(dt)

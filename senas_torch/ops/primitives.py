@@ -45,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from senas_torch.core.genotype import DownOps, NormOps, UpOps
 from senas_torch.ops.grouped_epilogue import fused_group_epilogue
+from senas_torch.parallel.collectives import active_mesh, all_reduce_sum, global_count
 
 EPS = 1e-5
 
@@ -293,7 +294,14 @@ class BatchNorm(nn.Module):
     exactly) and rounds once to `dtype`. A non-contiguous x is copied to
     NCHW; `pallas_copies` counts the copies the path makes. Other ranks
     keep `F.batch_norm`, as in the JAX module, and so does a tensor on the
-    meta device (a shape-only forward)."""
+    meta device (a shape-only forward).
+
+    Under an active mesh (`senas_torch.parallel`) train mode normalises by
+    the statistics of the GLOBAL batch, as the JAX module does under GSPMD:
+    the default path by a two-pass synced BN (the global mean, then the
+    global sum of squared deviations, each summed over the ranks), the
+    gated path through the epilogue's global sums; the running stats
+    advance with the global count."""
 
     pallas_copies = 0
 
@@ -310,6 +318,8 @@ class BatchNorm(nn.Module):
     def forward(self, x, train: bool = False):
         if x.dim() == 4 and use_pallas_bn() and not x.is_meta:
             return self._kernel_path(x, train)
+        if train and active_mesh() is not None and not x.is_meta:
+            return self._synced(x)
         # F.batch_norm updates the running stats it is given in place in
         # train mode; a remat recompute gives it copies.
         mean, var = ((self.mean.clone(), self.var.clone()) if train and _RECOMPUTING
@@ -317,6 +327,22 @@ class BatchNorm(nn.Module):
         y = F.batch_norm(x, mean, var, self.scale, self.bias,
                          training=train, momentum=self.momentum, eps=self.eps)
         return y if self.dtype is None else y.to(self.dtype)
+
+    def _synced(self, x):
+        """Train mode over every rank's rows: the biased two-pass variance
+        of the global batch, in at least f32."""
+        ct = torch.promote_types(x.dtype, torch.float32)
+        xs = x.to(ct)
+        dims = [0] + list(range(2, x.dim()))
+        col = [1, x.shape[1]] + [1] * (x.dim() - 2)
+        count = global_count(x.numel() // x.shape[1])
+        mu = all_reduce_sum(xs.sum(dim=dims)) / count
+        d = xs - mu.view(col)
+        var = all_reduce_sum((d * d).sum(dim=dims)) / count
+        y = (d * (torch.rsqrt(var + self.eps) * self.scale.to(ct)).view(col)
+             + self.bias.to(ct).view(col))
+        self.advance(mu.detach(), var.detach(), count)
+        return y.to(self.dtype or x.dtype)
 
     def _kernel_path(self, x, train: bool):
         out_dtype = self.dtype or x.dtype
@@ -332,7 +358,7 @@ class BatchNorm(nn.Module):
         else:
             y, (mu, var) = fused_group_epilogue([xk], [self.scale], [self.bias], [ones],
                                                 train=True, out_dtype=xk.dtype)
-            self.advance(mu[0], var[0], x.numel() // x.shape[1])
+            self.advance(mu[0], var[0], global_count(x.numel() // x.shape[1]))
         return y.to(out_dtype)
 
     @torch.no_grad()
@@ -486,7 +512,13 @@ class Dropout(nn.Module):
         if rng is None:
             raise ValueError("Dropout in train mode needs a torch.Generator (rng=)")
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=rng, device=rng.device) < keep
+        # under a mesh every rank draws the global batch's mask and keeps
+        # its own rows: the masks of the single-device step
+        mesh = active_mesh()
+        shape = x.shape if mesh is None else (global_count(x.shape[0]),) + tuple(x.shape[1:])
+        mask = torch.rand(shape, generator=rng, device=rng.device) < keep
+        if mesh is not None:
+            mask = mask[mesh.rows(shape[0])]
         # x / keep in x's dtype: bf16(0.8) against a bf16 x, as flax divides
         return torch.where(mask.to(x.device), x / scalar(keep, x),
                            torch.zeros((), dtype=x.dtype, device=x.device))

@@ -1,21 +1,30 @@
-"""Shared runner plumbing: config resolution, batch placement, eval loop.
+"""Shared runner plumbing: config resolution, the mesh, batch placement,
+rank-0 outputs, eval loop.
 
 Port of the parts of `senas_tpu/runner/common.py` that the search, train
-and test runners use. `multi_gpus` runs on the one visible device, as the
-JAX runner does without a second one; a mesh over two or more cards is not
-ported (ROADMAP.md M13) and raises.
+and test runners use. `multi_gpus: true` runs data-parallel over the ranks
+of a torch.distributed process group, one process per device
+(`setup_mesh`; the CLIs spawn them): the config batch size is the global
+batch, every rank loads it and keeps its own rows, and rank 0 alone writes
+the logs, scalars, checkpoints and images. With one device the run stays
+on it, as the JAX runner does without a second one.
 """
 
 from __future__ import annotations
 
+import logging
 import os
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from senas_torch.data import DataLoader
+from senas_torch.parallel.collectives import broadcast_object
+from senas_torch.parallel.mesh import (REPLICATED, MeshSpec, initialize_distributed, make_mesh,
+                                       spatial_not_ported)
 from senas_torch.train.metrics import AverageMeter, SegmentationMetric
+from senas_torch.utils.logging import get_logger
 
 # Run directories go under the checkout's git-ignored logs/ unless the
 # caller names another root; the CLIs' default config is the checkout's.
@@ -24,14 +33,122 @@ DEFAULT_LOG_ROOT = os.path.join(_CHECKOUT, "logs")
 DEFAULT_CONFIG = os.path.join(_CHECKOUT, "configs", "senas", "senas_promise12.yml")
 
 
-def make_batch_placer(device: torch.device) -> Callable[[Dict[str, np.ndarray]], Dict[str, torch.Tensor]]:
-    """Returns place(batch) -> the batch's numpy arrays as tensors on `device`."""
+def visible_devices(device: torch.device) -> int:
+    """The devices a mesh on `device`'s kind could span: the visible cards,
+    or 1 for the CPU."""
+    return torch.cuda.device_count() if device.type == "cuda" else 1
 
-    def place(batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {"image": torch.from_numpy(batch["image"]).to(device),
-                "label": torch.from_numpy(batch["label"]).to(device)}
+
+def setup_mesh(section: Dict[str, Any], device: torch.device):
+    """`multi_gpus` of a `searching:` or `training:` section, for a run on
+    `device` (senas_tpu/runner/common.py:30-69). Returns (mesh or None, the
+    line for the run's log or None).
+
+    Without `multi_gpus`: (None, None). With it, the process joins the
+    group that the SENAS_* environment describes (`initialize_distributed`)
+    unless one is initialised already. A group of R >= 2 ranks gives the
+    mesh MeshSpec(data=R) on this rank's device and the JAX runner's
+    "mesh: ..." line. One rank or one visible device gives (None, the JAX
+    runner's single-device line). Raises where R >= 2 and `mesh_spatial` >
+    1 (ROADMAP.md M13b), and where two or more devices are visible but no
+    group is: one process drives one device, and the CLIs start them."""
+    if not section.get("multi_gpus", False):
+        return None, None
+    import torch.distributed as dist
+
+    joined = initialize_distributed(device=device)
+    n = dist.get_world_size() if joined else visible_devices(device)
+    if n < 2:
+        return None, f"multi_gpus requested but only {n} device visible — running single-device"
+    spatial = int(section.get("mesh_spatial", 1))
+    if spatial < 1 or n % spatial != 0:
+        raise ValueError(f"mesh_spatial={spatial} does not divide {n} devices")
+    if spatial > 1:
+        raise spatial_not_ported(spatial, n)
+    if not joined:
+        raise RuntimeError(
+            f"multi_gpus over {n} {device.type} devices runs one process per device: start "
+            "the run through its CLI (python -m senas_torch.search_arc, train_model or "
+            "testing_model), which spawns them, or join a process group first "
+            "(SENAS_COORDINATOR, SENAS_NUM_PROCESSES, SENAS_PROCESS_ID)")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(spec=MeshSpec(data=n // spatial, spatial=spatial), device=device)
+    platform = "gpu" if device.type == "cuda" else device.type
+    return mesh, f"mesh: {mesh.shape} over {n} {platform} devices"
+
+
+def check_global_batch(mesh, batch_size: int, what: str = "batch_size") -> None:
+    """The config batch size is the GLOBAL batch (reference semantics:
+    DataParallel splits the loader batch across GPUs)."""
+    if mesh is None:
+        return
+    data = mesh.shape["data"]
+    if batch_size % data != 0:
+        raise ValueError(
+            f"{what}={batch_size} is not divisible by the mesh data axis "
+            f"({data}); pick a multiple so every device gets equal work")
+
+
+def make_batch_placer(device: torch.device, mesh=None
+                      ) -> Callable[[Dict[str, np.ndarray]], Dict[str, Any]]:
+    """Returns place(batch) -> the batch's numpy arrays as tensors on
+    `device`. With a mesh, this rank's rows of the global batch; a batch
+    the ranks do not divide (a trailing eval batch) goes whole to every
+    rank, marked so that `shard_train_step` runs it as a single-device
+    step (the JAX placer's replicated case): its metrics count once."""
+
+    def place(batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
+        image, label = batch["image"], batch["label"]
+        whole = mesh is not None and not mesh.divides(image.shape[0])
+        if mesh is not None and not whole:
+            rows = mesh.rows(image.shape[0])
+            image, label = image[rows], label[rows]
+        out = {"image": torch.from_numpy(image).to(device),
+               "label": torch.from_numpy(label).to(device)}
+        if whole:
+            out[REPLICATED] = True
+        return out
 
     return place
+
+
+def is_main(mesh) -> bool:
+    """Whether this process writes the run's outputs: rank 0, or the only
+    process."""
+    return mesh is None or mesh.rank == 0
+
+
+class NullWriter:
+    """A `ScalarWriter` that keeps nothing: a rank other than 0."""
+
+    def add_scalar(self, *args, **kw):
+        pass
+
+    def add_image_grid(self, *args, **kw):
+        pass
+
+    def export_scalars_to_json(self, *args, **kw):
+        pass
+
+    def close(self):
+        pass
+
+
+def run_outputs(mesh, make_dir: Callable[[], str]):
+    """(run_dir, logger) of a run: rank 0 makes the directory and logs to
+    it; every other rank learns the directory's path (it reads checkpoints
+    there) and logs nowhere."""
+    if is_main(mesh):
+        run_dir = make_dir()
+        broadcast_object(run_dir, mesh)
+        return run_dir, get_logger(run_dir)
+    run_dir = broadcast_object(None, mesh)
+    logger = logging.getLogger(f"senas_torch.rank{mesh.rank}:{run_dir}")
+    logger.propagate = False
+    if not logger.handlers:
+        logger.addHandler(logging.NullHandler())
+    return run_dir, logger
 
 
 class DeferredMetrics:
@@ -77,27 +194,6 @@ def run_eval_loop(eval_step_fn, loader: DataLoader, nclass: int, place_fn):
         acc.push(out, n=batch["image"].shape[0])
     acc.drain()
     return metric, loss_meter
-
-
-def visible_devices(device: torch.device) -> int:
-    """The devices a mesh on `device`'s kind could span: the visible cards,
-    or 1 for the CPU."""
-    return torch.cuda.device_count() if device.type == "cuda" else 1
-
-
-def multi_gpus_note(section: Dict[str, Any], device: torch.device) -> Optional[str]:
-    """`multi_gpus` of a `searching:` or `training:` section, for a run on
-    `device`. With `multi_gpus: true` and one visible device the run stays
-    on it, and the line the JAX runner logs then is returned for the
-    caller's log (`mesh_spatial` is read only for a mesh); with two or more
-    it raises, rather than use one of them quietly. None otherwise."""
-    if not section.get("multi_gpus", False):
-        return None
-    n = visible_devices(device)
-    if n >= 2:
-        raise NotImplementedError(f"multi_gpus over {n} {device.type} devices is not "
-                                  "ported yet (ROADMAP.md M13)")
-    return f"multi_gpus requested but only {n} device visible — running single-device"
 
 
 def resolve_precision(name):

@@ -8,6 +8,13 @@ and stop at `max_patience`; the bilevel train loop (arch step on a val
 batch, weight step on a train batch); the eval epoch; a checkpoint. A run
 resumes from the "last" checkpoint of its run dir or of
 `searching.resume`.
+
+With `multi_gpus: true` over a process group of two or more ranks
+(`runner/common.py` `setup_mesh`) the bilevel steps run data-parallel on
+each rank's rows of the global batch (the JAX runner's mesh,
+senas_tpu/runner/search.py:122-131, 148-150): every rank restores a
+resumed run, the state is then broadcast from rank 0, and rank 0 alone
+writes the run's log, scalars and checkpoints.
 """
 
 from __future__ import annotations
@@ -21,10 +28,11 @@ import torch
 
 from senas_torch.core.device import resolve_device
 from senas_torch.data import DataLoader, PrefetchLoader, get_dataset, get_dataset_spec
-from senas_torch.runner.common import (DEFAULT_LOG_ROOT, DeferredMetrics,
-                                       make_batch_placer, multi_gpus_note,
+from senas_torch.parallel.mesh import place_state, shard_train_step
+from senas_torch.runner.common import (DEFAULT_LOG_ROOT, DeferredMetrics, NullWriter,
+                                       check_global_batch, is_main, make_batch_placer,
                                        resolve_dataset_kwargs, resolve_precision,
-                                       run_eval_loop)
+                                       run_eval_loop, run_outputs, setup_mesh)
 from senas_torch.search.supernet import (SenasSearch, beta_group_start, derive_genotype,
                                          init_arch_params, normalize_arch)
 from senas_torch.train.checkpoint import CheckpointManager
@@ -33,8 +41,7 @@ from senas_torch.train.metrics import AverageMeter, SegmentationMetric
 from senas_torch.train.optim import build_scheduler, set_learning_rate
 from senas_torch.train.trainer import (SearchTrainState, make_search_eval_step,
                                        make_search_step)
-from senas_torch.utils.logging import (ScalarWriter, calc_time, close_logger,
-                                       get_logger, make_run_dir)
+from senas_torch.utils.logging import ScalarWriter, calc_time, close_logger, make_run_dir
 from senas_torch.utils.misc import StepTimer, calc_parameters_count, set_seed, steady_share
 
 
@@ -44,8 +51,10 @@ class SearchRunner:
                  device=None, dtype=None):
         self.cfg = cfg
         s = cfg["searching"]
-        self.device = resolve_device(device)
-        device_note = multi_gpus_note(s, self.device)
+        dev = resolve_device(device)
+        self.mesh, device_note = setup_mesh(s, dev)
+        self.device = self.mesh.device if self.mesh else dev
+        check_global_batch(self.mesh, s["batch_size"], "searching.batch_size")
         # beta grouping: "reference" reproduces the reference's overlapping
         # softmax groups, "grouped" is the disjoint variant (an unknown mode
         # raises ValueError here)
@@ -63,12 +72,11 @@ class SearchRunner:
         dataset = get_dataset(ds_name, path=data_root, split=cfg["data"].get(
             "train_split", "train"), mode="train", **resolve_dataset_kwargs(cfg))
 
-        self.run_dir = make_run_dir(log_root, cfg["model"]["arch"], "search",
-                                    ds_name, config_path)
-        self.logger = get_logger(self.run_dir)
+        self.run_dir, self.logger = run_outputs(self.mesh, lambda: make_run_dir(
+            log_root, cfg["model"]["arch"], "search", ds_name, config_path))
         if device_note:
             self.logger.info(device_note)
-        self.writer = ScalarWriter(self.run_dir)
+        self.writer = ScalarWriter(self.run_dir) if is_main(self.mesh) else NullWriter()
         self.ckpt = CheckpointManager(os.path.join(self.run_dir, "ckpt"))
         spec = get_dataset_spec(ds_name)
         self.n_classes = spec.num_class
@@ -79,7 +87,7 @@ class SearchRunner:
                                       indices=indices[:split], seed=seed)
         self.valid_queue = DataLoader(dataset, bs, shuffle=True, drop_last=True,
                                       indices=indices[split:], seed=seed + 1)
-        self._place = make_batch_placer(self.device)
+        self._place = make_batch_placer(self.device, self.mesh)
 
         # model + arch params, drawn from the seed
         self.meta_node_num = s["meta_node_num"]
@@ -110,15 +118,17 @@ class SearchRunner:
         self.state = SearchTrainState.create(
             net, arch, s.get("model_optimizer"), s.get("arch_optimizer"),
             arch_in_weight_step=bool(s.get("arch_in_weight_step", True)))
-        self.search_step = make_search_step(normalize, loss_fn,
-                                            grad_clip=s.get("grad_clip", 5.0))
-        self._eval = make_search_eval_step(net, normalize, loss_fn)
+        self.search_step = shard_train_step(
+            make_search_step(normalize, loss_fn, grad_clip=s.get("grad_clip", 5.0)), self.mesh)
+        self._eval = shard_train_step(make_search_eval_step(net, normalize, loss_fn), self.mesh)
 
         self.start_epoch = 0
         self.patience = 0
         self.geno_type = None
         self.dur_time = 0.0
         self._maybe_resume(s.get("resume"))
+        if self.mesh is not None:
+            place_state(self.mesh, self.state)
 
     # ------------------------------------------------------------------
     def _maybe_resume(self, resume: Optional[str]):
@@ -222,12 +232,13 @@ class SearchRunner:
             self.writer.add_scalar("Val/dice", dice, epoch)
             self.writer.add_scalar("Val/loss", vloss.avg, epoch)
 
-            self.ckpt.save(self.state, {
-                "epoch": epoch + 1,
-                "dur_time": self.dur_time + time.time() - run_start,
-                "cur_patience": self.patience,
-                "geno_type": self.geno_type,
-            })
+            if is_main(self.mesh):
+                self.ckpt.save(self.state, {
+                    "epoch": epoch + 1,
+                    "dur_time": self.dur_time + time.time() - run_start,
+                    "cur_patience": self.patience,
+                    "geno_type": self.geno_type,
+                })
             self.logger.info("save checkpoint (epoch %d) in %s dur_time: %s", epoch,
                              self.ckpt.directory,
                              calc_time(self.dur_time + time.time() - run_start))

@@ -10,6 +10,12 @@ read, as in the JAX package's TestRunner), so a bf16 run's checkpoint,
 which holds f32 weights, evaluates in f32 by default. The PNGs
 are written as each batch comes back. `run_promise12_submission` writes
 the PROMISE12 challenge volumes from the slice masks.
+
+With `training.multi_gpus: true` over a process group of two or more
+ranks (`runner/common.py` `setup_mesh`) each rank evaluates its rows of
+every batch (a trailing batch the ranks do not divide runs whole on each),
+the metrics and masks are the global batch's, and rank 0 alone writes the
+log and the PNGs.
 """
 
 from __future__ import annotations
@@ -21,8 +27,9 @@ from senas_torch.challenge import predict_test, volumetric_metrics
 from senas_torch.core.device import resolve_device
 from senas_torch.data import DataLoader, get_dataset, get_dataset_spec
 from senas_torch.models.factory import get_segmentation_model
-from senas_torch.runner.common import (DEFAULT_LOG_ROOT, multi_gpus_note, make_batch_placer,
-                                       resolve_dataset_kwargs)
+from senas_torch.parallel.mesh import replicate, shard_train_step
+from senas_torch.runner.common import (DEFAULT_LOG_ROOT, is_main, make_batch_placer,
+                                       resolve_dataset_kwargs, run_outputs, setup_mesh)
 from senas_torch.runner.train import loss_name, resolve_genotype
 from senas_torch.train.checkpoint import CheckpointManager
 from senas_torch.train.loss import build_loss
@@ -48,23 +55,25 @@ class TestRunner:
             raise FileNotFoundError(f"no checkpoint in {resume}")
         self.cfg = cfg
         t = cfg["training"]
-        self.device = resolve_device(device)
+        dev = resolve_device(device)
         # `multi_gpus` as the train runner reads it (the JAX runner's mesh
-        # evaluation)
-        device_note = multi_gpus_note(t, self.device)
+        # evaluation, senas_tpu/runner/test.py:93-100)
+        self.mesh, device_note = setup_mesh(t, dev)
+        self.device = self.mesh.device if self.mesh else dev
         ds_name = cfg["data"]["dataset"]
         valset = get_dataset(ds_name, path=data_root, split=cfg["data"].get("split", "val"),
                              mode="val", **resolve_dataset_kwargs(cfg))
         self.n_classes = get_dataset_spec(ds_name).num_class
         self.valid_queue = DataLoader(valset, batch_size, shuffle=False)
-        self._place = make_batch_placer(self.device)
+        self._place = make_batch_placer(self.device, self.mesh)
 
-        self.run_dir = make_run_dir(log_root, model_name, "testing", ds_name, config_path)
-        self.logger = get_logger(self.run_dir)
+        self.run_dir, self.logger = run_outputs(self.mesh, lambda: make_run_dir(
+            log_root, model_name, "testing", ds_name, config_path))
         if device_note:
             self.logger.info(device_note)
         self.image_dir = os.path.join(self.run_dir, "images")
-        os.makedirs(self.image_dir, exist_ok=True)
+        if is_main(self.mesh):
+            os.makedirs(self.image_dir, exist_ok=True)
 
         genotype = resolve_genotype(cfg, genotype_str, model_name)
         self.model = get_segmentation_model(
@@ -73,8 +82,11 @@ class TestRunner:
             double_down_channel=t.get("double_down_channel", False), dtype=dtype,
             device=self.device)
         self.model.load_state_dict(mgr.restore_raw(name)["model"])
+        if self.mesh is not None:
+            replicate(self.mesh, [*self.model.parameters(), *self.model.buffers()])
         self.logger.info("loaded checkpoint %s (%s)", resume, name)
-        self.eval_step = make_eval_step(self.model, build_loss(loss_name(t)))
+        self.eval_step = shard_train_step(make_eval_step(self.model, build_loss(loss_name(t))),
+                                          self.mesh)
 
     def run(self, save_images: bool = True) -> Dict[str, float]:
         metric = SegmentationMetric(self.n_classes)
@@ -87,7 +99,7 @@ class TestRunner:
             host = {k: v.cpu().numpy() for k, v in out.items()}
             metric.update_counts(host["tp"], host["fp"], host["fn"], float(host["acc"]))
             loss_meter.update(float(host["loss"]), n=batch["image"].shape[0])
-            if save_images:
+            if save_images and is_main(self.mesh):
                 preds = host["pred"]
                 for i in range(preds.shape[0]):
                     write_png(os.path.join(self.image_dir, f"{img_idx + i:05d}.png"),
@@ -110,12 +122,15 @@ class TestRunner:
         spacing, and write <case>_segmentation.mhd under `dest` (default
         <run dir>/predictions). With ground truth (*_segmentation.mhd) in
         `case_dir`, also score the volumes. Returns (written paths, the
-        volumetric summary or None)."""
-        logger = get_logger(self.run_dir)
+        volumetric summary or None); under a mesh every rank infers and rank
+        0 alone writes and scores (the others return ([], None))."""
         slices = []
         for batch in (self.valid_queue if queue is None else queue):
             preds = self.eval_step(self._place(batch))["pred"].cpu().numpy()
             slices.extend(preds)
+        if not is_main(self.mesh):
+            return [], None
+        logger = get_logger(self.run_dir)
         dest = dest or os.path.join(self.run_dir, "predictions")
         names = sorted(os.listdir(case_dir))
         case_paths = [os.path.join(case_dir, f) for f in names

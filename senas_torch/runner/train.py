@@ -9,6 +9,12 @@ the "best" checkpoint copy, scalars and an input|pred|gt grid of the first
 val batch each epoch. A run resumes from the "last" checkpoint of its run
 dir or of `training.resume`; `ft` keeps the weights and optimizer state
 but restarts the epoch and best-metric counters.
+
+With `multi_gpus: true` over a process group of two or more ranks
+(`runner/common.py` `setup_mesh`) the steps run data-parallel on each
+rank's rows of the global batch; every rank restores a resumed run, the
+state is then broadcast from rank 0, and rank 0 alone writes the run's
+log, scalars, checkpoints and images.
 """
 
 from __future__ import annotations
@@ -24,16 +30,18 @@ from senas_torch.core.genotype import parse_genotype
 from senas_torch.data import DataLoader, PrefetchLoader, get_dataset, get_dataset_spec
 from senas_torch.models import geno_searched
 from senas_torch.models.factory import get_segmentation_model
-from senas_torch.runner.common import (DEFAULT_LOG_ROOT, DeferredMetrics, multi_gpus_note,
-                                       make_batch_placer, resolve_dataset_kwargs,
-                                       resolve_precision, run_eval_loop)
+from senas_torch.parallel.mesh import place_state, shard_train_step
+from senas_torch.runner.common import (DEFAULT_LOG_ROOT, DeferredMetrics, NullWriter,
+                                       check_global_batch, is_main, make_batch_placer,
+                                       resolve_dataset_kwargs, resolve_precision,
+                                       run_eval_loop, run_outputs, setup_mesh)
 from senas_torch.train.checkpoint import CheckpointManager
 from senas_torch.train.loss import build_loss
 from senas_torch.train.metrics import AverageMeter, SegmentationMetric
 from senas_torch.train.optim import build_scheduler, set_learning_rate
 from senas_torch.train.trainer import FixedTrainState, make_eval_step, make_train_step
-from senas_torch.utils.logging import (ScalarWriter, calc_time, close_logger, get_logger,
-                                       make_run_dir, store_images)
+from senas_torch.utils.logging import (ScalarWriter, calc_time, close_logger, make_run_dir,
+                                       store_images)
 from senas_torch.utils.misc import StepTimer, calc_parameters_count, set_seed, steady_share
 
 
@@ -59,8 +67,10 @@ class TrainRunner:
                  ft: bool = False, device=None, dtype=None):
         self.cfg = cfg
         t = cfg["training"]
-        self.device = resolve_device(device)
-        device_note = multi_gpus_note(t, self.device)
+        dev = resolve_device(device)
+        self.mesh, device_note = setup_mesh(t, dev)
+        self.device = self.mesh.device if self.mesh else dev
+        check_global_batch(self.mesh, t["batch_size"], "training.batch_size")
         # the compute dtype: the caller's, else `precision:` (None: f32)
         precision = resolve_precision(t.get("precision"))
         self.dtype = dtype if dtype is not None else precision
@@ -75,17 +85,17 @@ class TrainRunner:
                              mode="val", **dkw)
 
         self.model_name = model_name
-        self.run_dir = make_run_dir(log_root, model_name, "train", ds_name, config_path)
-        self.logger = get_logger(self.run_dir)
+        self.run_dir, self.logger = run_outputs(self.mesh, lambda: make_run_dir(
+            log_root, model_name, "train", ds_name, config_path))
         if device_note:
             self.logger.info(device_note)
-        self.writer = ScalarWriter(self.run_dir)
+        self.writer = ScalarWriter(self.run_dir) if is_main(self.mesh) else NullWriter()
         self.ckpt = CheckpointManager(os.path.join(self.run_dir, "ckpt"))
         self.n_classes = get_dataset_spec(ds_name).num_class
         bs = t["batch_size"]
         self.train_queue = DataLoader(trainset, bs, shuffle=True, drop_last=True, seed=seed)
         self.valid_queue = DataLoader(valset, bs, shuffle=False)
-        self._place = make_batch_placer(self.device)
+        self._place = make_batch_placer(self.device, self.mesh)
 
         self.model = get_segmentation_model(
             model_name, dataset=ds_name, c=t.get("init_channels", 32),
@@ -103,8 +113,9 @@ class TrainRunner:
             sched_cfg["T_max"] = t["epoch"]  # the CLI rewires T_max := epochs
         self.scheduler = build_scheduler(base_lr, sched_cfg)
         self.state = FixedTrainState.create(self.model, t.get("model_optimizer"), seed=seed)
-        self.train_step = make_train_step(loss_fn, grad_clip=t.get("grad_clip", 0.0))
-        self.eval_step = make_eval_step(self.model, loss_fn)
+        self.train_step = shard_train_step(
+            make_train_step(loss_fn, grad_clip=t.get("grad_clip", 0.0)), self.mesh)
+        self.eval_step = shard_train_step(make_eval_step(self.model, loss_fn), self.mesh)
 
         self.start_epoch = 0
         self.best_dice = 0.0
@@ -112,6 +123,8 @@ class TrainRunner:
         self.patience = 0
         self.dur_time = 0.0
         self._maybe_resume(t.get("resume"), ft)
+        if self.mesh is not None:
+            place_state(self.mesh, self.state)
 
     def _maybe_resume(self, resume: Optional[str], ft: bool):
         mgr = CheckpointManager(resume) if resume else self.ckpt
@@ -198,13 +211,14 @@ class TrainRunner:
             else:
                 self.patience += 1
 
-            self.ckpt.save(self.state, {
-                "epoch": epoch + 1,
-                "dur_time": self.dur_time + time.time() - run_start,
-                "best_dice": self.best_dice,
-                "best_miou": self.best_miou,
-                "model_name": self.model_name,
-            }, is_best=is_best)
+            if is_main(self.mesh):
+                self.ckpt.save(self.state, {
+                    "epoch": epoch + 1,
+                    "dur_time": self.dur_time + time.time() - run_start,
+                    "best_dice": self.best_dice,
+                    "best_miou": self.best_miou,
+                    "model_name": self.model_name,
+                }, is_best=is_best)
 
             if self.patience >= max_patience:
                 self.logger.info("Early stopping! patience %d", self.patience)

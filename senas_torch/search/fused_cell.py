@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from senas_torch.ops.grouped_epilogue import fused_group_epilogue
+from senas_torch.parallel.collectives import global_count
 from senas_torch.ops.primitives import (
     EPS,
     BatchNorm,
@@ -58,7 +59,7 @@ class _EpilogueBN(BatchNorm):
     whose BN runs inside the fused epilogue. `advance` (BatchNorm's) moves
     the running stats from the epilogue's biased batch stats with torch
     momentum-0.1 / unbiased-variance semantics (senas_tpu
-    fused_cell.py:90-114)."""
+    fused_cell.py:90-114), over the global batch's count under a mesh."""
 
     def forward(self, x, train: bool = False):
         raise RuntimeError("_EpilogueBN holds variables; the fused epilogue "
@@ -208,7 +209,7 @@ class GroupedMixedOp(nn.Module):
             none_alpha_col=none_col, none_bias=none_y, out_dtype=branches[0].dtype)
         if train:
             b, _, oh, ow = mixed.shape
-            count = b * oh * ow
+            count = global_count(b * oh * ow)   # the global batch's, under a mesh
             for i, bn in enumerate(bns):
                 bn.advance(mu[i], var[i], count)
             if none_idx is not None:

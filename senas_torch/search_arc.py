@@ -10,6 +10,12 @@ cuda; `cpu` runs the kernels' plain versions). A run resumes from the
 checkpoint directory that `searching.resume` names. Run directories go under
 the checkout's logs/ unless --log_root names another place; the default
 config is the checkout's configs/senas/senas_promise12.yml.
+
+With `multi_gpus: true` in `searching:` on a host with N >= 2 visible cards,
+the CLI starts N processes, one a card, which run data-parallel over the
+global batch (`senas_torch.parallel.launch`); with SENAS_COORDINATOR,
+SENAS_NUM_PROCESSES and SENAS_PROCESS_ID set it joins that process group
+as that rank instead (several hosts). Rank 0 alone prints and writes.
 """
 
 from __future__ import annotations
@@ -18,7 +24,8 @@ import argparse
 import sys
 
 from senas_torch.core.config import load_config
-from senas_torch.runner.common import DEFAULT_CONFIG, DEFAULT_LOG_ROOT
+from senas_torch.parallel.launch import launch, ranks_to_spawn
+from senas_torch.runner.common import DEFAULT_CONFIG, DEFAULT_LOG_ROOT, is_main
 from senas_torch.runner.search import SearchRunner
 
 
@@ -47,12 +54,16 @@ def main(argv=None) -> int:
         cfg["searching"]["meta_node_num"] = args.meta_node_num
     if args.epoch > 0:
         cfg["searching"]["epoch"] = args.epoch
+    ranks = ranks_to_spawn(cfg["searching"], args.device)
+    if ranks:
+        return launch("senas_torch.search_arc", sys.argv[1:] if argv is None else argv, ranks)
 
     runner = SearchRunner(cfg, config_path=args.config, data_root=args.data_root,
                           log_root=args.log_root, device=args.device)
     best = runner.run()
-    print("run dir:", runner.run_dir)
-    print("best genotype:", best)
+    if is_main(runner.mesh):
+        print("run dir:", runner.run_dir)
+        print("best genotype:", best)
     return 0
 
 

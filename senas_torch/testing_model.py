@@ -10,6 +10,12 @@ experiments/testing_model.py:37-50): --config / --model / --genotype /
 directory --resume names (else its "last") on the val split and writes the
 predicted masks and grids under <run dir>/images/. Run directories go under
 the checkout's logs/ unless --log_root names another place.
+
+With `multi_gpus: true` in `training:` on a host with N >= 2 visible cards,
+the CLI starts N processes, one a card, which run data-parallel over the
+global batch (`senas_torch.parallel.launch`); with SENAS_COORDINATOR,
+SENAS_NUM_PROCESSES and SENAS_PROCESS_ID set it joins that process group
+as that rank instead (several hosts). Rank 0 alone prints and writes.
 """
 
 from __future__ import annotations
@@ -19,7 +25,8 @@ import sys
 
 from senas_torch.core.config import load_config
 from senas_torch.models import geno_searched
-from senas_torch.runner.common import DEFAULT_CONFIG, DEFAULT_LOG_ROOT
+from senas_torch.parallel.launch import launch, ranks_to_spawn
+from senas_torch.runner.common import DEFAULT_CONFIG, DEFAULT_LOG_ROOT, is_main
 from senas_torch.runner.test import TestRunner
 from senas_torch.train_model import override_loss_depth
 
@@ -46,12 +53,18 @@ def main(argv=None) -> int:
 
     cfg = load_config(args.config)
     override_loss_depth(cfg, args)
+    ranks = ranks_to_spawn(cfg["training"], args.device)
+    if ranks:
+        return launch("senas_torch.testing_model", sys.argv[1:] if argv is None else argv, ranks)
     runner = TestRunner(cfg, model_name=args.model, genotype_str=args.genotype,
                         resume=args.resume, config_path=args.config,
                         data_root=args.data_root, log_root=args.log_root,
                         batch_size=args.batch_size, device=args.device)
-    print("run dir:", runner.run_dir)
-    print(runner.run())
+    if is_main(runner.mesh):
+        print("run dir:", runner.run_dir)
+    result = runner.run()
+    if is_main(runner.mesh):
+        print(result)
     return 0
 
 

@@ -11,6 +11,14 @@ A bf16 model (`dtype=torch.bfloat16`) gives bf16 logits, and the loss
 takes them as they are, as in the JAX package (no cast before loss_fn).
 The gradients land on the f32 parameters through the casts at use, so
 their joint norm, the clip and the optimizers' steps are f32.
+
+Under an active mesh (`senas_torch.parallel`, a step wrapped by
+`shard_train_step`) each rank holds its rows of the global batch. A step
+then computes the loss and the metrics on the gathered logits and labels
+(`gather_batch`), which gives every rank the single-device step's loss,
+and sums the ranks' partial gradients in one collective before the clip,
+so that the clip norm is the global one. BatchNorm and the epilogue's
+statistics span the global batch on their own (they ask `active_mesh()`).
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 from torch import nn
 
+from senas_torch.parallel.collectives import all_reduce_flat_, gather_batch, gather_outputs
 from senas_torch.train.metrics import confusion_counts, mean_pix_accuracy
 from senas_torch.train.optim import build_optimizer
 
@@ -44,6 +53,12 @@ def _step_metrics(loss, outputs, label) -> Dict[str, torch.Tensor]:
             "acc": mean_pix_accuracy(last, label)}
 
 
+def _global(outputs, label):
+    """The model's outputs and the labels of the global batch: every rank's
+    rows under an active mesh, the step's own otherwise."""
+    return gather_outputs(outputs), gather_batch(label)
+
+
 def _optimizer_params(opt: torch.optim.Optimizer) -> List[torch.Tensor]:
     return [p for group in opt.param_groups for p in group["params"]]
 
@@ -52,9 +67,11 @@ def _grads(loss: torch.Tensor, params: List[torch.Tensor]) -> List[torch.Tensor]
     """d loss / d params, with zeros where loss does not depend on a
     parameter (JAX's grad gives zeros there). Weight decay and momentum then
     still apply to it, as optax does: torch's optimizers skip a parameter
-    whose .grad is None."""
+    whose .grad is None. Under an active mesh, summed over the ranks."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    all_reduce_flat_(grads)
+    return grads
 
 
 def _apply(opt: torch.optim.Optimizer, params: List[torch.Tensor],
@@ -148,11 +165,12 @@ def make_train_step(loss_fn: Callable, grad_clip: float = 0.0):
 
     def step(state: FixedTrainState, batch):
         outputs = state.model(batch["image"], train=True, rng=state.step_generator())
-        loss = loss_fn(outputs, batch["label"])
+        outputs, label = _global(outputs, batch["label"])
+        loss = loss_fn(outputs, label)
         gnorm = _clipped_step(state.opt, loss, grad_clip)
         state.step += 1
         with torch.no_grad():
-            return {**_step_metrics(loss, outputs, batch["label"]), "grad_norm": gnorm}
+            return {**_step_metrics(loss, outputs, label), "grad_norm": gnorm}
 
     return step
 
@@ -165,9 +183,9 @@ def make_eval_step(model: nn.Module, loss_fn: Callable):
 
     @torch.inference_mode()
     def step(batch: Dict[str, torch.Tensor]):
-        outputs = model(batch["image"], train=False)
-        loss = loss_fn(outputs, batch["label"])
-        return {**_step_metrics(loss, outputs, batch["label"]),
+        outputs, label = _global(model(batch["image"], train=False), batch["label"])
+        loss = loss_fn(outputs, label)
+        return {**_step_metrics(loss, outputs, label),
                 "pred": _last(outputs).argmax(dim=-1).to(torch.uint8)}
 
     return step
@@ -250,24 +268,25 @@ def make_search_step(normalize_fn: Callable, loss_fn: Callable, grad_clip: float
     path draws from it, so this step takes no generator."""
 
     def forward(state: SearchTrainState, batch):
-        outputs = state.model(batch["image"], normalize_fn(state.arch), train=True)
-        return loss_fn(outputs, batch["label"]), outputs
+        outputs, label = _global(state.model(batch["image"], normalize_fn(state.arch),
+                                             train=True), batch["label"])
+        return loss_fn(outputs, label), outputs, label
 
     def step(state: SearchTrainState, train_batch, val_batch, do_arch: bool):
         tables = list(state.arch.values())
         if do_arch:
-            a_loss, _ = forward(state, val_batch)
+            a_loss, _, _ = forward(state, val_batch)
             _apply(state.a_opt, tables, _grads(a_loss, tables))
             a_loss = _reported(a_loss)
         else:
             a_loss = torch.zeros((), device=train_batch["image"].device)
 
-        loss, outputs = forward(state, train_batch)
+        loss, outputs, label = forward(state, train_batch)
         gnorm = _clipped_step(state.w_opt, loss, grad_clip)
         state.step += 1
 
         with torch.no_grad():
-            return {**_step_metrics(loss, outputs, train_batch["label"]),
+            return {**_step_metrics(loss, outputs, label),
                     "arch_loss": a_loss, "grad_norm": gnorm}
 
     return step
@@ -279,7 +298,8 @@ def make_search_eval_step(model: nn.Module, normalize_fn: Callable, loss_fn: Cal
 
     @torch.inference_mode()
     def step(arch: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor]):
-        outputs = model(batch["image"], normalize_fn(arch), train=False)
-        return _step_metrics(loss_fn(outputs, batch["label"]), outputs, batch["label"])
+        outputs, label = _global(model(batch["image"], normalize_fn(arch), train=False),
+                                 batch["label"])
+        return _step_metrics(loss_fn(outputs, label), outputs, label)
 
     return step

@@ -11,6 +11,12 @@ the checkpoint directory that `training.resume` names; --ft then restarts
 the epoch and best-metric counters. Run directories go under the checkout's
 logs/ unless --log_root names another place; the default config is the
 checkout's configs/senas/senas_promise12.yml.
+
+With `multi_gpus: true` in `training:` on a host with N >= 2 visible cards,
+the CLI starts N processes, one a card, which run data-parallel over the
+global batch (`senas_torch.parallel.launch`); with SENAS_COORDINATOR,
+SENAS_NUM_PROCESSES and SENAS_PROCESS_ID set it joins that process group
+as that rank instead (several hosts). Rank 0 alone prints and writes.
 """
 
 from __future__ import annotations
@@ -19,7 +25,8 @@ import argparse
 import sys
 
 from senas_torch.core.config import load_config
-from senas_torch.runner.common import DEFAULT_CONFIG, DEFAULT_LOG_ROOT
+from senas_torch.parallel.launch import launch, ranks_to_spawn
+from senas_torch.runner.common import DEFAULT_CONFIG, DEFAULT_LOG_ROOT, is_main
 from senas_torch.runner.train import TrainRunner
 
 
@@ -60,13 +67,17 @@ def main(argv=None) -> int:
         cfg["training"]["batch_size"] = args.batch_size
     if args.epoch > 0:
         cfg["training"]["epoch"] = args.epoch
+    ranks = ranks_to_spawn(cfg["training"], args.device)
+    if ranks:
+        return launch("senas_torch.train_model", sys.argv[1:] if argv is None else argv, ranks)
 
     runner = TrainRunner(cfg, model_name=args.model, genotype_str=args.genotype,
                          config_path=args.config, data_root=args.data_root,
                          log_root=args.log_root, ft=args.ft, device=args.device)
     result = runner.run()
-    print("run dir:", runner.run_dir)
-    print("best:", result)
+    if is_main(runner.mesh):
+        print("run dir:", runner.run_dir)
+        print("best:", result)
     return 0
 
 

@@ -43,7 +43,10 @@ FIXED_PATH = ("senas_torch.ops.norm_convs", "senas_torch.models.geno_searched",
               # the loaders of the other shipped configs
               "senas_torch.data.imfile", "senas_torch.data.dicom",
               "senas_torch.data.png_datasets", "senas_torch.data.msd",
-              "senas_torch.data.monusac", "senas_torch.utils.misc")
+              "senas_torch.data.monusac", "senas_torch.utils.misc",
+              # data parallelism
+              "senas_torch.parallel", "senas_torch.parallel.mesh",
+              "senas_torch.parallel.collectives", "senas_torch.parallel.launch")
 
 
 def test_port_imports_nothing_of_jax():

@@ -109,11 +109,13 @@ def test_multi_gpus_on_one_device_runs_there(tmp_path, mesh_spatial):
 
 
 def test_multi_gpus_over_two_devices_raises(tmp_path, monkeypatch):
+    """The data axis over two devices runs (tests/test_torch_mesh_*.py); the
+    spatial axis over them is not ported and raises naming M13b."""
     from senas_torch.runner import common
     monkeypatch.setattr(common, "visible_devices", lambda device: 2)
     cfg = load_config(CONFIG)
-    cfg["searching"].update(multi_gpus=True)
-    with pytest.raises(NotImplementedError, match="M13"):
+    cfg["searching"].update(multi_gpus=True, mesh_spatial=2)
+    with pytest.raises(NotImplementedError, match="M13b"):
         SearchRunner(cfg, log_root=str(tmp_path), device="cpu")
 
 

@@ -1,0 +1,382 @@
+"""Rank processes for the tests that hold the port's data-parallel path to
+its single-process one (tests/test_torch_collectives.py,
+tests/test_torch_mesh_steps.py). It imports torch, numpy and senas_torch,
+nothing of JAX: the parent test computes the JAX references and hands
+numpy arrays to the ranks.
+
+    python tests/torch_mesh_workers.py <job file> <rank> <world> <port>
+
+A job (a pickle) lists cases, each a function of this module and its
+keyword arguments. Every case takes `mesh` (None: the single-process run,
+which the parent calls in its own process) and numpy inputs of the GLOBAL
+batch, cuts its own rows, and returns a dict of numpy results whose keys
+say how the parent puts the ranks' values together:
+
+  * "rows:<name>": this rank's rows of a per-row result; concatenated over
+    the ranks in rank order, it must equal the single-process result;
+  * "sum:<name>": this rank's part of a sum (a parameter's gradient);
+    summed over the ranks;
+  * any other key: a global result, the same on every rank.
+
+`Ranks` runs a job over `world` gloo ranks on 127.0.0.1: every process
+group has a 60 s timeout, the whole job a deadline after which every rank
+is killed and the test fails.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import subprocess
+import sys
+import time
+from contextlib import nullcontext
+from datetime import timedelta
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JOB_TIMEOUT_S = 120
+CASES = {}
+
+
+def case(fn):
+    CASES[fn.__name__] = fn
+    return fn
+
+
+def _rows(mesh, b):
+    return slice(None) if mesh is None else mesh.rows(b)
+
+
+def _active(mesh):
+    from senas_torch.parallel.collectives import activate
+    return nullcontext() if mesh is None else activate(mesh)
+
+
+def _np(t):
+    return t.detach().cpu().numpy().copy()
+
+
+# ---------------------------------------------------------------------------
+# Collectives and the batch statistics (tests/test_torch_collectives.py)
+# ---------------------------------------------------------------------------
+
+@case
+def reduce_and_gather(mesh, x, w):
+    """all_reduce_sum of a batch sum S and gather_batch of the rows' x * S,
+    forward and backward: loss = sum(w * G). As in a model, the loss reads
+    the statistic only through the rows."""
+    from senas_torch.parallel.collectives import all_reduce_sum, gather_batch
+    r = _rows(mesh, x.shape[0])
+    xl = torch.from_numpy(x[r]).requires_grad_()
+    with _active(mesh):
+        s = all_reduce_sum(xl.sum(dim=0))
+        g = gather_batch(xl * s)
+        loss = (torch.from_numpy(w) * g).sum()
+        loss.backward()
+        labels = gather_batch(torch.arange(x.shape[0])[r])
+    return {"s": _np(s), "g": _np(g), "loss": _np(loss), "rows:dx": _np(xl.grad),
+            "labels": _np(labels)}
+
+
+def _load(module, params: dict, buffers: dict):
+    with torch.no_grad():
+        for k, v in params.items():
+            getattr(module, k).copy_(torch.from_numpy(v))
+        for k, v in buffers.items():
+            getattr(module, k).copy_(torch.from_numpy(v))
+    return module
+
+
+def _norm_case(mesh, module, x, r_weights):
+    """A train-mode forward of `module` on this rank's rows of x, loss =
+    sum(y * r_weights) over the global batch, its backward; then an eval
+    forward on the same rows."""
+    from senas_torch.parallel.collectives import gather_batch
+    rows = _rows(mesh, x.shape[0])
+    xl = torch.from_numpy(x[rows]).requires_grad_()
+    with _active(mesh):
+        y = module(xl, train=True)
+        loss = (torch.from_numpy(r_weights) * gather_batch(y)).sum()
+        grads = torch.autograd.grad(loss, [xl, module.scale, module.bias])
+        y_eval = module(torch.from_numpy(x[rows]), train=False)
+    return {"rows:y": _np(y), "rows:dx": _np(grads[0]), "sum:dscale": _np(grads[1]),
+            "sum:dbias": _np(grads[2]), "mean": _np(module.mean), "var": _np(module.var),
+            "rows:y_eval": _np(y_eval), "loss": _np(loss)}
+
+
+@case
+def batchnorm(mesh, x, r_weights, params, buffers, gated=False):
+    """primitives.BatchNorm: the default path, or the gated one through the
+    fused epilogue's plain twins (SENAS_PALLAS_BN=1)."""
+    from senas_torch.ops.primitives import BatchNorm
+    before = os.environ.get("SENAS_PALLAS_BN")
+    os.environ["SENAS_PALLAS_BN"] = "1" if gated else "0"
+    try:
+        bn = _load(BatchNorm(x.shape[1]).to(torch.float64), params, buffers)
+        return _norm_case(mesh, bn, x, r_weights)
+    finally:
+        if before is None:
+            del os.environ["SENAS_PALLAS_BN"]
+        else:
+            os.environ["SENAS_PALLAS_BN"] = before
+
+
+@case
+def flax_batchnorm(mesh, x, r_weights, params, buffers):
+    """encoders_timm2.FlaxBatchNorm (SK-Net's attention BN)."""
+    from senas_torch.models.encoders_timm2 import FlaxBatchNorm
+    bn = _load(FlaxBatchNorm(x.shape[1]).to(torch.float64), params, buffers)
+    return _norm_case(mesh, bn, x, r_weights)
+
+
+@case
+def epilogue(mesh, xs, r_weights, scales, biases, alphas, se_w1=None, se_w2=None,
+             none_alpha=None, none_bias=None, E=1, P=1):
+    """fused_group_epilogue in train mode (with SE where se_w1 is given, and
+    the closed-form 'none' branch) and group_epilogue_reference on the same
+    rows: outputs, the batch stats, the gradients of every input."""
+    from senas_torch.ops.grouped_epilogue import fused_group_epilogue, group_epilogue_reference
+    from senas_torch.parallel.collectives import gather_batch
+    rows = _rows(mesh, xs[0].shape[0])
+    t = lambda a: torch.from_numpy(a).requires_grad_()
+    xl = [t(x[rows]) for x in xs]
+    par = [[t(a) for a in group] for group in (scales, biases, alphas)]
+    kw = dict(train=True, E=E, P=P)
+    extra = []
+    if se_w1 is not None:
+        w1, w2 = t(se_w1), t(se_w2)
+        kw.update(se_index=0, se_w1=w1, se_w2=w2)
+        extra += [w1, w2]
+    if none_alpha is not None:
+        na, nb = t(none_alpha), t(none_bias)
+        kw.update(none_alpha_col=na, none_bias=nb)
+        extra += [na, nb]
+    leaves = xl + [p for group in par for p in group] + extra
+    out = {}
+    with _active(mesh):
+        for name, fn in (("fused", fused_group_epilogue), ("reference", group_epilogue_reference)):
+            res = fn(xl, *par, **kw)
+            mixed, stats = res if name == "fused" else (res, None)
+            loss = (torch.from_numpy(r_weights) * gather_batch(mixed)).sum()
+            grads = torch.autograd.grad(loss, leaves)
+            out[f"rows:{name}_mixed"] = _np(mixed)
+            for i, g in enumerate(grads):
+                key = f"rows:{name}_dx{i}" if i < len(xl) else f"sum:{name}_d{i}"
+                out[key] = _np(g)
+            if stats is not None:
+                out[f"{name}_mu"], out[f"{name}_var"] = _np(stats[0]), _np(stats[1])
+    return out
+
+
+@case
+def dropout(mesh, x, seed):
+    """primitives.Dropout(0.5) with one generator seed: the masks of the
+    global batch, each rank's rows."""
+    from senas_torch.ops.primitives import Dropout
+    rows = _rows(mesh, x.shape[0])
+    with _active(mesh):
+        y = Dropout(0.5)(torch.from_numpy(x[rows]), train=True,
+                         rng=torch.Generator().manual_seed(seed))
+    return {"rows:y": _np(y)}
+
+
+# ---------------------------------------------------------------------------
+# Steps (tests/test_torch_mesh_steps.py)
+# ---------------------------------------------------------------------------
+
+def _batch(mesh, batch, dtype):
+    r = _rows(mesh, batch["image"].shape[0])
+    return {"image": torch.from_numpy(batch["image"][r]).to(dtype),
+            "label": torch.from_numpy(batch["label"][r])}
+
+
+def _metrics(m):
+    return {k: _np(v).astype(np.float64) if v.is_floating_point() else _np(v)
+            for k, v in m.items()}
+
+
+def _build_fixed(model, c, depth, variables, dtype, encoder=None):
+    from senas_torch import convert
+    from senas_torch.models import geno_searched, zoo
+    from senas_torch.models.senas_model import SenasModel
+    gen = torch.Generator().manual_seed(0)
+    if model == "unet":
+        net = zoo.Unet(classes=2, in_channels=1, encoder_name=encoder, encoder_depth=depth,
+                       decoder_channels=(64, 32, 16, 8)[:depth], device="cpu", generator=gen)
+    else:
+        net = SenasModel(nclass=2, in_channels=1, c=c, depth=depth,
+                         genotype=getattr(geno_searched, model), device="cpu", generator=gen)
+    if variables is not None:
+        convert.load_variables(net, variables)
+    return net.to(dtype)
+
+
+@case
+def fixed_steps(mesh, batches, eval_batch, opt_cfg, clip=5.0, loss="dice_ce",
+                model="senas_node_4", c=8, depth=3, variables=None, encoder=None,
+                dtype="float64", gated=False):
+    """FixedTrainState + make_train_step for len(batches) steps, then
+    make_eval_step on eval_batch: per-step metrics, the eval metrics and
+    masks, and the final weights and running stats (flax layout)."""
+    from senas_torch import convert
+    from senas_torch.parallel.mesh import place_state, shard_train_step
+    from senas_torch.train.loss import build_loss
+    from senas_torch.train.trainer import FixedTrainState, make_eval_step, make_train_step
+    dt = getattr(torch, dtype)
+    before = os.environ.get("SENAS_PALLAS_BN")
+    os.environ["SENAS_PALLAS_BN"] = "1" if gated else "0"
+    try:
+        net = _build_fixed(model, c, depth, variables, dt, encoder)
+        state = FixedTrainState.create(net, opt_cfg)
+        step = make_train_step(build_loss(loss), grad_clip=clip)
+        evaluate = make_eval_step(net, build_loss(loss))
+        if mesh is not None:
+            place_state(mesh, state)
+            step, evaluate = shard_train_step(step, mesh), shard_train_step(evaluate, mesh)
+        out = {f"step{i}": _metrics(step(state, _batch(mesh, b, dt)))
+               for i, b in enumerate(batches)}
+        ev = _metrics(evaluate(_batch(mesh, eval_batch, dt)))
+    finally:
+        if before is None:
+            del os.environ["SENAS_PALLAS_BN"]
+        else:
+            os.environ["SENAS_PALLAS_BN"] = before
+    out["eval"] = ev
+    out["variables"] = convert.state_dict_to_variables(net)
+    return out
+
+
+@case
+def search_steps(mesh, batches, do_arch, arch, w_cfg, a_cfg, meta, depth, c,
+                 variables=None, dtype="float64"):
+    """SearchTrainState + make_search_step over (train, val) batch pairs,
+    then make_search_eval_step on the first val batch: per-step metrics,
+    the final weights, running stats and arch tables."""
+    from senas_torch import convert
+    from senas_torch.parallel.mesh import place_state, shard_train_step
+    from senas_torch.search import supernet as tsn
+    from senas_torch.train.loss import build_loss
+    from senas_torch.train.trainer import (SearchTrainState, make_search_eval_step,
+                                           make_search_step)
+    dt = getattr(torch, dtype)
+    net = tsn.SenasSearch(in_channels=1, c=c, nclass=2, depth=depth, meta_node_num=meta,
+                          device="cpu", generator=torch.Generator().manual_seed(0))
+    if variables is not None:
+        convert.load_variables(net, variables)
+    net = net.to(dt)
+    tables = {k: v.to(dt) for k, v in convert.arch_to_torch(arch, "cpu").items()}
+    state = SearchTrainState.create(net, tables, w_cfg, a_cfg)
+    normalize = lambda a: tsn.normalize_arch(a, meta)
+    step = make_search_step(normalize, build_loss("dice_ce"), grad_clip=5.0)
+    evaluate = make_search_eval_step(net, normalize, build_loss("dice_ce"))
+    if mesh is not None:
+        place_state(mesh, state)
+        step, evaluate = shard_train_step(step, mesh), shard_train_step(evaluate, mesh)
+    out = {f"step{i}": _metrics(step(state, _batch(mesh, tb, dt), _batch(mesh, vb, dt), a))
+           for i, ((tb, vb), a) in enumerate(zip(batches, do_arch))}
+    out["eval"] = _metrics(evaluate(state.arch, _batch(mesh, batches[0][1], dt)))
+    out["variables"] = convert.state_dict_to_variables(net)
+    out["arch"] = {k: _np(v) for k, v in state.arch.items()}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The rank process and its launcher
+# ---------------------------------------------------------------------------
+
+def _rank_main(job_path, rank, world, port):
+    import torch.distributed as dist
+
+    from senas_torch.parallel.mesh import make_mesh
+    torch.set_num_threads(1)
+    with open(job_path, "rb") as f:
+        job = pickle.load(f)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank, timeout=timedelta(seconds=60))
+    mesh = make_mesh()
+    results = [CASES[name](mesh, **kw) for name, kw in job]
+    with open(f"{job_path}.{rank}", "wb") as f:
+        pickle.dump(results, f)
+    dist.destroy_process_group()
+
+
+class Ranks:
+    """A job running over `world` rank processes; `results()` waits."""
+
+    def __init__(self, job, tmp_dir, world=2, timeout=JOB_TIMEOUT_S):
+        from senas_torch.parallel.launch import free_port
+        self.path = os.path.join(str(tmp_dir), f"job-{time.monotonic_ns()}.pkl")
+        with open(self.path, "wb") as f:
+            pickle.dump(job, f)
+        env = {**os.environ, "OMP_NUM_THREADS": "1",
+               "PYTHONPATH": os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH"))
+                                             if p)}
+        port = free_port()
+        self.world, self.deadline = world, time.monotonic() + timeout
+        self.logs = [open(f"{self.path}.{r}.log", "w+") for r in range(world)]
+        self.procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), self.path,
+                                        str(r), str(world), str(port)], env=env, cwd=ROOT,
+                                       stdout=self.logs[r], stderr=subprocess.STDOUT)
+                      for r in range(world)]
+
+    def _tail(self, r):
+        self.logs[r].seek(0)
+        return self.logs[r].read()[-3000:]
+
+    def results(self):
+        """Per rank, the list of its cases' results. A rank that fails, or
+        a job past its deadline, kills every rank and fails the test."""
+        try:
+            while any(p.poll() is None for p in self.procs):
+                failed = [r for r, p in enumerate(self.procs) if p.poll() not in (None, 0)]
+                if failed or time.monotonic() > self.deadline:
+                    break
+                time.sleep(0.1)
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, p in enumerate(self.procs):
+            assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{self._tail(r)}"
+        out = []
+        for r in range(self.world):
+            with open(f"{self.path}.{r}", "rb") as f:
+                out.append(pickle.load(f))
+        for log in self.logs:
+            log.close()
+        return out
+
+
+def combine(per_rank):
+    """One case's results of every rank -> one dict laid out like the
+    single-process result: rows concatenated, partial sums summed; a global
+    result is checked to be the same on every rank."""
+    out = {}
+    for key in per_rank[0]:
+        vals = [r[key] for r in per_rank]
+        if key.startswith("rows:"):
+            out[key] = np.concatenate(vals)
+        elif key.startswith("sum:"):
+            out[key] = np.sum(vals, axis=0)
+        else:
+            for v in vals[1:]:
+                _assert_same(v, vals[0], key)
+            out[key] = vals[0]
+    return out
+
+
+def _assert_same(a, b, key):
+    if isinstance(b, dict):
+        assert a.keys() == b.keys(), key
+        for k in b:
+            _assert_same(a[k], b[k], f"{key}/{k}")
+    else:
+        np.testing.assert_array_equal(a, b, err_msg=f"{key} differs between ranks")
+
+
+if __name__ == "__main__":
+    _rank_main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]))
