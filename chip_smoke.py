@@ -45,7 +45,7 @@ Phases, each of which fails the run:
   7. a search training step on the card held to the same step on the CPU,
      at a reduced size (depth 3, c 8, 64x64, batch 2) from identical state,
      with TF32 off; the same step with TF32 on must fail the same limits;
-  8. the search runner: `python -m senas_torch.search_arc` on
+  8. the search runner: `senas_torch.search_arc`'s main in this process on
      configs/senas/senas_synthetic.yml for its 3 epochs, then resumed from
      its checkpoint for one more;
   9. the fixed path: SenasModel(senas) at the senas_promise12.yml
@@ -55,12 +55,13 @@ Phases, each of which fails the run:
      card's logits held to the CPU path on 2 images;
  10. a fixed training step on the card held to the same step on the CPU
      (depth 3, c 8, 64x64, batch 2), TF32 off; with TF32 on it must fail;
- 11. the fixed CLIs: `python -m senas_torch.train_model` on
-     senas_synthetic.yml, then `python -m senas_torch.testing_model` on its
-     best checkpoint;
+ 11. the fixed CLIs in this process: `senas_torch.train_model` on
+     senas_synthetic.yml for one epoch (8 steps) with SENAS_TRACE_DIR set,
+     which must write one torch.profiler trace (steps [5, 8); its size is
+     logged), then `senas_torch.testing_model` on its best checkpoint;
  12. serving: phase 9's trained model saved with CheckpointManager and
-     exported by `python -m senas_torch.export_model --check --f32` on the
-     card; the artifact's Predictor answers batches of 1, 3 and 12 with the
+     exported by `senas_torch.export_model --check --f32` (in this process)
+     on the card; the artifact's Predictor answers batches of 1, 3 and 12 with the
      eager model's logits (1e-4) and their argmax as uint8 masks (the
      compared calls with cuDNN's deterministic algorithms, which must give
      the same bits call after call; the call-to-call spread with its
@@ -171,8 +172,8 @@ Phases, each of which fails the run:
      inceptionv4, inceptionresnetv2, dpn68, timm-mobilenetv3_large_100 and
      timm-resnest14d at the promise12 `training:` geometry, 1 + 3 train
      steps in f32 and in bf16 (ms/step, peak memory, device launches a
-     step); each one's train step on the card against the CPU at depth 5,
-     batch 2, 64x64: in f64 whole (phase 16's f64 limits), in f32 split
+     step); each one's but the Inceptions' and Xception's train step on the
+     card against the CPU at depth 5, batch 2, 64x64: in f64 whole (phase 16's f64 limits), in f32 split
      into the forward, the gradients (the CPU's forward forced to the
      card's module outputs) and the update; DeepLabV3+ on efficientnet-b0
      at output stride 16, one f32 step; SENAS_PALLAS_BN on timm-resnest14d
@@ -201,11 +202,16 @@ Phases, each of which fails the run:
  22. data parallelism (senas_torch/parallel): the promise12 search step
      (do_arch, global batch 8) and fixed step (global batch 12) at full
      width over two gloo ranks sharing the card (this script started
-     twice with --dp-rank, 4 and 6 rows each) and over one NCCL rank in
-     this process, each held to the single-process step on the global
-     batch from one state (both under deterministic algorithms,
-     `DP_LIMITS`); K1a-K1d launched on every rank; ms/step of each, and
-     the share of a step inside the collectives' calls (timed around each).
+     twice with --dp-rank), first as MeshSpec(data=2) (4 and 6 batch rows
+     each), then as MeshSpec(data=1, spatial=2) (every batch row, 128 of
+     the 256 image rows each, halo exchanges around every convolution,
+     pooling and resize), and over one NCCL rank in this process, each held
+     to the single-process step on the global batch from one state (both
+     under deterministic algorithms, `DP_LIMITS`); K1a-K1d launched on
+     every rank; ms/step of each, the share of a step inside the
+     collectives' calls (timed around each), their number, and the bytes
+     of the halo exchanges. NCCL refuses two ranks on one device, so the
+     split rows run over gloo only.
 Each phase's seconds are logged as it ends, and all of them at the end.
 Phases 12-13, 16, 18's zoo and 20's and 21's ungated steps launch none of
 the kernels (neither the fixed model nor the zoo has any, unless
@@ -1307,16 +1313,6 @@ def train_card_vs_cpu(dev, seed: int) -> dict:
 # Phase 8: the search runner and its resume
 # ---------------------------------------------------------------------------
 
-def _cli(module: str, config: str, *args: str) -> str:
-    """`python -m <module> --config <config> ...` from the checkout; its stdout."""
-    cmd = [sys.executable, "-m", module, "--config", config, *args]
-    t0 = time.perf_counter()
-    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
-    log(f"  {' '.join(cmd[1:])}: rc {out.returncode}, {time.perf_counter() - t0:.1f} s")
-    check(out.returncode == 0, f"{module} failed:\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
-    return out.stdout
-
-
 def _run_dir(stdout: str) -> str:
     return stdout.split("run dir: ")[1].splitlines()[0].strip()
 
@@ -1330,7 +1326,7 @@ def run_runner() -> dict:
     cfg = load_config(RUNNER_CONFIG)
     epochs = cfg["searching"]["epoch"]
     with tempfile.TemporaryDirectory() as log_root:
-        first = _cli("senas_torch.search_arc", RUNNER_CONFIG, "--log_root", log_root)
+        first = _in_process(search_arc.main, "--config", RUNNER_CONFIG, "--log_root", log_root)
         run_dir = _run_dir(first)
         check(_val_epochs(run_dir) == list(range(epochs)),
               f"runner ran epochs {_val_epochs(run_dir)}, expected {epochs}")
@@ -1342,8 +1338,8 @@ def run_runner() -> dict:
         resume_config = os.path.join(log_root, "resume.yml")
         with open(resume_config, "w") as f:
             yaml.safe_dump(cfg, f)
-        resumed = _cli("senas_torch.search_arc", resume_config, "--log_root",
-                       os.path.join(log_root, "resumed"))
+        resumed = _in_process(search_arc.main, "--config", resume_config, "--log_root",
+                              os.path.join(log_root, "resumed"))
         check(f"at epoch {epochs}" in resumed, "the resumed run did not start at the "
               f"checkpoint's epoch {epochs}")
         run_dir2 = _run_dir(resumed)
@@ -1504,10 +1500,26 @@ def fixed_step_card_vs_cpu(dev, seed: int, **training) -> tuple:
 # ---------------------------------------------------------------------------
 
 def run_fixed_clis() -> dict:
+    """train_model (one epoch of the synthetic config: 8 steps) with
+    SENAS_TRACE_DIR set, which must write one torch.profiler trace (steps
+    [5, 8)); testing_model on its best checkpoint."""
     cfg = load_config(RUNNER_CONFIG)
-    epochs = cfg["training"]["epoch"]
+    epochs = 1
     with tempfile.TemporaryDirectory() as log_root:
-        out = _cli("senas_torch.train_model", RUNNER_CONFIG, "--log_root", log_root)
+        trace_dir = os.path.join(log_root, "trace")
+        os.environ["SENAS_TRACE_DIR"] = trace_dir
+        try:
+            out = _in_process(train_model.main, "--config", RUNNER_CONFIG, "--epoch",
+                              str(epochs), "--log_root", log_root)
+        finally:
+            del os.environ["SENAS_TRACE_DIR"]
+        traces = sorted(os.listdir(trace_dir)) if os.path.isdir(trace_dir) else []
+        check(len(traces) == 1, f"train_model with SENAS_TRACE_DIR wrote {traces}, not one trace")
+        trace_bytes = os.path.getsize(os.path.join(trace_dir, traces[0]))
+        with open(os.path.join(trace_dir, traces[0])) as f:
+            trace_events = len(json.load(f)["traceEvents"])
+        log(f"SENAS_TRACE_DIR: one trace of steps [5, 8), {traces[0]}, {trace_bytes} bytes, "
+            f"{trace_events} events")
         run_dir = _run_dir(out)
         best = ast.literal_eval(out.split("best: ")[1].splitlines()[0])
         check(_val_epochs(run_dir) == list(range(epochs)),
@@ -1516,9 +1528,9 @@ def run_fixed_clis() -> dict:
         check(len(grids) == epochs and os.path.exists(os.path.join(run_dir, "ckpt", "best.pt")),
               f"train_model wrote {grids} and no best checkpoint")
         # at the training run's batch, so that cuDNN takes the same algorithms
-        out = _cli("senas_torch.testing_model", RUNNER_CONFIG, "--resume",
-                   os.path.join(run_dir, "ckpt"), "--log_root", log_root,
-                   "--batch_size", str(cfg["training"]["batch_size"]))
+        out = _in_process(testing_model.main, "--config", RUNNER_CONFIG, "--resume",
+                          os.path.join(run_dir, "ckpt"), "--log_root", log_root,
+                          "--batch_size", str(cfg["training"]["batch_size"]))
         result = ast.literal_eval(out.strip().splitlines()[-1])
         image_dir = os.path.join(_run_dir(out), "images")
         pngs = sorted(os.listdir(image_dir))
@@ -1533,7 +1545,8 @@ def run_fixed_clis() -> dict:
               f"{best['best_dice']}")
         log(f"fixed CLIs: {epochs} epochs, best {best}; testing_model {result}, "
             f"{len(pngs)} PNGs")
-    return dict(epochs=epochs, best=best, test=result, pngs=len(pngs))
+    return dict(epochs=epochs, best=best, test=result, pngs=len(pngs),
+                trace=dict(file=traces[0], bytes=trace_bytes, events=trace_events))
 
 
 # ---------------------------------------------------------------------------
@@ -1628,11 +1641,9 @@ def run_serve_path(dev, fixed: dict, seed: int, work: str) -> dict:
     ckpt.save(state, {"epoch": 1, "model_name": "senas"}, is_best=True)
     art = os.path.join(work, "artifact")
     t0 = time.perf_counter()
-    out = _cli("senas_torch.export_model", CONFIG, "--resume", ckpt.directory, "--out", art,
-               "--check", "--f32")
+    out = _in_process(export_model.main, "--config", CONFIG, "--resume", ckpt.directory,
+                      "--out", art, "--check", "--f32")
     cli_s = time.perf_counter() - t0
-    for line in out.strip().splitlines():
-        log(f"  export_model: {line}")
     check("check OK" in out, "export_model --check did not pass")
     with open(os.path.join(art, "meta.json")) as f:
         meta = json.load(f)
@@ -4002,6 +4013,12 @@ FAMILY_NAMES = ("vgg13_bn", "densenet121", "mobilenet_v2", "efficientnet-b0",
 FAMILY_SMALL_HW = 64
 # the gated BatchNorm's steps (SENAS_PALLAS_BN=1 against off, in turns)
 FAMILY_GATED = ("timm-resnest14d", "dpn68")
+# the card-vs-CPU steps: every family but the Inceptions and Xception, whose
+# CPU steps in f64 and f32 took 33.2 of the 70 s of this check (NVIDIA H100
+# 80GB HBM3, 700 W); the CPU tests hold all eleven to senas_tpu, and the
+# full-width steps run them on the card
+FAMILY_CARD_CPU = tuple(n for n in FAMILY_NAMES
+                        if n not in ("xception", "inceptionv4", "inceptionresnetv2"))
 FAMILY_DEEPLAB = "efficientnet-b0"
 
 
@@ -4106,7 +4123,7 @@ FAMILY_SMALL_BATCH_OF = {"timm-skresnext50_32x4d": 4}
 
 
 def family_card_vs_cpu(dev, seed: int, cases=None) -> dict:
-    """Each case's train step (by default a Unet on each FAMILY_NAMES
+    """Each case's train step (by default a Unet on each FAMILY_CARD_CPU
     encoder; depth 5, batch 2, 64x64, see FAMILY_SMALL_HW_OF and
     FAMILY_SMALL_BATCH_OF) on the card
     and on the CPU from one state: in f64 the whole step; in f32 (TF32 off)
@@ -4121,7 +4138,7 @@ def family_card_vs_cpu(dev, seed: int, cases=None) -> dict:
     rows = {}
     cpu = lambda d: {k: v.detach().cpu().clone() for k, v in d.items()}
     if cases is None:
-        cases = {name: functools.partial(_family_unet, name) for name in FAMILY_NAMES}
+        cases = {name: functools.partial(_family_unet, name) for name in FAMILY_CARD_CPU}
     for name, build_model in cases.items():
         t_case = time.perf_counter()
         hw = FAMILY_SMALL_HW_OF.get(name, FAMILY_SMALL_HW)
@@ -4502,12 +4519,13 @@ DP_COUNT_SHARE = 1e-5
 DP_KERNELS = ("branch_stats", "apply_mix", "bwd_reduce", "bwd_dx")
 
 
-def _dp_search(dev, seed: int, mesh=None) -> dict:
+def _dp_search(dev, seed: int, mesh=None, spatial: bool = False) -> dict:
     """The promise12 search step (do_arch) at full width from the seed's
-    state, under `mesh` (None: one process on the global batch of 8): the
-    compared step under deterministic algorithms (its metrics, the state
-    before and after on the host, the kernels' launches), then DP_TIMED
-    steps timed on the host clock, with the time inside the collectives."""
+    state, under `mesh` (None: one process on the global batch of 8), with
+    `spatial` the image rows split over its spatial axis: the compared step
+    under deterministic algorithms (its metrics, the state before and after
+    on the host, the kernels' launches), then DP_TIMED steps timed on the
+    host clock, with the time inside the collectives."""
     from senas_torch.parallel.mesh import place_state, shard_batch, shard_train_step
     s = load_config(CONFIG)["searching"]
     meta, bs = s["meta_node_num"], s["batch_size"]
@@ -4524,11 +4542,11 @@ def _dp_search(dev, seed: int, mesh=None) -> dict:
     if mesh is not None:
         place_state(mesh, state)
         step = shard_train_step(step, mesh)
-        pairs = [tuple(shard_batch(mesh, b) for b in p) for p in pairs]
+        pairs = [tuple(shard_batch(mesh, b, spatial=spatial) for b in p) for p in pairs]
     return _dp_steps(state, lambda p: step(state, p[0], p[1], True), pairs, mesh)
 
 
-def _dp_fixed(dev, seed: int, mesh=None) -> dict:
+def _dp_fixed(dev, seed: int, mesh=None, spatial: bool = False) -> dict:
     """The promise12 fixed train step (`training:`, global batch 12) as
     `_dp_search` runs the search step."""
     from senas_torch.parallel.mesh import place_state, shard_batch, shard_train_step
@@ -4540,7 +4558,7 @@ def _dp_fixed(dev, seed: int, mesh=None) -> dict:
     if mesh is not None:
         place_state(mesh, state)
         step = shard_train_step(step, mesh)
-        batches = [shard_batch(mesh, b) for b in batches]
+        batches = [shard_batch(mesh, b, spatial=spatial) for b in batches]
     return _dp_steps(state, lambda b: step(state, b), batches, mesh)
 
 
@@ -4566,23 +4584,25 @@ def _dp_steps(state, run, inputs, mesh) -> dict:
 
 
 def collective_share(fn) -> dict:
-    """fn()'s wall time on the host clock, and the time inside the process
+    """fn()'s wall time on the host clock, the time inside the process
     group's calls (`senas_torch.parallel.collectives._all_reduce_`, every
-    sum the step makes, timed around each call): a gloo call returns when
-    its sum is done, an NCCL call when the sum is queued on the stream.
-    torch.profiler's host view of the same calls reads the same time, but
-    its analysis of a search step over gloo (~10^5 host events) cost more
-    seconds than the step."""
-    from senas_torch.parallel import collectives
+    sum the step makes, timed around each call) and their number, and the
+    halo exchanges' calls and bytes among them (`parallel.spatial.HALO`): a
+    gloo call returns when its sum is done, an NCCL call when the sum is
+    queued on the stream. torch.profiler's host view of the same calls
+    reads the same time, but its analysis of a search step over gloo (~10^5
+    host events) cost more seconds than the step."""
+    from senas_torch.parallel import collectives, spatial
     inner, spent = collectives._all_reduce_, []
 
-    def timed(t, mesh):
+    def timed(t, group):
         t0 = time.perf_counter()
-        out = inner(t, mesh)
+        out = inner(t, group)
         spent.append(time.perf_counter() - t0)
         return out
 
     collectives._all_reduce_ = timed
+    spatial.reset_halo_counts()
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4593,14 +4613,15 @@ def collective_share(fn) -> dict:
         collectives._all_reduce_ = inner
     inside_ms = sum(spent) * 1e3
     return dict(wall_ms=wall_ms, inside_ms=inside_ms, calls=len(spent),
-                share=inside_ms / wall_ms)
+                share=inside_ms / wall_ms, halo_calls=spatial.HALO["calls"],
+                halo_bytes=spatial.HALO["bytes"])
 
 
 def _dp_rank_main(rank: int, port: int, out: str, seed: int) -> int:
     """One gloo rank of phase 22 on card 0 (`chip_smoke.py --dp-rank`)."""
     import torch.distributed as dist
 
-    from senas_torch.parallel.mesh import INIT_TIMEOUT, make_mesh
+    from senas_torch.parallel.mesh import INIT_TIMEOUT, MeshSpec, make_mesh
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -4610,6 +4631,12 @@ def _dp_rank_main(rank: int, port: int, out: str, seed: int) -> int:
     mesh = make_mesh(device=dev)
     check(mesh.backend == "gloo" and mesh.world_size == DP_RANKS, f"rank {rank}: mesh {mesh}")
     res = {"search": _dp_search(dev, seed, mesh), "fixed": _dp_fixed(dev, seed, mesh)}
+    # the image rows split over the same two ranks
+    rows = make_mesh(spec=MeshSpec(data=1, spatial=DP_RANKS), device=dev)
+    check(rows.spatial_group is not None and rows.spatial_index == rank,
+          f"rank {rank}: spatial mesh {rows}")
+    res["spatial_search"] = _dp_search(dev, seed, rows, spatial=True)
+    res["spatial_fixed"] = _dp_fixed(dev, seed, rows, spatial=True)
     torch.save(res, out)
     dist.destroy_process_group()
     return 0
@@ -4636,11 +4663,13 @@ def _dp_compare(label: str, got: dict, want: dict, keys, pixels: int) -> dict:
 
 def run_data_parallel(dev, seed: int) -> dict:
     """Phase 22: the search step (do_arch) and the fixed step at full width
-    over two gloo ranks sharing the card (each a process, 4 and 6 rows of
-    the global batches 8 and 12) and over one NCCL rank in this process,
-    each held to the single-process step on the global batch from one
-    state, both under deterministic algorithms; K1a-K1d launched on every
-    rank; ms/step on each and the share of a step inside the collectives."""
+    over two gloo ranks sharing the card (each a process: over the data
+    axis, 4 and 6 rows of the global batches 8 and 12; then over the
+    spatial axis, every row and 128 of the 256 image rows) and over one
+    NCCL rank in this process, each held to the single-process step on the
+    global batch from one state, both under deterministic algorithms;
+    K1a-K1d launched on every rank; ms/step on each, the share of a step
+    inside the collectives, their calls and the halo exchanges' bytes."""
     import torch.distributed as dist
 
     from senas_torch.parallel.launch import free_port
@@ -4691,15 +4720,16 @@ def run_data_parallel(dev, seed: int) -> dict:
         want, pixels = single[name], bs * HW * HW
         rows[name] = {"nccl": _dp_compare(f"{name} step, one NCCL rank", nccl[name], want, keys,
                                           pixels)}
-        for r, got in enumerate(ranks):
-            rows[name][f"gloo{r}"] = _dp_compare(f"{name} step, gloo rank {r} of {DP_RANKS}",
-                                                 got[name], want, keys, pixels)
-        for r, a in enumerate(ranks[1:], 1):
-            check(all(torch.equal(a[name]["after"][p][k], ranks[0][name]["after"][p][k])
-                      for p in ("model", "arch") for k in a[name]["after"][p]),
-                  f"{name} step: the gloo ranks' states differ after the step")
-        runs = {"single": want, "nccl": nccl[name],
-                **{f"gloo{r}": got[name] for r, got in enumerate(ranks)}}
+        runs = {"single": want, "nccl": nccl[name]}
+        for kind, label in ((name, "gloo"), (f"spatial_{name}", "rows")):
+            for r, got in enumerate(ranks):
+                rows[name][f"{label}{r}"] = _dp_compare(
+                    f"{name} step, {label} rank {r} of {DP_RANKS}", got[kind], want, keys, pixels)
+                runs[f"{label}{r}"] = got[kind]
+            for r, a in enumerate(ranks[1:], 1):
+                check(all(torch.equal(a[kind]["after"][p][k], ranks[0][kind]["after"][p][k])
+                          for p in ("model", "arch") for k in a[kind]["after"][p]),
+                      f"{name} step ({label}): the gloo ranks' states differ after the step")
         for label, run in runs.items():
             k1 = {k: run["launches"][k] for k in DP_KERNELS}
             if name == "search":
@@ -4709,21 +4739,25 @@ def run_data_parallel(dev, seed: int) -> dict:
             log(f"{name} step ({label}): {np.mean(run['ms']):.2f} ms/step "
                 f"{[round(x, 2) for x in run['ms']]}, K1a-K1d launches {k1}"
                 + (f", collectives {col['inside_ms']:.2f} of {col['wall_ms']:.2f} ms "
-                   f"({col['share']:.3f} of the step, {col['calls']} calls)" if col else ""))
+                   f"({col['share']:.3f} of the step, {col['calls']} calls; halo exchanges "
+                   f"{col['halo_calls']} calls, {col['halo_bytes']} bytes)" if col else ""))
         log(f"{name} step against one process: " + ", ".join(
             f"{lbl} metrics {r['metrics']} state {r['state']}" for lbl, r in rows[name].items())
             + f" (limits {DP_LIMITS})")
+    log("rows: MeshSpec(data=1, spatial=2) over the two gloo ranks, each with every batch row "
+        f"and {HW // DP_RANKS} of the {HW} image rows; NCCL refuses two ranks on one device, "
+        "so the split rows have no NCCL case on one card")
     seconds = time.perf_counter() - t0
+    labels = lambda name: (("single", single[name]), ("nccl", nccl[name]),
+                           *((f"gloo{r}", got[name]) for r, got in enumerate(ranks)),
+                           *((f"rows{r}", got[f"spatial_{name}"]) for r, got in enumerate(ranks)))
     return dict(rows=rows, seconds=seconds,
                 launches={k: nccl["search"]["launches"][k] + nccl["fixed"]["launches"][k]
                           for k in KERNELS},
-                ms={name: {label: float(np.mean(run["ms"])) for label, run in (
-                    ("single", single[name]), ("nccl", nccl[name]),
-                    *((f"gloo{r}", got[name]) for r, got in enumerate(ranks)))}
+                ms={name: {label: float(np.mean(run["ms"])) for label, run in labels(name)}
                     for name in ("search", "fixed")},
-                collectives={name: {"nccl": nccl[name]["collectives"],
-                                    **{f"gloo{r}": got[name]["collectives"]
-                                       for r, got in enumerate(ranks)}}
+                collectives={name: {label: run["collectives"] for label, run in labels(name)
+                                    if run["collectives"]}
                              for name in ("search", "fixed")})
 
 
@@ -4963,9 +4997,12 @@ def main(argv=None) -> int:
         f"gated BN checks {timm2['gate']['checks']}; K1a/K1c device ms, share of bound "
         f"{ {lab: {k: (r2['shape'], round(r2['device_ms'], 4), r2['share_of_bound']) for k, r2 in r.items()} for lab, r in timm2['gate']['timed'].items()} }")
     log(f"phase 22 summary ({dp['seconds']:.1f} s): ms/step (one process, one NCCL rank, "
-        f"each gloo rank) { {n: {k: round(v, 2) for k, v in r.items()} for n, r in dp['ms'].items()} }; "
+        f"each gloo rank over data 2, each over data 1 x spatial 2) "
+        f"{ {n: {k: round(v, 2) for k, v in r.items()} for n, r in dp['ms'].items()} }; "
         f"share of a step inside the collectives "
         f"{ {n: {k: round(v['share'], 3) for k, v in r.items()} for n, r in dp['collectives'].items()} }; "
+        f"collective calls, halo calls, halo bytes a step "
+        f"{ {n: {k: (v['calls'], v['halo_calls'], v['halo_bytes']) for k, v in r.items()} for n, r in dp['collectives'].items()} }; "
         f"against one process {dp['rows']}")
     log(f"phase seconds {phase_s}")
     log(f"card: {smi}; total wall {time.perf_counter() - t_start:.1f} s")

@@ -67,6 +67,14 @@ def _linear_taps(dst: int, src: int):
     return np.clip(lo, 0, src - 1), np.clip(lo + 1, 0, src - 1), weight
 
 
+# Where x86 cv2's IPP path takes the height pass of a side's border columns
+# without the fused multiply-add: from this many border columns a side, on
+# these channels of a [H, W, C] image (found against cv2 5.0.0.93; gray and
+# 1-channel images keep the fused form everywhere).
+_UNFUSED_BORDER_MIN = 5
+_UNFUSED_BORDER_CHANNELS = {3: (0, 1), 4: (0, 1, 2, 3)}
+
+
 def resize_bilinear(img: np.ndarray, rows: int, cols: int) -> np.ndarray:
     """cv2.resize(img, (cols, rows), interpolation=INTER_LINEAR) of a
     float32 [H, W] or [H, W, C] image.
@@ -77,10 +85,12 @@ def resize_bilinear(img: np.ndarray, rows: int, cols: int) -> np.ndarray:
     first, then the height, each output is a + w * (b - a) with one fused
     multiply-add (`fma32`), b - a rounded to float32 first, the taps and
     weights of `_linear_taps`. That equals cv2 bit for bit at every ratio
-    the loaders give (`tests/test_torch_imgproc.py`). One case differs by
-    up to 2 ulp: a 3-channel image upscaled 9x or more in width (5 or more
-    border columns a side), where IPP computes some border columns of
-    channels 0-1 without the fused product."""
+    the loaders give (`tests/test_torch_imgproc.py`). One exception is
+    IPP's own: on a side with 5 or more border columns (both width taps
+    clamped to one pixel: an upscale of 9x or more in width), the height
+    pass computes those columns as a + float32(w * (b - a)), two roundings,
+    for channels 0-1 of a 3-channel image and every channel of a 4-channel
+    one (`_UNFUSED_BORDER_CHANNELS`)."""
     img = np.asarray(img)
     if img.dtype != np.float32 or img.ndim not in (2, 3):
         raise ValueError(f"resize_bilinear takes a float32 [H, W] or [H, W, C] image, "
@@ -93,7 +103,18 @@ def resize_bilinear(img: np.ndarray, rows: int, cols: int) -> np.ndarray:
     a, b = img[:, x0], img[:, x1]
     along = fma32(b - a, np.broadcast_to(wx[(None, slice(None)) + extra], a.shape), a)
     a, b = along[y0], along[y1]
-    return fma32(b - a, np.broadcast_to(wy[(slice(None), None) + extra], a.shape), a)
+    w = np.broadcast_to(wy[(slice(None), None) + extra], a.shape)
+    out = fma32(b - a, w, a)
+    chans = _UNFUSED_BORDER_CHANNELS.get(img.shape[2]) if img.ndim == 3 else None
+    if chans:
+        # both width taps clamped to one pixel: the border columns, a side
+        left = np.flatnonzero((x0 == x1) & (np.arange(cols) < cols // 2))
+        right = np.flatnonzero((x0 == x1) & (np.arange(cols) >= cols // 2))
+        sides = [side for side in (left, right) if side.size >= _UNFUSED_BORDER_MIN]
+        if sides:
+            at = (slice(None), np.concatenate(sides)[:, None], np.asarray(chans)[None, :])
+            out[at] = a[at] + (b[at] - a[at]) * w[at]
+    return out
 
 
 def clahe_u16(u16: np.ndarray, clip_limit: float, grid: Tuple[int, int]) -> np.ndarray:

@@ -335,7 +335,7 @@ class FlaxBatchNorm(nn.Module):
         xs = x.to(ct)
         if train and active_mesh() is not None:
             # the global batch's E[x] and E[x^2]: both sums in one collective
-            count = global_count(x.numel() // x.shape[1])
+            count = global_count(x)
             sums = all_reduce_sum(torch.stack([xs.sum(dim=(0, 2, 3)),
                                                (xs * xs).sum(dim=(0, 2, 3))])) / count
             mu = sums[0]

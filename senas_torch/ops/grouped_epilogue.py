@@ -39,9 +39,12 @@ the tests) keep f64 throughout the plain versions.
 
 Under an active mesh (`senas_torch.parallel`) train mode normalises by the
 statistics of the GLOBAL batch, as the JAX package does under GSPMD: the
-kernels run on each rank's rows, and between K1a and K1b the glue sums the
-batch sums over the ranks (`_FusedEpilogue`). The SE scale is per sample
-and stays local.
+kernels run on each rank's block ([b, C, h, W]: its batch rows and, under
+a row split, its image rows), and between K1a and K1b the glue sums the
+batch sums over every rank (`_FusedEpilogue`), over the global count. The
+SE scale is per sample: under a row split its plane sums are summed over
+the ranks of the sample's data index and divided by the global H*W, in
+train and eval mode alike.
 """
 
 from __future__ import annotations
@@ -52,7 +55,8 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 from torch.autograd.function import once_differentiable
 
-from senas_torch.parallel.collectives import active_mesh, all_reduce_sum, global_count
+from senas_torch.parallel.collectives import (active_mesh, active_split, all_reduce_sum,
+                                              global_count, plane_size, spatial_sum)
 
 EPS = 1e-5
 MAX_BRANCHES = 6
@@ -215,6 +219,8 @@ def branch_stats(xs: Sequence[torch.Tensor]):
     if xs[0].device.type == "cpu":
         return branch_stats_plain(xs)
     _check_card(xs)
+    if xs[0].numel() == 0:   # an empty row block (a level lower than the ranks)
+        return branch_stats_plain(xs)
     n = len(xs)
     b, c, h, w = xs[0].shape
     s1 = torch.empty((n, b, c), device=xs[0].device, dtype=torch.float32)
@@ -251,6 +257,8 @@ def apply_mix(xs: Sequence[torch.Tensor], a: torch.Tensor, k: torch.Tensor,
     if (out_dtype or xs[0].dtype) != xs[0].dtype:
         raise NotImplementedError("the apply_mix kernel writes the branch tensors' dtype, "
                                   f"{xs[0].dtype}, not {out_dtype}")
+    if xs[0].numel() == 0:
+        return apply_mix_plain(xs, a, k, out_dtype)
     out = torch.empty_like(xs[0])
     with torch.cuda.device(xs[0].device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -289,6 +297,8 @@ def bwd_reduce(xs: Sequence[torch.Tensor], g: torch.Tensor):
     if xs[0].device.type == "cpu":
         return bwd_reduce_plain(xs, g)
     _check_card(xs, g)
+    if xs[0].numel() == 0:
+        return bwd_reduce_plain(xs, g)
     n = len(xs)
     b, c, h, w = xs[0].shape
     dA = torch.empty((n, b, c), device=xs[0].device, dtype=torch.float32)
@@ -323,6 +333,8 @@ def bwd_dx(xs: Sequence[torch.Tensor], g: torch.Tensor, a: torch.Tensor,
     if xs[0].device.type == "cpu":
         return bwd_dx_plain(xs, g, a, ds1, ds2)
     _check_card(xs, g, per_plane=(a, ds1, ds2))
+    if xs[0].numel() == 0:
+        return bwd_dx_plain(xs, g, a, ds1, ds2)
     n = len(xs)
     b, c, h, w = xs[0].shape
     outs = [torch.empty_like(x) for x in xs]
@@ -351,12 +363,12 @@ def _batch_sums(s1, s2, mesh):
     return S[0], S[1]
 
 
-def _glue(s1, S1, S2, g, bb, al, se_w1, se_w2, none_k, rm, rv, *, b: int,
+def _glue(se_s1, S1, S2, g, bb, al, se_w1, se_w2, none_k, rm, rv, *, b: int,
           hw: int, cnt: int, train: bool, se_index: Optional[int], E: int, P: int):
-    """s1: [n,B,C] f32 per-plane sums (None in eval mode without SE); S1,
-    S2: [n,C] the sums of x and x^2 over the batch's cnt values a channel
-    (train mode; None in eval mode); g, bb, al: [n,C] BN scale, bias and
-    alpha columns; none_k: [C] or None.
+    """se_s1: [B,C] f32 plane sums of the SE branch over the image's hw
+    values (None without SE); S1, S2: [n,C] the sums of x and x^2 over the
+    batch's cnt values a channel (train mode; None in eval mode); g, bb,
+    al: [n,C] BN scale, bias and alpha columns; none_k: [C] or None.
     Returns (a_full [n,B,C], k_full [B,C], mu [n,C], var [n,C])."""
     n, c = g.shape
     if train:
@@ -376,7 +388,7 @@ def _glue(s1, S1, S2, g, bb, al, se_w1, se_w2, none_k, rm, rv, *, b: int,
         # SE: scale per (b, c) from the post-BN spatial mean, an affine of
         # the raw per-(b, c) mean (senas_tpu/ops/grouped_epilogue.py:308-319).
         s_scale = [torch.ones((b, c), dtype=g.dtype, device=g.device)] * n
-        mean_raw = s1[se_index] / hw                        # [B, C]
+        mean_raw = se_s1 / hw                               # [B, C]
         m = (mean_raw * a_bn[se_index] + k_bn[se_index]).reshape(b, E, P)
         hid = torch.relu(torch.einsum("bep,epm->bem", m, _wide(se_w1)))
         sig = torch.sigmoid(torch.einsum("bem,emp->bep", hid, _wide(se_w2)))
@@ -408,38 +420,44 @@ class _FusedEpilogue(torch.autograd.Function):
     senas_tpu/ops/grouped_epilogue.py:334-378) as an autograd Function.
 
     forward(cfg, g, bb, al, se_w1, se_w2, none_k, rm, rv, *xs) -> (mixed,
-    mu, var). Saves xs, the per-plane sums s1, the batch sums S1/S2 (over
-    every rank's rows under an active mesh), the parameters and A. The
-    backward runs `bwd_reduce` for dA, dK; recomputes the glue under
-    autograd on detached copies of s1, S1, S2 and the parameters (the
-    forward ran with gradients off; the recompute runs no collective) and
-    takes its vector-Jacobian product with (dA, dK, dmu, dvar), which gives
-    the parameters' gradients and dS1, dS2; under a mesh it sums dS1, dS2
-    over the ranks (the backward of the forward's sum over ranks); ds1 is
-    dS1 over each plane plus the SE branch's own term, ds2 is dS2; then
-    `bwd_dx` gives the branch tensors' gradients. Running stats get no
-    gradient."""
+    mu, var). Saves xs, the SE branch's plane sums se_s1 (over every rank
+    of the data index under a row split), the batch sums S1/S2 (over every
+    rank under an active mesh), the parameters and A. The backward runs
+    `bwd_reduce` for dA, dK; recomputes the glue under autograd on detached
+    copies of se_s1, S1, S2 and the parameters (the forward ran with
+    gradients off; the recompute runs no collective) and takes its
+    vector-Jacobian product with (dA, dK, dmu, dvar), which gives the
+    parameters' gradients and dse_s1, dS1, dS2; under a mesh it sums dS1,
+    dS2 over the ranks and, under a row split, dse_s1 over the ranks of the
+    data index (the backwards of the forward's sums); ds1 is dS1 over each
+    plane plus the SE branch's own term, ds2 is dS2; then `bwd_dx` gives
+    the branch tensors' gradients. Running stats get no gradient."""
 
     @staticmethod
     def forward(ctx, cfg: _Config, g, bb, al, se_w1, se_w2, none_k, rm, rv, *xs):
         b, c, h, w = xs[0].shape
         # Eval mode without SE is a pure affine in the running stats: the
         # stats sweep is skipped (senas_tpu/ops/grouped_epilogue.py:341-350).
-        s1 = s2 = S1 = S2 = None
+        s1 = s2 = S1 = S2 = se_s1 = None
         if cfg.train or cfg.se_index is not None:
             s1, s2 = branch_stats(xs)
-        # train mode: the batch statistics span every rank's rows under a mesh
+        # train mode: the batch statistics span every rank's block under a
+        # mesh; the SE sums span the image's rows under a row split
         ctx.mesh = active_mesh() if cfg.train else None
-        ctx.cnt = b * h * w * (1 if ctx.mesh is None else ctx.mesh.world_size)
+        ctx.se_split = active_split() is not None and cfg.se_index is not None
+        ctx.cnt = global_count(xs[0]) if cfg.train else 0
+        ctx.hw = plane_size(xs[0])
         if cfg.train:
             S1, S2 = _batch_sums(s1, s2, ctx.mesh)
-        a_full, k_full, mu, var = _glue(s1, S1, S2, g, bb, al, se_w1, se_w2, none_k,
-                                        rm, rv, b=b, hw=h * w, cnt=ctx.cnt, train=cfg.train,
+        if cfg.se_index is not None:
+            se_s1 = spatial_sum(s1[cfg.se_index]) if ctx.se_split else s1[cfg.se_index]
+        a_full, k_full, mu, var = _glue(se_s1, S1, S2, g, bb, al, se_w1, se_w2, none_k,
+                                        rm, rv, b=b, hw=ctx.hw, cnt=ctx.cnt, train=cfg.train,
                                         se_index=cfg.se_index, E=cfg.E, P=cfg.P)
         a_full = a_full.contiguous()
         mixed = apply_mix(xs, a_full, k_full.contiguous(), cfg.out_dtype)
         ctx.cfg = cfg
-        ctx.save_for_backward(s1, S1, S2, g, bb, al, se_w1, se_w2, none_k, rm, rv,
+        ctx.save_for_backward(se_s1, S1, S2, g, bb, al, se_w1, se_w2, none_k, rm, rv,
                               a_full, *xs)
         if not cfg.train:
             # the running stats pass through and take no gradient
@@ -451,18 +469,18 @@ class _FusedEpilogue(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dmixed, dmu, dvar):
         cfg = ctx.cfg
-        s1, S1, S2, g, bb, al, se_w1, se_w2, none_k, rm, rv, a_full, *xs = ctx.saved_tensors
+        se_s1, S1, S2, g, bb, al, se_w1, se_w2, none_k, rm, rv, a_full, *xs = ctx.saved_tensors
         # the incoming gradient may be non-contiguous or channels_last
         dmixed = dmixed.contiguous()
         dA, dK = bwd_reduce(xs, dmixed)
 
-        named = dict(zip(("s1", "S1", "S2") + _PARAMS,
-                         (s1, S1, S2, g, bb, al, se_w1, se_w2, none_k)))
+        named = dict(zip(("se_s1", "S1", "S2") + _PARAMS,
+                         (se_s1, S1, S2, g, bb, al, se_w1, se_w2, none_k)))
         leaves = {k: v.detach().requires_grad_() for k, v in named.items() if v is not None}
-        b, c, h, w = xs[0].shape
+        b = xs[0].shape[0]
         with torch.enable_grad():
-            outs = _glue(leaves.get("s1"), leaves.get("S1"), leaves.get("S2"),
-                         *(leaves.get(k) for k in _PARAMS), rm, rv, b=b, hw=h * w,
+            outs = _glue(leaves.get("se_s1"), leaves.get("S1"), leaves.get("S2"),
+                         *(leaves.get(k) for k in _PARAMS), rm, rv, b=b, hw=ctx.hw,
                          cnt=ctx.cnt, train=cfg.train, se_index=cfg.se_index, E=cfg.E,
                          P=cfg.P)
         # in eval mode mu and var are the running stats: nothing to push back
@@ -476,7 +494,14 @@ class _FusedEpilogue(torch.autograd.Function):
             # ds1/ds2 are constant over each plane; zero where the glue did
             # not read the sum (eval mode: S1, S2, and s1 off the SE branch)
             zeros = torch.zeros_like(dA)
-            ds1 = zeros if got.get("s1") is None else got["s1"]
+            ds1 = zeros
+            if cfg.se_index is not None:
+                dse = got.get("se_s1")
+                dse = torch.zeros_like(zeros[0]) if dse is None else dse
+                if ctx.se_split:
+                    dse = spatial_sum(dse)
+                ds1 = zeros.clone()
+                ds1[cfg.se_index] = dse
             ds2 = zeros
             if got.get("S1") is not None or got.get("S2") is not None:
                 dS = torch.stack([zeros[:, 0] if got.get(k) is None else got[k]
@@ -542,7 +567,8 @@ def group_epilogue_reference(xs, scales, biases, alphas_cols, *,
     """The unfused epilogue, branch by branch (mirrors
     senas_tpu/ops/grouped_epilogue.py:429-464): per-branch BN with the
     two-pass variance -> optional SE -> alpha-weighted sum (+ 'none').
-    Under an active mesh the mean and variance are the global batch's."""
+    Under an active mesh the mean and variance are the global batch's, and
+    under a row split the SE mean the global image's."""
     b, c, h, w = xs[0].shape
     dt = out_dtype or xs[0].dtype
     acc = torch.zeros((b, c, h, w), dtype=_wide(xs[0]).dtype, device=xs[0].device)
@@ -550,7 +576,7 @@ def group_epilogue_reference(xs, scales, biases, alphas_cols, *,
     for o, (x, g, bb, a) in enumerate(zip(xs, scales, biases, alphas_cols)):
         xf = _wide(x)
         if train and mesh is not None:
-            cnt = global_count(b * h * w)
+            cnt = global_count(xf)
             mu = all_reduce_sum(xf.sum(dim=(0, 2, 3))) / cnt
             var = all_reduce_sum(((xf - mu[:, None, None]) ** 2).sum(dim=(0, 2, 3))) / cnt
         elif train:
@@ -561,7 +587,7 @@ def group_epilogue_reference(xs, scales, biases, alphas_cols, *,
         y = ((xf - mu[:, None, None]) * torch.rsqrt(var + EPS)[:, None, None]
              * g[:, None, None] + bb[:, None, None]).to(dt)
         if o == se_index:
-            m = y.reshape(b, E, P, h, w).mean(dim=(3, 4))   # [B, E, P]
+            m = (spatial_sum(y.sum(dim=(2, 3))) / plane_size(y)).reshape(b, E, P)
             hid = torch.relu(torch.einsum("bep,epm->bem", m, se_w1.to(y.dtype)))
             sig = torch.sigmoid(torch.einsum("bem,emp->bep", hid, se_w2.to(y.dtype)))
             y = (y.reshape(b, E, P, h, w) * sig[..., None, None]).reshape(b, c, h, w)

@@ -28,6 +28,11 @@ in PyTorch idiom:
     off, as in the JAX package) routes every 4-D BatchNorm through the
     fused epilogue's kernels at n=1 (`BatchNorm`).
   * `remat(fn, *args)` is the JAX package's `nn.remat` of a cell.
+  * Under an active row split (`senas_torch.parallel`, the mesh's spatial
+    axis) every map is this rank's block of image rows: the convolutions,
+    poolings and the resize go through `senas_torch.parallel.spatial`
+    (halo exchanges), the SE block's mean and every BatchNorm's statistics
+    span the global image.
 """
 
 from __future__ import annotations
@@ -45,7 +50,9 @@ from torch.utils.checkpoint import checkpoint
 
 from senas_torch.core.genotype import DownOps, NormOps, UpOps
 from senas_torch.ops.grouped_epilogue import fused_group_epilogue
-from senas_torch.parallel.collectives import active_mesh, all_reduce_sum, global_count
+from senas_torch.parallel import spatial
+from senas_torch.parallel.collectives import (active_mesh, active_split, all_reduce_sum,
+                                              global_count, global_rows, plane_size, spatial_sum)
 
 EPS = 1e-5
 
@@ -182,23 +189,24 @@ def cast(x, dtype):
 # Functional conv / pool / resize primitives (NCHW)
 # ---------------------------------------------------------------------------
 
+def _split(x) -> bool:
+    """Whether x is this rank's block of image rows under an active row
+    split (`senas_torch.parallel.spatial`): every map of a SENAS model
+    then is."""
+    return active_split() is not None and not x.is_meta
+
+
 def conv2d(x, w, stride: int = 1, dilation: int = 1, groups: int = 1):
     """2D conv, NCHW/OIHW, symmetric padding (k//2)*dilation."""
     k = w.shape[-1]
     p = get_same_padding(k) * dilation if k > 1 else 0
+    if _split(x):
+        return spatial.conv2d(x, w, stride, dilation, groups, p)
     return F.conv2d(x, w, stride=stride, padding=p, dilation=dilation,
                     groups=groups)
 
 
-def conv_transpose2d(x, w, stride: int = 2, dilation: int = 1,
-                     output_padding: int = 1, groups: int = 1,
-                     torch_padding: Optional[int] = None):
-    """Transposed conv; w is [I, O/groups, k, k]. Output size
-    (H-1)*stride - 2p + dilation*(k-1) + output_padding + 1."""
-    k = w.shape[-1]
-    p = get_same_padding(k) * dilation if torch_padding is None else torch_padding
-    kw = dict(stride=stride, padding=p, output_padding=output_padding, groups=groups,
-              dilation=dilation)
+def _transposed(x, w, **kw):
     if x.dtype == torch.bfloat16 and x.device.type == "cpu":
         # PyTorch's CPU bf16 transposed convolution (oneDNN) returns NaN
         # weight gradients now and then (seen for a 1x1 input at stride 2);
@@ -208,25 +216,58 @@ def conv_transpose2d(x, w, stride: int = 2, dilation: int = 1,
     return F.conv_transpose2d(x, w, **kw)
 
 
+def conv_transpose2d(x, w, stride: int = 2, dilation: int = 1,
+                     output_padding: int = 1, groups: int = 1,
+                     torch_padding: Optional[int] = None):
+    """Transposed conv; w is [I, O/groups, k, k]. Output size
+    (H-1)*stride - 2p + dilation*(k-1) + output_padding + 1."""
+    k = w.shape[-1]
+    p = get_same_padding(k) * dilation if torch_padding is None else torch_padding
+    if _split(x):
+        return spatial.conv_transpose2d(x, w, stride, p, output_padding, dilation, groups,
+                                        op=_transposed)
+    return _transposed(x, w, stride=stride, padding=p, output_padding=output_padding,
+                       groups=groups, dilation=dilation)
+
+
 def avg_pool_3x3(x, stride: int = 1):
     """AvgPool2d(3, stride, padding=1, count_include_pad=False)."""
+    if _split(x):
+        return spatial.avg_pool_3x3(x, stride)
     return F.avg_pool2d(x, 3, stride=stride, padding=1, count_include_pad=False)
 
 
 def max_pool_3x3(x, stride: int = 2):
     """MaxPool2d(3, stride, padding=1)."""
+    if _split(x):
+        return spatial.max_pool_3x3(x, stride)
     return F.max_pool2d(x, 3, stride=stride, padding=1)
 
 
 def max_pool_2x2(x):
     """MaxPool2d(2, stride=2)."""
+    if _split(x):
+        return spatial.max_pool_2x2(x)
     return F.max_pool2d(x, 2, stride=2)
 
 
 def upsample2x(x):
     """Bilinear 2x upsample with half-pixel centres (align_corners=False),
     which is what `jax.image.resize(..., "bilinear")` does when enlarging."""
+    if _split(x):
+        return spatial.upsample2x(x)
     return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+
+
+def image_mean(x):
+    """x [B, C, H, W] averaged over H, W: x.mean(dim=(2, 3)), of the global
+    image under a row split (a sum over the ranks of the data index, divided
+    by the global H*W; a bf16 x summed in f32 and rounded once, as its mean
+    is)."""
+    if not _split(x):
+        return x.mean(dim=(2, 3))
+    total = x.sum(dim=(2, 3), dtype=torch.promote_types(x.dtype, torch.float32))
+    return (spatial_sum(total) / plane_size(x)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -297,7 +338,8 @@ class BatchNorm(nn.Module):
     meta device (a shape-only forward).
 
     Under an active mesh (`senas_torch.parallel`) train mode normalises by
-    the statistics of the GLOBAL batch, as the JAX module does under GSPMD:
+    the statistics of the GLOBAL batch (every rank's batch rows and, under
+    a row split, image rows), as the JAX module does under GSPMD:
     the default path by a two-pass synced BN (the global mean, then the
     global sum of squared deviations, each summed over the ranks), the
     gated path through the epilogue's global sums; the running stats
@@ -335,7 +377,7 @@ class BatchNorm(nn.Module):
         xs = x.to(ct)
         dims = [0] + list(range(2, x.dim()))
         col = [1, x.shape[1]] + [1] * (x.dim() - 2)
-        count = global_count(x.numel() // x.shape[1])
+        count = global_count(x)
         mu = all_reduce_sum(xs.sum(dim=dims)) / count
         d = xs - mu.view(col)
         var = all_reduce_sum((d * d).sum(dim=dims)) / count
@@ -358,7 +400,7 @@ class BatchNorm(nn.Module):
         else:
             y, (mu, var) = fused_group_epilogue([xk], [self.scale], [self.bias], [ones],
                                                 train=True, out_dtype=xk.dtype)
-            self.advance(mu[0], var[0], global_count(x.numel() // x.shape[1]))
+            self.advance(mu[0], var[0], global_count(x))
         return y.to(out_dtype)
 
     @torch.no_grad()
@@ -488,6 +530,8 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
 
     def forward(self, x):
+        if _split(x):
+            raise NotImplementedError("GroupNorm under the image-H split (ROADMAP.md M13c)")
         if self.dtype is None:
             return F.group_norm(x, self.num_groups, self.scale, self.bias, self.eps)
         return F.group_norm(x.float(), self.num_groups, self.scale, self.bias,
@@ -512,10 +556,12 @@ class Dropout(nn.Module):
         if rng is None:
             raise ValueError("Dropout in train mode needs a torch.Generator (rng=)")
         keep = 1.0 - self.rate
+        if _split(x):
+            raise NotImplementedError("Dropout under the image-H split (ROADMAP.md M13c)")
         # under a mesh every rank draws the global batch's mask and keeps
         # its own rows: the masks of the single-device step
         mesh = active_mesh()
-        shape = x.shape if mesh is None else (global_count(x.shape[0]),) + tuple(x.shape[1:])
+        shape = x.shape if mesh is None else (global_rows(x.shape[0]),) + tuple(x.shape[1:])
         mask = torch.rand(shape, generator=rng, device=rng.device) < keep
         if mesh is not None:
             mask = mask[mesh.rows(shape[0])]
@@ -534,7 +580,7 @@ class SEBlock(nn.Module):
         self.Dense_1 = Dense(mid, c, dtype=dtype)
 
     def forward(self, x):
-        y = x.mean(dim=(2, 3))  # [B, C]
+        y = image_mean(x)  # [B, C]
         y = sigmoid(self.Dense_1(relu(self.Dense_0(y))))
         return x * y[:, :, None, None]
 

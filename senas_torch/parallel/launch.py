@@ -9,6 +9,9 @@ card i. Across hosts, start one process per card on each host with those
 variables set (and `SENAS_LOCAL_RANK`, the card on its host); the CLI then
 joins as that rank and spawns nothing.
 
+The ranks are the same N whatever `mesh_spatial` says: each process lays
+itself out on the mesh (`runner/common.py` `setup_mesh`).
+
 If any process exits with an error, the others are stopped and the CLI
 exits with that process's code: no rank carries on alone.
 """

@@ -1,21 +1,24 @@
-"""The data-parallel mesh: one process per device, each a rank of a
-torch.distributed process group.
+"""The mesh: one process per device, each a rank of a torch.distributed
+process group, laid out over a "data" axis (the batch) and a "spatial"
+one (image rows).
 
 Port of `senas_tpu/parallel/mesh.py`. The JAX package names a
-`jax.sharding.Mesh` with a "data" axis (the batch) and a "spatial" one
-(image rows) and lets GSPMD insert the collectives. Here a `Mesh` holds the
-process group, this process's rank and device, and the spec; the batch is
-split by rows (`shard_batch`), the state is replicated (`place_state`,
-broadcast from rank 0) and stays so because every rank applies the same
-summed gradient, and `shard_train_step` runs a step with the mesh active,
-so that every reduction over the batch axis goes through
-`senas_torch.parallel.collectives` as GSPMD would place it.
+`jax.sharding.Mesh` of `np.array(devices).reshape(data, spatial)` and lets
+GSPMD insert the collectives. Here a `Mesh` holds the process group, this
+process's rank and device, the spec, and the subgroups of its two axes:
+rank r sits at data index d = r // spatial and spatial index s = r %
+spatial. The batch is split by rows over the data axis and, where asked,
+the image rows over the spatial one (`shard_batch`); the state is
+replicated (`place_state`, broadcast from rank 0) and stays so because
+every rank applies the same summed gradient; `shard_train_step` runs a step
+with the mesh active, so that every reduction over the batch, and every
+convolution, pooling and resize over a split image, goes through
+`senas_torch.parallel.collectives` and `senas_torch.parallel.spatial` as
+GSPMD would place them.
 
 The backend follows the device: NCCL between cards, gloo on the CPU
 (`backend_for`). A caller may pass its own initialised group, such as two
-gloo ranks sharing one card. The spatial axis (the image-H split with halo
-exchanges around every convolution) has no counterpart yet: a spec with
-`spatial` > 1 over two or more ranks raises (ROADMAP.md M13b).
+gloo ranks sharing one card.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from senas_torch.parallel.collectives import activate, broadcast_
+from senas_torch.parallel.collectives import activate, broadcast_, row_bounds
 
 # every process group gets a timeout, so that a rank that failed before a
 # collective leaves the others waiting for at most this long
@@ -35,6 +38,9 @@ INIT_TIMEOUT = timedelta(seconds=60)
 # the key `make_batch_placer` gives a batch that it placed whole on every
 # rank (a trailing eval batch the ranks do not divide)
 REPLICATED = "replicated"
+# the key `shard_batch` gives a batch whose image rows it split over the
+# spatial axis; its value is the global image's (H, W)
+ROW_SPLIT = "row_split"
 
 
 def backend_for(device: torch.device) -> str:
@@ -99,12 +105,16 @@ class MeshSpec:
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """The process group (None: one process, no group), this process's rank
-    and device, and the spec."""
+    and device, the spec, and this rank's subgroups: the ranks of its data
+    index (its image-row neighbours) and those of its spatial index. A
+    subgroup of one rank is None."""
 
     spec: MeshSpec
     rank: int
     device: torch.device
     group: Any = None
+    spatial_group: Any = None
+    data_group: Any = None
 
     @property
     def world_size(self) -> int:
@@ -115,6 +125,14 @@ class Mesh:
         return {"data": self.spec.data, "spatial": self.spec.spatial}
 
     @property
+    def data_index(self) -> int:
+        return self.rank // self.spec.spatial
+
+    @property
+    def spatial_index(self) -> int:
+        return self.rank % self.spec.spatial
+
+    @property
     def backend(self) -> Optional[str]:
         import torch.distributed as dist
         return None if self.group is None else dist.get_backend(self.group)
@@ -123,25 +141,65 @@ class Mesh:
         return rows % self.spec.data == 0
 
     def rows(self, rows: int) -> slice:
-        """This rank's rows of a global batch of `rows`."""
+        """This rank's rows of a global batch of `rows`: those of its data
+        index."""
         if not self.divides(rows):
             raise ValueError(f"{rows} rows do not split over the mesh data axis "
                              f"({self.spec.data})")
         b = rows // self.spec.data
-        return slice(self.rank * b, (self.rank + 1) * b)
+        return slice(self.data_index * b, (self.data_index + 1) * b)
+
+    def image_rows(self, height: int) -> slice:
+        """This rank's image rows of a level `height` rows high, [s*H/S,
+        (s+1)*H/S) rounded down (`collectives.row_bounds`): contiguous
+        blocks that differ by at most one row, empty where H < S."""
+        return slice(*row_bounds(height, self.spec.spatial, self.spatial_index))
+
+    def data_view(self) -> "Mesh":
+        """The mesh of this rank's data subgroup alone: a step whose batch
+        rows went whole to every rank of a data index (the image H that the
+        spatial axis does not divide) reduces over the data axis only, so
+        that those rows count once."""
+        group = self.group if self.spec.spatial == 1 else self.data_group
+        return Mesh(spec=MeshSpec(data=self.spec.data), rank=self.data_index,
+                    device=self.device, group=group)
 
 
-def spatial_not_ported(spatial: int, world: int) -> NotImplementedError:
-    """The error for a spatial axis over two or more ranks."""
+def spatial_not_ported(spatial: int, world: int, model: str = "a baseline model"
+                       ) -> NotImplementedError:
+    """The error for the zoo's models under a spatial axis over two or more
+    ranks."""
     return NotImplementedError(
-        f"mesh_spatial={spatial} over {world} ranks (the image-H split, with halo exchanges "
-        "around every convolution, pooling and resize) is not ported yet (ROADMAP.md M13b)")
+        f"mesh_spatial={spatial} over {world} ranks with {model}: the baseline zoo's "
+        "encoders and decoders (their direct convolutions, resizes and global pools) under "
+        "the image-H split are not ported yet (ROADMAP.md M13c); the SENAS models (the "
+        "supernet, --model senas) run it")
+
+
+def _subgroups(group, spec: MeshSpec, rank: int):
+    """(spatial subgroup, data subgroup) of `rank`. Every rank creates every
+    subgroup, in one order, those it is not in included."""
+    import torch.distributed as dist
+    ranks = dist.get_process_group_ranks(group)
+    S, D = spec.spatial, spec.data
+    found = {}
+    for axis, members in (("spatial", [[d * S + s for s in range(S)] for d in range(D)]),
+                          ("data", [[d * S + s for d in range(D)] for s in range(S)])):
+        for idx in members:
+            if len(idx) < 2:
+                continue
+            g = dist.new_group([ranks[i] for i in idx], timeout=INIT_TIMEOUT)
+            if rank in idx:
+                found[axis] = g
+    return found.get("spatial"), found.get("data")
 
 
 def make_mesh(group=None, spec: Optional[MeshSpec] = None, device=None) -> Mesh:
     """The mesh over `group` (default: the initialised default group; none
-    initialised: one process). `device` defaults to the current card for an
-    NCCL group and to the CPU otherwise."""
+    initialised: one process). `spec` defaults to every rank on the data
+    axis; with a spatial axis the subgroups of both axes are created here,
+    by every rank. `device` defaults to the current card for an NCCL group
+    and to the CPU otherwise."""
     import torch.distributed as dist
 
     if group is None and dist.is_available() and dist.is_initialized():
@@ -152,28 +210,52 @@ def make_mesh(group=None, spec: Optional[MeshSpec] = None, device=None) -> Mesh:
         spec = MeshSpec(data=world, spatial=1)
     if spec.data * spec.spatial != world:
         raise ValueError(f"mesh {spec} does not match {world} ranks")
-    if spec.spatial > 1 and world > 1:
-        raise spatial_not_ported(spec.spatial, world)
     if device is None:
         device = (torch.device("cuda", torch.cuda.current_device())
                   if group is not None and dist.get_backend(group) == "nccl"
                   else torch.device("cpu"))
-    return Mesh(spec=spec, rank=rank, device=torch.device(device), group=group)
+    spatial_group = data_group = None
+    if group is not None and spec.spatial > 1:
+        spatial_group, data_group = _subgroups(group, spec, rank)
+    return Mesh(spec=spec, rank=rank, device=torch.device(device), group=group,
+                spatial_group=spatial_group, data_group=data_group)
 
 
-def shard_batch(mesh: Mesh, batch: Dict[str, Any]) -> Dict[str, Any]:
-    """This rank's rows of every array of a global batch dict: rank r keeps
-    rows [r*B/R, (r+1)*B/R). Raises where R does not divide B."""
-    return {k: v[mesh.rows(v.shape[0])] for k, v in batch.items()}
+def shard_batch(mesh: Mesh, batch: Dict[str, Any], spatial: bool = False) -> Dict[str, Any]:
+    """This rank's part of every array of a global batch dict: the rows
+    [d*B/D, (d+1)*B/D) of its data index d, and with `spatial` also its
+    image rows (axis 1 of an image [B, H, W, C] or a label map [B, H, W];
+    arrays of fewer axes keep every column), marked with `ROW_SPLIT` (the
+    global image's H, W). Raises where D does not divide B, or with
+    `spatial` where the spatial size does not divide H (senas_tpu's
+    placement needs both)."""
+    out = {k: v[mesh.rows(v.shape[0])] for k, v in batch.items()}
+    if not spatial or mesh.spec.spatial == 1:
+        return out
+    image = batch["image"]
+    h, w = int(image.shape[1]), int(image.shape[2])
+    if h % mesh.spec.spatial:
+        raise ValueError(f"image height {h} does not split over the mesh spatial axis "
+                         f"({mesh.spec.spatial})")
+    rows = mesh.image_rows(h)
+    out = {k: v[:, rows] if v.ndim >= 3 else v for k, v in out.items()}
+    out[ROW_SPLIT] = (h, w)
+    return out
 
 
-def assemble_global_batch(mesh: Mesh, local_batch: Dict[str, Any]):
-    """Per-process loading, where each process loads only its own rows:
-    returns (the local batch as given, the global shape of each array).
-    The ranks' rows stand in rank order, as `shard_batch` cuts them."""
-    shapes = {k: (v.shape[0] * mesh.spec.data,) + tuple(v.shape[1:])
-              for k, v in local_batch.items()}
-    return dict(local_batch), shapes
+def assemble_global_batch(mesh: Mesh, local_batch: Dict[str, Any], spatial: bool = False):
+    """Per-process loading, where each process loads only its own part:
+    returns (the local batch as given, the global shape of each array). The
+    parts stand in rank order, as `shard_batch` cuts them (with `spatial`,
+    the image rows of axis 1 too)."""
+    def global_shape(v):
+        shape = [v.shape[0] * mesh.spec.data] + list(v.shape[1:])
+        if spatial and v.ndim >= 3:
+            shape[1] *= mesh.spec.spatial
+        return tuple(shape)
+
+    return dict(local_batch), {k: global_shape(v) for k, v in local_batch.items()
+                               if hasattr(v, "shape")}
 
 
 def replicate(mesh: Mesh, tensors) -> None:
@@ -213,17 +295,40 @@ def place_state(mesh: Mesh, state):
     return state
 
 
+def _placement(args) -> tuple:
+    """(whole, row split) of the batch dicts among a step's arguments: any
+    placed whole on every rank; the global image (H, W) of those whose
+    image rows are split, which every batch of the step must share."""
+    batches = [a for a in args if isinstance(a, dict) and "image" in a]
+    whole = any(b.get(REPLICATED) for b in batches)
+    splits = {b.get(ROW_SPLIT) for b in batches}
+    if len(splits) > 1:
+        raise ValueError(f"a step's batches are placed differently: {splits}")
+    return whole, (splits.pop() if splits else None)
+
+
 def shard_train_step(step_fn, mesh: Optional[Mesh]):
     """`step_fn` run with `mesh` active, so that its batch reductions span
     every rank. A call whose batch was placed whole on every rank (marked
-    by `make_batch_placer`) runs as a single-device step. Without a mesh,
-    or for one process with no group, `step_fn` itself."""
+    by `make_batch_placer`) runs as a single-device step; one whose image
+    rows were split (`ROW_SPLIT`) runs with the row split active; on a mesh
+    with a spatial axis, one whose rows were not split runs over the data
+    subgroup (`Mesh.data_view`). Without a mesh, or for one process with no
+    group, `step_fn` itself."""
     if mesh is None or mesh.group is None:
         return step_fn
 
     def step(*args, **kw):
-        whole = any(isinstance(a, dict) and a.get(REPLICATED) for a in args)
-        with activate(None if whole else mesh):
+        whole, split = _placement(args)
+        if whole:
+            active = activate(None)
+        elif split is not None:
+            active = activate(mesh, image_hw=split)
+        elif mesh.spec.spatial > 1:
+            active = activate(mesh.data_view())
+        else:
+            active = activate(mesh)
+        with active:
             return step_fn(*args, **kw)
 
     return step

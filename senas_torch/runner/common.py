@@ -2,12 +2,14 @@
 rank-0 outputs, eval loop.
 
 Port of the parts of `senas_tpu/runner/common.py` that the search, train
-and test runners use. `multi_gpus: true` runs data-parallel over the ranks
-of a torch.distributed process group, one process per device
-(`setup_mesh`; the CLIs spawn them): the config batch size is the global
-batch, every rank loads it and keeps its own rows, and rank 0 alone writes
-the logs, scalars, checkpoints and images. With one device the run stays
-on it, as the JAX runner does without a second one.
+and test runners use. `multi_gpus: true` runs over the ranks of a
+torch.distributed process group, one process per device (`setup_mesh`;
+the CLIs spawn them), laid out as `MeshSpec(data=N // mesh_spatial,
+spatial=mesh_spatial)`: the config batch size is the global batch, every
+rank loads it and keeps the rows of its data index and, with a spatial
+axis, its block of image rows, and rank 0 alone writes the logs, scalars,
+checkpoints and images. With one device the run stays on it, as the JAX
+runner does without a second one.
 """
 
 from __future__ import annotations
@@ -21,8 +23,8 @@ import torch
 
 from senas_torch.data import DataLoader
 from senas_torch.parallel.collectives import broadcast_object
-from senas_torch.parallel.mesh import (REPLICATED, MeshSpec, initialize_distributed, make_mesh,
-                                       spatial_not_ported)
+from senas_torch.parallel.mesh import (REPLICATED, ROW_SPLIT, MeshSpec, initialize_distributed,
+                                       make_mesh, shard_batch, spatial_not_ported)
 from senas_torch.train.metrics import AverageMeter, SegmentationMetric
 from senas_torch.utils.logging import get_logger
 
@@ -39,19 +41,34 @@ def visible_devices(device: torch.device) -> int:
     return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
-def setup_mesh(section: Dict[str, Any], device: torch.device):
+def check_spatial_model(section: Dict[str, Any], model_name: Optional[str], ranks: int) -> None:
+    """Raise (ROADMAP.md M13c) where a run of `model_name` over `ranks`
+    ranks would split image rows: a baseline zoo model with `multi_gpus`
+    and `mesh_spatial` > 1 over two or more. The SENAS models (None or
+    "senas": the fixed model, and the supernet of a search) run it."""
+    spatial = int(section.get("mesh_spatial", 1))
+    if (section.get("multi_gpus", False) and spatial > 1 and ranks >= 2
+            and model_name not in (None, "senas")):
+        raise spatial_not_ported(spatial, ranks, f"--model {model_name}")
+
+
+def setup_mesh(section: Dict[str, Any], device: torch.device,
+               model_name: Optional[str] = None):
     """`multi_gpus` of a `searching:` or `training:` section, for a run on
-    `device` (senas_tpu/runner/common.py:30-69). Returns (mesh or None, the
-    line for the run's log or None).
+    `device` of `model_name` (None: the SENAS model of the section)
+    (senas_tpu/runner/common.py:30-69). Returns (mesh or None, the line for
+    the run's log or None).
 
     Without `multi_gpus`: (None, None). With it, the process joins the
     group that the SENAS_* environment describes (`initialize_distributed`)
     unless one is initialised already. A group of R >= 2 ranks gives the
-    mesh MeshSpec(data=R) on this rank's device and the JAX runner's
-    "mesh: ..." line. One rank or one visible device gives (None, the JAX
-    runner's single-device line). Raises where R >= 2 and `mesh_spatial` >
-    1 (ROADMAP.md M13b), and where two or more devices are visible but no
-    group is: one process drives one device, and the CLIs start them."""
+    mesh MeshSpec(data=R // mesh_spatial, spatial=mesh_spatial) on this
+    rank's device and the JAX runner's "mesh: ..." line. One rank or one
+    visible device gives (None, the JAX runner's single-device line).
+    Raises where `mesh_spatial` does not divide R, where R >= 2 and
+    `mesh_spatial` > 1 with a baseline zoo model (ROADMAP.md M13c), and
+    where two or more devices are visible but no group is: one process
+    drives one device, and the CLIs start them."""
     if not section.get("multi_gpus", False):
         return None, None
     import torch.distributed as dist
@@ -63,8 +80,7 @@ def setup_mesh(section: Dict[str, Any], device: torch.device):
     spatial = int(section.get("mesh_spatial", 1))
     if spatial < 1 or n % spatial != 0:
         raise ValueError(f"mesh_spatial={spatial} does not divide {n} devices")
-    if spatial > 1:
-        raise spatial_not_ported(spatial, n)
+    check_spatial_model(section, model_name, n)
     if not joined:
         raise RuntimeError(
             f"multi_gpus over {n} {device.type} devices runs one process per device: start "
@@ -90,24 +106,31 @@ def check_global_batch(mesh, batch_size: int, what: str = "batch_size") -> None:
             f"({data}); pick a multiple so every device gets equal work")
 
 
-def make_batch_placer(device: torch.device, mesh=None
+def make_batch_placer(device: torch.device, mesh=None, spatial: bool = False
                       ) -> Callable[[Dict[str, np.ndarray]], Dict[str, Any]]:
     """Returns place(batch) -> the batch's numpy arrays as tensors on
-    `device`. With a mesh, this rank's rows of the global batch; a batch
-    the ranks do not divide (a trailing eval batch) goes whole to every
-    rank, marked so that `shard_train_step` runs it as a single-device
-    step (the JAX placer's replicated case): its metrics count once."""
+    `device`. With a mesh, this rank's rows of the global batch (those of
+    its data index), and with `spatial` (the runners pass mesh_spatial > 1)
+    its block of image rows where the spatial size divides the image's H,
+    marked `ROW_SPLIT` (senas_tpu/runner/common.py:98-106); where it does
+    not, the data index's rows whole on each of its ranks, which the step
+    then reduces over the data axis only (`shard_train_step`). A batch the
+    data axis does not divide (a trailing eval batch) goes whole to every
+    rank, marked so that `shard_train_step` runs it as a single-device step
+    (the JAX placer's replicated case): its metrics count once."""
 
     def place(batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
-        image, label = batch["image"], batch["label"]
-        whole = mesh is not None and not mesh.divides(image.shape[0])
+        batch = {"image": batch["image"], "label": batch["label"]}
+        b, h = batch["image"].shape[:2]
+        whole = mesh is not None and not mesh.divides(b)
         if mesh is not None and not whole:
-            rows = mesh.rows(image.shape[0])
-            image, label = image[rows], label[rows]
-        out = {"image": torch.from_numpy(image).to(device),
-               "label": torch.from_numpy(label).to(device)}
+            batch = shard_batch(mesh, batch, spatial=spatial and h % mesh.spec.spatial == 0)
+        out = {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(device)
+               for k in ("image", "label")}
         if whole:
             out[REPLICATED] = True
+        if ROW_SPLIT in batch:
+            out[ROW_SPLIT] = batch[ROW_SPLIT]
         return out
 
     return place

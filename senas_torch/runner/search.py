@@ -87,7 +87,8 @@ class SearchRunner:
                                       indices=indices[:split], seed=seed)
         self.valid_queue = DataLoader(dataset, bs, shuffle=True, drop_last=True,
                                       indices=indices[split:], seed=seed + 1)
-        self._place = make_batch_placer(self.device, self.mesh)
+        self._place = make_batch_placer(self.device, self.mesh,
+                                        spatial=s.get("mesh_spatial", 1) > 1)
 
         # model + arch params, drawn from the seed
         self.meta_node_num = s["meta_node_num"]
@@ -182,7 +183,8 @@ class SearchRunner:
             train_metric = SegmentationMetric(self.n_classes)
             loss_meter = AverageMeter()
             acc = DeferredMetrics(train_metric, loss_meter)
-            timer = StepTimer(self.device)
+            timer = StepTimer(self.device, trace_dir=os.environ.get("SENAS_TRACE_DIR"),
+                              trace=is_main(self.mesh))
             do_arch = epoch >= alpha_begin
             val_iter = iter(self.valid_queue)
             prefetch = PrefetchLoader(self.train_queue)
@@ -208,6 +210,7 @@ class SearchRunner:
                 now = time.perf_counter()
                 walls.append(now - t_end)
                 t_end = now
+            timer.close()
             acc.drain()
             _, _, train_dice = train_metric.get()
             self.writer.add_scalar("Train/Loss", loss_meter.avg, epoch)

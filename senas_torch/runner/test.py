@@ -58,14 +58,15 @@ class TestRunner:
         dev = resolve_device(device)
         # `multi_gpus` as the train runner reads it (the JAX runner's mesh
         # evaluation, senas_tpu/runner/test.py:93-100)
-        self.mesh, device_note = setup_mesh(t, dev)
+        self.mesh, device_note = setup_mesh(t, dev, model_name)
         self.device = self.mesh.device if self.mesh else dev
         ds_name = cfg["data"]["dataset"]
         valset = get_dataset(ds_name, path=data_root, split=cfg["data"].get("split", "val"),
                              mode="val", **resolve_dataset_kwargs(cfg))
         self.n_classes = get_dataset_spec(ds_name).num_class
         self.valid_queue = DataLoader(valset, batch_size, shuffle=False)
-        self._place = make_batch_placer(self.device, self.mesh)
+        self._place = make_batch_placer(self.device, self.mesh,
+                                        spatial=t.get("mesh_spatial", 1) > 1)
 
         self.run_dir, self.logger = run_outputs(self.mesh, lambda: make_run_dir(
             log_root, model_name, "testing", ds_name, config_path))

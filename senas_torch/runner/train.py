@@ -68,7 +68,7 @@ class TrainRunner:
         self.cfg = cfg
         t = cfg["training"]
         dev = resolve_device(device)
-        self.mesh, device_note = setup_mesh(t, dev)
+        self.mesh, device_note = setup_mesh(t, dev, model_name)
         self.device = self.mesh.device if self.mesh else dev
         check_global_batch(self.mesh, t["batch_size"], "training.batch_size")
         # the compute dtype: the caller's, else `precision:` (None: f32)
@@ -95,7 +95,8 @@ class TrainRunner:
         bs = t["batch_size"]
         self.train_queue = DataLoader(trainset, bs, shuffle=True, drop_last=True, seed=seed)
         self.valid_queue = DataLoader(valset, bs, shuffle=False)
-        self._place = make_batch_placer(self.device, self.mesh)
+        self._place = make_batch_placer(self.device, self.mesh,
+                                        spatial=t.get("mesh_spatial", 1) > 1)
 
         self.model = get_segmentation_model(
             model_name, dataset=ds_name, c=t.get("init_channels", 32),
@@ -154,7 +155,8 @@ class TrainRunner:
             metric = SegmentationMetric(self.n_classes)
             loss_meter = AverageMeter()
             acc = DeferredMetrics(metric, loss_meter)
-            timer = StepTimer(self.device)
+            timer = StepTimer(self.device, trace_dir=os.environ.get("SENAS_TRACE_DIR"),
+                              trace=is_main(self.mesh))
             prefetch = PrefetchLoader(self.train_queue)
             walls = []
             t_end = time.perf_counter()
@@ -170,6 +172,7 @@ class TrainRunner:
                 now = time.perf_counter()
                 walls.append(now - t_end)
                 t_end = now
+            timer.close()
             acc.drain()
             _, _, train_dice = metric.get()
             self.writer.add_scalar("Train/Loss", loss_meter.avg, epoch)

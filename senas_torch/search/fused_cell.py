@@ -208,8 +208,7 @@ class GroupedMixedOp(nn.Module):
             se_index=se_pos, se_w1=se_w1, se_w2=se_w2, E=E, P=P,
             none_alpha_col=none_col, none_bias=none_y, out_dtype=branches[0].dtype)
         if train:
-            b, _, oh, ow = mixed.shape
-            count = global_count(b * oh * ow)   # the global batch's, under a mesh
+            count = global_count(mixed)   # the global batch's, under a mesh
             for i, bn in enumerate(bns):
                 bn.advance(mu[i], var[i], count)
             if none_idx is not None:

@@ -13,8 +13,9 @@ The gradients land on the f32 parameters through the casts at use, so
 their joint norm, the clip and the optimizers' steps are f32.
 
 Under an active mesh (`senas_torch.parallel`, a step wrapped by
-`shard_train_step`) each rank holds its rows of the global batch. A step
-then computes the loss and the metrics on the gathered logits and labels
+`shard_train_step`) each rank holds its rows of the global batch and,
+under a row split, its block of the image rows. A step then computes the
+loss and the metrics on the logits and labels gathered over both axes
 (`gather_batch`), which gives every rank the single-device step's loss,
 and sums the ranks' partial gradients in one collective before the clip,
 so that the clip norm is the global one. BatchNorm and the epilogue's

@@ -154,7 +154,8 @@ def test_no_mesh_is_the_identity():
     from senas_torch.parallel.mesh import make_mesh
     x = torch.randn(4, 3, requires_grad=True)
     assert active_mesh() is None
-    assert all_reduce_sum(x) is x and gather_batch(x) is x and global_count(7) == 7
+    assert all_reduce_sum(x) is x and gather_batch(x) is x
+    assert global_count(torch.zeros(7, 2)) == 7 and global_count(torch.zeros(2, 3, 4, 5)) == 40
     # a mesh of one process without a group activates nothing
     mesh = make_mesh()
     assert mesh.group is None and mesh.world_size == 1

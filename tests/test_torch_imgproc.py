@@ -8,11 +8,10 @@ sizes RandomSizedCrop draws).
 Tolerances: `resize_nearest`, `resize_bilinear` (gray and RGB), `fma32`,
 `clahe_u16`, `convert_maps_16sc2`, `remap_bilinear` (gray and RGB) and
 `remap_nearest` are exact (each reproduces cv2's integer and float32
-arithmetic, and IPP's for the bilinear resize); `gaussian_blur` within
+arithmetic, and IPP's for the bilinear resize, its unfused border columns
+of a 9x or larger upscale in width included); `gaussian_blur` within
 1e-12 (cv2 and scipy sum the 71 taps in another order: 1.1e-16 seen), its
-kernel within 1e-16. The one stated limit: an RGB image upscaled 9x or
-more in width, where IPP computes some border columns of channels 0-1
-without a fused multiply-add: at most 2 ulp, on those columns only."""
+kernel within 1e-16."""
 
 import math
 import random
@@ -127,24 +126,23 @@ def test_resize_bilinear_at_random_ratios(channels):
 
 
 def test_resize_bilinear_stated_limit():
-    """The one place the port differs from cv2: an RGB image upscaled 9x or
-    more in width (5 or more border columns a side). There IPP computes some
-    border columns of channels 0 and 1 without the fused multiply-add. Here:
-    at most 2 ulp, on those columns and channels only, 2.2% of the output
-    values at 8 x 4 x 3 -> 9 x 58 and 2.0% at 20 x 4 x 3 -> 61 x 58; the
-    loaders never upscale so far."""
+    """Where IPP leaves the fused multiply-add: an image upscaled 9x or more
+    in width (5 or more border columns a side), whose height pass takes
+    those columns with two roundings on channels 0-1 of an RGB image and
+    every channel of a 4-channel one. Equal to cv2 there, at 8 x 4 x 3 ->
+    9 x 58 and 20 x 4 x 3 -> 61 x 58, at 4-channel images, and on a sweep
+    of widths across the 5-column threshold (upscales from 2x to 16x)."""
     rs = np.random.RandomState(3)
-    for (sh, sw), (dh, dw), share in (((8, 4), (9, 58), 0.023), ((20, 4), (61, 58), 0.020)):
-        img = (rs.rand(sh, sw, 3) * 255).astype(np.float32)
+    cases = [((8, 4, 3), (9, 58)), ((20, 4, 3), (61, 58)), ((6, 5, 4), (13, 50)),
+             ((6, 3, 4), (13, 27))]
+    cases += [((5, sw, ch), (11, dw)) for ch in (0, 3) for sw in (3, 4, 7)
+              for dw in range(2 * sw, 16 * sw, sw)]
+    for shape, (dh, dw) in cases:
+        shape = shape if shape[2] else shape[:2]
+        img = (rs.rand(*shape) * 255).astype(np.float32)
         want = cv2.resize(img, (dw, dh), interpolation=cv2.INTER_LINEAR)
-        got = imgproc.resize_bilinear(img, dh, dw)
-        diff = got != want
-        ulp = np.abs(got - want) / np.spacing(np.abs(want))
-        x = (np.arange(dw) + 0.5) * (sw / dw) - 0.5
-        border = (x < 0) | (x >= sw - 1)
-        assert diff.any() and ulp.max() <= 2
-        assert not diff[:, ~border].any() and not diff[..., 2].any()
-        assert diff.mean() <= share
+        np.testing.assert_array_equal(imgproc.resize_bilinear(img, dh, dw), want,
+                                      err_msg=f"{shape} -> {(dh, dw)}")
     with pytest.raises(ValueError, match="float32"):
         imgproc.resize_bilinear(np.zeros((4, 4), np.uint8), 8, 8)
 

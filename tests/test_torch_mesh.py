@@ -82,9 +82,20 @@ def test_batch_placer_rows_and_the_replicated_trailing_batch():
     assert sorted(plain) == ["image", "label"] and plain["image"].shape[0] == 6
 
 
-def test_spatial_axis_over_two_ranks_raises():
+def test_spatial_axis_over_two_ranks_raises(monkeypatch):
+    """A baseline zoo model under mesh_spatial > 1 over two or more ranks
+    raises naming M13c, before any rank starts; the SENAS models pass."""
     err = M.spatial_not_ported(2, 4)
-    assert isinstance(err, NotImplementedError) and "M13b" in str(err)
+    assert isinstance(err, NotImplementedError) and "M13c" in str(err)
+    monkeypatch.setattr(common, "visible_devices", lambda device: 2)
+    section = {"multi_gpus": True, "mesh_spatial": 2}
+    with pytest.raises(NotImplementedError, match="--model unet.*M13c"):
+        common.setup_mesh(section, torch.device("cpu"), "unet")
+    # the SENAS model goes on to the one-process-per-device check
+    with pytest.raises(RuntimeError, match="one process per device"):
+        common.setup_mesh(section, torch.device("cpu"), "senas")
+    common.check_spatial_model(section, "unet", 1)
+    common.check_spatial_model({"mesh_spatial": 2}, "unet", 2)
 
 
 @pytest.mark.parametrize("spatial", [0, 3])

@@ -109,13 +109,14 @@ def test_multi_gpus_on_one_device_runs_there(tmp_path, mesh_spatial):
 
 
 def test_multi_gpus_over_two_devices_raises(tmp_path, monkeypatch):
-    """The data axis over two devices runs (tests/test_torch_mesh_*.py); the
-    spatial axis over them is not ported and raises naming M13b."""
+    """Both axes over two devices run (tests/test_torch_mesh_*.py,
+    tests/test_torch_spatial_*.py), one process a device: two visible
+    devices without a process group raise, the spatial axis included."""
     from senas_torch.runner import common
     monkeypatch.setattr(common, "visible_devices", lambda device: 2)
     cfg = load_config(CONFIG)
     cfg["searching"].update(multi_gpus=True, mesh_spatial=2)
-    with pytest.raises(NotImplementedError, match="M13b"):
+    with pytest.raises(RuntimeError, match="one process per device"):
         SearchRunner(cfg, log_root=str(tmp_path), device="cpu")
 
 

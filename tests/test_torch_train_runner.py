@@ -178,17 +178,24 @@ def test_multi_gpus_on_one_device_runs_there(tmp_path, first_run, mesh_spatial):
 
 @pytest.mark.parametrize("runner_cls", ["train", "test"])
 def test_multi_gpus_over_two_devices_raises(tmp_path, monkeypatch, first_run, runner_cls):
-    """The data axis over two devices runs (tests/test_torch_mesh_cli.py);
-    the spatial axis over them is not ported and raises naming M13b."""
+    """Both axes over two devices run for the SENAS model
+    (tests/test_torch_mesh_cli.py, tests/test_torch_spatial_cli.py), one
+    process a device: without a process group two visible devices raise;
+    the spatial axis with a baseline zoo model raises naming M13c first."""
     from senas_torch.runner import common
     monkeypatch.setattr(common, "visible_devices", lambda device: 2)
     cfg = _cfg(multi_gpus=True, mesh_spatial=2)
-    with pytest.raises(NotImplementedError, match="M13b"):
+
+    def build(**kw):
         if runner_cls == "train":
-            TrainRunner(cfg, log_root=str(tmp_path), device="cpu")
+            TrainRunner(cfg, log_root=str(tmp_path), device="cpu", **kw)
         else:
             TestRunner(cfg, resume=first_run["runner"].ckpt.directory,
-                       log_root=str(tmp_path), device="cpu")
+                       log_root=str(tmp_path), device="cpu", **kw)
+    with pytest.raises(RuntimeError, match="one process per device"):
+        build()
+    with pytest.raises(NotImplementedError, match="M13c"):
+        build(model_name="unet")
 
 
 def test_remat_training_runs(tmp_path):

@@ -1,8 +1,8 @@
-"""Rank processes for the tests that hold the port's data-parallel path to
-its single-process one (tests/test_torch_collectives.py,
-tests/test_torch_mesh_steps.py). It imports torch, numpy and senas_torch,
-nothing of JAX: the parent test computes the JAX references and hands
-numpy arrays to the ranks.
+"""Rank processes for the tests that hold the port's sharded paths to their
+single-process ones (tests/test_torch_collectives.py,
+tests/test_torch_mesh_steps.py, tests/test_torch_spatial_*.py). It imports
+torch, numpy and senas_torch, nothing of JAX: the parent test computes the
+JAX references and hands numpy arrays to the ranks.
 
     python tests/torch_mesh_workers.py <job file> <rank> <world> <port>
 
@@ -16,7 +16,14 @@ say how the parent puts the ranks' values together:
     the ranks in rank order, it must equal the single-process result;
   * "sum:<name>": this rank's part of a sum (a parameter's gradient);
     summed over the ranks;
+  * "block<a>:<name>": under a mesh with a spatial axis, this rank's block
+    of a per-row result: its data index's batch rows and its image rows
+    on axis <a> (2 for NCHW, 1 for NHWC); put back in place over the ranks;
   * any other key: a global result, the same on every rank.
+
+A case's keyword `mesh_spec` (data, spatial) runs it on that mesh of the
+job's ranks (every rank makes it, in job order); without, on
+MeshSpec(data=world).
 
 `Ranks` runs a job over `world` gloo ranks on 127.0.0.1: every process
 group has a 60 s timeout, the whole job a deadline after which every rank
@@ -284,20 +291,192 @@ def search_steps(mesh, batches, do_arch, arch, w_cfg, a_cfg, meta, depth, c,
 
 
 # ---------------------------------------------------------------------------
+# The image-H split (tests/test_torch_spatial_*.py)
+# ---------------------------------------------------------------------------
+
+def _block(mesh, a, axis=2):
+    """This rank's block of a global per-row array: its data index's batch
+    rows and, under a spatial axis, its image rows on `axis`."""
+    if mesh is None:
+        return a
+    a = a[mesh.rows(a.shape[0])]
+    if mesh.spec.spatial > 1:
+        idx = [slice(None)] * a.ndim
+        idx[axis] = mesh.image_rows(a.shape[axis])
+        a = a[tuple(idx)]
+    return a
+
+
+def _split_active(mesh, image_hw):
+    from senas_torch.parallel.collectives import activate
+    return nullcontext() if mesh is None else activate(mesh, image_hw=tuple(image_hw))
+
+
+SPATIAL_OPS = {
+    # name: (function of primitives, its keyword arguments, weight shape or None)
+    "conv3": ("conv2d", {}, (4, 3, 3, 3)),
+    "conv3_s2": ("conv2d", {"stride": 2}, (4, 3, 3, 3)),
+    "conv5_d2": ("conv2d", {"dilation": 2}, (4, 3, 5, 5)),
+    "conv5_d3": ("conv2d", {"dilation": 3}, (4, 3, 5, 5)),
+    "conv5_d3_s2": ("conv2d", {"dilation": 3, "stride": 2}, (4, 3, 5, 5)),
+    "conv7": ("conv2d", {}, (4, 3, 7, 7)),
+    "conv1_s2": ("conv2d", {"stride": 2}, (4, 3, 1, 1)),
+    "dw3_s2": ("conv2d", {"stride": 2, "groups": 3}, (6, 1, 3, 3)),
+    "dw5": ("conv2d", {"groups": 3}, (6, 1, 5, 5)),
+    "tconv3": ("conv_transpose2d", {}, (3, 4, 3, 3)),
+    "tconv5_d2": ("conv_transpose2d", {"dilation": 2}, (3, 4, 5, 5)),
+    "tconv5_d3": ("conv_transpose2d", {"dilation": 3}, (3, 4, 5, 5)),
+    "tdw3": ("conv_transpose2d", {"groups": 3}, (3, 2, 3, 3)),
+    "tconv1": ("conv_transpose2d", {"torch_padding": 0}, (3, 4, 1, 1)),
+    "avg": ("avg_pool_3x3", {}, None),
+    "avg_s2": ("avg_pool_3x3", {"stride": 2}, None),
+    "max": ("max_pool_3x3", {"stride": 1}, None),
+    "max_s2": ("max_pool_3x3", {}, None),
+    "max2": ("max_pool_2x2", {}, None),
+    "up": ("upsample2x", {}, None),
+    "mean": ("image_mean", {}, None),
+}
+
+
+@case
+def spatial_ops(mesh, x, weights, r_weights, ops, image_hw):
+    """Each op of SPATIAL_OPS on this rank's block of x [B, C, H, W] under
+    the row split of an image `image_hw`, and its backward: loss = sum of
+    r_weights[op] * the op's gathered output (NHWC). Returns each op's
+    output block, the gradient of x's block and of the weight."""
+    from senas_torch.ops import primitives as P
+    from senas_torch.parallel.collectives import gather_batch
+    out = {}
+    with _split_active(mesh, image_hw):
+        for name in ops:
+            fn, kw, _ = SPATIAL_OPS[name]
+            xl = torch.from_numpy(_block(mesh, x)).requires_grad_()
+            leaves = [xl]
+            if name in weights:
+                w = torch.from_numpy(weights[name]).requires_grad_()
+                leaves.append(w)
+                y = getattr(P, fn)(xl, w, **kw)
+            else:
+                y = getattr(P, fn)(xl, **kw)
+            nhwc = y.permute(0, 2, 3, 1) if y.dim() == 4 else y
+            loss = (torch.from_numpy(r_weights[name]) * gather_batch(nhwc)).sum()
+            grads = torch.autograd.grad(loss, leaves)
+            if y.dim() == 4:
+                out[f"block2:{name}_y"] = _np(y)
+            else:
+                out[f"{name}_y"] = _np(gather_batch(y))
+            out[f"block2:{name}_dx"] = _np(grads[0])
+            if len(grads) > 1:
+                out[f"sum:{name}_dw"] = _np(grads[1])
+            out[f"{name}_loss"] = _np(loss)
+    return out
+
+
+def _spatial_batch(mesh, batch, dtype, spatial):
+    from senas_torch.parallel.mesh import shard_batch
+    if mesh is None:
+        return {"image": torch.from_numpy(batch["image"]).to(dtype),
+                "label": torch.from_numpy(batch["label"])}
+    b = shard_batch(mesh, batch, spatial=spatial)
+    b["image"] = torch.from_numpy(np.ascontiguousarray(b["image"])).to(dtype)
+    b["label"] = torch.from_numpy(np.ascontiguousarray(b["label"]))
+    return b
+
+
+@case
+def spatial_fixed_steps(mesh, batches, eval_batch, opt_cfg, clip=5.0, loss="dice_ce",
+                        model="senas_node_4", c=8, depth=3, variables=None, dtype="float64",
+                        gated=False, remat=False, spatial=True):
+    """fixed_steps with each batch placed by `shard_batch(spatial=...)`:
+    the image rows split over the mesh's spatial axis."""
+    from senas_torch import convert
+    from senas_torch.models import geno_searched
+    from senas_torch.models.senas_model import SenasModel
+    from senas_torch.parallel.mesh import place_state, shard_train_step
+    from senas_torch.train.loss import build_loss
+    from senas_torch.train.trainer import FixedTrainState, make_eval_step, make_train_step
+    dt = getattr(torch, dtype)
+    before = os.environ.get("SENAS_PALLAS_BN")
+    os.environ["SENAS_PALLAS_BN"] = "1" if gated else "0"
+    try:
+        net = SenasModel(nclass=2, in_channels=1, c=c, depth=depth, remat=remat,
+                         genotype=getattr(geno_searched, model), device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+        if variables is not None:
+            convert.load_variables(net, variables)
+        net = net.to(dt)
+        state = FixedTrainState.create(net, opt_cfg)
+        step = make_train_step(build_loss(loss), grad_clip=clip)
+        evaluate = make_eval_step(net, build_loss(loss))
+        if mesh is not None:
+            place_state(mesh, state)
+            step, evaluate = shard_train_step(step, mesh), shard_train_step(evaluate, mesh)
+        out = {f"step{i}": _metrics(step(state, _spatial_batch(mesh, b, dt, spatial)))
+               for i, b in enumerate(batches)}
+        out["eval"] = _metrics(evaluate(_spatial_batch(mesh, eval_batch, dt, spatial)))
+    finally:
+        if before is None:
+            del os.environ["SENAS_PALLAS_BN"]
+        else:
+            os.environ["SENAS_PALLAS_BN"] = before
+    out["variables"] = convert.state_dict_to_variables(net)
+    return out
+
+
+@case
+def spatial_search_steps(mesh, batches, do_arch, arch, w_cfg, a_cfg, meta, depth, c,
+                         variables=None, dtype="float64", remat=False, spatial=True):
+    """search_steps with each batch placed by `shard_batch(spatial=...)`."""
+    from senas_torch import convert
+    from senas_torch.parallel.mesh import place_state, shard_train_step
+    from senas_torch.search import supernet as tsn
+    from senas_torch.train.loss import build_loss
+    from senas_torch.train.trainer import (SearchTrainState, make_search_eval_step,
+                                           make_search_step)
+    dt = getattr(torch, dtype)
+    net = tsn.SenasSearch(in_channels=1, c=c, nclass=2, depth=depth, meta_node_num=meta,
+                          remat=remat, device="cpu", generator=torch.Generator().manual_seed(0))
+    if variables is not None:
+        convert.load_variables(net, variables)
+    net = net.to(dt)
+    tables = {k: v.to(dt) for k, v in convert.arch_to_torch(arch, "cpu").items()}
+    state = SearchTrainState.create(net, tables, w_cfg, a_cfg)
+    normalize = lambda a: tsn.normalize_arch(a, meta)
+    step = make_search_step(normalize, build_loss("dice_ce"), grad_clip=5.0)
+    evaluate = make_search_eval_step(net, normalize, build_loss("dice_ce"))
+    if mesh is not None:
+        place_state(mesh, state)
+        step, evaluate = shard_train_step(step, mesh), shard_train_step(evaluate, mesh)
+    place = lambda b: _spatial_batch(mesh, b, dt, spatial)
+    out = {f"step{i}": _metrics(step(state, place(tb), place(vb), a))
+           for i, ((tb, vb), a) in enumerate(zip(batches, do_arch))}
+    out["eval"] = _metrics(evaluate(state.arch, place(batches[0][1])))
+    out["variables"] = convert.state_dict_to_variables(net)
+    out["arch"] = {k: _np(v) for k, v in state.arch.items()}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The rank process and its launcher
 # ---------------------------------------------------------------------------
 
 def _rank_main(job_path, rank, world, port):
     import torch.distributed as dist
 
-    from senas_torch.parallel.mesh import make_mesh
+    from senas_torch.parallel.mesh import MeshSpec, make_mesh
     torch.set_num_threads(1)
     with open(job_path, "rb") as f:
         job = pickle.load(f)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
                             rank=rank, timeout=timedelta(seconds=60))
-    mesh = make_mesh()
-    results = [CASES[name](mesh, **kw) for name, kw in job]
+    meshes = {None: make_mesh()}
+    results = []
+    for name, kw in job:
+        kw = dict(kw)
+        spec = kw.pop("mesh_spec", None)
+        if spec not in meshes:
+            meshes[spec] = make_mesh(spec=MeshSpec(*spec))
+        results.append(CASES[name](meshes[spec], **kw))
     with open(f"{job_path}.{rank}", "wb") as f:
         pickle.dump(results, f)
     dist.destroy_process_group()
@@ -351,10 +530,12 @@ class Ranks:
         return out
 
 
-def combine(per_rank):
+def combine(per_rank, spec=None):
     """One case's results of every rank -> one dict laid out like the
-    single-process result: rows concatenated, partial sums summed; a global
-    result is checked to be the same on every rank."""
+    single-process result: rows concatenated, partial sums summed, blocks
+    put back in place over the mesh `spec` (data, spatial); a global result
+    is checked to be the same on every rank."""
+    data, spatial = spec or (len(per_rank), 1)
     out = {}
     for key in per_rank[0]:
         vals = [r[key] for r in per_rank]
@@ -362,6 +543,11 @@ def combine(per_rank):
             out[key] = np.concatenate(vals)
         elif key.startswith("sum:"):
             out[key] = np.sum(vals, axis=0)
+        elif key.startswith("block"):
+            axis = int(key[len("block"):key.index(":")])
+            out[key] = np.concatenate([
+                np.concatenate(vals[d * spatial:(d + 1) * spatial], axis=axis)
+                for d in range(data)])
         else:
             for v in vals[1:]:
                 _assert_same(v, vals[0], key)
