@@ -211,7 +211,18 @@ Phases, each of which fails the run:
      every rank; ms/step of each, the share of a step inside the
      collectives' calls (timed around each), their number, and the bytes
      of the halo exchanges. NCCL refuses two ranks on one device, so the
-     split rows run over gloo only.
+     split rows run over gloo only. Then promise12-zoo-rows: each of the
+     nine factory models' fixed train step at the `training:` geometry
+     (global batch 12 of 256x256, depth 5, pspnet 3; f32, TF32 off,
+     cuDNN's deterministic algorithms) over the same two gloo ranks as
+     MeshSpec(1, 2), and unet once in bf16 and once with SENAS_PALLAS_BN=1
+     (K1a-K1d on the zoo's row blocks), each held to one process from one
+     state (`DP_LIMITS`; unet bf16 by ROADMAP's bf16 bound; manet, whose
+     own f32 step lies beyond `DP_LIMITS` of its f64 one, as at most twice
+     as far from the f64 step as one process; every f32 model's distances
+     to its f64 step logged); ms/step of each rank and of one process, the
+     collective calls a step, the halo exchanges and the whole-level
+     gathers with their bytes, the share of a step inside the calls.
 Each phase's seconds are logged as it ends, and all of them at the end.
 Phases 12-13, 16, 18's zoo and 20's and 21's ungated steps launch none of
 the kernels (neither the fixed model nor the zoo has any, unless
@@ -1113,8 +1124,9 @@ def _state_rel(before: dict, a: dict, b: dict) -> dict:
     return dict(
         weights=_update_rel(before["model"], a["model"], b["model"], params),
         arch=_update_rel(before["arch"], a["arch"], b["arch"], list(b["arch"])),
-        bn_stats=max(float((a["model"][k] - b["model"][k]).abs().max()
-                           / b["model"][k].abs().max().clamp_min(1.0)) for k in stats))
+        bn_stats=max((float((a["model"][k] - b["model"][k]).abs().max()
+                            / b["model"][k].abs().max().clamp_min(1.0)) for k in stats),
+                     default=0.0))
 
 
 def _metrics_rel(a: dict, b: dict, keys=("loss", "arch_loss", "grad_norm")) -> dict:
@@ -4562,16 +4574,60 @@ def _dp_fixed(dev, seed: int, mesh=None, spatial: bool = False) -> dict:
     return _dp_steps(state, lambda b: step(state, b), batches, mesh)
 
 
+# promise12-zoo-rows: the factory's nine models under the row split, and
+# unet once in bf16 and once with SENAS_PALLAS_BN=1 (label: (name, dtype,
+# gated))
+DP_ZOO = {**{name: (name, None, False) for name in ZOO_MODELS},
+          "unet_bf16": ("unet", torch.bfloat16, False), "unet_gated": ("unet", None, True)}
+# Held to the one-process f64 step instead of `DP_LIMITS`: manet's f32 step
+# is itself farther than `DP_LIMITS` from its f64 step (PAB's softmax over
+# the whole HW x HW map; one process on an H100 read grad norm 5.55e-3 and
+# weight update 1.46e-2 off the f64 step's), so the split step must lie at
+# most twice as far from the f64 step as the one-process f32 step does.
+# Every f32 model's distances to its f64 step are logged beside.
+DP_ZOO_EXACT = ("manet",)
+
+
+def _dp_zoo(dev, seed: int, label: str, mesh=None, f64: bool = False) -> dict:
+    """The fixed train step of DP_ZOO[label] at the promise12 `training:`
+    geometry (global batch 12, 256x256, depth 5; pspnet 3), as `_dp_fixed`
+    runs the SENAS model's, with the image rows split over `mesh`'s spatial
+    axis; with `f64`, the compared step alone in f64 in one process. The
+    compared step runs under cuDNN's deterministic algorithms: the zoo's
+    bilinear resizes and nearest picks have no deterministic backward on
+    the card (their atomics stay)."""
+    from senas_torch.parallel.mesh import place_state, shard_batch, shard_train_step
+    name, dtype, gated = DP_ZOO[label]
+    t = load_config(CONFIG)["training"]
+    gen = torch.Generator().manual_seed(seed + 24)
+    model = _zoo_model(name, ZOO_DEPTH.get(name, t["depth"]), dev, gen, dtype)
+    state = FixedTrainState.create(model, t["model_optimizer"], seed=seed, rng=torch.Generator())
+    step = make_train_step(_fixed_loss(t), grad_clip=t["grad_clip"])
+    batches = _batches(np.random.RandomState(seed + 24), 1 + DP_TIMED, t["batch_size"], HW, dev)
+    if f64:
+        model.double()
+        batches = [dict(b, image=b["image"].double()) for b in batches[:1]]
+    if mesh is not None:
+        place_state(mesh, state)
+        step = shard_train_step(step, mesh)
+        batches = [shard_batch(mesh, b, spatial=True) for b in batches]
+    with pallas_bn(gated):
+        out = _dp_steps(state, lambda b: step(state, b), batches, mesh, deterministic_cudnn)
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
 def _dp_snapshot(state) -> dict:
     arch = getattr(state, "arch", {})
     return {"model": {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
             "arch": {k: v.detach().cpu().clone() for k, v in arch.items()}}
 
 
-def _dp_steps(state, run, inputs, mesh) -> dict:
+def _dp_steps(state, run, inputs, mesh, deterministic=deterministic_algorithms) -> dict:
     before = _dp_snapshot(state)
     reset_counts()
-    with deterministic_algorithms():
+    with deterministic():
         m = run(inputs[0])
     torch.cuda.synchronize()
     launches = counts()
@@ -4587,7 +4643,8 @@ def collective_share(fn) -> dict:
     """fn()'s wall time on the host clock, the time inside the process
     group's calls (`senas_torch.parallel.collectives._all_reduce_`, every
     sum the step makes, timed around each call) and their number, and the
-    halo exchanges' calls and bytes among them (`parallel.spatial.HALO`): a
+    halo exchanges' and the whole-level gathers' calls and bytes among them
+    (`parallel.spatial.HALO`): a
     gloo call returns when its sum is done, an NCCL call when the sum is
     queued on the stream. torch.profiler's host view of the same calls
     reads the same time, but its analysis of a search step over gloo (~10^5
@@ -4614,7 +4671,8 @@ def collective_share(fn) -> dict:
     inside_ms = sum(spent) * 1e3
     return dict(wall_ms=wall_ms, inside_ms=inside_ms, calls=len(spent),
                 share=inside_ms / wall_ms, halo_calls=spatial.HALO["calls"],
-                halo_bytes=spatial.HALO["bytes"])
+                halo_bytes=spatial.HALO["bytes"], gathers=spatial.HALO["gathers"],
+                gather_bytes=spatial.HALO["gather_bytes"])
 
 
 def _dp_rank_main(rank: int, port: int, out: str, seed: int) -> int:
@@ -4637,6 +4695,7 @@ def _dp_rank_main(rank: int, port: int, out: str, seed: int) -> int:
           f"rank {rank}: spatial mesh {rows}")
     res["spatial_search"] = _dp_search(dev, seed, rows, spatial=True)
     res["spatial_fixed"] = _dp_fixed(dev, seed, rows, spatial=True)
+    res["zoo"] = {label: _dp_zoo(dev, seed, label, rows) for label in DP_ZOO}
     torch.save(res, out)
     dist.destroy_process_group()
     return 0
@@ -4659,6 +4718,140 @@ def _dp_compare(label: str, got: dict, want: dict, keys, pixels: int) -> dict:
           and all(v <= DP_LIMITS[k] for k, v in rel_s.items()),
           f"{label}: metrics {rel_m}, state {rel_s} (limits {DP_LIMITS})")
     return dict(metrics=rel_m, state=rel_s, counts_off=counts_off)
+
+
+def _dp_bf16_compare(label: str, got: dict, want: dict, f32: dict) -> dict:
+    """ROADMAP's bf16 bound with the one-process step as the reference: a
+    rank's bf16 weight update and running stats lie at most twice as far
+    (relative L2) from the one-process bf16 step's as those lie from the
+    one-process f32 step's, plus 1e-6; its loss and gradient norm within
+    twice the one-process bf16 error of the weight update. Under the split
+    a bf16 convolution of a block sums in another order than that of the
+    whole map (cuDNN's algorithm follows the shape), and the rounding
+    differences grow through the step as bf16 ones do."""
+    check(all(torch.equal(got["before"]["model"][k], want["before"]["model"][k])
+              and torch.equal(f32["before"]["model"][k], want["before"]["model"][k])
+              for k in want["before"]["model"]), f"{label}: the runs did not start from one state")
+    before = want["before"]["model"]
+    params = [k for k in before if k.rsplit(".", 1)[-1] not in ("mean", "var")]
+    own = _update_rel(before, want["after"]["model"], f32["after"]["model"], params)
+    out = {"weights": (_update_rel(before, got["after"]["model"], want["after"]["model"], params),
+                       own),
+           "bn_stats": (_stats_l2(want["before"], got["after"], want["after"]),
+                        _stats_l2(want["before"], want["after"], f32["after"]))}
+    for k in ("loss", "grad_norm"):
+        a, b = float(got["metrics"][k]), float(want["metrics"][k])
+        out[k] = (abs(a - b) / max(abs(b), 1e-30), own)
+    check(all(gap <= 2 * o + 1e-6 for gap, o in out.values()),
+          f"{label}: against one process (gap, one-process bf16 vs f32) {out}, gap at most "
+          "twice the latter plus 1e-6")
+    return {k: dict(gap=g, own=o) for k, (g, o) in out.items()}
+
+
+def _dp_exact_compare(label: str, got: dict, want: dict, f64: dict, pixels: int,
+                      hold: bool = True) -> dict:
+    """A split f32 step and the one-process f32 step against the one-process
+    f64 step: the relative distances of their losses, gradient norms and
+    weight updates (in L2). With `hold` (DP_ZOO_EXACT), the split's must be
+    at most twice the one-process step's, plus 1e-6, and its running stats
+    within `DP_LIMITS` and its tp/fp/fn within `DP_COUNT_SHARE` of the
+    one-process f32 step's."""
+    wide = lambda snap: {k: v.double() for k, v in snap.items()}
+    before = wide(want["before"]["model"])
+    check(all(torch.equal(got["before"]["model"][k], want["before"]["model"][k])
+              and torch.equal(f64["before"]["model"][k], before[k]) for k in before),
+          f"{label}: the runs did not start from one state")
+    params = [k for k in before if k.rsplit(".", 1)[-1] not in ("mean", "var")]
+    ref = f64["after"]["model"]
+    out = {"weights": (_update_rel(before, wide(got["after"]["model"]), ref, params),
+                       _update_rel(before, wide(want["after"]["model"]), ref, params))}
+    for k in ("loss", "grad_norm"):
+        b = float(f64["metrics"][k])
+        out[k] = tuple(abs(float(run["metrics"][k]) - b) / max(abs(b), 1e-30)
+                       for run in (got, want))
+    against = {k: dict(split=g, one_process=o) for k, (g, o) in out.items()}
+    if not hold:
+        return dict(against_f64=against)
+    check(all(gap <= 2 * own + 1e-6 for gap, own in out.values()),
+          f"{label}: (split, one process) against the f64 step {out}, the split at most twice "
+          "as far plus 1e-6")
+    bn = _state_rel(want["before"], got["after"], want["after"])["bn_stats"]
+    counts_off = max(float((got["metrics"][k] - want["metrics"][k]).abs().max())
+                     for k in ("tp", "fp", "fn"))
+    check(bn <= DP_LIMITS["bn_stats"] and counts_off <= DP_COUNT_SHARE * pixels,
+          f"{label}: running stats {bn}, tp/fp/fn off by {counts_off}")
+    return dict(against_f64=against, bn_stats=bn, counts_off=counts_off)
+
+
+def _dp_zoo_rows(single: dict, ranks: list, bs: int, exact: dict) -> dict:
+    """promise12-zoo-rows: each DP_ZOO step of every gloo rank held to the
+    one-process step (`DP_LIMITS`; the bf16 step by ROADMAP's bf16 bound,
+    `_dp_bf16_compare`; DP_ZOO_EXACT's by the f64 step, `_dp_exact_compare`),
+    the ranks' states equal after it; the
+    gated unet's K1a-K1d launched on every rank and in one process, the
+    others' on none. Returns per label the comparisons, ms/step and the
+    collectives of rank 0."""
+    out = {}
+    for label in DP_ZOO:
+        want = single[label]
+        if DP_ZOO[label][1] == torch.bfloat16:
+            cmp = {f"rows{r}": _dp_bf16_compare(f"zoo {label} step, rows rank {r} of {DP_RANKS}",
+                                                got[label], want, single[DP_ZOO[label][0]])
+                   for r, got in enumerate(ranks)}
+        elif label in DP_ZOO_EXACT:
+            cmp = {f"rows{r}": _dp_exact_compare(f"zoo {label} step, rows rank {r} of {DP_RANKS}",
+                                                 got[label], want, exact[label], bs * HW * HW)
+                   for r, got in enumerate(ranks)}
+        else:
+            cmp = {f"rows{r}": _dp_compare(f"zoo {label} step, rows rank {r} of {DP_RANKS}",
+                                           got[label], want, ("loss", "grad_norm"), bs * HW * HW)
+                   for r, got in enumerate(ranks)}
+            if label in exact:
+                cmp["rows0"].update(_dp_exact_compare(label, ranks[0][label], want, exact[label],
+                                                      bs * HW * HW, hold=False))
+        check(all(torch.equal(a[label]["after"]["model"][k], ranks[0][label]["after"]["model"][k])
+                  for a in ranks[1:] for k in a[label]["after"]["model"]),
+              f"zoo {label} step: the gloo ranks' states differ after the step")
+        k1 = [{k: run["launches"][k] for k in DP_KERNELS} for run in [want] + [g[label]
+                                                                           for g in ranks]]
+        gated = DP_ZOO[label][2]
+        check(all((all(v > 0 for v in c.values()) if gated else not any(c.values())) for c in k1),
+              f"zoo {label} step: K1a-K1d launches (one process, then each rank) {k1}")
+        ms = {"single": float(np.mean(want["ms"])),
+              **{f"rows{r}": float(np.mean(g[label]["ms"])) for r, g in enumerate(ranks)}}
+        col = {f"rows{r}": g[label]["collectives"] for r, g in enumerate(ranks)}
+        c0 = col["rows0"]
+        log(f"zoo {label} step: ms/step {ms}; rank 0: {c0['calls']} collective calls, "
+            f"{c0['inside_ms']:.2f} of {c0['wall_ms']:.2f} ms inside them ({c0['share']:.3f} of "
+            f"the step); halo exchanges {c0['halo_calls']} calls, {c0['halo_bytes']} bytes; "
+            f"whole-level gathers {c0['gathers']} calls, {c0['gather_bytes']} bytes; K1a-K1d "
+            f"{k1}; against one process {cmp} (limits {DP_LIMITS})")
+        out[label] = dict(compare=cmp, ms=ms, collectives=col, k1=k1)
+    return out
+
+
+def _zoo_distances(zoo: dict) -> dict:
+    """Per DP_ZOO label, rank 0's distances to one process in short: (grad
+    norm, weight update, tp/fp/fn off) under `DP_LIMITS`; for unet bf16 the
+    (gap, one-process bf16 vs f32) pairs of the update and the grad norm;
+    for DP_ZOO_EXACT the (split, one process) distances to the f64 step of
+    the grad norm and the update; with each f32 model's f64 pair too."""
+    out = {}
+    for label, r in zoo.items():
+        c = r["compare"]["rows0"]
+        f64 = c.get("against_f64")
+        if "metrics" in c:
+            row = (f"{c['metrics']['grad_norm']:.3g}", f"{c['state']['weights']:.3g}",
+                   c["counts_off"])
+        elif "weights" in c:
+            row = tuple(f"{c[k]['gap']:.3g}/{c[k]['own']:.3g}" for k in ("grad_norm", "weights"))
+        else:
+            row = ()
+        if f64:
+            row += tuple(f"f64 {k} {f64[k]['split']:.3g}/{f64[k]['one_process']:.3g}"
+                         for k in ("grad_norm", "weights"))
+        out[label] = row
+    return out
 
 
 def run_data_parallel(dev, seed: int) -> dict:
@@ -4686,6 +4879,8 @@ def run_data_parallel(dev, seed: int) -> dict:
                  for r in range(DP_RANKS)]
         try:
             single = {"search": _dp_search(dev, seed), "fixed": _dp_fixed(dev, seed)}
+            single_zoo = {label: _dp_zoo(dev, seed, label) for label in DP_ZOO}
+            exact_zoo = {label: _dp_zoo(dev, seed, label, f64=True) for label in ZOO_MODELS}
             nccl_port = free_port()
             dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{nccl_port}",
                                     world_size=1, rank=0, timeout=datetime.timedelta(seconds=60))
@@ -4747,13 +4942,15 @@ def run_data_parallel(dev, seed: int) -> dict:
     log("rows: MeshSpec(data=1, spatial=2) over the two gloo ranks, each with every batch row "
         f"and {HW // DP_RANKS} of the {HW} image rows; NCCL refuses two ranks on one device, "
         "so the split rows have no NCCL case on one card")
+    zoo = _dp_zoo_rows(single_zoo, [r["zoo"] for r in ranks], cfg["training"]["batch_size"],
+                       exact_zoo)
     seconds = time.perf_counter() - t0
     labels = lambda name: (("single", single[name]), ("nccl", nccl[name]),
                            *((f"gloo{r}", got[name]) for r, got in enumerate(ranks)),
                            *((f"rows{r}", got[f"spatial_{name}"]) for r, got in enumerate(ranks)))
-    return dict(rows=rows, seconds=seconds,
+    return dict(rows=rows, seconds=seconds, zoo=zoo,
                 launches={k: nccl["search"]["launches"][k] + nccl["fixed"]["launches"][k]
-                          for k in KERNELS},
+                          + single_zoo["unet_gated"]["launches"][k] for k in KERNELS},
                 ms={name: {label: float(np.mean(run["ms"])) for label, run in labels(name)}
                     for name in ("search", "fixed")},
                 collectives={name: {label: run["collectives"] for label, run in labels(name)
@@ -5004,6 +5201,11 @@ def main(argv=None) -> int:
         f"collective calls, halo calls, halo bytes a step "
         f"{ {n: {k: (v['calls'], v['halo_calls'], v['halo_bytes']) for k, v in r.items()} for n, r in dp['collectives'].items()} }; "
         f"against one process {dp['rows']}")
+    log(f"promise12-zoo-rows summary: ms/step (one process, rank 0, rank 1) "
+        f"{ {n: tuple(round(v, 2) for v in r['ms'].values()) for n, r in dp['zoo'].items()} }; "
+        f"rank 0's share inside the collectives, calls, halo calls and bytes, gathers and bytes "
+        f"{ {n: (round(c['share'], 3), c['calls'], c['halo_calls'], c['halo_bytes'], c['gathers'], c['gather_bytes']) for n, c in ((n, r['collectives']['rows0']) for n, r in dp['zoo'].items())} }; "
+        f"rank 0 against one process {_zoo_distances(dp['zoo'])}")
     log(f"phase seconds {phase_s}")
     log(f"card: {smi}; total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

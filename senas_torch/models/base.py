@@ -6,6 +6,13 @@ segmentation and classification heads, smp's activation dispatch and the
 encoder -> decoder -> head output contract. Submodules and parameters carry
 the flax names (`kernel`, `bias`, `BatchNorm_0`, `Dense_0`, ...), so
 `senas_torch.convert` maps the two trees leaf by leaf. Kernels are OIHW.
+
+Under the mesh's row split (`senas_torch.parallel`) every map is this
+rank's block of image rows: the resizes read their source rows at the
+global positions (`spatial.source_rows`), a target size is global (a
+level's height is `collectives.global_height`), the means span the global
+image, and a zoo model whose encoder does not split rows (one outside
+`models/encoders.py`) raises at its first forward (ROADMAP.md M13d).
 """
 
 from __future__ import annotations
@@ -18,8 +25,11 @@ from torch import nn
 
 from senas_torch.core.device import resolve_device
 from senas_torch.ops.primitives import (BatchNorm, Dense, Dropout, add_bias, add_conv_kernel,
-                                        conv2d, init_params_, kaiming_std, log_softmax, relu,
-                                        sigmoid, softmax)
+                                        conv2d, image_mean, init_params_, is_split, kaiming_std,
+                                        log_softmax, relu, sigmoid, softmax, whole_level)
+from senas_torch.parallel import spatial
+from senas_torch.parallel.collectives import active_split, global_height
+from senas_torch.parallel.mesh import spatial_not_ported
 
 
 class Conv2dReLU(nn.Module):
@@ -64,7 +74,7 @@ class SCSEModule(nn.Module):
         add_bias(self, "s_bias", 1, fan_in=c)
 
     def forward(self, x):
-        y = x.mean(dim=(2, 3))
+        y = image_mean(x)
         y = self.Dense_1(relu(self.Dense_0(y)))
         cse = x * sigmoid(y)[:, :, None, None]
         s = conv2d(x, self.s_kernel.to(x.dtype)) + self.s_bias.to(x.dtype)[:, None, None]
@@ -87,8 +97,15 @@ class Attention(nn.Module):
 
 def upsample_nearest2x(x):
     """Nearest 2x: every source pixel twice along each axis (what
-    jax.image.resize 'nearest' gives at an integer factor of 2)."""
-    return F.interpolate(x, scale_factor=2, mode="nearest")
+    jax.image.resize 'nearest' gives at an integer factor of 2). Under a
+    row split output row i is input row i // 2 of the global level, which
+    may lie on another rank: the blocks of 2H rows do not line up with
+    twice those of H where the spatial size does not divide H."""
+    if not is_split(x):
+        return F.interpolate(x, scale_factor=2, mode="nearest")
+    h = 2 * global_height(x)
+    rows, = spatial.source_rows(x, h, [[i // 2 for i in range(h)]])
+    return spatial.entered(rows.repeat_interleave(2, dim=3), h)
 
 
 def _aligned_taps(n_in: int, n_out: int, device):
@@ -106,7 +123,29 @@ def _aligned_taps(n_in: int, n_out: int, device):
     return i0, (i0 + 1).clamp(max=n_in - 1), pos - i0
 
 
-def resize_bilinear(x, size_hw, weight_dtype=None):
+def _interpolate_taps(n_in: int, n_out: int, dtype):
+    """The taps of F.interpolate(mode="bilinear", align_corners=True) along
+    one axis, as PyTorch computes them in `dtype` (its opmath type: f32 for
+    f32, f64 for f64): position scale * i with scale (n_in - 1) / (n_out -
+    1), the lower index its floor, the weight of the upper one the rest."""
+    scale = (torch.tensor(n_in - 1, dtype=dtype) / (n_out - 1) if n_out > 1
+             else torch.zeros((), dtype=dtype))
+    pos = scale * torch.arange(n_out, dtype=dtype)
+    i0 = pos.floor().long().clamp(0, n_in - 1)
+    return i0, (i0 + 1).clamp(max=n_in - 1), (pos - i0).clamp(0, 1)
+
+
+def _two_lerps(rows0, rows1, wy, cols, out_dtype):
+    """The bilinear formula: each row pair's column lerps, then the lerp
+    between them, each op in `out_dtype`."""
+    x0, x1, wx = cols
+    wy, wx = wy.to(out_dtype)[:, None], wx.to(out_dtype)
+    top = rows0.index_select(3, x0) * (1 - wx) + rows0.index_select(3, x1) * wx
+    bot = rows1.index_select(3, x0) * (1 - wx) + rows1.index_select(3, x1) * wx
+    return top * (1 - wy) + bot * wy
+
+
+def resize_bilinear(x, size_hw, weight_dtype=None, whole: bool = False):
     """Bilinear resize with torch's align_corners=True: the corners of the
     input and the output coincide. senas_tpu computes it from linspace
     indices with weights in `weight_dtype` (None: x's dtype), so the result
@@ -118,8 +157,17 @@ def resize_bilinear(x, size_hw, weight_dtype=None):
     An f32 (or f64) map takes F.interpolate. A bf16 map takes senas_tpu's
     formula itself, two lerps with each op in the result's dtype: with bf16
     weights the bf16 roundings fall where XLA's do; with f32 weights it is
-    f32 arithmetic on the bf16 values."""
+    f32 arithmetic on the bf16 values.
+
+    Under a row split `size_hw` is the global size, and the result is this
+    rank's rows of it: each output row reads the two rows at its position
+    in the global level (`spatial.source_rows`; with `whole`, x is a map
+    every rank holds whole, and no rows are exchanged). The bf16 formula is
+    the same; an f32 or f64 map takes it with F.interpolate's taps, which
+    agrees with F.interpolate to rounding."""
     th, tw = size_hw
+    if is_split(x):
+        return _split_resize(x, th, tw, weight_dtype, whole)
     if x.dtype != torch.bfloat16:
         return F.interpolate(x.to(torch.promote_types(x.dtype, weight_dtype or x.dtype)),
                              size=(th, tw), mode="bilinear", align_corners=True)
@@ -127,19 +175,34 @@ def resize_bilinear(x, size_hw, weight_dtype=None):
         return x.expand(-1, -1, th, tw)
     out_dtype = weight_dtype or x.dtype
     y0, y1, wy = _aligned_taps(x.shape[2], th, x.device)
-    x0, x1, wx = _aligned_taps(x.shape[3], tw, x.device)
     g = x.to(out_dtype)
-    wy, wx = wy.to(out_dtype)[:, None], wx.to(out_dtype)
-    rows0, rows1 = g.index_select(2, y0), g.index_select(2, y1)
-    top = rows0.index_select(3, x0) * (1 - wx) + rows0.index_select(3, x1) * wx
-    bot = rows1.index_select(3, x0) * (1 - wx) + rows1.index_select(3, x1) * wx
-    return top * (1 - wy) + bot * wy
+    return _two_lerps(g.index_select(2, y0), g.index_select(2, y1), wy,
+                      _aligned_taps(x.shape[3], tw, x.device), out_dtype)
+
+
+def _split_resize(x, th: int, tw: int, weight_dtype, whole: bool):
+    h = x.shape[2] if whole else global_height(x)
+    bf16 = x.dtype == torch.bfloat16
+    out_dtype = (weight_dtype or x.dtype) if bf16 else torch.promote_types(
+        x.dtype, weight_dtype or x.dtype)
+    if h == 1 and x.shape[3] == 1:
+        row, = spatial.source_rows(x, th, [[0] * th], whole)
+        y = (row if bf16 else row.to(out_dtype)).expand(-1, -1, -1, tw)
+        return spatial.entered(y.contiguous(), th)
+    taps = ((lambda n, m: _aligned_taps(n, m, "cpu")) if bf16
+            else (lambda n, m: _interpolate_taps(n, m, out_dtype)))
+    y0, y1, wy = taps(h, th)
+    rows0, rows1 = spatial.source_rows(x.to(out_dtype), th, [y0.tolist(), y1.tolist()], whole)
+    oa, ob = active_split().bounds(th)
+    cols = [t.to(x.device) for t in taps(x.shape[3], tw)]
+    return spatial.entered(_two_lerps(rows0, rows1, wy[oa:ob].to(x.device), cols, out_dtype),
+                           th)
 
 
 def upsample_bilinear(x, factor: int):
     """smp's nn.UpsamplingBilinear2d (align_corners=True) by `factor`, its
     weights in x's dtype."""
-    return resize_bilinear(x, (x.shape[2] * factor, x.shape[3] * factor))
+    return resize_bilinear(x, (global_height(x) * factor, x.shape[3] * factor))
 
 
 def smp_activation(name):
@@ -199,7 +262,7 @@ class ClassificationHead(nn.Module):
         self.Dense_0 = Dense(c_in, classes, bias=True, dtype=dtype)
 
     def forward(self, x, train: bool = False, rng: Optional[torch.Generator] = None):
-        y = x.mean(dim=(2, 3)) if self.pooling == "avg" else x.amax(dim=(2, 3))
+        y = image_mean(x) if self.pooling == "avg" else whole_level(x).amax(dim=(2, 3))
         y = self.dropout(y, train, rng)
         return smp_activation(self.activation)(self.Dense_0(y))
 
@@ -229,6 +292,8 @@ class SegmentationModel(nn.Module):
         # NHWC -> NCHW with canonical strides (a 1-channel permuted view
         # counts as contiguous with channels_last strides)
         x = x.permute(0, 3, 1, 2).clone(memory_format=torch.contiguous_format)
+        if active_split() is not None and not getattr(self.encoder, "splits_rows", False):
+            raise spatial_not_ported(f"{type(self).__name__} on {type(self.encoder).__name__}")
         logits, feats = self.decode(x, train, rng)
         masks = smp_activation(self.activation)(logits.permute(0, 2, 3, 1))
         if self.aux_params is None:

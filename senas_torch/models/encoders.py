@@ -91,7 +91,10 @@ class ResNetEncoder(nn.Module):
     """forward(x NCHW, train) -> [x, f1, ..., f_depth] (NCHW). The stem's
     7x7 conv runs in x's dtype and its BN rounds to `dtype`; each block
     casts its input to `dtype` (senas_tpu/models/encoders.py:118-123,
-    ops/primitives.py:612-614)."""
+    ops/primitives.py:612-614). Every op goes through `primitives`, so it
+    runs under a row split (`splits_rows`)."""
+
+    splits_rows = True
 
     def __init__(self, in_channels: int, layers: Sequence[int], depth: int = 5,
                  block: str = "basic", groups: int = 1, width_per_group: int = 64,

@@ -14,6 +14,9 @@ the NHWC boundary.
 in senas_tpu: every conv runs in its input's dtype, and every GroupNorm
 and the SE gates' Dense layers compute in `dtype`, so the f32 image leaves
 the stems' GroupNorm in bf16 and the logits are bf16.
+
+Under the mesh's row split its GroupNorms and SE means span the global
+image, and its nearest picks and `_match` read the global sizes.
 """
 
 from __future__ import annotations
@@ -21,13 +24,15 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from senas_torch.core.device import resolve_device
 from senas_torch.core.genotype import Genotype
-from senas_torch.ops.primitives import (Dense, GroupNorm, add_conv_kernel, conv2d,
-                                        conv_transpose2d, init_params_, relu, sigmoid)
+from senas_torch.ops.primitives import (Dense, GroupNorm, add_conv_kernel, avg_pool_2x2, conv2d,
+                                        conv_transpose2d, image_mean, init_params_, is_split,
+                                        max_pool_2x2, relu, sigmoid)
+from senas_torch.parallel import spatial
+from senas_torch.parallel.collectives import global_height
 
 NAS_UNET_V3 = Genotype(
     down=[('down_dil_conv', 1), ('down_cweight', 0), ('down_cweight', 0),
@@ -121,7 +126,7 @@ class CWeightOp(nn.Module):
             self.GroupNorm_0 = GroupNorm(c_out, _gn_groups(c_out), dtype=dtype)
 
     def forward(self, x, train: bool = False):
-        y = sigmoid(self.Dense_1(relu(self.Dense_0(x.mean(dim=(2, 3))))))
+        y = sigmoid(self.Dense_1(relu(self.Dense_0(image_mean(x)))))
         gated = x * y[:, :, None, None]
         if self.stride < 2:
             return gated
@@ -141,9 +146,7 @@ class PoolingOp(nn.Module):
         self.pool_type = pool_type
 
     def forward(self, x, train: bool = False):
-        if self.pool_type == "max":
-            return F.max_pool2d(x, 2, 2)
-        return F.avg_pool2d(x, 2, 2)
+        return max_pool_2x2(x) if self.pool_type == "max" else avg_pool_2x2(x)
 
 
 class ZeroOp(nn.Module):
@@ -184,19 +187,28 @@ def make_nasunet_op(name: str, c: int, dtype=None) -> nn.Module:
 def _nearest(x, th: int, tw: int):
     """torch F.interpolate(mode='nearest')'s convention in integers:
     src = floor(dst * in / out), exact at every ratio (senas_tpu's
-    `_nearest`)."""
-    h, w = x.shape[2], x.shape[3]
-    yi = (torch.arange(th, device=x.device) * h) // th
+    `_nearest`). Under a row split `th` is global and each output row's
+    source row is taken from the rank that holds it."""
+    h, w = global_height(x), x.shape[3]
     xi = (torch.arange(tw, device=x.device) * w) // tw
+    if is_split(x):
+        rows, = spatial.source_rows(x, th, [[(i * h) // th for i in range(th)]])
+        return spatial.entered(rows[:, :, :, xi], th)
+    yi = (torch.arange(th, device=x.device) * h) // th
     return x[:, :, yi][:, :, :, xi]
 
 
+def _size(x):
+    """(H, W) of x's global image."""
+    return global_height(x), x.shape[3]
+
+
 def _match(h1, h2):
-    """The smaller map resized to the larger (nas_unet.py:58-64)."""
-    if h1.shape[2:] == h2.shape[2:]:
+    """The smaller map resized to the larger (nas_unet.py:58-64), by the
+    global sizes."""
+    (b1, a1), (b2, a2) = _size(h1), _size(h2)
+    if (b1, a1) == (b2, a2):
         return h1, h2
-    b1, a1 = h1.shape[2], h1.shape[3]
-    b2, a2 = h2.shape[2], h2.shape[3]
     if b1 > b2 or a1 > a2:
         h2 = _nearest(h2, b1, a1)
     else:
@@ -234,9 +246,8 @@ class NasUnetCell(nn.Module):
             h1, h2 = _match(h1, h2)
             states.append(h1 + h2)
         outs = [states[i] for i in self._concat]
-        ref = outs[0]
-        outs = [o if o.shape[2:] == ref.shape[2:] else _nearest(o, ref.shape[2], ref.shape[3])
-                for o in outs]
+        ref = _size(outs[0])
+        outs = [o if _size(o) == ref else _nearest(o, *ref) for o in outs]
         return torch.cat(outs, dim=1)
 
 

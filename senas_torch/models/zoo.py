@@ -27,6 +27,14 @@ runs in its input's dtype. senas_tpu's align-corners resizes keep f32
 weights, so a bf16 map leaves them in f32 and the blocks after one compute
 in f32 until the next norm: FPN and PAN return f32 logits from a bf16
 model, the other seven bf16 ones, as senas_tpu's do.
+
+Under the mesh's row split (ROADMAP.md M13c) each map is this rank's block
+of image rows, and every target size is the level's global one
+(`global_height`). The global pools' 1x1 maps and PSPNet's pyramid are
+whole on every rank (`whole_maps`: their BatchNorms reduce over the data
+subgroup); MAnet's position attention and PSPNet's pooling read the whole
+deepest level (`whole_level`, a gather), and each rank resizes or cuts the
+result back to its own rows.
 """
 
 from __future__ import annotations
@@ -41,8 +49,10 @@ from senas_torch.models.base import (Attention, Conv2dReLU, SegmentationHead,
                                      SegmentationModel, resize_bilinear, upsample_nearest2x)
 from senas_torch.models.encoders import encoder_out_channels, get_encoder
 from senas_torch.ops.primitives import (BatchNorm, Dropout, GroupNorm, add_bias,
-                                        add_conv_kernel, conv2d, conv_transpose2d, max_pool_2x2,
-                                        relu, sigmoid, softmax)
+                                        add_conv_kernel, conv2d, conv_transpose2d, image_mean,
+                                        max_pool_2x2, on_whole_level, relu, sigmoid, softmax,
+                                        whole_level)
+from senas_torch.parallel.collectives import global_height, whole_maps
 
 
 def _bias(b, like):
@@ -55,10 +65,20 @@ def _conv(x, w, **kw):
     return conv2d(x, w.to(x.dtype), **kw)
 
 
-def _aligned_resize(x, size_hw):
+def _aligned_resize(x, size_hw, whole: bool = False):
     """senas_tpu's `_resize_bilinear` with align_corners=True: f32 weights,
-    so a bf16 map comes out f32 (a 1x1 map is broadcast in its dtype)."""
-    return resize_bilinear(x, size_hw, weight_dtype=torch.float32)
+    so a bf16 map comes out f32 (a 1x1 map is broadcast in its dtype).
+    `size_hw` is global; `whole`: x is a map every rank holds whole
+    (`resize_bilinear`)."""
+    return resize_bilinear(x, size_hw, weight_dtype=torch.float32, whole=whole)
+
+
+def _pooled(block, x, train):
+    """block (a conv -> BN stack) on x's global mean [B, C, 1, 1], a map
+    that every rank of a data index computes whole (`whole_maps`)."""
+    mean = image_mean(x)[:, :, None, None]
+    with whole_maps():
+        return block(mean, train)
 
 
 # ---------------------------------------------------------------------------
@@ -231,7 +251,7 @@ class MFAB(nn.Module):
 
     def _se(self, t, tag):
         """The SE gate in t's dtype (senas_tpu casts the weights to it)."""
-        y = t.mean(dim=(2, 3))
+        y = image_mean(t)
         w1, w2 = (getattr(self, f"{tag}_{k}").to(t.dtype) for k in ("w1", "w2"))
         b1, b2 = (getattr(self, f"{tag}_{k}").to(t.dtype) for k in ("b1", "b2"))
         y = relu(y @ w1[:, :, 0, 0].t() + b1)
@@ -270,7 +290,7 @@ class MAnet(SegmentationModel):
     def decode(self, x, train, rng):
         enc = self.encoder(x, train)
         feats = enc[1:][::-1]
-        y, skips = self.PAB_0(feats[0]), feats[1:]
+        y, skips = on_whole_level(self.PAB_0, feats[0]), feats[1:]
         for i in range(self.n_dec):
             blk = getattr(self, f"dec_{i}")
             y = blk(y, skips[i], train) if i < len(skips) else blk(y, None, train)
@@ -344,7 +364,7 @@ class Conv3x3GNReLU(nn.Module):
     def forward(self, x):
         x = relu(self.GroupNorm_0(_conv(x, self.kernel)))
         if self.upsample:
-            x = _aligned_resize(x, (x.shape[2] * 2, x.shape[3] * 2))
+            x = _aligned_resize(x, (global_height(x) * 2, x.shape[3] * 2))
         return x
 
 
@@ -434,9 +454,14 @@ class PSPNet(SegmentationModel):
     def decode(self, x, train, rng):
         feats = self.encoder(x, train)
         y = feats[-1]
-        h, w = y.shape[2], y.shape[3]
-        branches = [_aligned_resize(getattr(self, f"psp_{si}")(psp_pool(y, size), train), (h, w))
-                    for si, size in enumerate(PSP_SIZES)]
+        h, w = global_height(y), y.shape[3]
+        # the pyramid pools the whole map on every rank (a gather under a
+        # row split), and each rank resizes the branches into its own rows
+        full = whole_level(y)
+        with whole_maps():
+            pooled = [getattr(self, f"psp_{si}")(psp_pool(full, size), train)
+                      for si, size in enumerate(PSP_SIZES)]
+        branches = [_aligned_resize(p, (h, w), whole=True) for p in pooled]
         y = self.Conv2dReLU_0(torch.cat(branches + [y], dim=1), train)
         return self.SegmentationHead_0(y), feats
 
@@ -483,8 +508,7 @@ class ASPP(nn.Module):
         b, _, h, w = x.shape
         res = [self.conv1x1(x, train)]
         res += [getattr(self, f"aspp_{i}")(x, train) for i in range(self.n_rates)]
-        pooled = self.pool_conv(x.mean(dim=(2, 3), keepdim=True), train)
-        res.append(pooled.expand(b, self.c_out, h, w))
+        res.append(_pooled(self.pool_conv, x, train).expand(b, self.c_out, h, w))
         y = self.project(torch.cat(res, dim=1), train)
         return self.dropout(y, train, rng)
 
@@ -515,7 +539,7 @@ class DeepLabV3Plus(SegmentationModel):
     def decode(self, x, train, rng):
         feats = self.encoder(x, train)
         y = self.aspp_post(self.ASPP_0(feats[-1], train, rng), train)
-        y = _aligned_resize(y, (y.shape[2] * self.scale, y.shape[3] * self.scale))
+        y = _aligned_resize(y, (global_height(y) * self.scale, y.shape[3] * self.scale))
         y = torch.cat([y, self.highres(feats[-4], train)], dim=1)
         return self.SegmentationHead_0(self.fuse(y, train)), feats
 
@@ -558,8 +582,9 @@ class FPABlock(nn.Module):
         self.conv1 = ConvBnReLU(1, 1, 7, dtype=dtype)
 
     def forward(self, x, train: bool = False):
-        b, _, h, w = x.shape
-        b1 = self.branch1(x.mean(dim=(2, 3), keepdim=True), train).expand(b, self.c_out, h, w)
+        b, _, rows, w = x.shape
+        h = global_height(x)
+        b1 = _pooled(self.branch1, x, train).expand(b, self.c_out, rows, w)
         mid = self.mid(x, train)
         x1 = self.down1(max_pool_2x2(x), train)
         x2 = self.down2(max_pool_2x2(x1), train)
@@ -581,9 +606,9 @@ class GAUBlock(nn.Module):
         self.conv1 = ConvBnReLU(c_out, c_out, 1, add_relu=False, dtype=dtype)
 
     def forward(self, x, y, train: bool = False):
-        y_up = _aligned_resize(y, (x.shape[2], x.shape[3]))
+        y_up = _aligned_resize(y, (global_height(x), x.shape[3]))
         x = self.conv2(x, train)
-        ya = sigmoid(self.conv1(y.mean(dim=(2, 3), keepdim=True), train))
+        ya = sigmoid(_pooled(self.conv1, y, train))
         return y_up + x * ya
 
 

@@ -31,8 +31,11 @@ in PyTorch idiom:
   * Under an active row split (`senas_torch.parallel`, the mesh's spatial
     axis) every map is this rank's block of image rows: the convolutions,
     poolings and the resize go through `senas_torch.parallel.spatial`
-    (halo exchanges), the SE block's mean and every BatchNorm's statistics
-    span the global image.
+    (halo exchanges), the SE block's mean, every BatchNorm's and
+    GroupNorm's statistics and Dropout's mask span the global image. A map
+    computed inside `collectives.whole_maps()` (a global pool's 1x1 map,
+    `on_whole_level`) is whole on every rank of a data index, and its
+    BatchNorm reduces over the data subgroup alone.
 """
 
 from __future__ import annotations
@@ -52,7 +55,8 @@ from senas_torch.core.genotype import DownOps, NormOps, UpOps
 from senas_torch.ops.grouped_epilogue import fused_group_epilogue
 from senas_torch.parallel import spatial
 from senas_torch.parallel.collectives import (active_mesh, active_split, all_reduce_sum,
-                                              global_count, global_rows, plane_size, spatial_sum)
+                                              global_count, global_height, global_rows,
+                                              plane_size, spatial_sum, whole_maps)
 
 EPS = 1e-5
 
@@ -189,10 +193,10 @@ def cast(x, dtype):
 # Functional conv / pool / resize primitives (NCHW)
 # ---------------------------------------------------------------------------
 
-def _split(x) -> bool:
+def is_split(x) -> bool:
     """Whether x is this rank's block of image rows under an active row
-    split (`senas_torch.parallel.spatial`): every map of a SENAS model
-    then is."""
+    split (`senas_torch.parallel.spatial`): every map of a model then is,
+    but those computed inside `collectives.whole_maps()`."""
     return active_split() is not None and not x.is_meta
 
 
@@ -200,7 +204,7 @@ def conv2d(x, w, stride: int = 1, dilation: int = 1, groups: int = 1):
     """2D conv, NCHW/OIHW, symmetric padding (k//2)*dilation."""
     k = w.shape[-1]
     p = get_same_padding(k) * dilation if k > 1 else 0
-    if _split(x):
+    if is_split(x):
         return spatial.conv2d(x, w, stride, dilation, groups, p)
     return F.conv2d(x, w, stride=stride, padding=p, dilation=dilation,
                     groups=groups)
@@ -223,7 +227,7 @@ def conv_transpose2d(x, w, stride: int = 2, dilation: int = 1,
     (H-1)*stride - 2p + dilation*(k-1) + output_padding + 1."""
     k = w.shape[-1]
     p = get_same_padding(k) * dilation if torch_padding is None else torch_padding
-    if _split(x):
+    if is_split(x):
         return spatial.conv_transpose2d(x, w, stride, p, output_padding, dilation, groups,
                                         op=_transposed)
     return _transposed(x, w, stride=stride, padding=p, output_padding=output_padding,
@@ -232,29 +236,36 @@ def conv_transpose2d(x, w, stride: int = 2, dilation: int = 1,
 
 def avg_pool_3x3(x, stride: int = 1):
     """AvgPool2d(3, stride, padding=1, count_include_pad=False)."""
-    if _split(x):
+    if is_split(x):
         return spatial.avg_pool_3x3(x, stride)
     return F.avg_pool2d(x, 3, stride=stride, padding=1, count_include_pad=False)
 
 
 def max_pool_3x3(x, stride: int = 2):
     """MaxPool2d(3, stride, padding=1)."""
-    if _split(x):
+    if is_split(x):
         return spatial.max_pool_3x3(x, stride)
     return F.max_pool2d(x, 3, stride=stride, padding=1)
 
 
 def max_pool_2x2(x):
     """MaxPool2d(2, stride=2)."""
-    if _split(x):
-        return spatial.max_pool_2x2(x)
+    if is_split(x):
+        return spatial.pool_2x2(x, F.max_pool2d)
     return F.max_pool2d(x, 2, stride=2)
+
+
+def avg_pool_2x2(x):
+    """AvgPool2d(2, stride=2)."""
+    if is_split(x):
+        return spatial.pool_2x2(x, F.avg_pool2d)
+    return F.avg_pool2d(x, 2, stride=2)
 
 
 def upsample2x(x):
     """Bilinear 2x upsample with half-pixel centres (align_corners=False),
     which is what `jax.image.resize(..., "bilinear")` does when enlarging."""
-    if _split(x):
+    if is_split(x):
         return spatial.upsample2x(x)
     return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
 
@@ -264,10 +275,29 @@ def image_mean(x):
     image under a row split (a sum over the ranks of the data index, divided
     by the global H*W; a bf16 x summed in f32 and rounded once, as its mean
     is)."""
-    if not _split(x):
+    if not is_split(x):
         return x.mean(dim=(2, 3))
     total = x.sum(dim=(2, 3), dtype=torch.promote_types(x.dtype, torch.float32))
     return (spatial_sum(total) / plane_size(x)).to(x.dtype)
+
+
+def whole_level(x):
+    """x's whole level on every rank: a gather over the spatial subgroup
+    (`spatial.gather_level`) under a row split, x itself otherwise."""
+    return spatial.gather_level(x) if is_split(x) else x
+
+
+def on_whole_level(fn, x):
+    """fn of x's whole level, every rank computing it alike inside
+    `whole_maps()`, cut back to this rank's rows: for an op that reads
+    every row of its input (MAnet's position attention). fn(x) without a
+    row split."""
+    if not is_split(x):
+        return fn(x)
+    full = spatial.gather_level(x)
+    with whole_maps():
+        y = fn(full)
+    return spatial.own_rows(y)
 
 
 # ---------------------------------------------------------------------------
@@ -521,7 +551,13 @@ class GroupNorm(nn.Module):
     x promoted to f32, normalised, scaled and biased in f32, and rounded
     once to `dtype`, whatever x's dtype (F.group_norm in f32: flax's
     one-sweep E[x^2] - E[x]^2 variance differs from it by f32 rounding,
-    under the bf16 rounding). Without, F.group_norm in x's dtype."""
+    under the bf16 rounding). Without, F.group_norm in x's dtype.
+
+    Under a row split each group's statistics span the global image: the
+    two-pass form of F.group_norm, each pass a sum over this rank's rows
+    summed over the spatial subgroup (the group's mean, then its summed
+    squared deviations), divided by the global count (C/G channels times
+    the level's global H*W)."""
 
     def __init__(self, c: int, num_groups: int, eps: float = EPS, dtype=None):
         super().__init__()
@@ -530,12 +566,24 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
 
     def forward(self, x):
-        if _split(x):
-            raise NotImplementedError("GroupNorm under the image-H split (ROADMAP.md M13c)")
+        if is_split(x):
+            return self._split_rows(x)
         if self.dtype is None:
             return F.group_norm(x, self.num_groups, self.scale, self.bias, self.eps)
         return F.group_norm(x.float(), self.num_groups, self.scale, self.bias,
                             self.eps).to(self.dtype)
+
+    def _split_rows(self, x):
+        ct = torch.float32 if self.dtype is not None else x.dtype
+        b, c = x.shape[:2]
+        g = x.to(ct).reshape(b, self.num_groups, -1)
+        count = (c // self.num_groups) * plane_size(x)
+        mu = spatial_sum(g.sum(dim=2)) / count
+        d = g - mu[:, :, None]
+        var = spatial_sum((d * d).sum(dim=2)) / count
+        y = (d * torch.rsqrt(var + self.eps)[:, :, None]).reshape(x.shape)
+        y = y * self.scale.to(ct)[:, None, None] + self.bias.to(ct)[:, None, None]
+        return y.to(self.dtype or x.dtype)
 
 
 class Dropout(nn.Module):
@@ -556,15 +604,19 @@ class Dropout(nn.Module):
         if rng is None:
             raise ValueError("Dropout in train mode needs a torch.Generator (rng=)")
         keep = 1.0 - self.rate
-        if _split(x):
-            raise NotImplementedError("Dropout under the image-H split (ROADMAP.md M13c)")
         # under a mesh every rank draws the global batch's mask and keeps
-        # its own rows: the masks of the single-device step
-        mesh = active_mesh()
+        # its own rows and, under a row split, its own image rows: the
+        # masks of the single-device step
+        mesh, split = active_mesh(), active_split()
         shape = x.shape if mesh is None else (global_rows(x.shape[0]),) + tuple(x.shape[1:])
+        rows = split is not None and x.dim() == 4
+        if rows:
+            shape = shape[:2] + (global_height(x),) + shape[3:]
         mask = torch.rand(shape, generator=rng, device=rng.device) < keep
         if mesh is not None:
             mask = mask[mesh.rows(shape[0])]
+        if rows:
+            mask = mask[:, :, slice(*split.bounds(shape[2]))]
         # x / keep in x's dtype: bf16(0.8) against a bf16 x, as flax divides
         return torch.where(mask.to(x.device), x / scalar(keep, x),
                            torch.zeros((), dtype=x.dtype, device=x.device))

@@ -30,7 +30,9 @@ the sum of zero-padded buffers, exact in every dtype. Every sum goes
 through `_all_reduce_`.
 
 `active_mesh()` is the mesh of the step that is running (`activate`), or
-None, and `active_split()` the layout of its image rows, or None. Every
+None, and `active_split()` the layout of its image rows, or None;
+`whole_maps()` turns the split off (and narrows the mesh to the data
+subgroup) for maps every spatial rank computes whole. Every
 module asks them, as BatchNorm asks `use_pallas_bn()`. Without a mesh, or
 for a mesh of one process and no group, every caller keeps its
 single-device code path and numerics. The active mesh is a process-wide
@@ -59,24 +61,18 @@ def row_bounds(height: int, size: int, index: int) -> Tuple[int, int]:
     return (index * height) // size, ((index + 1) * height) // size
 
 
-def _levels(height: int, width: int) -> Dict[int, Optional[int]]:
-    """The global height of each level of an image (height, width): every
-    stride-2 op of the SENAS models maps (H, W) to (ceil(H/2), ceil(W/2))
-    and every 2x up-sampling doubles both, so a level's width names it. A
-    width that two levels share maps to None."""
-    found: Dict[int, Optional[int]] = {}
-    while True:
-        found[width] = height if found.get(width, height) == height else None
-        if height == 1 and width == 1:
-            return found
-        height, width = (height + 1) // 2, (width + 1) // 2
-
-
 @dataclasses.dataclass(frozen=True)
 class RowSplit:
     """How the running step's image rows lie over the spatial axis: the
     spatial subgroup of this rank, its size S and this rank's index s in
-    it, and the global height of each level by its width."""
+    it, and the global height of each level by its width.
+
+    `levels` starts with the image, {W: H}; every row-shard op enters the
+    level it makes (`enter`), by the rule that op applies (a stride-2
+    convolution's ceil(H/2), a 2x2 pool's floor(H/2), a transposed
+    convolution's 2H or 2H - 1, a resize's target), so that the next op
+    finds a map's global height by its width. A width that two levels of
+    one step share maps to None, and a map of that width raises."""
 
     group: Any
     size: int
@@ -88,8 +84,16 @@ class RowSplit:
         h = self.levels.get(width)
         if h is None:
             raise ValueError(f"a map {width} wide is no level of the split image "
-                             f"({sorted(self.levels)}): its global height is unknown")
+                             f"({self.levels}): its global height is unknown")
         return h
+
+    def enter(self, width: int, height: int) -> None:
+        """Record that a map `width` wide has `height` rows: None where
+        another level of the same width was entered before."""
+        if self.levels.get(width, height) != height:
+            self.levels[width] = None
+        elif width not in self.levels:
+            self.levels[width] = height
 
     def bounds(self, height: int, index: Optional[int] = None) -> Tuple[int, int]:
         """Rows [lo, hi) of spatial index `index` (default: this rank's)."""
@@ -119,7 +123,32 @@ def activate(mesh, image_hw: Optional[Tuple[int, int]] = None):
     _SPLIT = None
     if _ACTIVE is not None and image_hw is not None and mesh.spec.spatial > 1:
         _SPLIT = RowSplit(group=mesh.spatial_group, size=mesh.spec.spatial,
-                          index=mesh.spatial_index, levels=_levels(*image_hw))
+                          index=mesh.spatial_index,
+                          levels={image_hw[1]: image_hw[0]})
+    try:
+        yield
+    finally:
+        _ACTIVE, _SPLIT = before
+
+
+@contextlib.contextmanager
+def whole_maps():
+    """Inside the block, maps are whole on every rank of a data index: the
+    row split is off and the mesh is the data subgroup's
+    (`Mesh.data_view`), so that a train-mode BatchNorm over a map that
+    every spatial rank computes whole (a global pool's 1x1 map, PSPNet's
+    pyramid) counts each image once. Every rank of the spatial subgroup
+    computes the same values there; each back-propagates only the
+    cotangent of its own rows, and the sums over the ranks (the collectives'
+    adjoints, the step's gradient all-reduce) add them up. Without a row
+    split the block runs as it is."""
+    global _ACTIVE, _SPLIT
+    if _SPLIT is None:
+        yield
+        return
+    before = _ACTIVE, _SPLIT
+    view = _ACTIVE.data_view()
+    _ACTIVE, _SPLIT = (view if view.group is not None else None), None
     try:
         yield
     finally:
@@ -133,11 +162,16 @@ def global_rows(local: int) -> int:
     return local if mesh is None else local * mesh.spec.data
 
 
+def global_height(x: torch.Tensor) -> int:
+    """The rows of the global image of a map x [..., H, W]: its own under
+    no row split, else its level's (`RowSplit.height`)."""
+    return x.shape[-2] if _SPLIT is None else _SPLIT.height(x.shape[-1])
+
+
 def plane_size(x: torch.Tensor) -> int:
     """H*W of the global image of a map x [B, C, H, W]: its own under no
     row split."""
-    h, w = x.shape[-2:]
-    return (h if _SPLIT is None else _SPLIT.height(w)) * w
+    return global_height(x) * x.shape[-1]
 
 
 def global_count(x: torch.Tensor) -> int:

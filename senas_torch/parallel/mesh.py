@@ -165,15 +165,15 @@ class Mesh:
                     device=self.device, group=group)
 
 
-def spatial_not_ported(spatial: int, world: int, model: str = "a baseline model"
-                       ) -> NotImplementedError:
-    """The error for the zoo's models under a spatial axis over two or more
-    ranks."""
+def spatial_not_ported(what: str) -> NotImplementedError:
+    """The error for a model the image-H split does not cover: a zoo model
+    on an encoder outside `models/encoders.py`, or a model name the factory
+    does not build."""
     return NotImplementedError(
-        f"mesh_spatial={spatial} over {world} ranks with {model}: the baseline zoo's "
-        "encoders and decoders (their direct convolutions, resizes and global pools) under "
-        "the image-H split are not ported yet (ROADMAP.md M13c); the SENAS models (the "
-        "supernet, --model senas) run it")
+        f"{what} under the image-H split (mesh_spatial > 1 over two or more ranks) is not "
+        "ported yet (ROADMAP.md M13d: the encoders outside models/encoders.py, with their "
+        "direct 'SAME' convolutions and their SE, SK and split-attention means); the SENAS "
+        "models and the nine factory models on the resnet encoders run it")
 
 
 def _subgroups(group, spec: MeshSpec, rank: int):

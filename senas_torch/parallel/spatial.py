@@ -1,5 +1,5 @@
-"""Row-shard forms of the SENAS models' spatial ops: the image-H split of
-the mesh (ROADMAP.md M13b).
+"""Row-shard forms of the models' spatial ops: the image-H split of the
+mesh (ROADMAP.md M13b for the SENAS models, M13c for the baseline zoo).
 
 Port of what GSPMD does to `senas_tpu`'s convolutions, poolings and
 resizes when a batch is sharded over the "spatial" axis
@@ -34,9 +34,19 @@ border as the single-device resize does, with no fill.
 
 The width stays whole on every rank, so each op keeps its padding there.
 Every op returns a contiguous NCHW block, as the single-device op does
-(the epilogue's kernels take contiguous operands). `HALO` counts the
-exchanges and the bytes of their buffers (forward and backward), for the
-card's measurements.
+(the epilogue's kernels take contiguous operands), and enters the level it
+makes (`RowSplit.enter`: a level's global height is found by its width).
+
+The zoo adds row resizes and whole levels. `source_rows` fetches, for each
+output row of a resize, the rows its taps read at their global positions
+(the nearest 2x and integer-ratio picks, the align-corners bilinear
+resize at any ratio), from a split level or from a map every rank holds
+whole (no exchange then). `gather_level` gives every rank a whole level
+(a zero-padded `all_reduce`) for an op that reads every row; its adjoint
+is the `all_reduce` of the whole level's cotangent, then this rank's rows,
+since each rank's output rows send cotangent into every rank's input rows.
+`HALO` counts the exchanges and the gathers and the bytes of their
+buffers (forward and backward), for the card's measurements.
 """
 
 from __future__ import annotations
@@ -49,11 +59,11 @@ import torch.nn.functional as F
 from senas_torch.parallel import collectives
 from senas_torch.parallel.collectives import RowSplit, active_split
 
-HALO = {"calls": 0, "bytes": 0}
+HALO = {"calls": 0, "bytes": 0, "gathers": 0, "gather_bytes": 0}
 
 
 def reset_halo_counts() -> None:
-    HALO.update(calls=0, bytes=0)
+    HALO.update(calls=0, bytes=0, gathers=0, gather_bytes=0)
 
 
 Span = Tuple[int, int]
@@ -216,12 +226,16 @@ def _empty(shape, *inputs) -> torch.Tensor:
 
 
 def _level(split: RowSplit, y: torch.Tensor, height: int) -> torch.Tensor:
-    """y, after checking that its level (global height, width) is one of
-    the split image's: the next op finds its height by its width."""
-    if split.levels.get(y.shape[3]) != height:
-        raise ValueError(f"a map of {height} x {y.shape[3]} is not a level of the split image "
-                         f"({split.levels}): the SENAS models' levels halve and double")
+    """y, a block of a level `height` rows high, after entering the level
+    (`RowSplit.enter`): the next op finds its height by its width."""
+    split.enter(y.shape[3], height)
     return y
+
+
+def entered(y: torch.Tensor, height: int) -> torch.Tensor:
+    """`_level` under the active split: for the row resizes built on
+    `source_rows`, which make their columns themselves."""
+    return _level(_split(), y, height)
 
 
 def conv2d(x, w, stride: int = 1, dilation: int = 1, groups: int = 1, padding: int = 0):
@@ -236,7 +250,7 @@ def conv2d(x, w, stride: int = 1, dilation: int = 1, groups: int = 1, padding: i
     win = halo_rows(x, split, height, _strided_windows(split, out_h, stride, padding, reach))
     oa, ob = split.bounds(out_h)
     if ob == oa:
-        return _empty((x.shape[0], w.shape[0], 0, out_w), win, w)
+        return _level(split, _empty((x.shape[0], w.shape[0], 0, out_w), win, w), out_h)
     y = F.conv2d(win, w, stride=stride, padding=(0, padding), dilation=dilation, groups=groups)
     return _level(split, y, out_h)
 
@@ -263,7 +277,7 @@ def conv_transpose2d(x, w, stride: int, padding: int, output_padding: int, dilat
     win = halo_rows(x, split, height, windows)
     oa, ob = split.bounds(out_h)
     if ob == oa:
-        return _empty((x.shape[0], w.shape[1] * groups, 0, out_w), win, w)
+        return _level(split, _empty((x.shape[0], w.shape[1] * groups, 0, out_w), win, w), out_h)
     y = op(win, w, stride=stride, padding=(0, padding), output_padding=(0, output_padding),
            groups=groups, dilation=dilation)
     start = windows[split.index][0] * stride - padding
@@ -291,7 +305,7 @@ def avg_pool_3x3(x, stride: int = 1):
     win = halo_rows(x, split, height, _strided_windows(split, out_h, stride, 1, 2))
     oa, ob = split.bounds(out_h)
     if ob == oa:
-        return _empty((x.shape[0], x.shape[1], 0, out_w), win)
+        return _level(split, _empty((x.shape[0], x.shape[1], 0, out_w), win), out_h)
     # bf16 sums in f32 and rounds once, as the single-device pool does
     wide = win.float() if win.dtype == torch.bfloat16 else win
     s = F.avg_pool2d(wide, 3, stride=stride, padding=(0, 1), count_include_pad=True,
@@ -311,12 +325,14 @@ def max_pool_3x3(x, stride: int = 2):
                     fill=float("-inf"))
     oa, ob = split.bounds(out_h)
     if ob == oa:
-        return _empty((x.shape[0], x.shape[1], 0, out_w), win)
+        return _level(split, _empty((x.shape[0], x.shape[1], 0, out_w), win), out_h)
     return _level(split, F.max_pool2d(win, 3, stride=stride, padding=(0, 1)), out_h)
 
 
-def max_pool_2x2(x):
-    """MaxPool2d(2, stride=2) of the global image."""
+def pool_2x2(x, op: Callable):
+    """op(x, 2, stride=2) of the global image (F.max_pool2d or
+    F.avg_pool2d): out_h = floor(H/2), the last row of an odd level
+    dropped as the single-device pool drops it."""
     split = _split()
     width = x.shape[3]
     height = split.height(width)
@@ -324,8 +340,8 @@ def max_pool_2x2(x):
     win = halo_rows(x, split, height, _strided_windows(split, out_h, 2, 0, 1))
     oa, ob = split.bounds(out_h)
     if ob == oa:
-        return _empty((x.shape[0], x.shape[1], 0, out_w), win)
-    return _level(split, F.max_pool2d(win, 2, stride=2), out_h)
+        return _level(split, _empty((x.shape[0], x.shape[1], 0, out_w), win), out_h)
+    return _level(split, op(win, 2, stride=2), out_h)
 
 
 def upsample2x(x):
@@ -344,7 +360,86 @@ def upsample2x(x):
     win = halo_rows(x, split, height, windows)
     oa, ob = split.bounds(out_h)
     if ob == oa:
-        return _empty((x.shape[0], x.shape[1], 0, 2 * width), win)
+        return _level(split, _empty((x.shape[0], x.shape[1], 0, 2 * width), win), out_h)
     start = 2 * windows[split.index][0]
     y = F.interpolate(win, scale_factor=2, mode="bilinear", align_corners=False)
     return _level(split, y[:, :, oa - start:ob - start].contiguous(), out_h)
+
+
+# ---------------------------------------------------------------------------
+# Row resizes and whole levels (the baseline zoo)
+# ---------------------------------------------------------------------------
+
+
+def source_rows(x, out_h: int, sources: Sequence[Sequence[int]], whole: bool = False
+                ) -> List[torch.Tensor]:
+    """For a map whose row i reads rows sources[k][i] of x's level (k over
+    the taps; each list nondecreasing in i, `out_h` long): the rows each tap
+    reads for this rank's output rows [oa, ob), [B, C, ob - oa, W] each.
+    Rank r's window is [min_k sources[k][oa_r], max_k sources[k][ob_r - 1]
+    + 1), fetched by `halo_rows`; with `whole`, x is the whole level on
+    every rank (a map the ranks computed whole) and needs no exchange. The
+    caller makes the columns and enters the level (`entered`)."""
+    split = _split()
+    height = x.shape[2] if whole else split.height(x.shape[3])
+    windows = []
+    for oa, ob in _out_blocks(split, out_h):
+        if ob > oa:
+            windows.append((min(s[oa] for s in sources), max(s[ob - 1] for s in sources) + 1))
+        else:
+            windows.append((0, 0))
+    lo = windows[split.index][0]
+    win = x[:, :, lo:windows[split.index][1]] if whole else halo_rows(x, split, height, windows)
+    oa, ob = split.bounds(out_h)
+    return [win.index_select(2, torch.tensor(s[oa:ob], dtype=torch.long,
+                                             device=x.device) - lo) for s in sources]
+
+
+class _GatherLevel(torch.autograd.Function):
+    """y = the whole level, every rank's block in place; dx = this rank's
+    rows of the cotangent summed over the ranks (each rank's own output
+    rows send cotangent into every rank's input rows)."""
+
+    @staticmethod
+    def forward(ctx, x, split, height):
+        ctx.split, ctx.rows = split, split.bounds(height)
+        return _gather_level(x, split, height)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b = ctx.rows
+        return _sum_whole(dy.contiguous().clone(), ctx.split)[:, :, a:b], None, None
+
+
+def _sum_whole(buf: torch.Tensor, split: RowSplit) -> torch.Tensor:
+    HALO["gathers"] += 1
+    HALO["gather_bytes"] += buf.numel() * buf.element_size()
+    return collectives._all_reduce_(buf, split.group)
+
+
+def _gather_level(x, split: RowSplit, height: int) -> torch.Tensor:
+    a, b = split.bounds(height)
+    buf = x.new_zeros(x.shape[:2] + (height, x.shape[3]))
+    buf[:, :, a:b] = x
+    return _sum_whole(buf, split)
+
+
+def gather_level(x) -> torch.Tensor:
+    """The whole level of which this rank holds block x, the same on every
+    rank: a zero-padded `all_reduce` over the spatial subgroup, for an op
+    that reads every row (MAnet's position attention, PSPNet's pyramid
+    pools, a global max). Differentiable in x; `own_rows` cuts a whole
+    result back to this rank's block."""
+    split = _split()
+    height = split.height(x.shape[3])
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherLevel.apply(x, split, height)
+    return _gather_level(x, split, height)
+
+
+def own_rows(y) -> torch.Tensor:
+    """This rank's block of rows of a whole level y [B, C, H, W] that every
+    rank computed alike; the level is entered."""
+    split = _split()
+    a, b = split.bounds(y.shape[2])
+    return _level(split, y[:, :, a:b].contiguous(), y.shape[2])

@@ -42,14 +42,17 @@ def visible_devices(device: torch.device) -> int:
 
 
 def check_spatial_model(section: Dict[str, Any], model_name: Optional[str], ranks: int) -> None:
-    """Raise (ROADMAP.md M13c) where a run of `model_name` over `ranks`
-    ranks would split image rows: a baseline zoo model with `multi_gpus`
-    and `mesh_spatial` > 1 over two or more. The SENAS models (None or
-    "senas": the fixed model, and the supernet of a search) run it."""
+    """Raise (ROADMAP.md M13d) where a run of `model_name` over `ranks`
+    ranks would split image rows (`multi_gpus` and `mesh_spatial` > 1 over
+    two or more) and the model has no row-split form: a name other than
+    the SENAS models (None or "senas": the fixed model, and the supernet of
+    a search) and the factory's nine baseline models (`factory.ZOO`, all on
+    the resnet10 encoder)."""
+    from senas_torch.models.factory import ZOO
     spatial = int(section.get("mesh_spatial", 1))
     if (section.get("multi_gpus", False) and spatial > 1 and ranks >= 2
-            and model_name not in (None, "senas")):
-        raise spatial_not_ported(spatial, ranks, f"--model {model_name}")
+            and (model_name or "senas").lower() not in ("senas",) + ZOO):
+        raise spatial_not_ported(f"--model {model_name}")
 
 
 def setup_mesh(section: Dict[str, Any], device: torch.device,
@@ -66,7 +69,8 @@ def setup_mesh(section: Dict[str, Any], device: torch.device,
     rank's device and the JAX runner's "mesh: ..." line. One rank or one
     visible device gives (None, the JAX runner's single-device line).
     Raises where `mesh_spatial` does not divide R, where R >= 2 and
-    `mesh_spatial` > 1 with a baseline zoo model (ROADMAP.md M13c), and
+    `mesh_spatial` > 1 with a model the split does not cover
+    (`check_spatial_model`), and
     where two or more devices are visible but no group is: one process
     drives one device, and the CLIs start them."""
     if not section.get("multi_gpus", False):

@@ -63,7 +63,7 @@ from senas_torch.ops import primitives
 from senas_torch.train.loss import build_loss as tbuild_loss
 from senas_torch.train.trainer import FixedTrainState, make_train_step
 
-from torch_port_util import (as_f64, assert_bf16_bits, assert_bf16_computed,
+from torch_port_util import (NoDropout, as_f64, assert_bf16_bits, assert_bf16_computed,
                              assert_bf16_network, flat_leaves, nchw, random_variables, rel_l2,
                              unit_scales)
 from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
@@ -94,18 +94,10 @@ F32_LOGITS = ("fpn", "pan")
 BATCH = {"pan": 4}
 
 
-class _NoDropout(fnn.Module):
-    rate: float = 0.0
-
-    @fnn.compact
-    def __call__(self, x, deterministic=None, rng=None):
-        return x
-
-
 @pytest.fixture
 def no_dropout(monkeypatch):
     """Dropout as the identity in both packages, for this test only."""
-    monkeypatch.setattr(fnn, "Dropout", _NoDropout)
+    monkeypatch.setattr(fnn, "Dropout", NoDropout)
     monkeypatch.setattr(primitives.Dropout, "forward", lambda self, x, train=False, rng=None: x)
 
 

@@ -12,6 +12,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from senas_torch.models import factory
 from senas_torch.parallel import collectives
 from senas_torch.parallel import mesh as M
 from senas_torch.runner import common
@@ -83,19 +84,26 @@ def test_batch_placer_rows_and_the_replicated_trailing_batch():
 
 
 def test_spatial_axis_over_two_ranks_raises(monkeypatch):
-    """A baseline zoo model under mesh_spatial > 1 over two or more ranks
-    raises naming M13c, before any rank starts; the SENAS models pass."""
-    err = M.spatial_not_ported(2, 4)
-    assert isinstance(err, NotImplementedError) and "M13c" in str(err)
+    """The SENAS models and the factory's nine baseline models pass
+    `check_spatial_model` under mesh_spatial > 1 over two or more ranks
+    (the zoo since M13c); a model name the split does not cover raises
+    naming M13d, before any rank starts."""
+    err = M.spatial_not_ported("--model resunet")
+    assert isinstance(err, NotImplementedError) and "M13d" in str(err)
     monkeypatch.setattr(common, "visible_devices", lambda device: 2)
     section = {"multi_gpus": True, "mesh_spatial": 2}
-    with pytest.raises(NotImplementedError, match="--model unet.*M13c"):
-        common.setup_mesh(section, torch.device("cpu"), "unet")
-    # the SENAS model goes on to the one-process-per-device check
-    with pytest.raises(RuntimeError, match="one process per device"):
-        common.setup_mesh(section, torch.device("cpu"), "senas")
-    common.check_spatial_model(section, "unet", 1)
-    common.check_spatial_model({"mesh_spatial": 2}, "unet", 2)
+    for name in ("senas", None, "UNet") + factory.ZOO:
+        common.check_spatial_model(section, name, 2)
+    with pytest.raises(NotImplementedError, match="--model resunet.*M13d"):
+        common.check_spatial_model(section, "resunet", 2)
+    with pytest.raises(NotImplementedError, match="--model resunet.*M13d"):
+        common.setup_mesh(section, torch.device("cpu"), "resunet")
+    # a factory model goes on to the one-process-per-device check
+    for name in ("unet", "senas"):
+        with pytest.raises(RuntimeError, match="one process per device"):
+            common.setup_mesh(section, torch.device("cpu"), name)
+    common.check_spatial_model(section, "resunet", 1)
+    common.check_spatial_model({"mesh_spatial": 2}, "resunet", 2)
 
 
 @pytest.mark.parametrize("spatial", [0, 3])

@@ -17,8 +17,13 @@ senas_tpu/utils/misc.py:92-136 for the trace):
     0's; the one-process train run with it set writes one; `StepTimer`
     records steps [5, 8) and no others, writes what it recorded when a
     loop ends inside the window, and nothing without the variable;
-  * a baseline zoo model under mesh_spatial 2 over two ranks raises naming
-    M13c in the CLI, before any rank is started."""
+  * the baseline zoo under the split (M13c): `train_model --model unet`
+    over two ranks against one process (the checkpoint's weights within the
+    f32 step bound, the val loss rtol 5e-4), and `testing_model --model
+    pspnet` over two ranks on a one-process pspnet checkpoint
+    against one process (its val loss rtol 5e-4, every mask written once);
+    in the CLI a factory model spawns its ranks, and a model name the split
+    does not cover raises naming M13d before any rank is started."""
 
 import json
 import os
@@ -41,6 +46,9 @@ from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(ROOT, "configs", "senas", "senas_synthetic.yml")
 LAUNCH_TIMEOUT_S = 240
+# a zoo run's val loss against one process, in units of the one-process
+# run's own spread over thread counts
+F32_SPREAD = 5
 
 
 def _plain(x):
@@ -63,8 +71,8 @@ def _config(tmp_path):
     return cfg, path
 
 
-def _run_dirs(log_root, phase):
-    base = os.path.join(log_root, "senas", phase, "synthetic")
+def _run_dirs(log_root, phase, model="senas"):
+    base = os.path.join(log_root, model, phase, "synthetic")
     return [os.path.join(base, d) for d in sorted(os.listdir(base))]
 
 
@@ -120,9 +128,42 @@ def runs(tmp_path_factory):
     one_search.run()
     tester = TestRunner(cfg, resume=os.path.join(two_dirs[0], "ckpt"), log_root=one_root,
                         batch_size=2, device="cpu")
+    one_test = tester.run()
+
+    # the baseline zoo (depth 3): unet trained, pspnet evaluated over two ranks
+    restore = _env(OMP_NUM_THREADS="1")
+    try:
+        unet_rc = launch("senas_torch.train_model", ["--config", path, "--log_root", two_root,
+                                                     "--model", "unet"],
+                         2, device_type="cpu", timeout=LAUNCH_TIMEOUT_S)
+        psp = TrainRunner(cfg, model_name="pspnet", config_path=path,
+                          log_root=one_root, device="cpu")
+        psp.run()
+        psp_rc = launch("senas_torch.testing_model",
+                        ["--config", path, "--log_root", two_root, "--model", "pspnet",
+                         "--resume", psp.ckpt.directory, "--batch_size", "2"],
+                        2, device_type="cpu", timeout=LAUNCH_TIMEOUT_S)
+    finally:
+        restore()
+    one_unet = TrainRunner(cfg, model_name="unet", config_path=path, log_root=one_root,
+                           device="cpu")
+    one_unet.run()
+    # the same run on three threads: its f32 sums in another order
+    threads = torch.get_num_threads()
+    torch.set_num_threads(3)
+    try:
+        unet_3 = TrainRunner(cfg, model_name="unet", config_path=path,
+                             log_root=str(tmp / "one_3"), device="cpu")
+        unet_3.run()
+    finally:
+        torch.set_num_threads(threads)
+    psp_tester = TestRunner(cfg, model_name="pspnet", resume=psp.ckpt.directory,
+                            log_root=one_root, batch_size=2, device="cpu")
     return dict(one=one, one_search=one_search, rc=rc, search_rc=search_rc, test_rc=test_rc,
-                two_root=two_root, one_test=tester.run(), one_trace=one_trace,
-                two_trace=two_trace)
+                two_root=two_root, one_test=one_test, one_trace=one_trace,
+                two_trace=two_trace, unet_rc=unet_rc, one_unet=one_unet, unet_3=unet_3,
+                psp_rc=psp_rc,
+                one_psp_test=psp_tester.run())
 
 
 def _same_weights(got, want):
@@ -163,6 +204,34 @@ def test_testing_cli_with_split_rows_matches_one_process(runs):
     assert len(line) == 1
     loss = float(line[0].split("val loss ")[1].split()[0])
     np.testing.assert_allclose(loss, runs["one_test"]["loss"], rtol=5e-4)
+    names = os.listdir(os.path.join(test_dir, "images"))
+    assert len([n for n in names if not n.startswith("grid")]) == 14
+
+
+def test_zoo_train_cli_with_split_rows_matches_one_process(runs):
+    """unet's epoch is chaotic in f32 at this size (BatchNorms over 32
+    values at batch 2): the one-process run on one thread and on three read
+    val losses 1.7e-3 apart. The two-rank run's val loss lies within
+    F32_SPREAD times that spread (or 5e-4) of the one-process run's."""
+    assert runs["unet_rc"] == 0
+    run_dir, = _run_dirs(runs["two_root"], "train", "unet")
+    with open(os.path.join(run_dir, "run.log")) as f:
+        assert "mesh: {'data': 1, 'spatial': 2} over 2 cpu devices" in f.read()
+    _same_weights(CheckpointManager(os.path.join(run_dir, "ckpt")).restore_raw("last")["model"],
+                  runs["one_unet"].ckpt.restore_raw("last")["model"])
+    want = np.asarray(_val_loss(runs["one_unet"].run_dir))
+    spread = np.abs(np.asarray(_val_loss(runs["unet_3"].run_dir)) / want - 1).max()
+    np.testing.assert_allclose(_val_loss(run_dir), want, rtol=max(5e-4, F32_SPREAD * spread))
+
+
+def test_zoo_testing_cli_with_split_rows_matches_one_process(runs):
+    assert runs["psp_rc"] == 0
+    test_dir, = _run_dirs(runs["two_root"], "testing", "pspnet")
+    with open(os.path.join(test_dir, "run.log")) as f:
+        line = [ln for ln in f if "val loss" in ln]
+    assert len(line) == 1
+    loss = float(line[0].split("val loss ")[1].split()[0])
+    np.testing.assert_allclose(loss, runs["one_psp_test"]["loss"], rtol=5e-4)
     names = os.listdir(os.path.join(test_dir, "images"))
     assert len([n for n in names if not n.startswith("grid")]) == 14
 
@@ -212,13 +281,17 @@ def test_step_timer_traces_steps_5_to_8(tmp_path, monkeypatch):
 
 
 def test_zoo_model_under_split_rows_raises_in_the_cli(tmp_path, monkeypatch):
+    """A factory model under mesh_spatial 2 over two ranks spawns them; a
+    model name the split does not cover raises naming M13d before any rank
+    is started."""
     from senas_torch import testing_model, train_model
     _, path = _config(tmp_path)
-    argv = ["--config", path, "--model", "unet"]
     for mod, extra in ((train_model, []), (testing_model, ["--resume", str(tmp_path)])):
         started = []
         monkeypatch.setattr(mod, "ranks_to_spawn", lambda section, device: 2)
         monkeypatch.setattr(mod, "launch", lambda *a: started.append(a) or 0)
-        with pytest.raises(NotImplementedError, match="--model unet.*M13c"):
-            mod.main(argv + extra)
-        assert started == []
+        assert mod.main(["--config", path, "--model", "unet"] + extra) == 0
+        assert len(started) == 1 and started[0][2] == 2
+        with pytest.raises(NotImplementedError, match="--model resunet.*M13d"):
+            mod.main(["--config", path, "--model", "resunet"] + extra)
+        assert len(started) == 1

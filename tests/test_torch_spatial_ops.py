@@ -29,7 +29,7 @@ import torch
 from senas_torch.ops import primitives as P
 from senas_torch.parallel import collectives
 from senas_torch.parallel import mesh as M
-from senas_torch.parallel.collectives import _levels, row_bounds
+from senas_torch.parallel.collectives import row_bounds
 from senas_torch.parallel.spatial import _parts
 from senas_torch.runner import common
 
@@ -53,14 +53,21 @@ def test_row_blocks_and_levels():
     assert [row_bounds(12, 4, s) for s in range(4)] == [(0, 3), (3, 6), (6, 9), (9, 12)]
     assert [row_bounds(6, 4, s) for s in range(4)] == [(0, 1), (1, 3), (3, 4), (4, 6)]
     assert [row_bounds(3, 4, s) for s in range(4)] == [(0, 0), (0, 1), (1, 2), (2, 3)]
-    # every level of a 24 x 20 image by its width; a width two levels share
-    # names none
-    assert _levels(24, 20) == {20: 24, 10: 12, 5: 6, 3: 3, 2: 2, 1: 1}
-    assert _levels(12, 2) == {2: 12, 1: None}
-    split = collectives.RowSplit(group=None, size=2, index=1, levels=_levels(24, 20))
+    # the levels of a 24 x 20 image by their widths, as the ops enter them;
+    # a width two levels share names none
+    split = collectives.RowSplit(group=None, size=2, index=1, levels={20: 24})
+    for width, height in ((10, 12), (5, 6), (3, 3), (10, 12), (2, 2)):
+        split.enter(width, height)
+    assert split.levels == {20: 24, 10: 12, 5: 6, 3: 3, 2: 2}
     assert split.height(5) == 6 and split.bounds(6) == (3, 6)
     with pytest.raises(ValueError, match="no level"):
         split.height(7)
+    split.enter(2, 1)
+    assert split.levels[2] is None
+    with pytest.raises(ValueError, match="no level"):
+        split.height(2)
+    split.enter(2, 2)
+    assert split.levels[2] is None
     # a window's rows above, in and below a block, inside the image
     assert _parts((3, 6), (1, 8), 12) == ((1, 3), (3, 6), (6, 8))
     assert _parts((3, 6), (-2, 2), 12) == ((0, 2), (3, 3), (2, 2))
@@ -124,7 +131,7 @@ def test_placer_splits_rows_where_the_spatial_size_divides_h():
     for b in (split, odd, whole):
         step(b)
     (m0, s0), (m1, s1), (m2, s2) = seen
-    assert m0 is mesh and (s0.size, s0.index, s0.height(6), s0.height(3)) == (2, 1, 8, 4)
+    assert m0 is mesh and (s0.size, s0.index, s0.height(6), s0.levels) == (2, 1, 8, {6: 8})
     assert m1.spec == M.MeshSpec(2) and m1.group is mesh.data_group and s1 is None
     assert m2 is None and s2 is None
     assert collectives.active_mesh() is None and collectives.active_split() is None
@@ -133,9 +140,9 @@ def test_placer_splits_rows_where_the_spatial_size_divides_h():
 
 
 def _ops_case(rng, batch, h, w):
-    """Inputs of `spatial_ops` at a map of h x w rows and columns, in an
-    image of 2h x 2w (so that the up-sampled maps are levels too). The 2x2
-    pool floors, so it runs only where h and w are even."""
+    """Inputs of `spatial_ops` at an image of h x w rows and columns (each
+    op enters the level it makes). The 2x2 pool floors, so it runs only
+    where h and w are even."""
     x = rng.randn(batch, 3, h, w)
     weights = {n: rng.randn(*spec[2]) for n, spec in SPATIAL_OPS.items() if spec[2]}
     ops = [n for n in SPATIAL_OPS if n != "max2" or (h % 2 == 0 and w % 2 == 0)]
@@ -145,7 +152,7 @@ def _ops_case(rng, batch, h, w):
         args = (torch.from_numpy(x),) + ((torch.from_numpy(weights[n]),) if ws else ())
         y = getattr(P, fn)(*args, **kw)
         r_weights[n] = rng.randn(*(y.permute(0, 2, 3, 1) if y.dim() == 4 else y).shape)
-    return dict(x=x, weights=weights, r_weights=r_weights, ops=ops, image_hw=(2 * h, 2 * w))
+    return dict(x=x, weights=weights, r_weights=r_weights, ops=ops, image_hw=(h, w))
 
 
 @pytest.fixture(scope="module")

@@ -178,10 +178,12 @@ def test_multi_gpus_on_one_device_runs_there(tmp_path, first_run, mesh_spatial):
 
 @pytest.mark.parametrize("runner_cls", ["train", "test"])
 def test_multi_gpus_over_two_devices_raises(tmp_path, monkeypatch, first_run, runner_cls):
-    """Both axes over two devices run for the SENAS model
-    (tests/test_torch_mesh_cli.py, tests/test_torch_spatial_cli.py), one
-    process a device: without a process group two visible devices raise;
-    the spatial axis with a baseline zoo model raises naming M13c first."""
+    """Both axes over two devices run for the SENAS model and the factory's
+    baseline models (tests/test_torch_mesh_cli.py,
+    tests/test_torch_spatial_cli.py), one process a device: without a
+    process group two visible devices raise, the spatial axis with a
+    baseline zoo model too; a model name the split does not cover raises
+    naming M13d first."""
     from senas_torch.runner import common
     monkeypatch.setattr(common, "visible_devices", lambda device: 2)
     cfg = _cfg(multi_gpus=True, mesh_spatial=2)
@@ -192,10 +194,11 @@ def test_multi_gpus_over_two_devices_raises(tmp_path, monkeypatch, first_run, ru
         else:
             TestRunner(cfg, resume=first_run["runner"].ckpt.directory,
                        log_root=str(tmp_path), device="cpu", **kw)
-    with pytest.raises(RuntimeError, match="one process per device"):
-        build()
-    with pytest.raises(NotImplementedError, match="M13c"):
-        build(model_name="unet")
+    for kw in ({}, {"model_name": "unet"}):
+        with pytest.raises(RuntimeError, match="one process per device"):
+            build(**kw)
+    with pytest.raises(NotImplementedError, match="M13d"):
+        build(model_name="resunet")
 
 
 def test_remat_training_runs(tmp_path):

@@ -59,7 +59,7 @@ from senas_torch.ops import primitives
 from senas_torch.train.loss import build_loss as tbuild_loss
 from senas_torch.train.trainer import FixedTrainState, make_train_step
 
-from torch_port_util import assert_trees_close, random_variables, unit_scales
+from torch_port_util import NoDropout, assert_trees_close, random_variables, unit_scales
 from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 LOGIT_REL = 2e-5
@@ -83,18 +83,10 @@ ZOO = [
 ]
 
 
-class _NoDropout(fnn.Module):
-    rate: float = 0.0
-
-    @fnn.compact
-    def __call__(self, x, deterministic=None, rng=None):
-        return x
-
-
 @pytest.fixture
 def no_dropout(monkeypatch):
     """Dropout as the identity in both packages, for this test only."""
-    monkeypatch.setattr(fnn, "Dropout", _NoDropout)
+    monkeypatch.setattr(fnn, "Dropout", NoDropout)
     monkeypatch.setattr(primitives.Dropout, "forward", lambda self, x, train=False, rng=None: x)
 
 

@@ -23,7 +23,9 @@ say how the parent puts the ranks' values together:
 
 A case's keyword `mesh_spec` (data, spatial) runs it on that mesh of the
 job's ranks (every rank makes it, in job order); without, on
-MeshSpec(data=world).
+MeshSpec(data=world); `mesh_spec=()` runs it with no mesh, as the
+single-process reference (a job of one rank computes references beside
+the ranks of another).
 
 `Ranks` runs a job over `world` gloo ranks on 127.0.0.1: every process
 group has a 60 s timeout, the whole job a deadline after which every rank
@@ -456,6 +458,69 @@ def spatial_search_steps(mesh, batches, do_arch, arch, w_cfg, a_cfg, meta, depth
     return out
 
 
+def _zoo_model(model, depth, variables, dtype, precision):
+    """The factory's `model` in `dtype`, or with f32 weights computing in
+    bf16 where `precision` is "bf16"."""
+    from senas_torch import convert
+    from senas_torch.models.factory import get_segmentation_model
+    bf16 = precision == "bf16"
+    net = get_segmentation_model(model, "synthetic", depth=depth, device="cpu",
+                                 dtype=torch.bfloat16 if bf16 else None,
+                                 generator=torch.Generator().manual_seed(0))
+    if variables is not None:
+        convert.load_variables(net, variables)
+    return net if bf16 else net.to(dtype)
+
+
+@case
+def spatial_zoo_steps(mesh, batches, eval_batch, opt_cfg, model, depth, clip=5.0,
+                      loss="dice_ce", variables=None, dtype="float64", gated=False,
+                      spatial=True, seed=0, precision=None, dropout=True):
+    """fixed_steps for the factory's baseline model `model` at `depth` (its
+    weights from seed 0, or `variables`; `precision` "bf16": f32 weights
+    computing in bf16), each batch placed by `shard_batch(spatial=...)`;
+    the dropout generator reseeded from (`seed`, step) as the trainer does,
+    or every Dropout the identity without `dropout`. Also the squared norm
+    of every GroupNorm's output in the eval step's forward, a sum over the
+    ranks."""
+    from senas_torch import convert
+    from senas_torch.ops.primitives import Dropout, GroupNorm
+    from senas_torch.parallel.mesh import place_state, shard_train_step
+    from senas_torch.train.loss import build_loss
+    from senas_torch.train.trainer import FixedTrainState, make_eval_step, make_train_step
+    dt = getattr(torch, dtype)
+    before = os.environ.get("SENAS_PALLAS_BN"), Dropout.forward
+    os.environ["SENAS_PALLAS_BN"] = "1" if gated else "0"
+    if not dropout:
+        Dropout.forward = lambda self, x, train=False, rng=None: x
+    norms = {}
+    try:
+        net = _zoo_model(model, depth, variables, dt, precision)
+        for name, m in net.named_modules():
+            if isinstance(m, GroupNorm):
+                m.register_forward_hook(lambda m, i, y, name=name: norms.__setitem__(
+                    f"sum:gn_{name}", _np((y.double() ** 2).sum())))
+        state = FixedTrainState.create(net, opt_cfg, seed=seed)
+        step = make_train_step(build_loss(loss), grad_clip=clip)
+        evaluate = make_eval_step(net, build_loss(loss))
+        if mesh is not None:
+            place_state(mesh, state)
+            step, evaluate = shard_train_step(step, mesh), shard_train_step(evaluate, mesh)
+        out = {f"step{i}": _metrics(step(state, _spatial_batch(mesh, b, dt, spatial)))
+               for i, b in enumerate(batches)}
+        norms.clear()
+        out["eval"] = _metrics(evaluate(_spatial_batch(mesh, eval_batch, dt, spatial)))
+    finally:
+        if before[0] is None:
+            del os.environ["SENAS_PALLAS_BN"]
+        else:
+            os.environ["SENAS_PALLAS_BN"] = before[0]
+        Dropout.forward = before[1]
+    out["variables"] = convert.state_dict_to_variables(net)
+    out.update(norms)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The rank process and its launcher
 # ---------------------------------------------------------------------------
@@ -469,7 +534,7 @@ def _rank_main(job_path, rank, world, port):
         job = pickle.load(f)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
                             rank=rank, timeout=timedelta(seconds=60))
-    meshes = {None: make_mesh()}
+    meshes = {None: make_mesh(), (): None}
     results = []
     for name, kw in job:
         kw = dict(kw)

@@ -6,6 +6,7 @@ tree, and numpy fills it from a seed, with non-trivial BN running stats.
 Both packages then get the same numbers through `senas_torch.convert`.
 """
 
+import flax.linen as fnn
 import jax
 import numpy as np
 import pytest
@@ -29,8 +30,13 @@ def random_variables(module, rng: np.random.RandomState, *init_args, init=None):
     """Flax {"params", "batch_stats"} of `module` filled from `rng`.
     `init` stands in for `module.init` (e.g. the original of a patched one)."""
     init = init or module.init
-    shapes = jax.eval_shape(
-        lambda: init({"params": jax.random.PRNGKey(0)}, *init_args))
+    return random_fill(jax.eval_shape(
+        lambda: init({"params": jax.random.PRNGKey(0)}, *init_args)), rng)
+
+
+def random_fill(shapes, rng: np.random.RandomState):
+    """`random_variables` of a tree of leaves with shapes (flax's
+    eval_shape, or the port's `convert.state_dict_to_variables`)."""
 
     def fill(tree, coll):
         out = {}
@@ -51,6 +57,17 @@ def random_variables(module, rng: np.random.RandomState, *init_args, init=None):
         return out
 
     return {c: fill(shapes[c], c) for c in ("params", "batch_stats") if c in shapes}
+
+
+class NoDropout(fnn.Module):
+    """flax's nn.Dropout as the identity: patched over `flax.linen.Dropout`
+    where a test holds a train-mode step to the port's with its dropout
+    off, the two packages' masks coming from different generators."""
+    rate: float = 0.0
+
+    @fnn.compact
+    def __call__(self, x, deterministic=None, rng=None):
+        return x
 
 
 def unit_scales(tree):
