@@ -188,7 +188,7 @@ Phases, each of which fails the run:
      `training:` geometry, 1 + 3 train steps in f32 and in bf16 (ms/step,
      peak memory, device launches a step); every one of the 37 names
      (Res2Net, RegNet X/Y, SK-Net, GERNet) built on the card, one eval-mode
-     Unet forward at batch 2 of 64x64x1 in f32 and in bf16 (finite logits,
+     Unet forward (depth 4) at batch 2 of 64x64x1 in f32 and in bf16 (finite logits,
      the pyramid's channels those of `encoder_out_channels`); card against
      CPU as phase 20 holds it for the four, timm-res2next50 and
      timm-skresnext50_32x4d, and DeepLabV3+ on timm-regnetx_002 at output
@@ -222,7 +222,13 @@ Phases, each of which fails the run:
      as far from the f64 step as one process; every f32 model's distances
      to its f64 step logged); ms/step of each rank and of one process, the
      collective calls a step, the halo exchanges and the whole-level
-     gathers with their bytes, the share of a step inside the calls.
+     gathers with their bytes, the share of a step inside the calls. Then
+     promise12-encoder-rows: the same for a Unet (depth 5, full width) on
+     timm-mobilenetv3_large_100, timm-resnest14d (also with
+     SENAS_PALLAS_BN=1: K1a-K1d launched alike in one process and on each
+     rank), timm-skresnet18, inceptionv4, se_resnext50_32x4d and
+     efficientnet-b0 (also in bf16, by the bf16 bound against its f32
+     step), each held to one process (`DP_LIMITS`).
 Each phase's seconds are logged as it ends, and all of them at the end.
 Phases 12-13, 16, 18's zoo and 20's and 21's ungated steps launch none of
 the kernels (neither the fixed model nor the zoo has any, unless
@@ -4414,8 +4420,11 @@ TIMM2_GATED = ("timm-regnety_016", "timm-skresnet18")
 # DeepLabV3+ at output stride 16 at full width: both SK paths at the
 # deepest stage's dilation (the reference's quirk)
 TIMM2_DEEPLAB = "timm-skresnet18"
-# every name's eval forward: batch 2 of 64x64x1
+# every name's eval forward: batch 2 of 64x64x1, a Unet at depth 4 (5
+# until the wall passed ~800 s: the deepest stage holds most of a big
+# variant's weights, drawn on the host)
 TIMM2_EVERY_HW = 64
+TIMM2_EVERY_DEPTH = 4
 
 
 def _deeplab_os8(name, dev, gen):
@@ -4424,8 +4433,8 @@ def _deeplab_os8(name, dev, gen):
 
 
 def run_timm2_every_name(dev, seed: int) -> dict:
-    """Each of the 37 names of models/encoders_timm2.py: a Unet (depth 5, the
-    promise12 decoder widths) built on the card in f32 (its weights drawn
+    """Each of the 37 names of models/encoders_timm2.py: a Unet
+    (TIMM2_EVERY_DEPTH, the promise12 decoder widths) built on the card in f32 (its weights drawn
     from the seed) and in bf16 (built on the meta device and given the f32
     model's weights), one eval-mode forward each at batch 2 of 64x64x1:
     finite logits of the right shape and dtype, and the encoder's pyramid
@@ -4434,16 +4443,17 @@ def run_timm2_every_name(dev, seed: int) -> dict:
     image = _batches(np.random.RandomState(seed + 25), 1, 2, TIMM2_EVERY_HW, dev)[0]["image"]
     rows = {}
     for name in TIMM2_ENCODERS:
-        want = encoder_out_channels(name, 5, IN_CHANNELS)
+        want = encoder_out_channels(name, TIMM2_EVERY_DEPTH, IN_CHANNELS)
         row, weights = {}, None
         for tag, dtype in (("f32", None), ("bf16", BF16)):
             t0 = time.perf_counter()
             if weights is None:
-                model = _family_unet(name, dev, torch.Generator().manual_seed(seed + 25), dtype)
+                model = _family_unet(name, dev, torch.Generator().manual_seed(seed + 25), dtype,
+                                     TIMM2_EVERY_DEPTH)
                 weights = model.state_dict()
             else:
                 with torch.device("meta"):
-                    model = _family_unet(name, "meta", None, dtype)
+                    model = _family_unet(name, "meta", None, dtype, TIMM2_EVERY_DEPTH)
                 model = model.to_empty(device=dev)
                 model.load_state_dict(weights)
             with torch.inference_mode():
@@ -4461,7 +4471,8 @@ def run_timm2_every_name(dev, seed: int) -> dict:
         rows[name] = row
         del weights
     torch.cuda.empty_cache()
-    log(f"every timm residual variant (unet, eval, batch 2, {TIMM2_EVERY_HW}x{TIMM2_EVERY_HW}, "
+    log(f"every timm residual variant (unet at depth {TIMM2_EVERY_DEPTH}, eval, batch 2, "
+        f"{TIMM2_EVERY_HW}x{TIMM2_EVERY_HW}, "
         f"f32 and bf16): {len(rows)} names; seconds (build + forward) f32, bf16 and parameters "
         f"{ {n: (round(r['f32']['s'], 2), round(r['bf16']['s'], 2), r['f32']['parameters']) for n, r in rows.items()} }")
     return rows
@@ -4586,21 +4597,57 @@ DP_ZOO = {**{name: (name, None, False) for name in ZOO_MODELS},
 # most twice as far from the f64 step as the one-process f32 step does.
 # Every f32 model's distances to its f64 step are logged beside.
 DP_ZOO_EXACT = ("manet",)
+# promise12-encoder-rows: a Unet (phase 20's, `_family_unet`) on an encoder
+# of each new row-split form: TF 'SAME' at stride 2 and SE (mnv3), split
+# attention with its 1x1 BatchNorm and the avd pools (resnest, also with
+# SENAS_PALLAS_BN=1), SK with FlaxBatchNorm (skresnet18), rectangular
+# convolutions and count-excluding pools (inceptionv4), the ceil-mode pool
+# and SE (se_resnext50), and efficientnet-b0 in bf16 beside its f32 step
+# (label: (encoder, dtype, gated))
+DP_ENCODERS = {"timm-mobilenetv3_large_100": ("timm-mobilenetv3_large_100", None, False),
+               "timm-resnest14d": ("timm-resnest14d", None, False),
+               "timm-resnest14d_gated": ("timm-resnest14d", None, True),
+               "timm-skresnet18": ("timm-skresnet18", None, False),
+               "inceptionv4": ("inceptionv4", None, False),
+               "se_resnext50_32x4d": ("se_resnext50_32x4d", None, False),
+               "efficientnet-b0": ("efficientnet-b0", None, False),
+               "efficientnet-b0_bf16": ("efficientnet-b0", torch.bfloat16, False)}
+# Every f32 encoder row is held to the f64 step of its model (the label of
+# its encoder, ungated: the kernels take no f64; `_dp_f64_compare`), not to
+# one process's f32 step: two of them are chaotic in f32. A one-sweep
+# variance E[x^2] - mu^2 over [12, C, 1, 1] maps (12 values a channel,
+# their mean far above their spread: SK-Net's flax-rule attention
+# BatchNorm, and the gated BatchNorm on the split attention's map)
+# amplifies any rounding of its input. On an NVIDIA H100 the split steps
+# of timm-skresnet18 and the gated timm-resnest14d read weight updates
+# 1.49e-2 and 1.51e-2 off one process's (`DP_LIMITS`: 1e-2), the gated one
+# 9 pixels off in tp and fn (7.86 admitted); and one process's own gated
+# step lay 1.27e-2 (weights), 2.43e-5 (running stats) and 8 pixels from
+# its f64 step, the split's 1.35e-2, 2.10e-5 and 6. Each split step must lie
+# within `DP_LIMITS` of the f64 step, or at most twice as far from it as
+# one process's f32 step; its distances to one process are logged beside.
+DP_ENCODERS_F64 = {label: enc for label, (enc, dtype, _) in DP_ENCODERS.items()
+                   if dtype is None}
 
 
 def _dp_zoo(dev, seed: int, label: str, mesh=None, f64: bool = False) -> dict:
-    """The fixed train step of DP_ZOO[label] at the promise12 `training:`
-    geometry (global batch 12, 256x256, depth 5; pspnet 3), as `_dp_fixed`
-    runs the SENAS model's, with the image rows split over `mesh`'s spatial
-    axis; with `f64`, the compared step alone in f64 in one process. The
-    compared step runs under cuDNN's deterministic algorithms: the zoo's
-    bilinear resizes and nearest picks have no deterministic backward on
-    the card (their atomics stay)."""
+    """The fixed train step of DP_ZOO[label] (or of a Unet on the encoder of
+    DP_ENCODERS[label]) at the promise12 `training:` geometry (global batch
+    12, 256x256, depth 5; pspnet 3), as `_dp_fixed` runs the SENAS model's,
+    with the image rows split over `mesh`'s spatial axis; with `f64`, the
+    compared step alone in f64 in one process. The compared step runs under
+    cuDNN's deterministic algorithms: the zoo's bilinear resizes and nearest
+    picks have no deterministic backward on the card (their atomics
+    stay)."""
     from senas_torch.parallel.mesh import place_state, shard_batch, shard_train_step
-    name, dtype, gated = DP_ZOO[label]
     t = load_config(CONFIG)["training"]
     gen = torch.Generator().manual_seed(seed + 24)
-    model = _zoo_model(name, ZOO_DEPTH.get(name, t["depth"]), dev, gen, dtype)
+    if label in DP_ZOO:
+        name, dtype, gated = DP_ZOO[label]
+        model = _zoo_model(name, ZOO_DEPTH.get(name, t["depth"]), dev, gen, dtype)
+    else:
+        name, dtype, gated = DP_ENCODERS[label]
+        model = _family_unet(name, dev, gen, dtype, t["depth"])
     state = FixedTrainState.create(model, t["model_optimizer"], seed=seed, rng=torch.Generator())
     step = make_train_step(_fixed_loss(t), grad_clip=t["grad_clip"])
     batches = _batches(np.random.RandomState(seed + 24), 1 + DP_TIMED, t["batch_size"], HW, dev)
@@ -4696,6 +4743,7 @@ def _dp_rank_main(rank: int, port: int, out: str, seed: int) -> int:
     res["spatial_search"] = _dp_search(dev, seed, rows, spatial=True)
     res["spatial_fixed"] = _dp_fixed(dev, seed, rows, spatial=True)
     res["zoo"] = {label: _dp_zoo(dev, seed, label, rows) for label in DP_ZOO}
+    res["encoders"] = {label: _dp_zoo(dev, seed, label, rows) for label in DP_ENCODERS}
     torch.save(res, out)
     dist.destroy_process_group()
     return 0
@@ -4783,25 +4831,72 @@ def _dp_exact_compare(label: str, got: dict, want: dict, f64: dict, pixels: int,
     return dict(against_f64=against, bn_stats=bn, counts_off=counts_off)
 
 
-def _dp_zoo_rows(single: dict, ranks: list, bs: int, exact: dict) -> dict:
-    """promise12-zoo-rows: each DP_ZOO step of every gloo rank held to the
-    one-process step (`DP_LIMITS`; the bf16 step by ROADMAP's bf16 bound,
-    `_dp_bf16_compare`; DP_ZOO_EXACT's by the f64 step, `_dp_exact_compare`),
-    the ranks' states equal after it; the
-    gated unet's K1a-K1d launched on every rank and in one process, the
-    others' on none. Returns per label the comparisons, ms/step and the
-    collectives of rank 0."""
+def _dp_f64_compare(label: str, got: dict, want: dict, f64: dict, pixels: int) -> dict:
+    """A split f32 step held to the one-process f64 step (DP_ENCODERS_F64):
+    its loss, gradient norm, weight update, running stats and tp/fp/fn each
+    within `DP_LIMITS` (`DP_COUNT_SHARE` of the pixels) of the f64 step's,
+    or at most twice as far from it as the one-process f32 step's."""
+    wide = lambda snap: {k: v.double() for k, v in snap.items()}
+    before = wide(want["before"]["model"])
+    check(all(torch.equal(got["before"]["model"][k], want["before"]["model"][k])
+              and torch.equal(f64["before"]["model"][k], before[k]) for k in before),
+          f"{label}: the runs did not start from one state")
+    params = [k for k in before if k.rsplit(".", 1)[-1] not in ("mean", "var")]
+    ref = {"before": {"model": before, "arch": {}}, "after": f64["after"]}
+    limits = dict(loss=DP_LIMITS["metrics"], grad_norm=DP_LIMITS["metrics"],
+                  weights=DP_LIMITS["weights"], bn_stats=DP_LIMITS["bn_stats"],
+                  counts=DP_COUNT_SHARE * pixels)
+
+    def distances(run):
+        after = {"model": wide(run["after"]["model"]), "arch": {}}
+        out = {k: abs(float(run["metrics"][k]) - float(f64["metrics"][k]))
+               / max(abs(float(f64["metrics"][k])), 1e-30) for k in ("loss", "grad_norm")}
+        out["weights"] = _update_rel(before, after["model"], f64["after"]["model"], params)
+        out["bn_stats"] = _state_rel(ref["before"], after, f64["after"])["bn_stats"]
+        out["counts"] = max(float((run["metrics"][k].double() - f64["metrics"][k].double())
+                                  .abs().max()) for k in ("tp", "fp", "fn"))
+        return out
+
+    split, one = distances(got), distances(want)
+    against = {k: dict(split=split[k], one_process=one[k], limit=limits[k]) for k in limits}
+    check(all(split[k] <= max(limits[k], 2 * one[k]) for k in limits),
+          f"{label}: against the f64 step {against}: each of the split's distances within its "
+          "limit or at most twice the one-process step's")
+    return dict(against_f64=against)
+
+
+def _dp_zoo_rows(single: dict, ranks: list, bs: int, exact: dict, table=None) -> dict:
+    """promise12-zoo-rows (`table` DP_ZOO, the default) or -encoder-rows
+    (DP_ENCODERS): each step of every gloo rank held to the one-process
+    step (`DP_LIMITS`; a bf16 step by ROADMAP's bf16 bound against the
+    f32 step of the label named by its model or encoder,
+    `_dp_bf16_compare`; DP_ZOO_EXACT's by the f64 step, `_dp_exact_compare`;
+    DP_ENCODERS_F64's by the f64 step alone, `_dp_f64_compare`), the ranks'
+    states equal after it; a gated step's
+    K1a-K1d launched on every rank and in one process, the same number of
+    times, the others' on none. Returns per label the comparisons, ms/step
+    and the collectives of rank 0."""
+    table = DP_ZOO if table is None else table
     out = {}
-    for label in DP_ZOO:
+    for label in table:
         want = single[label]
-        if DP_ZOO[label][1] == torch.bfloat16:
+        if table[label][1] == torch.bfloat16:
             cmp = {f"rows{r}": _dp_bf16_compare(f"zoo {label} step, rows rank {r} of {DP_RANKS}",
-                                                got[label], want, single[DP_ZOO[label][0]])
+                                                got[label], want, single[table[label][0]])
                    for r, got in enumerate(ranks)}
         elif label in DP_ZOO_EXACT:
             cmp = {f"rows{r}": _dp_exact_compare(f"zoo {label} step, rows rank {r} of {DP_RANKS}",
                                                  got[label], want, exact[label], bs * HW * HW)
                    for r, got in enumerate(ranks)}
+        elif label in DP_ENCODERS_F64:
+            cmp = {f"rows{r}": _dp_f64_compare(f"zoo {label} step, rows rank {r} of {DP_RANKS}",
+                                               got[label], want, exact[label], bs * HW * HW)
+                   for r, got in enumerate(ranks)}
+            rel = _state_rel(want["before"], ranks[0][label]["after"], want["after"])
+            cmp["rows0"]["against_one_process"] = dict(
+                metrics=_metrics_rel(ranks[0][label]["metrics"], want["metrics"],
+                                     ("loss", "grad_norm")),
+                weights=rel["weights"], bn_stats=rel["bn_stats"])
         else:
             cmp = {f"rows{r}": _dp_compare(f"zoo {label} step, rows rank {r} of {DP_RANKS}",
                                            got[label], want, ("loss", "grad_norm"), bs * HW * HW)
@@ -4814,8 +4909,9 @@ def _dp_zoo_rows(single: dict, ranks: list, bs: int, exact: dict) -> dict:
               f"zoo {label} step: the gloo ranks' states differ after the step")
         k1 = [{k: run["launches"][k] for k in DP_KERNELS} for run in [want] + [g[label]
                                                                            for g in ranks]]
-        gated = DP_ZOO[label][2]
-        check(all((all(v > 0 for v in c.values()) if gated else not any(c.values())) for c in k1),
+        gated = table[label][2]
+        check(all((all(v > 0 for v in c.values()) and c == k1[0]) if gated
+                  else not any(c.values()) for c in k1),
               f"zoo {label} step: K1a-K1d launches (one process, then each rank) {k1}")
         ms = {"single": float(np.mean(want["ms"])),
               **{f"rows{r}": float(np.mean(g[label]["ms"])) for r, g in enumerate(ranks)}}
@@ -4835,7 +4931,10 @@ def _zoo_distances(zoo: dict) -> dict:
     norm, weight update, tp/fp/fn off) under `DP_LIMITS`; for unet bf16 the
     (gap, one-process bf16 vs f32) pairs of the update and the grad norm;
     for DP_ZOO_EXACT the (split, one process) distances to the f64 step of
-    the grad norm and the update; with each f32 model's f64 pair too."""
+    the grad norm and the update; with each f32 model's f64 pair too; for
+    DP_ENCODERS_F64 the grad norm and update against one process, then the
+    (split, one process) distances to the f64 step of the grad norm, the
+    update, the running stats and the counts."""
     out = {}
     for label, r in zoo.items():
         c = r["compare"]["rows0"]
@@ -4845,11 +4944,14 @@ def _zoo_distances(zoo: dict) -> dict:
                    c["counts_off"])
         elif "weights" in c:
             row = tuple(f"{c[k]['gap']:.3g}/{c[k]['own']:.3g}" for k in ("grad_norm", "weights"))
+        elif "against_one_process" in c:
+            one = c["against_one_process"]
+            row = (f"{one['metrics']['grad_norm']:.3g}", f"{one['weights']:.3g}")
         else:
             row = ()
         if f64:
             row += tuple(f"f64 {k} {f64[k]['split']:.3g}/{f64[k]['one_process']:.3g}"
-                         for k in ("grad_norm", "weights"))
+                         for k in ("grad_norm", "weights", "bn_stats", "counts") if k in f64)
         out[label] = row
     return out
 
@@ -4880,6 +4982,10 @@ def run_data_parallel(dev, seed: int) -> dict:
         try:
             single = {"search": _dp_search(dev, seed), "fixed": _dp_fixed(dev, seed)}
             single_zoo = {label: _dp_zoo(dev, seed, label) for label in DP_ZOO}
+            single_enc = {label: _dp_zoo(dev, seed, label) for label in DP_ENCODERS}
+            f64_enc = {ref: _dp_zoo(dev, seed, ref, f64=True)
+                       for ref in dict.fromkeys(DP_ENCODERS_F64.values())}
+            exact_enc = {label: f64_enc[ref] for label, ref in DP_ENCODERS_F64.items()}
             exact_zoo = {label: _dp_zoo(dev, seed, label, f64=True) for label in ZOO_MODELS}
             nccl_port = free_port()
             dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{nccl_port}",
@@ -4944,13 +5050,16 @@ def run_data_parallel(dev, seed: int) -> dict:
         "so the split rows have no NCCL case on one card")
     zoo = _dp_zoo_rows(single_zoo, [r["zoo"] for r in ranks], cfg["training"]["batch_size"],
                        exact_zoo)
+    encoders = _dp_zoo_rows(single_enc, [r["encoders"] for r in ranks],
+                            cfg["training"]["batch_size"], exact_enc, DP_ENCODERS)
     seconds = time.perf_counter() - t0
     labels = lambda name: (("single", single[name]), ("nccl", nccl[name]),
                            *((f"gloo{r}", got[name]) for r, got in enumerate(ranks)),
                            *((f"rows{r}", got[f"spatial_{name}"]) for r, got in enumerate(ranks)))
-    return dict(rows=rows, seconds=seconds, zoo=zoo,
+    return dict(rows=rows, seconds=seconds, zoo=zoo, encoders=encoders,
                 launches={k: nccl["search"]["launches"][k] + nccl["fixed"]["launches"][k]
-                          + single_zoo["unet_gated"]["launches"][k] for k in KERNELS},
+                          + single_zoo["unet_gated"]["launches"][k]
+                          + single_enc["timm-resnest14d_gated"]["launches"][k] for k in KERNELS},
                 ms={name: {label: float(np.mean(run["ms"])) for label, run in labels(name)}
                     for name in ("search", "fixed")},
                 collectives={name: {label: run["collectives"] for label, run in labels(name)
@@ -5206,6 +5315,13 @@ def main(argv=None) -> int:
         f"rank 0's share inside the collectives, calls, halo calls and bytes, gathers and bytes "
         f"{ {n: (round(c['share'], 3), c['calls'], c['halo_calls'], c['halo_bytes'], c['gathers'], c['gather_bytes']) for n, c in ((n, r['collectives']['rows0']) for n, r in dp['zoo'].items())} }; "
         f"rank 0 against one process {_zoo_distances(dp['zoo'])}")
+    log(f"promise12-encoder-rows summary: ms/step (one process, rank 0, rank 1) "
+        f"{ {n: tuple(round(v, 2) for v in r['ms'].values()) for n, r in dp['encoders'].items()} }; "
+        f"rank 0's share inside the collectives, calls, halo calls and bytes, gathers and bytes "
+        f"{ {n: (round(c['share'], 3), c['calls'], c['halo_calls'], c['halo_bytes'], c['gathers'], c['gather_bytes']) for n, c in ((n, r['collectives']['rows0']) for n, r in dp['encoders'].items())} }; "
+        f"K1a-K1d a gated step (one process, rank 0, rank 1) "
+        f"{dp['encoders']['timm-resnest14d_gated']['k1']}; "
+        f"rank 0 against one process {_zoo_distances(dp['encoders'])}")
     log(f"phase seconds {phase_s}")
     log(f"card: {smi}; total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

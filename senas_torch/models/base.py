@@ -10,9 +10,8 @@ the flax names (`kernel`, `bias`, `BatchNorm_0`, `Dense_0`, ...), so
 Under the mesh's row split (`senas_torch.parallel`) every map is this
 rank's block of image rows: the resizes read their source rows at the
 global positions (`spatial.source_rows`), a target size is global (a
-level's height is `collectives.global_height`), the means span the global
-image, and a zoo model whose encoder does not split rows (one outside
-`models/encoders.py`) raises at its first forward (ROADMAP.md M13d).
+level's height is `collectives.global_height`), and the means span the
+global image.
 """
 
 from __future__ import annotations
@@ -29,7 +28,6 @@ from senas_torch.ops.primitives import (BatchNorm, Dense, Dropout, add_bias, add
                                         log_softmax, relu, sigmoid, softmax, whole_level)
 from senas_torch.parallel import spatial
 from senas_torch.parallel.collectives import active_split, global_height
-from senas_torch.parallel.mesh import spatial_not_ported
 
 
 class Conv2dReLU(nn.Module):
@@ -292,8 +290,6 @@ class SegmentationModel(nn.Module):
         # NHWC -> NCHW with canonical strides (a 1-channel permuted view
         # counts as contiguous with channels_last strides)
         x = x.permute(0, 3, 1, 2).clone(memory_format=torch.contiguous_format)
-        if active_split() is not None and not getattr(self.encoder, "splits_rows", False):
-            raise spatial_not_ported(f"{type(self).__name__} on {type(self.encoder).__name__}")
         logits, feats = self.decode(x, train, rng)
         masks = smp_activation(self.activation)(logits.permute(0, 2, 3, 1))
         if self.aux_params is None:

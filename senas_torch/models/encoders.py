@@ -16,7 +16,9 @@ DenseNet, MobileNetV2, EfficientNet), `encoders_families.py` (SE-Net,
 Xception, InceptionV4, InceptionResNetV2, DPN), `encoders_resnest.py`
 (ResNeSt), `encoders_timm2.py` (Res2Net, RegNet X/Y, SK-Net, GERNet) and
 `encoders_mnv3.py` (MobileNetV3), and the `tu-` names that resolve to one
-of them: every encoder name of senas_tpu, in its order.
+of them: every encoder name of senas_tpu, in its order. Every one of them
+runs under the mesh's image-H split: its convs, pools and means go through
+`primitives`, which take their row-shard forms there.
 """
 
 from __future__ import annotations
@@ -92,9 +94,7 @@ class ResNetEncoder(nn.Module):
     7x7 conv runs in x's dtype and its BN rounds to `dtype`; each block
     casts its input to `dtype` (senas_tpu/models/encoders.py:118-123,
     ops/primitives.py:612-614). Every op goes through `primitives`, so it
-    runs under a row split (`splits_rows`)."""
-
-    splits_rows = True
+    runs under a row split."""
 
     def __init__(self, in_channels: int, layers: Sequence[int], depth: int = 5,
                  block: str = "basic", groups: int = 1, width_per_group: int = 64,

@@ -12,6 +12,10 @@ architecture.
 `dtype` is the compute dtype, as in senas_tpu: the stem casts its input to
 it (VGG every conv's input), every BatchNorm rounds its output to it, and a
 conv runs in its input's dtype with its f32 kernel cast at use.
+
+Every conv and pool goes through `primitives` and EfficientNet's SE mean
+is `image_mean`, so each encoder runs under the mesh's row split
+(`senas_torch.parallel.spatial`).
 """
 
 from __future__ import annotations
@@ -24,9 +28,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from senas_torch.models.encoders import stage_dilation
-from senas_torch.ops.primitives import (BatchNorm, add_bias, add_conv_kernel, add_kernel, cast,
-                                        conv2d, kaiming_std, max_pool_2x2, max_pool_3x3, relu,
-                                        sigmoid)
+from senas_torch.ops.primitives import (BatchNorm, add_bias, add_conv_kernel, add_kernel,
+                                        avg_pool_2x2, cast, conv2d, image_mean, kaiming_std,
+                                        max_pool_2x2, max_pool_3x3, relu, sigmoid)
 
 # VGG configs (vgg.py:34-39): numbers are conv widths, "M" is a 2x2 maxpool
 _VGG_CFG = {
@@ -158,7 +162,7 @@ class DenseNetEncoder(nn.Module):
             features.append(x)  # block output, pre-transition-pool
             if hasattr(self, f"trans{bi}_conv"):
                 x = conv2d(x, getattr(self, f"trans{bi}_conv").to(x.dtype))
-                x = F.avg_pool2d(x, 2, stride=2)
+                x = avg_pool_2x2(x)
         return features[:self.depth + 1]
 
 
@@ -333,7 +337,7 @@ class _MBConv(nn.Module):
                    groups=self.dw_conv.shape[0], dilation=self.dilation)
         y = self._act(self.dw_bn(y, train))
         if not self.lite:
-            s = y.mean(dim=(2, 3))
+            s = image_mean(y)
             s = swish(s @ self.se_reduce.to(s.dtype) + self.se_reduce_b.to(s.dtype))
             s = sigmoid(s @ self.se_expand.to(s.dtype) + self.se_expand_b.to(s.dtype))
             y = y * s[:, :, None, None]

@@ -26,6 +26,10 @@ ceil_mode pool) pads with -inf explicitly.
 `dtype` is the compute dtype, as in senas_tpu: every BatchNorm rounds its
 output to it and a conv runs in its input's dtype (the stems' first conv in
 the image's), with its f32 kernel cast at use.
+
+Every conv and pool goes through `primitives` (`conv2d_padded`,
+`max_pool`, `avg_pool`) and the SE mean is `image_mean`, so each
+encoder runs under the mesh's row split (`senas_torch.parallel.spatial`).
 """
 
 from __future__ import annotations
@@ -34,12 +38,12 @@ import math
 from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from senas_torch.models.encoders import stage_dilation
 from senas_torch.ops.primitives import (BatchNorm, add_bias, add_conv_kernel, add_kernel,
-                                        conv2d, kaiming_std, relu, scalar, sigmoid)
+                                        avg_pool, conv2d, conv2d_padded, image_mean,
+                                        kaiming_std, max_pool, relu, scalar, sigmoid)
 
 Kernel = Union[int, Tuple[int, int]]
 
@@ -50,28 +54,25 @@ Kernel = Union[int, Tuple[int, int]]
 
 def _conv(x, w, stride=1, groups: int = 1, dilation: int = 1, padding=None):
     """NCHW/OIHW conv with torch-style explicit padding (default (k//2)*d
-    per axis), w cast to x's dtype."""
+    per axis), w cast to x's dtype; under a row split its row-shard form
+    (`primitives.conv2d_padded`)."""
     kh, kw = w.shape[2], w.shape[3]
     if padding is None:
         padding = ((kh // 2) * dilation, (kw // 2) * dilation)
-    return F.conv2d(x, w.to(x.dtype), stride=stride, padding=tuple(padding),
-                    dilation=dilation, groups=groups)
+    return conv2d_padded(x, w.to(x.dtype), tuple(padding), stride=stride, dilation=dilation,
+                         groups=groups)
 
 
 def _max_pool(x, k: int = 3, stride: int = 2, pad=1):
     """MaxPool2d; `pad` is an int (symmetric) or a (lo, hi) pair, padded
     with -inf. (0, 1) is torch's ceil_mode=True window alignment for an odd
     map (windows anchored at 0, the trailing one padded)."""
-    lo, hi = (pad, pad) if isinstance(pad, int) else pad
-    if lo == hi:
-        return F.max_pool2d(x, k, stride=stride, padding=lo)
-    x = F.pad(x, (lo, hi, lo, hi), value=float("-inf"))
-    return F.max_pool2d(x, k, stride=stride)
+    return max_pool(x, k, stride, pad)
 
 
 def _avg_pool_same(x, k: int = 3):
     """AvgPool2d(k, stride 1, pad k//2, count_include_pad=False)."""
-    return F.avg_pool2d(x, k, stride=1, padding=k // 2, count_include_pad=False)
+    return avg_pool(x, k, 1, k // 2, count_include_pad=False)
 
 
 def _pair(k: Kernel) -> Tuple[int, int]:
@@ -117,7 +118,7 @@ class _SEModule(nn.Module):
         add_bias(self, "fc2_b", c)
 
     def forward(self, x):
-        s = x.mean(dim=(2, 3))
+        s = image_mean(x)
         s = relu(s @ self.fc1.to(s.dtype) + self.fc1_b.to(s.dtype))
         s = sigmoid(s @ self.fc2.to(s.dtype) + self.fc2_b.to(s.dtype))
         return x * s[:, :, None, None]

@@ -14,11 +14,12 @@ from __future__ import annotations
 
 from typing import List, Tuple
 
-import torch.nn.functional as F
 from torch import nn
 
 from senas_torch.models.encoders import stage_dilation
-from senas_torch.ops.primitives import BatchNorm, add_bias, add_conv_kernel, relu
+from senas_torch.ops.primitives import (BatchNorm, add_bias, add_conv_kernel, conv2d_padded,
+                                        image_mean, relu)
+from senas_torch.parallel.collectives import whole_maps
 
 
 def _make_divisible(v: float, divisor: int = 8) -> int:
@@ -42,18 +43,16 @@ def _conv_same(x, w, stride: int = 1, groups: int = 1, dilation: int = 1):
     kernel: k//2 on each side at stride 1; (lo, hi) with hi = lo + (k - s)
     % 2 at stride 2. Under dilation (a dilated stage runs stride 1) the
     effective kernel (k-1)*d+1 keeps it symmetric at (k//2)*d for odd k.
-    w is cast to x's dtype."""
+    w is cast to x's dtype; under a row split the row-shard form, whose
+    output row o reads rows [o*s - lo, o*s - lo + k - 1]."""
     k = (w.shape[-1] - 1) * dilation + 1
     if stride == 1:
         lo = hi = k // 2
     else:
         total = max(k - stride, 0)
         lo, hi = total // 2, total - total // 2
-    if lo != hi:
-        x = F.pad(x, (lo, hi, lo, hi))
-        lo = 0
-    return F.conv2d(x, w.to(x.dtype), stride=stride, padding=lo, dilation=dilation,
-                    groups=groups)
+    return conv2d_padded(x, w.to(x.dtype), ((lo, hi), (lo, hi)), stride=stride,
+                         dilation=dilation, groups=groups)
 
 
 class _ConvBnAct(nn.Module):
@@ -104,9 +103,13 @@ class InvertedResidual(nn.Module):
         y = self.expand(x, train) if hasattr(self, "expand") else x
         y = self.dw(y, train)
         if self.se:
-            s = y.mean(dim=(2, 3), keepdim=True)
-            s = relu(_conv_same(s, self.se_fc1) + self.se_b1.to(s.dtype)[:, None, None])
-            s = hardsigmoid(_conv_same(s, self.se_fc2) + self.se_b2.to(s.dtype)[:, None, None])
+            # the global image's mean; the squeeze a map every spatial rank
+            # computes whole
+            s = image_mean(y)[:, :, None, None]
+            with whole_maps():
+                s = relu(_conv_same(s, self.se_fc1) + self.se_b1.to(s.dtype)[:, None, None])
+                s = hardsigmoid(_conv_same(s, self.se_fc2)
+                                + self.se_b2.to(s.dtype)[:, None, None])
             y = y * s
         y = self.project(y, train)
         return y + x if self.residual else y

@@ -19,22 +19,26 @@ from __future__ import annotations
 
 from typing import List, Sequence
 
-import torch.nn.functional as F
 from torch import nn
 
 from senas_torch.models.encoders_families import ConvBnAct, _conv, _max_pool
-from senas_torch.ops.primitives import BatchNorm, add_conv_kernel, relu, sigmoid, softmax
+from senas_torch.ops.primitives import (BatchNorm, add_conv_kernel, avg_pool, image_mean,
+                                        relu, sigmoid, softmax)
+from senas_torch.parallel.collectives import whole_maps
 
 
 def _avg_pool(x, k: int, stride: int, pad: int):
     """AvgPool2d(k, stride, padding=pad, count_include_pad=False)."""
-    return F.avg_pool2d(x, k, stride=stride, padding=pad, count_include_pad=False)
+    return avg_pool(x, k, stride, pad, count_include_pad=False)
 
 
 class SplitAttn(nn.Module):
     """timm SplitAttn: radix-grouped 3x3 conv + radix-softmax attention. The
     conv's channels are radix-major ([R, C]), as NCHW's flatten orders them;
-    the attention's BatchNorm normalises [B, attn, 1, 1] maps."""
+    the attention's BatchNorm normalises [B, attn, 1, 1] maps. Under a row
+    split the gap is the global image's mean, and its fc1 -> bn1 -> fc2
+    chain a map every spatial rank computes whole (`whole_maps`: bn1 over
+    the data subgroup, each image counted once)."""
 
     def __init__(self, c_in: int, c_out: int, radix: int = 2, cardinality: int = 1,
                  stride: int = 1, dtype=None):
@@ -55,10 +59,11 @@ class SplitAttn(nn.Module):
         x = self.conv(x, train)
         b, _, h, w = x.shape
         gap = x.view(b, R, C, h, w).sum(dim=1) if R > 1 else x
-        gap = gap.mean(dim=(2, 3), keepdim=True)   # [b, C, 1, 1]
-        gap = _conv(gap, self.fc1, groups=G, padding=(0, 0))
-        gap = relu(self.bn1(gap, train))
-        attn = _conv(gap, self.fc2, groups=G, padding=(0, 0))
+        gap = image_mean(gap)[:, :, None, None]   # [b, C, 1, 1]
+        with whole_maps():
+            gap = _conv(gap, self.fc1, groups=G, padding=(0, 0))
+            gap = relu(self.bn1(gap, train))
+            attn = _conv(gap, self.fc2, groups=G, padding=(0, 0))
         if R > 1:
             # RadixSoftmax: over the radix axis within each cardinal group
             attn = softmax(attn.view(b, R, G, C // G), dim=1)

@@ -20,6 +20,13 @@ residual variants (smp encoders/timm_{res2net,regnet,sknet,gernet}.py):
 output to it, a conv runs in its input's dtype (the stem's in the
 image's) with its f32 kernel cast at use, and the SE and SK weights are
 cast to the activations' dtype.
+
+Under the mesh's row split every conv and pool is its row-shard form
+(through `primitives`); the SE and SK means span the global image
+(`image_mean`), and the squeeze's 1x1 convs (and SK's attention
+BatchNorm) act on a map every spatial rank computes whole
+(`collectives.whole_maps`: that BatchNorm reduces over the data
+subgroup).
 """
 
 from __future__ import annotations
@@ -29,13 +36,14 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from senas_torch.models.encoders import stage_dilation
 from senas_torch.models.encoders_families import ConvBnAct, _conv, _max_pool
-from senas_torch.ops.primitives import EPS, add_bias, add_conv_kernel, relu, sigmoid, softmax
-from senas_torch.parallel.collectives import active_mesh, all_reduce_sum, global_count
+from senas_torch.ops.primitives import (EPS, add_bias, add_conv_kernel, avg_pool, image_mean,
+                                        relu, sigmoid, softmax)
+from senas_torch.parallel.collectives import (active_mesh, all_reduce_sum, global_count,
+                                              whole_maps)
 
 
 # ---------------------------------------------------------------------------
@@ -46,7 +54,7 @@ def _avg_pool_incl(x, k: int, stride: int, pad: int):
     """AvgPool2d(k, stride, padding=pad) with count_include_pad=True (the
     torch default, which timm's Bottle2neck pool uses): a border window
     divides by k*k."""
-    return F.avg_pool2d(x, k, stride=stride, padding=pad, count_include_pad=True)
+    return avg_pool(x, k, stride, pad, count_include_pad=True)
 
 
 class Bottle2neck(nn.Module):
@@ -212,10 +220,12 @@ class RegNetBlock(nn.Module):
     def forward(self, x, train: bool = False):
         out = self.conv2(self.conv1(x, train), train)
         if self.se:
-            y = out.mean(dim=(2, 3), keepdim=True)
-            y = relu(_conv(y, self.se_fc1, padding=(0, 0)) + self.se_b1.to(y.dtype)[:, None, None])
-            y = sigmoid(_conv(y, self.se_fc2, padding=(0, 0))
-                        + self.se_b2.to(y.dtype)[:, None, None])
+            y = image_mean(out)[:, :, None, None]
+            with whole_maps():
+                y = relu(_conv(y, self.se_fc1, padding=(0, 0))
+                         + self.se_b1.to(y.dtype)[:, None, None])
+                y = sigmoid(_conv(y, self.se_fc2, padding=(0, 0))
+                            + self.se_b2.to(y.dtype)[:, None, None])
             out = out * y
         out = self.conv3(out, train)
         residual = self.downsample(x, train) if hasattr(self, "downsample") else x
@@ -382,9 +392,10 @@ class SelectiveKernel(nn.Module):
     def forward(self, x, train: bool = False):
         inputs = (x[:, :self.split], x[:, self.split:])
         paths = [getattr(self, f"path{i}")(xin, train) for i, xin in enumerate(inputs)]
-        y = (paths[0] + paths[1]).mean(dim=(2, 3), keepdim=True)     # [B, C, 1, 1]
-        y = relu(self.attn_bn(_conv(y, self.fc_reduce, padding=(0, 0)), train))
-        y = _conv(y, self.fc_select, padding=(0, 0))
+        y = image_mean(paths[0] + paths[1])[:, :, None, None]     # [B, C, 1, 1]
+        with whole_maps():
+            y = relu(self.attn_bn(_conv(y, self.fc_reduce, padding=(0, 0)), train))
+            y = _conv(y, self.fc_select, padding=(0, 0))
         y = softmax(y.view(y.shape[0], self.n_paths, self.c_out, 1, 1), dim=1)
         return paths[0] * y[:, 0] + paths[1] * y[:, 1]
 

@@ -26,6 +26,14 @@ ZOO = ("nasunet", "unet", "unet_plus_plus", "manet", "linknet", "fpn", "pspnet",
 _DECODER_CHANNELS = (256, 128, 64, 32, 16, 8, 4, 2)
 
 
+def check_model_name(name: Optional[str]) -> None:
+    """Raise `get_segmentation_model`'s KeyError for a name it does not
+    build (None: the SENAS model), without building anything: a CLI asks
+    before it spawns its ranks."""
+    if (name or "senas").lower() not in ("senas",) + ZOO:
+        raise KeyError(f"unknown model {name.lower()!r}")
+
+
 def get_segmentation_model(name: str, dataset: str = "promise12", *, device=None,
                            generator: Optional[torch.Generator] = None, **kwargs: Any):
     """The model `name` for `dataset`, built on `device` (None means the

@@ -210,6 +210,19 @@ def conv2d(x, w, stride: int = 1, dilation: int = 1, groups: int = 1):
                     groups=groups)
 
 
+def conv2d_padded(x, w, padding, stride: int = 1, dilation: int = 1, groups: int = 1):
+    """2D conv, NCHW/OIHW, of any kernel (kh, kw) with explicit zero
+    padding: (ph, pw) per axis as torch's `padding=`, or ((top, bottom),
+    (left, right)) for an asymmetric one (TF 'SAME' at stride 2), which is
+    padded with F.pad first."""
+    if is_split(x):
+        return spatial.conv2d(x, w, stride, dilation, groups, padding)
+    (top, bottom), (left, right) = spatial.pads(padding)
+    if top != bottom or left != right:
+        x, top, left = F.pad(x, (left, right, top, bottom)), 0, 0
+    return F.conv2d(x, w, stride=stride, padding=(top, left), dilation=dilation, groups=groups)
+
+
 def _transposed(x, w, **kw):
     if x.dtype == torch.bfloat16 and x.device.type == "cpu":
         # PyTorch's CPU bf16 transposed convolution (oneDNN) returns NaN
@@ -237,28 +250,48 @@ def conv_transpose2d(x, w, stride: int = 2, dilation: int = 1,
 def avg_pool_3x3(x, stride: int = 1):
     """AvgPool2d(3, stride, padding=1, count_include_pad=False)."""
     if is_split(x):
-        return spatial.avg_pool_3x3(x, stride)
+        return spatial.avg_pool(x, 3, stride, 1, count_include_pad=False)
     return F.avg_pool2d(x, 3, stride=stride, padding=1, count_include_pad=False)
+
+
+def avg_pool(x, k: int, stride: int, padding: int = 0, count_include_pad: bool = True):
+    """AvgPool2d(k, stride, padding, count_include_pad)."""
+    if is_split(x):
+        return spatial.avg_pool(x, k, stride, padding, count_include_pad)
+    return F.avg_pool2d(x, k, stride=stride, padding=padding,
+                        count_include_pad=count_include_pad)
 
 
 def max_pool_3x3(x, stride: int = 2):
     """MaxPool2d(3, stride, padding=1)."""
     if is_split(x):
-        return spatial.max_pool_3x3(x, stride)
+        return spatial.max_pool(x, 3, stride, 1)
     return F.max_pool2d(x, 3, stride=stride, padding=1)
+
+
+def max_pool(x, k: int, stride: int, padding=0):
+    """MaxPool2d(k, stride) with -inf padding: an int (every side), or a
+    (lo, hi) pair on both axes (torch's ceil_mode=True alignment is (0, 1)
+    on a map its windows do not tile), padded with F.pad first."""
+    lo, hi = (padding, padding) if isinstance(padding, int) else padding
+    if is_split(x):
+        return spatial.max_pool(x, k, stride, ((lo, hi), (lo, hi)))
+    if lo == hi:
+        return F.max_pool2d(x, k, stride=stride, padding=lo)
+    return F.max_pool2d(F.pad(x, (lo, hi, lo, hi), value=float("-inf")), k, stride=stride)
 
 
 def max_pool_2x2(x):
     """MaxPool2d(2, stride=2)."""
     if is_split(x):
-        return spatial.pool_2x2(x, F.max_pool2d)
+        return spatial.max_pool(x, 2, 2)
     return F.max_pool2d(x, 2, stride=2)
 
 
 def avg_pool_2x2(x):
     """AvgPool2d(2, stride=2)."""
     if is_split(x):
-        return spatial.pool_2x2(x, F.avg_pool2d)
+        return spatial.avg_pool(x, 2, 2)
     return F.avg_pool2d(x, 2, stride=2)
 
 

@@ -165,17 +165,6 @@ class Mesh:
                     device=self.device, group=group)
 
 
-def spatial_not_ported(what: str) -> NotImplementedError:
-    """The error for a model the image-H split does not cover: a zoo model
-    on an encoder outside `models/encoders.py`, or a model name the factory
-    does not build."""
-    return NotImplementedError(
-        f"{what} under the image-H split (mesh_spatial > 1 over two or more ranks) is not "
-        "ported yet (ROADMAP.md M13d: the encoders outside models/encoders.py, with their "
-        "direct 'SAME' convolutions and their SE, SK and split-attention means); the SENAS "
-        "models and the nine factory models on the resnet encoders run it")
-
-
 def _subgroups(group, spec: MeshSpec, rank: int):
     """(spatial subgroup, data subgroup) of `rank`. Every rank creates every
     subgroup, in one order, those it is not in included."""

@@ -37,6 +37,14 @@ Every op returns a contiguous NCHW block, as the single-device op does
 (the epilogue's kernels take contiguous operands), and enters the level it
 makes (`RowSplit.enter`: a level's global height is found by its width).
 
+The windows are general (ROADMAP.md M13d, the encoder families): a
+convolution of any kernel (kh, kw), a k x k max or average pool, each with
+its own (top, bottom) row pads and (left, right) column pads (`pads`):
+torch's (ph, pw), TF 'SAME' at stride 2 (hi = lo + 1), a ceil-mode pool's
+(0, 1). Output row o reads input rows [o*stride - top, o*stride - top +
+reach]; the level it makes counts both row pads. An average pool divides
+by k*k (count_include_pad) or by its taps inside the global image.
+
 The zoo adds row resizes and whole levels. `source_rows` fetches, for each
 output row of a resize, the rows its taps read at their global positions
 (the nearest 2x and integer-ratio picks, the align-corners bilinear
@@ -238,20 +246,52 @@ def entered(y: torch.Tensor, height: int) -> torch.Tensor:
     return _level(_split(), y, height)
 
 
-def conv2d(x, w, stride: int = 1, dilation: int = 1, groups: int = 1, padding: int = 0):
-    """F.conv2d(x, w, stride, padding, dilation, groups) of the global image,
-    this rank's output rows: any kernel, stride 1 or 2, depthwise too."""
+Pads = Tuple[Span, Span]
+
+
+def pads(padding) -> Pads:
+    """((top, bottom), (left, right)) of a padding given as an int (every
+    side), a pair of ints (rows, columns; torch's `padding=(ph, pw)`) or a
+    pair of (lo, hi) pairs (TF 'SAME' at stride 2, a ceil-mode pool)."""
+    if isinstance(padding, int):
+        return (padding, padding), (padding, padding)
+    rows, cols = padding
+    two = lambda p: (p, p) if isinstance(p, int) else (int(p[0]), int(p[1]))
+    return two(rows), two(cols)
+
+
+def _columns(win, cols: Span, fill: float = 0.0):
+    """(the window, the column padding left to the op): the op pads a
+    symmetric (p, p) itself; an asymmetric one is padded here with `fill`
+    (the width is whole on every rank)."""
+    left, right = cols
+    if left == right:
+        return win, (0, left)
+    return F.pad(win, (left, right), value=fill), (0, 0)
+
+
+def conv2d(x, w, stride: int = 1, dilation: int = 1, groups: int = 1, padding=0):
+    """F.conv2d(x, w, stride, dilation=dilation, groups=groups) of the
+    global image zero-padded by `padding` (`pads`: an int, (rows,
+    columns), or ((top, bottom), (left, right))), this rank's output rows:
+    any kernel (kh, kw), stride 1 or 2, depthwise too. Output row o reads
+    input rows [o*stride - top, o*stride - top + dilation*(kh - 1)]; the
+    level it makes is (H + top + bottom - dilation*(kh - 1) - 1) // stride
+    + 1 rows high."""
     split = _split()
-    k, width = w.shape[-1], x.shape[3]
+    (top, bottom), cols = pads(padding)
+    kh, kw = w.shape[-2], w.shape[-1]
+    width = x.shape[3]
     height = split.height(width)
-    reach = dilation * (k - 1)
-    out_h = (height + 2 * padding - reach - 1) // stride + 1
-    out_w = (width + 2 * padding - reach - 1) // stride + 1
-    win = halo_rows(x, split, height, _strided_windows(split, out_h, stride, padding, reach))
+    reach = dilation * (kh - 1)
+    out_h = (height + top + bottom - reach - 1) // stride + 1
+    out_w = (width + sum(cols) - dilation * (kw - 1) - 1) // stride + 1
+    win = halo_rows(x, split, height, _strided_windows(split, out_h, stride, top, reach))
     oa, ob = split.bounds(out_h)
     if ob == oa:
         return _level(split, _empty((x.shape[0], w.shape[0], 0, out_w), win, w), out_h)
-    y = F.conv2d(win, w, stride=stride, padding=(0, padding), dilation=dilation, groups=groups)
+    win, p = _columns(win, cols)
+    y = F.conv2d(win, w, stride=stride, padding=p, dilation=dilation, groups=groups)
     return _level(split, y, out_h)
 
 
@@ -287,61 +327,63 @@ def conv_transpose2d(x, w, stride: int, padding: int, output_padding: int, dilat
     return _level(split, y.contiguous(), out_h)
 
 
-def _pool_count(n_out: int, start: int, stride: int, size: int) -> torch.Tensor:
-    """How many of the 3 taps around each output position lie inside [0, size)."""
-    c = (torch.arange(n_out) + start) * stride
-    return (torch.clamp(c + 1, max=size - 1) - torch.clamp(c - 1, min=0) + 1)
+def _pool_count(n_out: int, start: int, stride: int, size: int, k: int,
+                lo: int) -> torch.Tensor:
+    """How many of the k taps of each output position's window, [c*stride
+    - lo, c*stride - lo + k) for c = start, ..., start + n_out - 1, lie
+    inside [0, size)."""
+    c = (torch.arange(n_out) + start) * stride - lo
+    return torch.clamp(c + k, max=size) - torch.clamp(c, min=0)
 
 
-def avg_pool_3x3(x, stride: int = 1):
-    """AvgPool2d(3, stride, padding=1, count_include_pad=False) of the
-    global image: the window's sums over the taps inside the image, each
-    divided by their count (rows counted against the global image, not the
-    block)."""
+def _window_op(x, k: int, stride: int, padding, fill: float):
+    """(split, the level's height, the output's height and width, this
+    rank's window of rows filled with `fill` outside the image, its output
+    rows) of a k x k window op."""
     split = _split()
+    (top, bottom), cols = pads(padding)
     width = x.shape[3]
     height = split.height(width)
-    out_h, out_w = (height - 1) // stride + 1, (width - 1) // stride + 1
-    win = halo_rows(x, split, height, _strided_windows(split, out_h, stride, 1, 2))
-    oa, ob = split.bounds(out_h)
+    out_h = (height + top + bottom - k) // stride + 1
+    out_w = (width + sum(cols) - k) // stride + 1
+    win = halo_rows(x, split, height, _strided_windows(split, out_h, stride, top, k - 1),
+                    fill=fill)
+    return split, height, out_h, out_w, win, split.bounds(out_h)
+
+
+def max_pool(x, k: int, stride: int, padding=0):
+    """F.max_pool2d(x, k, stride) of the global image padded by `padding`
+    (`pads`) with -inf, as the single-device pool pads: symmetric, or a
+    ceil-mode pool's (0, 1)."""
+    split, _, out_h, out_w, win, (oa, ob) = _window_op(x, k, stride, padding, float("-inf"))
     if ob == oa:
         return _level(split, _empty((x.shape[0], x.shape[1], 0, out_w), win), out_h)
+    win, p = _columns(win, pads(padding)[1], float("-inf"))
+    return _level(split, F.max_pool2d(win, k, stride=stride, padding=p), out_h)
+
+
+def avg_pool(x, k: int, stride: int, padding=0, count_include_pad: bool = True):
+    """F.avg_pool2d(x, k, stride, padding, count_include_pad=...) of the
+    global image. With `count_include_pad` each window sums its taps, the
+    zero fill included, and divides by k*k; without, by the number of its
+    taps inside the image, counted against the global image (not the
+    rank's block): the window's sums, then the counts of its rows and
+    columns."""
+    split, height, out_h, out_w, win, (oa, ob) = _window_op(x, k, stride, padding, 0.0)
+    if ob == oa:
+        return _level(split, _empty((x.shape[0], x.shape[1], 0, out_w), win), out_h)
+    (top, _), cols = pads(padding)
+    win, p = _columns(win, cols)
+    if count_include_pad:
+        return _level(split, F.avg_pool2d(win, k, stride=stride, padding=p,
+                                          count_include_pad=True), out_h)
     # bf16 sums in f32 and rounds once, as the single-device pool does
     wide = win.float() if win.dtype == torch.bfloat16 else win
-    s = F.avg_pool2d(wide, 3, stride=stride, padding=(0, 1), count_include_pad=True,
+    s = F.avg_pool2d(wide, k, stride=stride, padding=p, count_include_pad=True,
                      divisor_override=1)
-    count = (_pool_count(ob - oa, oa, stride, height)[:, None]
-             * _pool_count(out_w, 0, stride, width)[None, :])
+    count = (_pool_count(ob - oa, oa, stride, height, k, top)[:, None]
+             * _pool_count(out_w, 0, stride, x.shape[3], k, cols[0])[None, :])
     return _level(split, (s / count.to(s.device, s.dtype)).to(x.dtype), out_h)
-
-
-def max_pool_3x3(x, stride: int = 2):
-    """MaxPool2d(3, stride, padding=1) of the global image (-inf fill)."""
-    split = _split()
-    width = x.shape[3]
-    height = split.height(width)
-    out_h, out_w = (height - 1) // stride + 1, (width - 1) // stride + 1
-    win = halo_rows(x, split, height, _strided_windows(split, out_h, stride, 1, 2),
-                    fill=float("-inf"))
-    oa, ob = split.bounds(out_h)
-    if ob == oa:
-        return _level(split, _empty((x.shape[0], x.shape[1], 0, out_w), win), out_h)
-    return _level(split, F.max_pool2d(win, 3, stride=stride, padding=(0, 1)), out_h)
-
-
-def pool_2x2(x, op: Callable):
-    """op(x, 2, stride=2) of the global image (F.max_pool2d or
-    F.avg_pool2d): out_h = floor(H/2), the last row of an odd level
-    dropped as the single-device pool drops it."""
-    split = _split()
-    width = x.shape[3]
-    height = split.height(width)
-    out_h, out_w = height // 2, width // 2
-    win = halo_rows(x, split, height, _strided_windows(split, out_h, 2, 0, 1))
-    oa, ob = split.bounds(out_h)
-    if ob == oa:
-        return _level(split, _empty((x.shape[0], x.shape[1], 0, out_w), win), out_h)
-    return _level(split, op(win, 2, stride=2), out_h)
 
 
 def upsample2x(x):

@@ -22,9 +22,10 @@ import numpy as np
 import torch
 
 from senas_torch.data import DataLoader
+from senas_torch.models.factory import check_model_name
 from senas_torch.parallel.collectives import broadcast_object
 from senas_torch.parallel.mesh import (REPLICATED, ROW_SPLIT, MeshSpec, initialize_distributed,
-                                       make_mesh, shard_batch, spatial_not_ported)
+                                       make_mesh, shard_batch)
 from senas_torch.train.metrics import AverageMeter, SegmentationMetric
 from senas_torch.utils.logging import get_logger
 
@@ -41,20 +42,6 @@ def visible_devices(device: torch.device) -> int:
     return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
-def check_spatial_model(section: Dict[str, Any], model_name: Optional[str], ranks: int) -> None:
-    """Raise (ROADMAP.md M13d) where a run of `model_name` over `ranks`
-    ranks would split image rows (`multi_gpus` and `mesh_spatial` > 1 over
-    two or more) and the model has no row-split form: a name other than
-    the SENAS models (None or "senas": the fixed model, and the supernet of
-    a search) and the factory's nine baseline models (`factory.ZOO`, all on
-    the resnet10 encoder)."""
-    from senas_torch.models.factory import ZOO
-    spatial = int(section.get("mesh_spatial", 1))
-    if (section.get("multi_gpus", False) and spatial > 1 and ranks >= 2
-            and (model_name or "senas").lower() not in ("senas",) + ZOO):
-        raise spatial_not_ported(f"--model {model_name}")
-
-
 def setup_mesh(section: Dict[str, Any], device: torch.device,
                model_name: Optional[str] = None):
     """`multi_gpus` of a `searching:` or `training:` section, for a run on
@@ -68,11 +55,11 @@ def setup_mesh(section: Dict[str, Any], device: torch.device,
     mesh MeshSpec(data=R // mesh_spatial, spatial=mesh_spatial) on this
     rank's device and the JAX runner's "mesh: ..." line. One rank or one
     visible device gives (None, the JAX runner's single-device line).
-    Raises where `mesh_spatial` does not divide R, where R >= 2 and
-    `mesh_spatial` > 1 with a model the split does not cover
-    (`check_spatial_model`), and
-    where two or more devices are visible but no group is: one process
-    drives one device, and the CLIs start them."""
+    Raises where `mesh_spatial` does not divide R, where R >= 2 and the
+    factory does not build `model_name` (its KeyError,
+    `factory.check_model_name`), and where two or more devices are visible
+    but no group is: one process drives one device, and the CLIs start
+    them. Every model the factory builds runs under both axes."""
     if not section.get("multi_gpus", False):
         return None, None
     import torch.distributed as dist
@@ -84,7 +71,7 @@ def setup_mesh(section: Dict[str, Any], device: torch.device,
     spatial = int(section.get("mesh_spatial", 1))
     if spatial < 1 or n % spatial != 0:
         raise ValueError(f"mesh_spatial={spatial} does not divide {n} devices")
-    check_spatial_model(section, model_name, n)
+    check_model_name(model_name)
     if not joined:
         raise RuntimeError(
             f"multi_gpus over {n} {device.type} devices runs one process per device: start "

@@ -25,9 +25,9 @@ import sys
 
 from senas_torch.core.config import load_config
 from senas_torch.models import geno_searched
+from senas_torch.models.factory import check_model_name
 from senas_torch.parallel.launch import launch, ranks_to_spawn
-from senas_torch.runner.common import (DEFAULT_CONFIG, DEFAULT_LOG_ROOT,
-                                       check_spatial_model, is_main)
+from senas_torch.runner.common import DEFAULT_CONFIG, DEFAULT_LOG_ROOT, is_main
 from senas_torch.runner.test import TestRunner
 from senas_torch.train_model import override_loss_depth
 
@@ -56,7 +56,7 @@ def main(argv=None) -> int:
     override_loss_depth(cfg, args)
     ranks = ranks_to_spawn(cfg["training"], args.device)
     if ranks:
-        check_spatial_model(cfg["training"], args.model, ranks)
+        check_model_name(args.model)
         return launch("senas_torch.testing_model", sys.argv[1:] if argv is None else argv, ranks)
     runner = TestRunner(cfg, model_name=args.model, genotype_str=args.genotype,
                         resume=args.resume, config_path=args.config,

@@ -25,9 +25,9 @@ import argparse
 import sys
 
 from senas_torch.core.config import load_config
+from senas_torch.models.factory import check_model_name
 from senas_torch.parallel.launch import launch, ranks_to_spawn
-from senas_torch.runner.common import (DEFAULT_CONFIG, DEFAULT_LOG_ROOT,
-                                       check_spatial_model, is_main)
+from senas_torch.runner.common import DEFAULT_CONFIG, DEFAULT_LOG_ROOT, is_main
 from senas_torch.runner.train import TrainRunner
 
 
@@ -70,7 +70,7 @@ def main(argv=None) -> int:
         cfg["training"]["epoch"] = args.epoch
     ranks = ranks_to_spawn(cfg["training"], args.device)
     if ranks:
-        check_spatial_model(cfg["training"], args.model, ranks)
+        check_model_name(args.model)
         return launch("senas_torch.train_model", sys.argv[1:] if argv is None else argv, ranks)
 
     runner = TrainRunner(cfg, model_name=args.model, genotype_str=args.genotype,

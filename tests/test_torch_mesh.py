@@ -84,26 +84,29 @@ def test_batch_placer_rows_and_the_replicated_trailing_batch():
 
 
 def test_spatial_axis_over_two_ranks_raises(monkeypatch):
-    """The SENAS models and the factory's nine baseline models pass
-    `check_spatial_model` under mesh_spatial > 1 over two or more ranks
-    (the zoo since M13c); a model name the split does not cover raises
-    naming M13d, before any rank starts."""
-    err = M.spatial_not_ported("--model resunet")
-    assert isinstance(err, NotImplementedError) and "M13d" in str(err)
+    """Every model the factory builds runs under mesh_spatial > 1 over two
+    or more ranks (the zoo on any encoder since M13d): the SENAS models and
+    the nine baseline models go on to the one-process-per-device check; a
+    name the factory does not build raises the factory's own KeyError
+    there, before a group is used, as `factory.check_model_name` (which
+    the CLIs ask before they spawn ranks) raises it."""
+    with pytest.raises(KeyError) as built:
+        factory.get_segmentation_model("resunet", "synthetic", device="cpu")
+    with pytest.raises(KeyError) as checked:
+        factory.check_model_name("resunet")
+    assert str(checked.value) == str(built.value) == "\"unknown model 'resunet'\""
+    for name in ("senas", None, "UNet") + factory.ZOO:
+        factory.check_model_name(name)
     monkeypatch.setattr(common, "visible_devices", lambda device: 2)
     section = {"multi_gpus": True, "mesh_spatial": 2}
-    for name in ("senas", None, "UNet") + factory.ZOO:
-        common.check_spatial_model(section, name, 2)
-    with pytest.raises(NotImplementedError, match="--model resunet.*M13d"):
-        common.check_spatial_model(section, "resunet", 2)
-    with pytest.raises(NotImplementedError, match="--model resunet.*M13d"):
+    with pytest.raises(KeyError, match="unknown model 'resunet'"):
         common.setup_mesh(section, torch.device("cpu"), "resunet")
-    # a factory model goes on to the one-process-per-device check
-    for name in ("unet", "senas"):
+    for name in ("unet", "senas", None):
         with pytest.raises(RuntimeError, match="one process per device"):
             common.setup_mesh(section, torch.device("cpu"), name)
-    common.check_spatial_model(section, "resunet", 1)
-    common.check_spatial_model({"mesh_spatial": 2}, "resunet", 2)
+    # one visible device runs single-device, whatever the name
+    monkeypatch.setattr(common, "visible_devices", lambda device: 1)
+    assert common.setup_mesh(section, torch.device("cpu"), "resunet")[0] is None
 
 
 @pytest.mark.parametrize("spatial", [0, 3])

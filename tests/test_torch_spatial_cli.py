@@ -22,8 +22,9 @@ senas_tpu/utils/misc.py:92-136 for the trace):
     f32 step bound, the val loss rtol 5e-4), and `testing_model --model
     pspnet` over two ranks on a one-process pspnet checkpoint
     against one process (its val loss rtol 5e-4, every mask written once);
-    in the CLI a factory model spawns its ranks, and a model name the split
-    does not cover raises naming M13d before any rank is started."""
+    in the CLI a factory model spawns its ranks, and a model name the
+    factory does not build raises its KeyError before any rank is
+    started."""
 
 import json
 import os
@@ -282,8 +283,8 @@ def test_step_timer_traces_steps_5_to_8(tmp_path, monkeypatch):
 
 def test_zoo_model_under_split_rows_raises_in_the_cli(tmp_path, monkeypatch):
     """A factory model under mesh_spatial 2 over two ranks spawns them; a
-    model name the split does not cover raises naming M13d before any rank
-    is started."""
+    model name the factory does not build raises the factory's KeyError
+    before any rank is started."""
     from senas_torch import testing_model, train_model
     _, path = _config(tmp_path)
     for mod, extra in ((train_model, []), (testing_model, ["--resume", str(tmp_path)])):
@@ -292,6 +293,6 @@ def test_zoo_model_under_split_rows_raises_in_the_cli(tmp_path, monkeypatch):
         monkeypatch.setattr(mod, "launch", lambda *a: started.append(a) or 0)
         assert mod.main(["--config", path, "--model", "unet"] + extra) == 0
         assert len(started) == 1 and started[0][2] == 2
-        with pytest.raises(NotImplementedError, match="--model resunet.*M13d"):
+        with pytest.raises(KeyError, match="unknown model 'resunet'"):
             mod.main(["--config", path, "--model", "resunet"] + extra)
         assert len(started) == 1

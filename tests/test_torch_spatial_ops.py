@@ -18,7 +18,16 @@ the row-split parts of mesh.py, collectives.py and runner/common.py):
     the 2x2 max pool; the bilinear 2x upsample; the SE block's image mean.
     Each on maps of 12, 10, 6, 3 and 2 rows: over 2 ranks (MeshSpec(1,
     2)), then over 4 (MeshSpec(1, 4) and MeshSpec(2, 2)), where blocks of
-    one row and empty blocks meet halos of up to 6 rows.
+    one row and empty blocks meet halos of up to 6 rows;
+  * the same way, the generalised windows of the encoder families
+    (`spatial_windows`, one test case an op and a spawn size) against the
+    torch op of the global image (F.conv2d, F.max_pool2d, F.avg_pool2d,
+    after an F.pad where the padding is asymmetric): rectangular kernels
+    with (ph, pw) pads, valid ones at stride 1 and 2; asymmetric (lo, hi)
+    pads at stride 2 (TF 'SAME', depthwise too); k x k max pools with (0,
+    1) and symmetric pads at strides 1 and 2; average pools with
+    count_include_pad True and False; on maps where an output level
+    leaves a rank's block empty.
 
 Two spawns, one of 2 ranks and one of 4."""
 
@@ -33,7 +42,7 @@ from senas_torch.parallel.collectives import row_bounds
 from senas_torch.parallel.spatial import _parts
 from senas_torch.runner import common
 
-from torch_mesh_workers import CASES, SPATIAL_OPS, Ranks, combine
+from torch_mesh_workers import CASES, SPATIAL_OPS, WINDOW_OPS, Ranks, combine, window_reference
 from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 F64_REL = 1e-10
@@ -155,20 +164,51 @@ def _ops_case(rng, batch, h, w):
     return dict(x=x, weights=weights, r_weights=r_weights, ops=ops, image_hw=(h, w))
 
 
+def _windows_case(rng, batch, h, w):
+    """Inputs of `spatial_windows` at an image of h x w: the WINDOW_OPS
+    whose output has a row and a column there."""
+    x = rng.randn(batch, 3, h, w)
+    weights = {n: rng.randn(*spec[2]) for n, spec in WINDOW_OPS.items() if spec[2]}
+    ops, r_weights = [], {}
+    for n in WINDOW_OPS:
+        w_n = [torch.from_numpy(weights[n])] if n in weights else []
+        try:
+            y = window_reference(n, torch.from_numpy(x), *w_n)
+        except RuntimeError:   # the window is larger than the padded map
+            continue
+        if min(y.shape[2:]):
+            ops.append(n)
+            r_weights[n] = rng.randn(*y.permute(0, 2, 3, 1).shape)
+    return dict(x=x, weights=weights, r_weights=r_weights, ops=ops, image_hw=(h, w))
+
+
 @pytest.fixture(scope="module")
-def ops_runs(tmp_path_factory):
+def spawned(tmp_path_factory):
+    """Both kinds of case in one spawn of 2 ranks and one of 4: (per world,
+    the list of (case name, spec, split result, single-process result))."""
     rng = np.random.RandomState(0)
     tmp = tmp_path_factory.mktemp("ranks")
-    jobs = {world: [(spec, _ops_case(rng, 2 * spec[0], h, w)) for spec in specs
+    jobs = {world: [("spatial_ops", spec, _ops_case(rng, 2 * spec[0], h, w)) for spec in specs
                     for h, w in SHAPES] for world, specs in SPECS.items()}
-    ranks = Ranks([("spatial_ops", dict(kw, mesh_spec=spec)) for spec, kw in jobs[2]], tmp, 2)
+    rng = np.random.RandomState(1)
+    for world, specs in SPECS.items():
+        jobs[world] += [("spatial_windows", spec, _windows_case(rng, 2 * spec[0], h, w))
+                        for spec in specs for h, w in SHAPES]
+    ranks = Ranks([(name, dict(kw, mesh_spec=spec)) for name, spec, kw in jobs[2]], tmp, 2)
     results = {2: ranks.results()}
-    ranks = Ranks([("spatial_ops", dict(kw, mesh_spec=spec)) for spec, kw in jobs[4]], tmp, 4)
-    single = {world: [CASES["spatial_ops"](None, **kw) for _, kw in job]
+    ranks = Ranks([(name, dict(kw, mesh_spec=spec)) for name, spec, kw in jobs[4]], tmp, 4)
+    single = {world: [CASES[name](None, **kw) for name, _, kw in job]
               for world, job in jobs.items()}
     results[4] = ranks.results()
-    return {world: [(spec, combine([r[i] for r in results[world]], spec), single[world][i])
-                    for i, (spec, _) in enumerate(jobs[world])] for world in jobs}
+    return {world: [(name, spec, combine([r[i] for r in results[world]], spec),
+                     single[world][i]) for i, (name, spec, _) in enumerate(jobs[world])]
+            for world in jobs}
+
+
+@pytest.fixture(scope="module")
+def ops_runs(spawned):
+    return {world: [(spec, got, want) for name, spec, got, want in runs
+                    if name == "spatial_ops"] for world, runs in spawned.items()}
 
 
 @pytest.mark.parametrize("world", sorted(SPECS))
@@ -180,3 +220,25 @@ def test_row_shard_ops_equal_one_process_f64(ops_runs, world):
             scale = max(float(np.abs(v).max()), 1e-300)
             np.testing.assert_allclose(got[k], v, rtol=0, atol=F64_REL * scale,
                                        err_msg=f"{spec} {k}")
+
+
+@pytest.mark.parametrize("world,op", [(world, op) for world in sorted(SPECS) for op in WINDOW_OPS])
+def test_window_op_equals_the_global_torch_op_f64(spawned, world, op):
+    """The generalised window `op` over the ranks of `world`, every mesh
+    and map size where its output has a row: its output, x's gradient and
+    the weight's equal the torch op's of the global image within 1e-10 of
+    each result's scale."""
+    ran = 0
+    for name, spec, got, want in spawned[world]:
+        if name != "spatial_windows" or f"{op}_loss" not in want:
+            continue
+        ran += 1
+        keys = [k for k in (f"block2:{op}_y", f"block2:{op}_dx", f"sum:{op}_dw", f"{op}_loss")
+                if k in want]
+        assert len(keys) >= 3 and all(k in got for k in keys)
+        for k in keys:
+            assert got[k].shape == want[k].shape, (spec, k)
+            scale = max(float(np.abs(want[k]).max()), 1e-300)
+            np.testing.assert_allclose(got[k], want[k], rtol=0, atol=F64_REL * scale,
+                                       err_msg=f"{spec} {k}")
+    assert ran >= 3 * len(SPECS[world]), ran

@@ -29,7 +29,8 @@ and ops/primitives.py) over gloo ranks on the CPU:
     bf16 network bound of senas_tpu's bf16 step (the weight update, the
     loss);
   * without a spawn: a zoo model on an encoder outside models/encoders.py
-    raises naming M13d at its first forward under a row split."""
+    runs under a row split (M13d; every family over ranks:
+    tests/test_torch_spatial_encoders.py)."""
 
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -48,12 +49,10 @@ from senas_tpu.train.trainer import FixedTrainState as JState
 from senas_tpu.train.trainer import make_train_step as jmake_train
 from senas_torch.core.config import load_config
 from senas_torch.models import zoo
-from senas_torch.parallel import collectives
-from senas_torch.parallel import mesh as M
 
 from torch_mesh_workers import Ranks, combine
 from torch_port_util import (NoDropout, as_f64, assert_bf16_network, flat, flat_leaves,
-                             random_fill, rel_l2, unit_scales)
+                             one_rank_split, random_fill, rel_l2, unit_scales)
 from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -225,14 +224,18 @@ def test_split_fpn_step_bf16_within_the_network_bound(runs):
 
 
 def test_zoo_on_an_encoder_outside_encoders_py_raises_under_split():
-    """M13d: a direct zoo.Unet(encoder_name="densenet121") under an active
-    row split raises at its first forward, before any collective."""
+    """M13d: a direct zoo.Unet(encoder_name="densenet121") runs under an
+    active row split (one rank holding every row: every op in its
+    row-shard form, DenseNet's transition pools included), and its eval
+    forward equals the unsplit one."""
     net = zoo.Unet(classes=2, in_channels=1, encoder_name="densenet121", encoder_depth=3,
-                   decoder_channels=(16, 8, 4), device="cpu")
-    mesh = M.Mesh(spec=M.MeshSpec(data=1, spatial=2), rank=0, device=torch.device("cpu"),
-                  group=object(), spatial_group=object())
-    x = torch.zeros(1, 32, 32, 1)
-    with collectives.activate(mesh, image_hw=(32, 32)):
-        with pytest.raises(NotImplementedError, match="Unet on DenseNetEncoder.*M13d"):
-            net(x, train=False)
-    assert net(x, train=False)[0].shape == (1, 32, 32, 2)
+                   decoder_channels=(16, 8, 4), device="cpu").double()
+    x = torch.from_numpy(np.random.RandomState(0).randn(1, 32, 32, 1))
+    with torch.no_grad():
+        want = net(x, train=False)[0]
+        with one_rank_split((32, 32)) as split:
+            got = net(x, train=False)[0]
+    assert split.levels == {32: 32, 16: 16, 8: 8, 4: 4, 2: 2}
+    assert got.shape == (1, 32, 32, 2)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=F64_REL * float(want.abs().max()))

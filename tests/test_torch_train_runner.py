@@ -182,8 +182,8 @@ def test_multi_gpus_over_two_devices_raises(tmp_path, monkeypatch, first_run, ru
     baseline models (tests/test_torch_mesh_cli.py,
     tests/test_torch_spatial_cli.py), one process a device: without a
     process group two visible devices raise, the spatial axis with a
-    baseline zoo model too; a model name the split does not cover raises
-    naming M13d first."""
+    baseline zoo model too; a model name the factory does not build raises
+    its KeyError first."""
     from senas_torch.runner import common
     monkeypatch.setattr(common, "visible_devices", lambda device: 2)
     cfg = _cfg(multi_gpus=True, mesh_spatial=2)
@@ -197,7 +197,7 @@ def test_multi_gpus_over_two_devices_raises(tmp_path, monkeypatch, first_run, ru
     for kw in ({}, {"model_name": "unet"}):
         with pytest.raises(RuntimeError, match="one process per device"):
             build(**kw)
-    with pytest.raises(NotImplementedError, match="M13d"):
+    with pytest.raises(KeyError, match="unknown model 'resunet'"):
         build(model_name="resunet")
 
 

@@ -374,6 +374,94 @@ def spatial_ops(mesh, x, weights, r_weights, ops, image_hw):
     return out
 
 
+WINDOW_OPS = {
+    # name: (function of primitives, its keyword arguments, weight shape or
+    # None; the torch function of the global image, its keyword arguments,
+    # and the (left, right, top, bottom) F.pad before it or None)
+    "conv1x7": ("conv2d_padded", {"padding": (0, 3)}, (4, 3, 1, 7),
+                "conv2d", {"padding": (0, 3)}, None),
+    "conv7x1": ("conv2d_padded", {"padding": (3, 0)}, (4, 3, 7, 1),
+                "conv2d", {"padding": (3, 0)}, None),
+    "conv3x1_s2": ("conv2d_padded", {"padding": (1, 0), "stride": 2}, (4, 3, 3, 1),
+                   "conv2d", {"padding": (1, 0), "stride": 2}, None),
+    "conv3_valid_s2": ("conv2d_padded", {"padding": (0, 0), "stride": 2}, (4, 3, 3, 3),
+                       "conv2d", {"stride": 2}, None),
+    "conv1x3_valid": ("conv2d_padded", {"padding": (0, 0)}, (4, 3, 1, 3),
+                      "conv2d", {}, None),
+    "same3_s2": ("conv2d_padded", {"padding": ((0, 1), (0, 1)), "stride": 2}, (4, 3, 3, 3),
+                 "conv2d", {"stride": 2}, (0, 1, 0, 1)),
+    "same5_s2": ("conv2d_padded", {"padding": ((1, 2), (1, 2)), "stride": 2}, (4, 3, 5, 5),
+                 "conv2d", {"stride": 2}, (1, 2, 1, 2)),
+    "same5_s2_dw": ("conv2d_padded", {"padding": ((1, 2), (1, 2)), "stride": 2, "groups": 3},
+                    (6, 1, 5, 5), "conv2d", {"stride": 2, "groups": 3}, (1, 2, 1, 2)),
+    "rows_lo_hi_s2": ("conv2d_padded", {"padding": ((2, 0), (1, 1)), "stride": 2},
+                      (4, 3, 3, 3), "conv2d", {"stride": 2, "padding": (0, 1)}, (0, 0, 2, 0)),
+    "max3_s2_ceil": ("max_pool", {"k": 3, "stride": 2, "padding": (0, 1)}, None,
+                     "max_pool2d", {"kernel_size": 3, "stride": 2}, (0, 1, 0, 1)),
+    "max3_s1": ("max_pool", {"k": 3, "stride": 1, "padding": 1}, None,
+                "max_pool2d", {"kernel_size": 3, "stride": 1, "padding": 1}, None),
+    "max3_s2": ("max_pool", {"k": 3, "stride": 2, "padding": 1}, None,
+                "max_pool2d", {"kernel_size": 3, "stride": 2, "padding": 1}, None),
+    "max3_s1_ceil": ("max_pool", {"k": 3, "stride": 1, "padding": (0, 1)}, None,
+                     "max_pool2d", {"kernel_size": 3, "stride": 1}, (0, 1, 0, 1)),
+    "max2_s2": ("max_pool", {"k": 2, "stride": 2}, None,
+                "max_pool2d", {"kernel_size": 2, "stride": 2}, None),
+    "avg3_s1_excl": ("avg_pool", {"k": 3, "stride": 1, "padding": 1, "count_include_pad": False},
+                     None, "avg_pool2d", {"kernel_size": 3, "stride": 1, "padding": 1,
+                                          "count_include_pad": False}, None),
+    "avg3_s2_excl": ("avg_pool", {"k": 3, "stride": 2, "padding": 1, "count_include_pad": False},
+                     None, "avg_pool2d", {"kernel_size": 3, "stride": 2, "padding": 1,
+                                          "count_include_pad": False}, None),
+    "avg3_s1_incl": ("avg_pool", {"k": 3, "stride": 1, "padding": 1}, None,
+                     "avg_pool2d", {"kernel_size": 3, "stride": 1, "padding": 1}, None),
+    "avg3_s2_incl": ("avg_pool", {"k": 3, "stride": 2, "padding": 1}, None,
+                     "avg_pool2d", {"kernel_size": 3, "stride": 2, "padding": 1}, None),
+    "avg2_s2_excl": ("avg_pool", {"k": 2, "stride": 2, "count_include_pad": False}, None,
+                     "avg_pool2d", {"kernel_size": 2, "stride": 2,
+                                    "count_include_pad": False}, None),
+}
+
+
+def window_reference(name, x, w=None):
+    """WINDOW_OPS[name] as the torch op of the global image x."""
+    import torch.nn.functional as F
+    _, _, _, fn, kw, pad = WINDOW_OPS[name]
+    if pad is not None:
+        x = F.pad(x, pad, value=float("-inf") if fn == "max_pool2d" else 0.0)
+    return getattr(F, fn)(x, w, **kw) if w is not None else getattr(F, fn)(x, **kw)
+
+
+@case
+def spatial_windows(mesh, x, weights, r_weights, ops, image_hw):
+    """Each op of WINDOW_OPS on this rank's block of x [B, C, H, W] under
+    the row split of an image `image_hw` (a split of its own for each op,
+    which enters the levels it makes), or, without a mesh, the torch op of
+    the global image (`window_reference`); and its backward: loss = sum of
+    r_weights[op] * the op's gathered output (NHWC). Returns each op's
+    output block, the gradient of x's block and of the weight."""
+    from senas_torch.ops import primitives as P
+    from senas_torch.parallel.collectives import gather_batch
+    out = {}
+    for name in ops:
+        fn, kw = WINDOW_OPS[name][:2]
+        xl = torch.from_numpy(_block(mesh, x)).requires_grad_()
+        leaves = [xl] + ([torch.from_numpy(weights[name]).requires_grad_()]
+                         if name in weights else [])
+        with _split_active(mesh, image_hw):
+            if mesh is None:
+                y = window_reference(name, *leaves)
+            else:
+                y = getattr(P, fn)(*leaves, **kw)
+            loss = (torch.from_numpy(r_weights[name]) * gather_batch(y.permute(0, 2, 3, 1))).sum()
+            grads = torch.autograd.grad(loss, leaves)
+        out[f"block2:{name}_y"] = _np(y)
+        out[f"block2:{name}_dx"] = _np(grads[0])
+        if len(grads) > 1:
+            out[f"sum:{name}_dw"] = _np(grads[1])
+        out[f"{name}_loss"] = _np(loss)
+    return out
+
+
 def _spatial_batch(mesh, batch, dtype, spatial):
     from senas_torch.parallel.mesh import shard_batch
     if mesh is None:
@@ -458,15 +546,32 @@ def spatial_search_steps(mesh, batches, do_arch, arch, w_cfg, a_cfg, meta, depth
     return out
 
 
-def _zoo_model(model, depth, variables, dtype, precision):
+# the decoder widths of a zoo Unet on a named encoder (narrow: the encoder
+# is what its tests hold) and of its DeepLabV3+
+ENCODER_DECODER = {"unet": (32, 16, 8, 8, 8), "deeplab_v3_plus": 32}
+
+
+def _zoo_model(model, depth, variables, dtype, precision, encoder=None, output_stride=16):
     """The factory's `model` in `dtype`, or with f32 weights computing in
-    bf16 where `precision` is "bf16"."""
+    bf16 where `precision` is "bf16". With `encoder`, the zoo's Unet or
+    DeepLabV3+ (`model` "unet" or "deeplab_v3_plus", at `output_stride`)
+    on that encoder, 1 channel in and 2 classes out, as a direct
+    `zoo.Unet(encoder_name=...)` call builds it."""
     from senas_torch import convert
+    from senas_torch.models import zoo
     from senas_torch.models.factory import get_segmentation_model
     bf16 = precision == "bf16"
-    net = get_segmentation_model(model, "synthetic", depth=depth, device="cpu",
-                                 dtype=torch.bfloat16 if bf16 else None,
-                                 generator=torch.Generator().manual_seed(0))
+    built = dict(device="cpu", dtype=torch.bfloat16 if bf16 else None,
+                 generator=torch.Generator().manual_seed(0))
+    if encoder is None:
+        net = get_segmentation_model(model, "synthetic", depth=depth, **built)
+    elif model == "unet":
+        net = zoo.Unet(classes=2, in_channels=1, encoder_name=encoder, encoder_depth=depth,
+                       decoder_channels=ENCODER_DECODER[model][:depth], **built)
+    else:
+        net = zoo.DeepLabV3Plus(classes=2, in_channels=1, encoder_name=encoder,
+                                encoder_depth=depth, output_stride=output_stride,
+                                decoder_channels=ENCODER_DECODER[model], **built)
     if variables is not None:
         convert.load_variables(net, variables)
     return net if bf16 else net.to(dtype)
@@ -475,16 +580,20 @@ def _zoo_model(model, depth, variables, dtype, precision):
 @case
 def spatial_zoo_steps(mesh, batches, eval_batch, opt_cfg, model, depth, clip=5.0,
                       loss="dice_ce", variables=None, dtype="float64", gated=False,
-                      spatial=True, seed=0, precision=None, dropout=True):
+                      spatial=True, seed=0, precision=None, dropout=True, encoder=None,
+                      output_stride=16):
     """fixed_steps for the factory's baseline model `model` at `depth` (its
     weights from seed 0, or `variables`; `precision` "bf16": f32 weights
-    computing in bf16), each batch placed by `shard_batch(spatial=...)`;
-    the dropout generator reseeded from (`seed`, step) as the trainer does,
-    or every Dropout the identity without `dropout`. Also the squared norm
-    of every GroupNorm's output in the eval step's forward, a sum over the
-    ranks."""
+    computing in bf16; with `encoder`, the zoo's Unet or DeepLabV3+ on that
+    encoder, `_zoo_model`), each batch placed by
+    `shard_batch(spatial=...)`; the dropout generator reseeded from
+    (`seed`, step) as the trainer does, or every Dropout the identity
+    without `dropout`. Also the squared norm of every GroupNorm's output in
+    the eval step's forward, a sum over the ranks, and the halo exchanges
+    and level gathers the steps made (the same count on every rank)."""
     from senas_torch import convert
     from senas_torch.ops.primitives import Dropout, GroupNorm
+    from senas_torch.parallel.spatial import HALO, reset_halo_counts
     from senas_torch.parallel.mesh import place_state, shard_train_step
     from senas_torch.train.loss import build_loss
     from senas_torch.train.trainer import FixedTrainState, make_eval_step, make_train_step
@@ -495,7 +604,7 @@ def spatial_zoo_steps(mesh, batches, eval_batch, opt_cfg, model, depth, clip=5.0
         Dropout.forward = lambda self, x, train=False, rng=None: x
     norms = {}
     try:
-        net = _zoo_model(model, depth, variables, dt, precision)
+        net = _zoo_model(model, depth, variables, dt, precision, encoder, output_stride)
         for name, m in net.named_modules():
             if isinstance(m, GroupNorm):
                 m.register_forward_hook(lambda m, i, y, name=name: norms.__setitem__(
@@ -506,10 +615,12 @@ def spatial_zoo_steps(mesh, batches, eval_batch, opt_cfg, model, depth, clip=5.0
         if mesh is not None:
             place_state(mesh, state)
             step, evaluate = shard_train_step(step, mesh), shard_train_step(evaluate, mesh)
+        reset_halo_counts()
         out = {f"step{i}": _metrics(step(state, _spatial_batch(mesh, b, dt, spatial)))
                for i, b in enumerate(batches)}
         norms.clear()
         out["eval"] = _metrics(evaluate(_spatial_batch(mesh, eval_batch, dt, spatial)))
+        out["halo_calls"] = np.array(HALO["calls"] + HALO["gathers"])
     finally:
         if before[0] is None:
             del os.environ["SENAS_PALLAS_BN"]

@@ -6,6 +6,8 @@ tree, and numpy fills it from a seed, with non-trivial BN running stats.
 Both packages then get the same numbers through `senas_torch.convert`.
 """
 
+import contextlib
+
 import flax.linen as fnn
 import jax
 import numpy as np
@@ -787,3 +789,30 @@ def assert_bf16_pyramid(r, stats: bool, rel: float = 2e-5):
     deepest = r["port_f32"][0][-1]
     assert_bf16_computed(r["port_bf16"][0][-1], deepest, rtol=0,
                          atol=rel * np.abs(deepest).max(), what="deepest map")
+
+
+# ---------------------------------------------------------------------------
+# The image-H split in one process
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def one_rank_split(image_hw):
+    """An active image-H split whose one rank holds every row, in this
+    process, with no process group: every conv, pool, resize and mean of a
+    model takes its row-shard form (`senas_torch.parallel.spatial`), and
+    each sum over the rank is the identity, so a forward and backward
+    equal the unsplit ones. Yields the split (its levels, as the ops
+    entered them)."""
+    import torch
+
+    from senas_torch.parallel import collectives
+    from senas_torch.parallel import mesh as M
+    mesh = M.Mesh(spec=M.MeshSpec(data=1), rank=0, device=torch.device("cpu"), group=object())
+    split = collectives.RowSplit(group=object(), size=1, index=0,
+                                 levels={image_hw[1]: image_hw[0]})
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(collectives, "_all_reduce_", lambda t, group: t)
+        mp.setattr(collectives, "_ACTIVE", mesh)
+        mp.setattr(collectives, "_SPLIT", split)
+        yield split
