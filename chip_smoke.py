@@ -229,9 +229,30 @@ Phases, each of which fails the run:
      rank), timm-skresnet18, inceptionv4, se_resnext50_32x4d and
      efficientnet-b0 (also in bf16, by the bf16 bound against its f32
      step), each held to one process (`DP_LIMITS`).
+ 23. the generic loaders (senas_torch/data/generic.py): two phantom
+     trees written here in the layouts the loaders walk, JPEGs by this
+     script's own baseline encoder (`encode_jpeg`; 4:2:0 and 4:4:4) and
+     PNG masks by zlib: VOCdevkit/VOC2012 (24 train and 12 val images of
+     500x375, palette masks with a 255 border) and ADEChallengeData2016
+     (the same counts at 683x512, gray masks with void 0), a few distinct
+     images under many names; the port's decode held near the written
+     pixels and its masks equal to them; ms per sample of the JPEG decode,
+     the bilinear resize and the train-mode __getitem__; `train_model` in
+     this process for one epoch of senas_promise12.yml's `training:` with
+     `data.dataset` set (480x480 crops, batch 12), --model unet (resnet10)
+     and senas, each at full width and depth 5 (remat on where the peak
+     passes 70 GB): ms/step, the loop's prefetch wait share, peak memory;
+     one decoded ADE20K batch (void labels -1 included; depth 3, c 8,
+     64x64, batch 2) stepped on the card against the CPU; SenasModel at
+     dropout_prob 0.2 at full width (batch 2 of 64x64x3): a step on the
+     card against the CPU from one CPU generator and remat on against off,
+     in f64 (the full-width f32 step at this size is ill-conditioned on
+     the CPU already; the f32 distance is logged), all within
+     `CARD_CPU_LIMITS`; ms/step and peak at batch 12 of 256x256x3 with and
+     without dropout and with remat.
 Each phase's seconds are logged as it ends, and all of them at the end.
-Phases 12-13, 16, 18's zoo and 20's and 21's ungated steps launch none of
-the kernels (neither the fixed model nor the zoo has any, unless
+Phases 12-13, 16, 18's zoo, 20's and 21's ungated steps and 23 launch none
+of the kernels (neither the fixed model nor the zoo has any, unless
 SENAS_PALLAS_BN=1).
 Every kernel variant must be launched on at least one path (phases 4-6, 9,
 14, 15, 17, 19-22; K2's bf16 variant in phase 4). The line before the last is a
@@ -253,12 +274,14 @@ import importlib
 import io
 import json
 import os
+import random
 import re
 import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -270,7 +293,8 @@ from senas_torch.challenge import predict_test, volumetric_metrics
 from senas_torch.challenge.promise12 import best_worst_contour_grid
 from senas_torch.core.config import load_config
 from senas_torch.core.genotype import parse_genotype
-from senas_torch.data import DataLoader, augment, get_dataset, imgproc, native, promise12
+from senas_torch.data import (DataLoader, augment, get_dataset, imgproc, native,
+                               pilresample, promise12)
 from senas_torch.data.dicom import read_dicom_pixels
 from senas_torch.data.imfile import float_to_l, read_image, write_png_l
 from senas_torch.data.io import MetaImage, read_mhd, read_nifti, write_mhd
@@ -1493,24 +1517,10 @@ def fixed_step_card_vs_cpu(dev, seed: int, **training) -> tuple:
     section updated by `training`) from identical state on the CPU and on
     the card: (metrics rel, state rel)."""
     t = dict(load_config(CONFIG)["training"], depth=3, init_channels=8, **training)
-    model0 = _fixed_model(t, "cpu", torch.Generator().manual_seed(seed + 5)).state_dict()
     batch = _batches(np.random.RandomState(seed + 5), 1, 2, 64, "cpu")[0]
-
-    def run_on(d):
-        model = _fixed_model(t, d, None)
-        model.load_state_dict({k: v.to(d) for k, v in model0.items()})
-        state = FixedTrainState.create(model, t["model_optimizer"])
-        m = make_train_step(_fixed_loss(t), grad_clip=t["grad_clip"])(
-            state, {k: v.to(d) for k, v in batch.items()})
-        return ({k: v.cpu() for k, v in m.items()},
-                {"model": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
-                 "arch": {}})
-
-    before = {"model": {k: v.clone() for k, v in model0.items()}, "arch": {}}
-    m_cpu, after_cpu = run_on("cpu")
-    m_card, after_card = run_on(dev)
-    return (_metrics_rel(m_card, m_cpu, ("loss", "grad_norm")),
-            _state_rel(before, after_card, after_cpu))
+    rel_m, rel_s, _ = _step_card_vs_cpu(
+        lambda d: _fixed_model(t, d, torch.Generator().manual_seed(seed + 5)), batch, t, dev)
+    return rel_m, rel_s
 
 
 # ---------------------------------------------------------------------------
@@ -5067,6 +5077,505 @@ def run_data_parallel(dev, seed: int) -> dict:
                              for name in ("search", "fixed")})
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the generic loaders (JPEG, Pillow's resampling) through train_model
+# ---------------------------------------------------------------------------
+
+# each tree: its dataset, image (H, W), train and val counts, its masks' classes
+GENERIC_TREES = {"pascal_voc": dict(hw=(375, 500), train=24, val=12, classes=21),
+                 "ade20k": dict(hw=(512, 683), train=24, val=12, classes=150)}
+GENERIC_DISTINCT = 3          # distinct images a tree, written under many names
+GENERIC_MODELS = ("unet", "senas")
+GENERIC_REMAT_BYTES = 70e9    # above this peak a model trains with remat
+GENERIC_DROPOUT = 0.2
+GENERIC_TIMED = 6             # samples timed a tree
+GENERIC_CPU = dict(depth=3, c=8, hw=64, batch=2)   # the ADE20K card-vs-CPU step
+GENERIC_DROPOUT_HW = 64       # the dropout checks: full width, batch 2 of 64x64x3
+GENERIC_DROPOUT_TIMED = (12, 256)   # the dropout timings: batch 12 of 256x256x3
+
+_ZIGZAG = np.array([0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33,
+                    40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43,
+                    36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53,
+                    60, 61, 54, 47, 55, 62, 63])
+# the example tables of the JPEG standard (Annex K), natural order
+_LUMA_Q = np.array([16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13,
+                    16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56,
+                    68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92, 49, 64, 78, 87, 103,
+                    121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+_CHROMA_Q = np.full(64, 99)
+_CHROMA_Q[[0, 1, 2, 3, 8, 9, 10, 11, 16, 17, 18, 24, 25]] = [17, 18, 24, 47, 18, 21, 26, 66,
+                                                             24, 26, 56, 47, 66]
+# Huffman tables of fixed length: every DC size a 4-bit code, every AC
+# symbol (EOB, ZRL, run/size) an 8-bit one
+_DC_SYMBOLS = list(range(12))
+_AC_SYMBOLS = [0x00, 0xF0] + [(r << 4) | s for r in range(16) for s in range(1, 11)]
+_DC_CODE = {s: (i, 4) for i, s in enumerate(_DC_SYMBOLS)}
+_AC_CODE = {s: (i, 8) for i, s in enumerate(_AC_SYMBOLS)}
+
+
+def _dct_matrix() -> np.ndarray:
+    u, x = np.meshgrid(np.arange(8), np.arange(8), indexing="ij")
+    c = np.cos((2 * x + 1) * u * np.pi / 16) / 2
+    c[0] /= np.sqrt(2)
+    return c
+
+
+def _quant_table(base: np.ndarray, quality: int) -> np.ndarray:
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return np.clip((base * scale + 50) // 100, 1, 255)
+
+
+def _blocks(plane: np.ndarray) -> np.ndarray:
+    """[H, W] (multiples of 8) -> [H/8, W/8, 8, 8]."""
+    h, w = plane.shape
+    return plane.reshape(h // 8, 8, w // 8, 8).transpose(0, 2, 1, 3)
+
+
+class _BitWriter:
+    def __init__(self):
+        self.out, self.acc, self.n = bytearray(), 0, 0
+
+    def put(self, value: int, bits: int):
+        self.acc = (self.acc << bits) | (value & ((1 << bits) - 1))
+        self.n += bits
+        while self.n >= 8:
+            self.n -= 8
+            byte = (self.acc >> self.n) & 0xFF
+            self.out.append(byte)
+            if byte == 0xFF:
+                self.out.append(0)   # byte stuffing
+        self.acc &= (1 << self.n) - 1
+
+    def flush(self) -> bytes:
+        if self.n:
+            self.put((1 << (8 - self.n)) - 1, 8 - self.n)   # pad with 1-bits
+        return bytes(self.out)
+
+
+def _size(v: int) -> int:
+    return int(abs(v)).bit_length()
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 90, subsampling: str = "4:2:0") -> bytes:
+    """A baseline JFIF JPEG of uint8 `img` ([H, W] gray or [H, W, 3] RGB):
+    YCbCr with 4:2:0 or 4:4:4 chroma, the standard's example quantisation
+    tables scaled to `quality`, Huffman tables of fixed code length. What
+    the data trees of phase 23 are written with (Pillow and cv2 are not
+    promised on the card's machine); Pillow decodes the files it writes as
+    the port does (tests/test_torch_jpeg.py)."""
+    img = np.asarray(img, np.uint8)
+    gray = img.ndim == 2
+    h, w = img.shape[:2]
+    hs = 1 if gray or subsampling == "4:4:4" else 2
+    if not gray and subsampling not in ("4:2:0", "4:4:4"):
+        raise ValueError(f"subsampling {subsampling!r}: 4:2:0 or 4:4:4")
+    mcu = 8 * hs
+    ph, pw = -(-h // mcu) * mcu, -(-w // mcu) * mcu
+    x = np.pad(img.astype(np.float64), ((0, ph - h), (0, pw - w)) + ((0, 0),) * (img.ndim - 2),
+               mode="edge")
+    if gray:
+        planes = [x]
+    else:
+        r, g, b = x[..., 0], x[..., 1], x[..., 2]
+        planes = [0.299 * r + 0.587 * g + 0.114 * b,
+                  -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+                  0.5 * r - 0.418688 * g - 0.081312 * b + 128]
+        if hs == 2:
+            planes[1:] = [p.reshape(ph // 2, 2, pw // 2, 2).mean(axis=(1, 3)) for p in planes[1:]]
+    tables = [_quant_table(_LUMA_Q, quality), _quant_table(_CHROMA_Q, quality)]
+    cm = _dct_matrix()
+    coefs = []
+    for i, p in enumerate(planes):
+        blk = _blocks(p - 128.0)
+        f = np.einsum("ux,abxy,vy->abuv", cm, blk, cm).reshape(blk.shape[:2] + (64,))
+        q = tables[min(i, 1)].astype(np.float64)
+        coefs.append(np.round(f / q).astype(np.int64)[..., _ZIGZAG])
+    bw = _BitWriter()
+    preds = [0] * len(planes)
+    by_n, bx_n = ph // mcu, pw // mcu
+    units = [(0, hs)] + [(i, 1) for i in range(1, len(planes))]
+    for my in range(by_n):
+        for mx in range(bx_n):
+            for ci, n in units:
+                for dy in range(n):
+                    for dx in range(n):
+                        zz = coefs[ci][my * n + dy, mx * n + dx]
+                        diff = int(zz[0]) - preds[ci]
+                        preds[ci] = int(zz[0])
+                        s = _size(diff)
+                        bw.put(*_DC_CODE[s])
+                        if s:
+                            bw.put(diff if diff > 0 else diff - 1, s)
+                        nz = np.flatnonzero(zz[1:]) + 1
+                        last = 0
+                        for k in nz:
+                            run = int(k) - last - 1
+                            while run > 15:
+                                bw.put(*_AC_CODE[0xF0])
+                                run -= 16
+                            v = int(zz[k])
+                            s = _size(v)
+                            bw.put(*_AC_CODE[(run << 4) | s])
+                            bw.put(v if v > 0 else v - 1, s)
+                            last = int(k)
+                        if last < 63:
+                            bw.put(*_AC_CODE[0x00])
+    data = bw.flush()
+
+    def seg(marker: int, body: bytes) -> bytes:
+        return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+
+    out = [b"\xff\xd8", seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
+    for t, q in enumerate(tables[:1 if gray else 2]):
+        out.append(seg(0xDB, bytes([t]) + bytes(q[_ZIGZAG].astype(np.uint8).tolist())))
+    comps = [(1, (hs << 4) | hs, 0)] + ([] if gray else [(2, 0x11, 1), (3, 0x11, 1)])
+    out.append(seg(0xC0, struct.pack(">BHHB", 8, h, w, len(comps))
+                   + b"".join(bytes(c) for c in comps)))
+    for t in range(1 if gray else 2):
+        dc = bytes([0, 0, 0, len(_DC_SYMBOLS)] + [0] * 12)
+        ac = bytes([0] * 7 + [len(_AC_SYMBOLS)] + [0] * 8)
+        out.append(seg(0xC4, bytes([t]) + dc + bytes(_DC_SYMBOLS)))
+        out.append(seg(0xC4, bytes([0x10 | t]) + ac + bytes(_AC_SYMBOLS)))
+    sos = bytes([len(comps)]) + b"".join(bytes([cid, (min(i, 1) << 4) | min(i, 1)])
+                                        for i, (cid, _, _) in enumerate(comps))
+    out.append(seg(0xDA, sos + b"\x00\x3f\x00"))
+    out.append(data + b"\xff\xd9")
+    return b"".join(out)
+
+
+def encode_png(arr: np.ndarray, palette: np.ndarray = None) -> bytes:
+    """An 8-bit PNG of uint8 [H, W]: gray, or palette indices with
+    `palette` [n, 3] (a PLTE chunk)."""
+    arr = np.asarray(arr, np.uint8)
+    h, w = arr.shape
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), arr], axis=1).tobytes()
+    colour = 0 if palette is None else 3
+    parts = [b"\x89PNG\r\n\x1a\n", chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))]
+    if palette is not None:
+        parts.append(chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes()))
+    parts += [chunk(b"IDAT", zlib.compress(raw, 6)), chunk(b"IEND", b"")]
+    return b"".join(parts)
+
+
+def _generic_pair(rng, h: int, w: int, classes: int, background: int, void: int,
+                  border: int):
+    """An RGB scene of a few elliptic objects over a gradient, with noise,
+    and its label map: object classes in [1, classes) over `background`,
+    with `border` pixels of `void` around each object (VOC: background 0,
+    a 255 border; ADE20K: a labelled background, a void 0 border)."""
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    img = np.stack([120 + 80 * np.sin(x / (40 + 20 * k) + k) * np.cos(y / 50.0) for k in range(3)],
+                   -1)
+    lab = np.full((h, w), background, np.uint8)
+    for _ in range(6):
+        cy, cx = rng.uniform(0, h), rng.uniform(0, w)
+        ry, rx = rng.uniform(h / 12, h / 3), rng.uniform(w / 12, w / 3)
+        d = ((y - cy) / ry) ** 2 + ((x - cx) / rx) ** 2
+        img[d < 1] = rng.uniform(20, 235, 3)
+        lab[(d >= 1) & (d < (1 + border / min(ry, rx)) ** 2)] = void
+        lab[d < 1] = int(rng.randint(1, classes))
+    img += rng.normal(0, 12, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8), lab
+
+
+def write_generic_tree(root: str, name: str, rng) -> dict:
+    """A data tree in the layout `senas_torch/data/generic.py` walks:
+    VOCdevkit/VOC2012 (JPEGImages, palette PNGs with a 255 border,
+    ImageSets/Segmentation/{trainval,val}.txt) or ADEChallengeData2016
+    (images/ and annotations/ {training,validation}, gray PNGs with void
+    0). GENERIC_DISTINCT images, half 4:2:0 and half 4:4:4, written under
+    every name. Returns the counts and the files' bytes."""
+    tree = GENERIC_TREES[name]
+    h, w = tree["hw"]
+    pairs = []
+    for i in range(GENERIC_DISTINCT):
+        if name == "pascal_voc":
+            img, lab = _generic_pair(rng, h, w, tree["classes"], 0, 255, border=5)
+        else:
+            img, lab = _generic_pair(rng, h, w, tree["classes"], 1 + i, 0, border=3)
+        jpg = encode_jpeg(img, 90, "4:2:0" if i % 2 == 0 else "4:4:4")
+        if name == "pascal_voc":
+            palette = np.random.RandomState(i).randint(0, 256, (256, 3))
+            png = encode_png(lab, palette)
+        else:
+            png = encode_png(lab)
+        pairs.append((img, lab, jpg, png))
+    names = {"train": [f"{name}_{i:04d}" for i in range(tree["train"])],
+             "val": [f"{name}_v{i:04d}" for i in range(tree["val"])]}
+    written = 0
+
+    def put(path, data):
+        nonlocal written
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(data)
+        written += len(data)
+
+    for split, stems in names.items():
+        for i, stem in enumerate(stems):
+            _, _, jpg, png = pairs[i % GENERIC_DISTINCT]
+            if name == "pascal_voc":
+                base = os.path.join(root, "VOCdevkit", "VOC2012")
+                put(os.path.join(base, "JPEGImages", stem + ".jpg"), jpg)
+                put(os.path.join(base, "SegmentationClass", stem + ".png"), png)
+            else:
+                base = os.path.join(root, "ADEChallengeData2016")
+                sub = "training" if split == "train" else "validation"
+                put(os.path.join(base, "images", sub, stem + ".jpg"), jpg)
+                put(os.path.join(base, "annotations", sub, stem + ".png"), png)
+    if name == "pascal_voc":
+        base = os.path.join(root, "VOCdevkit", "VOC2012", "ImageSets", "Segmentation")
+        os.makedirs(base, exist_ok=True)
+        for fname, split in (("trainval.txt", "train"), ("val.txt", "val")):
+            with open(os.path.join(base, fname), "w") as f:
+                f.write("\n".join(names[split]) + "\n")
+    return dict(pairs=pairs, names=names, bytes=written)
+
+
+def _sample_ms(fn, reps: int) -> float:
+    t0 = time.perf_counter()
+    for i in range(reps):
+        fn(i)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def time_generic(dataset, tree: dict) -> dict:
+    """ms per sample of the JPEG decode, the bilinear resize to the
+    scale-jitter's middle size, and the whole train-mode __getitem__."""
+    paths = dataset.images[:GENERIC_DISTINCT]
+    decode = _sample_ms(lambda i: read_image(paths[i % len(paths)], "RGB"), GENERIC_TIMED)
+    img = read_image(paths[0], "RGB")
+    h, w = img.shape[:2]
+    long = int(dataset.base_size * 1.5)
+    size = (long, int(1.0 * h * long / w + 0.5)) if w >= h else (int(1.0 * w * long / h + 0.5), long)
+    resample = _sample_ms(lambda i: pilresample.resize_bilinear(img, size), GENERIC_TIMED)
+    random.seed(0)
+    item = _sample_ms(lambda i: dataset[i % len(dataset)], GENERIC_TIMED)
+    return dict(decode_ms=decode, resample_ms=resample, resample_to=list(size), getitem_ms=item)
+
+
+def _generic_config(work: str, name: str, remat: bool) -> str:
+    """senas_promise12.yml with `data.dataset` set to `name` (and
+    `training.remat`)."""
+    cfg = load_config(CONFIG)
+    cfg["data"]["dataset"] = name
+    cfg["training"]["remat"] = remat
+    path = os.path.join(work, f"generic_{name}_{int(remat)}.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(json.loads(json.dumps(cfg)), f)
+    return path
+
+
+def _generic_train(work: str, root: str, name: str, model: str) -> dict:
+    """train_model for one epoch on the tree, in this process; remat on
+    when the step's peak passes GENERIC_REMAT_BYTES without it."""
+    for remat in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        out = _in_process(train_model.main, "--config", _generic_config(work, name, remat),
+                          "--model", model, "--epoch", "1", "--data_root", root,
+                          "--log_root", os.path.join(work, "logs"))
+        peak = torch.cuda.max_memory_allocated()
+        sc = _scalars(_run_dir(out))
+        check(all(np.isfinite(v) for v in sc.values()), f"{name} {model} scalars {sc}")
+        if peak <= GENERIC_REMAT_BYTES:
+            break
+    row = dict(ms_per_step=1e3 / sc["Train/steps_per_sec"],
+               prefetch_wait_share=sc["Train/prefetch_wait_share"], peak_gb=peak / 1e9,
+               remat=remat, loss=sc["Train/Loss"])
+    log(f"  {name} {model}: {row}")
+    return row
+
+
+def _generic_batch(root: str, seed: int) -> dict:
+    """One decoded ADE20K train batch of GENERIC_CPU's size: the window of
+    its samples with the most labelled pixels that still holds void ones
+    (-1)."""
+    ds = get_dataset("ade20k", root, mode="train")
+    random.seed(seed)
+    samples = [ds[i] for i in range(GENERIC_CPU["batch"])]
+    hw = GENERIC_CPU["hw"]
+    img = np.stack([s[0] for s in samples])
+    lab = np.stack([s[1] for s in samples]).astype(np.int64)
+    best = (-1, 0, 0)
+    for y in range(0, lab.shape[1] - hw + 1, hw // 2):
+        for x in range(0, lab.shape[2] - hw + 1, hw // 2):
+            win = lab[:, y:y + hw, x:x + hw]
+            if (win == -1).any() and int((win >= 0).sum()) > best[0]:
+                best = (int((win >= 0).sum()), y, x)
+    _, y, x = best
+    return {"image": torch.from_numpy(np.ascontiguousarray(img[:, y:y + hw, x:x + hw])),
+            "label": torch.from_numpy(np.ascontiguousarray(lab[:, y:y + hw, x:x + hw]))}
+
+
+def _step_card_vs_cpu(build, batch: dict, t: dict, dev, dtype=torch.float32) -> tuple:
+    """One fixed train step of `build(device)` in `dtype` from one state on
+    the CPU and on the card (dropout from one CPU generator): (metrics rel,
+    state rel, metrics on the card)."""
+    model0 = build("cpu").to(dtype).state_dict()
+
+    def run_on(d):
+        model = build(d).to(dtype)
+        model.load_state_dict({k: v.to(d) for k, v in model0.items()})
+        state = FixedTrainState.create(model, t["model_optimizer"], rng=torch.Generator())
+        m = make_train_step(_fixed_loss(t), grad_clip=t["grad_clip"])(
+            state, {k: (v.to(dtype) if v.is_floating_point() else v).to(d)
+                    for k, v in batch.items()})
+        return ({k: v.cpu() for k, v in m.items()},
+                {"model": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+                 "arch": {}})
+
+    before = {"model": {k: v.clone() for k, v in model0.items()}, "arch": {}}
+    m_cpu, after_cpu = run_on("cpu")
+    m_card, after_card = run_on(dev)
+    return (_metrics_rel(m_card, m_cpu, ("loss", "grad_norm")),
+            _state_rel(before, after_card, after_cpu), m_card)
+
+
+def run_generic_path(dev, seed: int, work: str) -> dict:
+    """Phase 23: the generic trees through the loaders and train_model, an
+    ADE20K step with void labels on the card against the CPU, and
+    SenasModel's dropout (remat on against off, card against CPU)."""
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed + 23)
+    t = load_config(CONFIG)["training"]
+    out = dict(trees={}, card_vs_cpu={})
+    root = os.path.join(work, "generic")
+    for name in GENERIC_TREES:
+        tree = write_generic_tree(root, name, rng)
+        ds = get_dataset(name, root, mode="train")
+        check(len(ds) == GENERIC_TREES[name]["train"]
+              and len(get_dataset(name, root, mode="val")) == GENERIC_TREES[name]["val"],
+              f"{name}: {len(ds)} train samples")
+        # the decoder against the written pixels (a lossy code: close, not equal)
+        img, lab = tree["pairs"][0][:2]
+        got = read_image(ds.images[0], "RGB")
+        mask = read_image(ds.masks[0], None)
+        err = float(np.abs(got.astype(np.int64) - img).mean())
+        check(got.shape == img.shape and err < 12 and np.array_equal(mask, lab),
+              f"{name}: decoded {got.shape}, mean |err| {err:.2f}, mask equal "
+              f"{np.array_equal(mask, lab)}")
+        x, y = ds[0]
+        crop = tuple(ds.crop_size)
+        check(x.shape == crop + (3,) and x.dtype == np.float32 and y.shape == crop
+              and np.isfinite(x).all(), f"{name} sample {x.shape} {x.dtype} {y.shape}")
+        labels = np.unique(y)
+        check(labels.min() >= (-1 if name == "ade20k" else 0) and labels.max() < ds.num_class,
+              f"{name} labels {labels}")
+        timing = time_generic(ds, tree)
+        rows = {m: _generic_train(work, root, name, m) for m in GENERIC_MODELS}
+        out["trees"][name] = dict(timing, bytes=tree["bytes"], decode_mean_abs_err=err,
+                                  labels=[int(labels.min()), int(labels.max())], models=rows)
+        log(f"generic-{name}: decode {timing['decode_ms']:.2f} ms, resample to "
+            f"{timing['resample_to']} {timing['resample_ms']:.2f} ms, __getitem__ "
+            f"{timing['getitem_ms']:.2f} ms a sample; {rows}")
+
+    # one decoded ADE20K batch, void labels included, card against CPU
+    batch = _generic_batch(root, seed)
+    ct = dict(t, depth=GENERIC_CPU["depth"], init_channels=GENERIC_CPU["c"])
+    ade = GENERIC_TREES["ade20k"]["classes"]
+    build = lambda d: SenasModel(ade, 3, c=ct["init_channels"], depth=ct["depth"],
+                                 genotype=getattr(geno_searched, ct["geno_type"]), device=d,
+                                 generator=torch.Generator().manual_seed(seed + 23))
+    rel_m, rel_s, m = _step_card_vs_cpu(build, batch, ct, dev)
+    void = int((batch["label"] == -1).sum())
+    check(0 < void < batch["label"].numel(), f"the ADE20K batch holds {void} void pixels")
+    log(f"generic ADE20K step card vs CPU (depth {ct['depth']}, c {ct['init_channels']}, "
+        f"{GENERIC_CPU['hw']}x{GENERIC_CPU['hw']}, batch {GENERIC_CPU['batch']}, {void} void "
+        f"pixels): loss {float(m['loss']):.6f}, metrics rel {rel_m}, state {rel_s} (limits "
+        f"{CARD_CPU_LIMITS})")
+    check(np.isfinite(float(m["loss"])) and _within(rel_m, rel_s),
+          f"the ADE20K step on the card and the CPU disagree: {rel_m} {rel_s}")
+    out["card_vs_cpu"]["ade20k_void"] = dict(metrics=rel_m, state=rel_s, void_pixels=void)
+
+    # SenasModel at dropout_prob 0.2, full width: the card against the CPU
+    # from one CPU generator, remat on against off on the card
+    out["dropout"] = run_generic_dropout(dev, seed, t)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _dropout_model(t, d, seed: int, p: float = GENERIC_DROPOUT, remat: bool = False):
+    return SenasModel(21, 3, c=t["init_channels"], depth=t["depth"], dropout_prob=p,
+                      genotype=getattr(geno_searched, t["geno_type"]), remat=remat, device=d,
+                      generator=torch.Generator().manual_seed(seed + 24))
+
+
+def _dropout_batch(rng, b: int, hw: int, dev) -> dict:
+    return {"image": torch.from_numpy(rng.randn(b, hw, hw, 3).astype(np.float32)).to(dev),
+            "label": torch.from_numpy(rng.randint(0, 21, (b, hw, hw))).to(dev)}
+
+
+def run_generic_dropout(dev, seed: int, t: dict) -> dict:
+    """SenasModel with dropout_prob GENERIC_DROPOUT at full width (c 32,
+    depth 5), batch 2 of 64x64x3: one step on the card against the CPU from
+    one CPU generator, and on the card with remat on against off (cuDNN
+    deterministic), both in f64 within CARD_CPU_LIMITS (in f32 the CPU's
+    own full-width step lies 1.2e-3 of its update from its f64 one at this
+    size, a BatchNorm over the 2x2 deepest maps; the f32 card-vs-CPU
+    distance is logged); then ms/step and peak at batch 12 of 256x256x3
+    with dropout, with dropout and remat, and at dropout_prob 0."""
+    hw, f64 = GENERIC_DROPOUT_HW, torch.float64
+    batch = _dropout_batch(np.random.RandomState(seed + 24), 2, hw, "cpu")
+    build = lambda d: _dropout_model(t, d, seed)
+    rel_m, rel_s, _ = _step_card_vs_cpu(build, batch, t, dev, f64)
+    check(_within(rel_m, rel_s), f"the f64 dropout step on the card and the CPU disagree: "
+                                 f"{rel_m} {rel_s}")
+    f32_m, f32_s, _ = _step_card_vs_cpu(build, batch, t, dev)
+    before = {"model": {k: v.clone() for k, v in build("cpu").to(f64).state_dict().items()},
+              "arch": {}}
+    runs = {}
+    for remat in (False, True):
+        model = _dropout_model(t, dev, seed, remat=remat).to(f64)
+        state = FixedTrainState.create(model, t["model_optimizer"], rng=torch.Generator())
+        with deterministic_cudnn():
+            m = make_train_step(_fixed_loss(t), grad_clip=t["grad_clip"])(
+                state, {k: (v.to(f64) if v.is_floating_point() else v).to(dev)
+                        for k, v in batch.items()})
+        runs[remat] = ({k: v.cpu() for k, v in m.items()},
+                       {"model": {k: v.detach().cpu().clone()
+                                  for k, v in model.state_dict().items()}, "arch": {}})
+    remat_m = _metrics_rel(runs[True][0], runs[False][0], ("loss", "grad_norm"))
+    remat_s = _state_rel(before, runs[True][1], runs[False][1])
+    check(_within(remat_m, remat_s), f"remat on and off disagree on the dropout step: "
+                                     f"{remat_m} {remat_s}")
+    b, thw = GENERIC_DROPOUT_TIMED
+    timed_batch = _dropout_batch(np.random.RandomState(seed + 25), b, thw, dev)
+    timed = {}
+    for label, p, remat in (("dropout_0", 0.0, False), ("dropout", GENERIC_DROPOUT, False),
+                            ("dropout_remat", GENERIC_DROPOUT, True)):
+        model = _dropout_model(t, dev, seed, p, remat)
+        state = FixedTrainState.create(model, t["model_optimizer"])
+        step = make_train_step(_fixed_loss(t), grad_clip=t["grad_clip"])
+        torch.cuda.reset_peak_memory_stats()
+        step(state, timed_batch)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            s0 = time.perf_counter()
+            m = step(state, timed_batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - s0) * 1e3)
+        check(np.isfinite(float(m["loss"])), f"{label}: loss {float(m['loss'])}")
+        timed[label] = dict(ms=float(np.mean(times)),
+                            peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+        del model, state
+        torch.cuda.empty_cache()
+    out = dict(card_vs_cpu=dict(metrics=rel_m, state=rel_s),
+               card_vs_cpu_f32=dict(metrics=f32_m, state=f32_s),
+               remat=dict(metrics=remat_m, state=remat_s), timed=timed)
+    log(f"generic dropout (SenasModel c {t['init_channels']}, depth {t['depth']}, p "
+        f"{GENERIC_DROPOUT}): f64 card vs CPU (batch 2 of {hw}x{hw}x3) {out['card_vs_cpu']}; "
+        f"f64 remat on against off {out['remat']} (limits {CARD_CPU_LIMITS}); f32 card vs CPU "
+        f"(logged) {out['card_vs_cpu_f32']}; batch {b} of {thw}x{thw}x3 ms/step and peak MiB "
+        f"{timed}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -5146,6 +5655,8 @@ def main(argv=None) -> int:
     paths["timm_residual_variants"] = dict(launches=timm2["launches"])
     dp = phase(22, run_data_parallel, dev, args.seed)
     paths["data_parallel"] = dict(launches=dp["launches"])
+    with tempfile.TemporaryDirectory() as work:
+        generic = phase(23, run_generic_path, dev, args.seed, work)
 
     kernels = []
     for name, k in KERNELS.items():
@@ -5322,6 +5833,13 @@ def main(argv=None) -> int:
         f"K1a-K1d a gated step (one process, rank 0, rank 1) "
         f"{dp['encoders']['timm-resnest14d_gated']['k1']}; "
         f"rank 0 against one process {_zoo_distances(dp['encoders'])}")
+    gen_rows = {f"{n}/{m}": (round(r['ms_per_step'], 2), round(r['prefetch_wait_share'], 4),
+                             round(r['peak_gb'], 2), r['remat'])
+                for n, tr in generic["trees"].items() for m, r in tr["models"].items()}
+    log(f"phase 23 summary ({generic['seconds']:.1f} s): decode, resample, __getitem__ ms a "
+        f"sample { {n: (round(tr['decode_ms'], 2), round(tr['resample_ms'], 2), round(tr['getitem_ms'], 2)) for n, tr in generic['trees'].items()} }; "
+        f"ms/step, prefetch wait share, peak GB, remat {gen_rows}; ADE20K void step card vs "
+        f"CPU {generic['card_vs_cpu']['ade20k_void']}; dropout {generic['dropout']}")
     log(f"phase seconds {phase_s}")
     log(f"card: {smi}; total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,22 +1,19 @@
 """Joint (image, mask) augmentations and the cache build's preprocessing.
 
-A port of the parts of `senas_tpu/data/augment.py` that the loaders run:
-`Compose`, the two flips, `RandomTranslate`, `RandomElasticTransform`, the
-resize and crop family (`Scale`, `FreeScale`, `RandomZoom`, `RandomCrop`,
-`CenterCrop`, `RandomSizedCrop`, `RandomSized`, `Pad`), and the cache
-build's `equalize_adapthist` and `smooth_images`. Images are float32 [H,W]
-or [H,W,C], masks uint8 [H,W]. Where the JAX package calls cv2, this module
+A port of `senas_tpu/data/augment.py`: `Compose`, the two flips,
+`RandomTranslate`, `RandomRotate`, `RandomElasticTransform`, the resize
+and crop family (`Scale`, `FreeScale`, `RandomZoom`, `RandomCrop`,
+`CenterCrop`, `RandomSizedCrop`, `RandomSized`, `Pad`), the colour
+transforms (`AdjustGamma`, `AdjustBrightness`, `AdjustContrast`,
+`AdjustSaturation`, `AdjustHue`), and the cache build's
+`equalize_adapthist` and `smooth_images`. Images are float32 [H,W] or
+[H,W,C], masks uint8 [H,W]. Where the JAX package calls cv2, this module
 calls `senas_torch.data.imgproc`, which computes the same numbers without
-cv2.
+cv2 (the hue's RGB -> HSV within 1 ulp of h, `imgproc.rgb_to_hsv`).
 
 The transforms draw from Python's `random` and numpy's global `np.random`,
 in the JAX package's order and shapes, so that under the same
 `random.seed` and `np.random.seed` both packages give the same sample.
-
-The JAX package's rotation (`cv2.warpAffine`) and colour transforms
-(`cv2.cvtColor` for the hue) are not ported: no loader or runner of either
-package calls them, and `get_composed_augmentations` raises on their names
-(M9c, ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -95,6 +92,19 @@ class RandomTranslate:
         if arr.ndim == 3:
             pt = pt + ((0, 0),)
         return np.pad(crop, pt, mode="reflect" if reflect else "constant")
+
+
+class RandomRotate:
+    def __init__(self, degree: float):
+        self.degree = degree
+
+    def __call__(self, img, mask):
+        angle = random.random() * 2 * self.degree - self.degree
+        h, w = img.shape[:2]
+        m = imgproc.rotation_matrix((w / 2, h / 2), angle, 1.0)
+        img2 = imgproc.warp_affine_nearest(img, m)
+        mask2 = imgproc.warp_affine_nearest(mask, m)
+        return img2.reshape(img.shape), mask2.reshape(mask.shape)
 
 
 class RandomElasticTransform:
@@ -291,6 +301,61 @@ class Pad:
         return img, mask
 
 
+class AdjustGamma:
+    def __init__(self, gamma: float):
+        self.gamma = gamma
+
+    def __call__(self, img, mask):
+        g = random.uniform(1, 1 + self.gamma)
+        lo, hi = img.min(), img.max()
+        scale = (hi - lo) if hi > lo else 1.0
+        return (np.power((img - lo) / scale, g) * scale + lo).astype(img.dtype), mask
+
+
+class AdjustBrightness:
+    def __init__(self, bf: float):
+        self.bf = bf
+
+    def __call__(self, img, mask):
+        f = random.uniform(1 - self.bf, 1 + self.bf)
+        return (img * f).astype(img.dtype), mask
+
+
+class AdjustContrast:
+    def __init__(self, cf: float):
+        self.cf = cf
+
+    def __call__(self, img, mask):
+        f = random.uniform(1 - self.cf, 1 + self.cf)
+        mean = img.mean()
+        return ((img - mean) * f + mean).astype(img.dtype), mask
+
+
+class AdjustSaturation:
+    def __init__(self, saturation: float):
+        self.saturation = saturation
+
+    def __call__(self, img, mask):
+        if img.ndim != 3 or img.shape[2] != 3:
+            return img, mask
+        f = random.uniform(1 - self.saturation, 1 + self.saturation)
+        gray = img.mean(axis=2, keepdims=True)
+        return (gray + (img - gray) * f).astype(img.dtype), mask
+
+
+class AdjustHue:
+    def __init__(self, hue: float):
+        self.hue = hue
+
+    def __call__(self, img, mask):
+        if img.ndim != 3 or img.shape[2] != 3:
+            return img, mask
+        shift = random.uniform(-self.hue, self.hue) * 180
+        hsv = imgproc.rgb_to_hsv(img.astype(np.float32))
+        hsv[..., 0] = (hsv[..., 0] + shift) % 360
+        return imgproc.hsv_to_rgb(hsv).astype(img.dtype), mask
+
+
 # ---------------------------------------------------------------------------
 # Preprocessing of the cache build
 # ---------------------------------------------------------------------------
@@ -348,27 +413,26 @@ def _curvature_flow(img: np.ndarray, t_step: float, n_iter: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 key2aug = {
+    "gamma": AdjustGamma,
+    "hue": AdjustHue,
+    "brightness": AdjustBrightness,
+    "saturation": AdjustSaturation,
+    "contrast": AdjustContrast,
     "rcrop": RandomCrop,
     "hflip": RandomHorizontallyFlip,
     "vflip": RandomVerticallyFlip,
     "scale": Scale,
     "rsize": RandomSized,
     "rsizecrop": RandomSizedCrop,
+    "rotate": RandomRotate,
     "translate": RandomTranslate,
     "ccrop": CenterCrop,
     "elastic": RandomElasticTransform,
     "zoom": RandomZoom,
 }
-# the JAX package's rotation and colour transforms, which no loader calls
-WAITING_FOR_M9C = ("gamma", "hue", "brightness", "saturation", "contrast", "rotate")
 
 
 def get_composed_augmentations(aug_dict: Optional[dict]) -> Optional[Compose]:
     if aug_dict is None:
         return None
-    waiting = [k for k in aug_dict if k in WAITING_FOR_M9C]
-    if waiting:
-        raise NotImplementedError(
-            f"augmentations {waiting} are not ported yet; they come with M9c "
-            "(ROADMAP.md Queue 1)")
     return Compose([key2aug[k](v) for k, v in aug_dict.items()])

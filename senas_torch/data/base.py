@@ -6,8 +6,9 @@ int32 label maps; the runner moves them to the device. The datasets
 registered are `synthetic`, `promise12` (`data/promise12.py`), `chaos`,
 `chaos_mr`, `ultrasound_nerve`, `bladder`, `camvid`
 (`data/png_datasets.py`), `heart`, `spleen`, `pancreas`, `hippo`
-(`data/msd.py`) and `monusac` (`data/monusac.py`): every dataset of SPECS.
-The JAX package's generic loaders (`GENERIC_NOT_PORTED`) raise.
+(`data/msd.py`), `monusac` (`data/monusac.py`), and the generic loaders
+`ade20k`, `pascal_voc`, `pascal_aug`, `pcontext`, `coco`, `minc` and
+`imagenet` (`data/generic.py`, which adds their specs to SPECS).
 """
 
 from __future__ import annotations
@@ -218,11 +219,6 @@ class PrefetchLoader:
 
 _FACTORIES: Dict[str, Callable[..., SegmentationDataset]] = {}
 
-# senas_tpu/data/generic.py's datasets: they decode JPEG and resize with
-# Pillow's own resampling (generic.py:47-91), which the port has not
-GENERIC_NOT_PORTED = ("ade20k", "pascal_voc", "pascal_aug", "pcontext", "coco", "minc",
-                      "imagenet")
-
 
 def register_dataset(name: str):
     def deco(fn):
@@ -242,11 +238,6 @@ def get_dataset(name: str, path: Optional[str] = None, **kwargs) -> Segmentation
     name = name.lower()
     _ensure_registered()
     if name not in _FACTORIES:
-        if name in GENERIC_NOT_PORTED:
-            raise NotImplementedError(
-                f"dataset {name!r} is not ported yet: the generic loaders "
-                f"{GENERIC_NOT_PORTED} decode JPEG and resize with Pillow's own "
-                "resampling, which the port has not (ROADMAP.md Queue 1)")
         raise KeyError(f"unknown dataset {name!r}; known: {sorted(_FACTORIES)}")
     return _FACTORIES[name](root=path, **kwargs)
 
@@ -261,8 +252,8 @@ def require_root(name: str, root: Optional[str]) -> str:
 
 def _ensure_registered():
     # import side-effect registration, deferred to avoid import cycles
-    from senas_torch.data import (monusac, msd, png_datasets, promise12,  # noqa: F401
-                                  synthetic)
+    from senas_torch.data import (generic, monusac, msd, png_datasets,  # noqa: F401
+                                  promise12, synthetic)
 
 
 DATASETS = SPECS

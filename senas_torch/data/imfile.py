@@ -10,10 +10,18 @@ pixels with the standard library's `zlib` and numpy:
     palette), with all five row filters; a `tRNS` chunk is read and, as in
     Pillow's conversion to "L" or "RGB", changes no pixel;
   - baseline uncompressed TIFF, 8-bit gray (BlackIsZero or WhiteIsZero)
-    or RGB, in strips, in either byte order.
+    or RGB, in strips, in either byte order;
+  - JPEG, Huffman-coded (baseline, extended sequential, progressive), 8-bit,
+    gray or three components, decoded by the native library
+    (`data/native/image_native.cpp`) as Pillow's libjpeg-turbo decodes it.
 
-  Anything else (interlaced or 16-bit PNG, compressed or tiled TIFF, JPEG,
-  ...) raises ValueError naming the format. Nothing falls back.
+  Mode None gives the pixels as stored, what `np.asarray(Image.open(path))`
+  gives for an "L" or "P" image: a gray image's values, a palette image's
+  indices (the masks of Pascal VOC).
+
+  Anything else (interlaced or 16-bit PNG, compressed or tiled TIFF,
+  arithmetic-coded, lossless, 12-bit or CMYK JPEG, ...) raises ValueError
+  naming the format. Nothing falls back.
 - `write_png_l(path, arr)`: what `Image.fromarray(arr.astype(np.float64))
   .convert("L").save(path, format="png")` writes, decoded: the values as
   float32, truncated toward zero and clipped to [0, 255] (NaN is 0).
@@ -28,6 +36,7 @@ from __future__ import annotations
 
 import struct
 import zlib
+from typing import Optional
 
 import numpy as np
 
@@ -39,26 +48,41 @@ _PNG_COLOUR = {0: (1, "L", "gray"), 2: (3, "RGB", "RGB"), 3: (1, "P", "palette")
                4: (2, "LA", "gray+alpha"), 6: (4, "RGBA", "RGBA")}
 
 
-def read_image(path: str, mode: str) -> np.ndarray:
+def read_image(path: str, mode: Optional[str]) -> np.ndarray:
     """The pixels of the image file `path` converted to `mode` ("L": uint8
-    [H, W]; "RGB": uint8 [H, W, 3]), as Pillow converts them."""
-    if mode not in ("L", "RGB"):
-        raise ValueError(f"mode {mode!r}: only 'L' and 'RGB' are supported")
+    [H, W]; "RGB": uint8 [H, W, 3]), as Pillow converts them; mode None:
+    an "L" or "P" image's values or palette indices as stored."""
+    if mode not in ("L", "RGB", None):
+        raise ValueError(f"mode {mode!r}: only 'L', 'RGB' and None are supported")
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] == PNG_SIGNATURE:
         pixels, kind, palette = _decode_png(data, path)
     elif data[:4] in (b"II*\x00", b"MM\x00*"):
         pixels, kind, palette = _decode_tiff(data, path)
+    elif data[:3] == b"\xff\xd8\xff":
+        pixels, kind, palette = _decode_jpeg(data, path)
     else:
         raise ValueError(f"{path}: {_format_name(data)} is not supported "
-                         "(PNG and uncompressed TIFF only)")
+                         "(PNG, uncompressed TIFF and JPEG only)")
+    if mode is None:
+        if kind not in ("L", "P"):
+            raise ValueError(f"{path}: a {kind} image read as stored is not supported "
+                             "(mode None reads 'L' and 'P' images)")
+        return pixels.copy()
     return _convert(pixels, kind, palette, mode)
 
 
+def _decode_jpeg(data: bytes, path: str):
+    from senas_torch.data import native
+    try:
+        pixels = native.jpeg_decode(data)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
+    return pixels, ("L" if pixels.ndim == 2 else "RGB"), None
+
+
 def _format_name(data: bytes) -> str:
-    if data[:3] == b"\xff\xd8\xff":
-        return "JPEG"
     if data[:6] in (b"GIF87a", b"GIF89a"):
         return "GIF"
     if data[:2] == b"BM":

@@ -13,7 +13,19 @@ rounding, and `tests/test_torch_imgproc.py` holds each to cv2:
 - `convert_maps_16sc2`: `cv2.convertMaps(map_x, map_y, CV_16SC2)`;
 - `remap_bilinear`, `remap_nearest`: `cv2.remap` of those fixed-point maps,
   INTER_LINEAR and INTER_NEAREST, BORDER_CONSTANT with 0 (the bilinear one
-  of a multi-channel image too).
+  of a multi-channel image too);
+- `rotation_matrix`, `warp_affine_nearest`: `cv2.getRotationMatrix2D` and
+  `cv2.warpAffine(..., flags=INTER_NEAREST, borderValue=0)` (any dtype and
+  channels), exact;
+- `rgb_to_hsv`, `hsv_to_rgb`: `cv2.cvtColor` of float32 images,
+  COLOR_RGB2HSV (h in degrees) and COLOR_HSV2RGB. cv2 runs them in SIMD
+  blocks with a scalar tail at the end of each of its parallel stripes,
+  where the tail's h (not fused, then +360) may lie 1 ulp from the
+  blocks'; these twins compute every pixel as the blocks do, so h may lie
+  1 ulp from cv2's where cv2 took the tail (`tests/test_torch_m9c.py`
+  holds the bound).
+The warp and the colour conversions run in the native library
+(`data/native/image_native.cpp`), for libm's correctly rounded fmaf.
 """
 
 from __future__ import annotations
@@ -273,3 +285,49 @@ def remap_nearest(mask: np.ndarray, maps) -> np.ndarray:
     x = xy[..., 0].astype(np.int64) + ((frac & (INTER_TAB_SIZE - 1)) < half)
     y = xy[..., 1].astype(np.int64) + ((frac >> INTER_BITS) < half)
     return _gather(np.asarray(mask), y, x)
+
+
+# ---------------------------------------------------------------------------
+# Rotation and colour space (RandomRotate, AdjustHue)
+# ---------------------------------------------------------------------------
+
+def rotation_matrix(center: Tuple[float, float], angle: float, scale: float) -> np.ndarray:
+    """cv2.getRotationMatrix2D(center, angle, scale): float64 [2, 3]; the
+    center as cv2's Point2f."""
+    cx, cy = (float(np.float32(c)) for c in center)
+    a = angle * (np.pi / 180)
+    alpha, beta = np.cos(a) * scale, np.sin(a) * scale
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]], np.float64)
+
+
+def invert_affine(m: np.ndarray) -> np.ndarray:
+    """The inverse map warpAffine computes from `m` (float64 [2, 3])."""
+    m = np.asarray(m, np.float64).reshape(6).tolist()
+    d = m[0] * m[4] - m[1] * m[3]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22 = m[4] * d, m[0] * d
+    m[0], m[1], m[3], m[4] = a11, m[1] * -d, m[3] * -d, a22
+    b1 = -m[0] * m[2] - m[1] * m[5]
+    b2 = -m[3] * m[2] - m[4] * m[5]
+    m[2], m[5] = b1, b2
+    return np.array(m, np.float64).reshape(2, 3)
+
+
+def warp_affine_nearest(img: np.ndarray, m: np.ndarray) -> np.ndarray:
+    """cv2.warpAffine(img, m, (w, h), flags=INTER_NEAREST, borderValue=0)
+    of `img` [H, W] or [H, W, C], any dtype."""
+    from senas_torch.data import native
+    return native.warp_affine_nearest(img, invert_affine(m).astype(np.float32))
+
+
+def rgb_to_hsv(img: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(img, COLOR_RGB2HSV) of float32 [..., 3] (h in [0, 360])."""
+    from senas_torch.data import native
+    return native.colour_convert(img, True)
+
+
+def hsv_to_rgb(img: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(img, COLOR_HSV2RGB) of float32 [..., 3]."""
+    from senas_torch.data import native
+    return native.colour_convert(img, False)

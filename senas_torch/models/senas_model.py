@@ -12,8 +12,12 @@ later cell takes only the cells that were. Submodules carry the flax names
 `head.segmentation_head`, each cell's `op_{i}`), so `senas_torch.convert`
 carries the weights leaf by leaf. `SenasModel.forward` keeps the JAX
 package's NHWC boundary and runs NCHW inside. `remat` recomputes every
-cell (the head's included) in the backward (`primitives.remat`); a
-`dropout_prob` above 0 is not ported and raises. `dtype` is every
+cell (the head's included) in the backward (`primitives.remat`). A
+`dropout_prob` above 0 puts the JAX package's spatial dropout before every
+convolution of the cells' conv ops; in train mode the forward draws one
+dropout stream (a seed) a cell from its `rng`, outside the cells, and each
+cell builds its generator from its own (`primitives.dropout_stream`), so the
+masks are the same with `remat` on or off. `dtype` is every
 module's compute dtype, as in the JAX package (None: f32; with
 `torch.bfloat16` the logits are bf16 and the weights and running stats
 stay f32).
@@ -29,8 +33,9 @@ from torch import nn
 from senas_torch.core.device import resolve_device
 from senas_torch.core.genotype import Genotype
 from senas_torch.ops.primitives import (BasicBlock, ConvBn, OpType, RectifyBlock,
-                                        RectifyResample, ReLUConv, ShrinkBlock,
-                                        init_params_, make_op, max_pool_3x3, relu, remat)
+                                        RectifyResample, ReLUConv, ShrinkBlock, dropout_stream,
+                                        dropout_streams, init_params_, make_op, max_pool_3x3,
+                                        relu, remat)
 
 
 class BuildCell(nn.Module):
@@ -68,14 +73,17 @@ class BuildCell(nn.Module):
                                              dtype=dtype))
         self.post_process = RectifyBlock(len(self._concat) * c_part, c_out, dtype=dtype)
 
-    def forward(self, in0, in1, train: bool = False):
-        states = [self.preprocess0(in0, train), relu(in1)]
-        for i in range(self._num_meta_node):
-            h1 = getattr(self, f"op_{2 * i}")(states[self._indices[2 * i]], train)
-            h2 = getattr(self, f"op_{2 * i + 1}")(states[self._indices[2 * i + 1]], train)
-            states.append(relu(h1 + h2))
-        out = torch.cat([states[i] for i in self._concat], dim=1)
-        return self.post_process(out, train)
+    def forward(self, in0, in1, train: bool = False, stream=None):
+        """`stream` is the cell's dropout stream (`primitives.dropout_streams`),
+        None where no op drops."""
+        with dropout_stream(stream):
+            states = [self.preprocess0(in0, train), relu(in1)]
+            for i in range(self._num_meta_node):
+                h1 = getattr(self, f"op_{2 * i}")(states[self._indices[2 * i]], train)
+                h2 = getattr(self, f"op_{2 * i + 1}")(states[self._indices[2 * i + 1]], train)
+                states.append(relu(h1 + h2))
+            out = torch.cat([states[i] for i in self._concat], dim=1)
+            return self.post_process(out, train)
 
 
 class Head(nn.Module):
@@ -123,6 +131,7 @@ class SenasModel(nn.Module):
             raise ValueError("SenasModel needs a genotype")
         dev = resolve_device(device)
         self.depth, self.supervision, self.remat = depth, supervision, remat
+        self.dropout_prob = dropout_prob
         self.gamma = list(genotype.gamma)
         double_down = 2 if double_down_channel else 1
         c_in0 = c_in1 = c_curr = c
@@ -159,14 +168,25 @@ class SenasModel(nn.Module):
             num_filters.append(up_f)
 
         self.head = Head(genotype, double_down, c, num_filters[-1][0][2], nclass, dtype, remat)
+        # the down and up cells built (the head's has no dropout)
+        self._n_cells = sum(1 for n, _ in self.named_children() if n.startswith(("down_", "up_")))
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_params_(self, generator)
         self.to(dev)
 
     def forward(self, x, train: bool = False, rng: Optional[torch.Generator] = None):
-        # `rng` is the train step's dropout generator; no ported op of this
-        # model draws from it (dropout_prob > 0 raises).
+        # `rng` is the train step's dropout generator: with dropout in train
+        # mode each down and up cell gets a stream drawn from it, in the
+        # order the cells run
+        drops = train and self.dropout_prob > 0
+        if drops and rng is None:
+            raise ValueError("SenasModel with dropout_prob > 0 needs rng= in train mode")
+        streams = iter(dropout_streams(rng, self._n_cells) if drops else [])
+
+        def stream():
+            return next(streams, None)
+
         # NHWC -> NCHW with canonical strides (a 1-channel permuted view
         # counts as contiguous with channels_last strides; see SenasSearch)
         x = x.permute(0, 3, 1, 2).clone(memory_format=torch.contiguous_format)
@@ -176,7 +196,7 @@ class SenasModel(nn.Module):
         for i in range(1, self.depth):
             in0 = s0 if len(cell_out) == 1 else cell_out[-2]
             cell_out.append(remat(getattr(self, f"down_{i}"), in0, cell_out[-1], train,
-                                  enabled=self.remat))
+                                  stream(), enabled=self.remat))
 
         for j in reversed(range(self.depth - 1)):
             for i in range(1, self.depth - j):
@@ -186,7 +206,7 @@ class SenasModel(nn.Module):
                 in0 = torch.cat([cell_out[k] for k in range(j, i + j)
                                  if cell_out[k] is not None], dim=1)
                 cell_out[i + j] = remat(getattr(self, f"up_{i}_{j}"), in0, cell_out[i + j],
-                                        train, enabled=self.remat)
+                                        train, stream(), enabled=self.remat)
 
         heads = [o for o in cell_out if o is not None] if self.supervision else cell_out[-1:]
         return [self.head(s0, o, train).permute(0, 2, 3, 1) for o in heads]

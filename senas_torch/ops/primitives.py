@@ -41,6 +41,7 @@ in PyTorch idiom:
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import enum
 import math
 import os
@@ -370,8 +371,9 @@ def remat(fn, *args, enabled: bool = True):
     (BatchNorm and the epilogue's BNs advance them once a step, as flax's
     lifted remat updates batch_stats once). `checkpoint` replays only the
     global RNG states: an op that draws from an explicit `torch.Generator`
-    (the zoo's dropout; a SENAS `dropout_prob` above 0, not ported) would
-    need that generator's state replayed in the recompute as well."""
+    needs its masks drawn outside the recomputed function or its generator
+    rebuilt inside it from what the call was given (the SENAS cells'
+    dropout streams, `dropout_stream`)."""
     if not (enabled and torch.is_grad_enabled()):
         return fn(*args)
     return checkpoint(fn, *args, use_reentrant=False,
@@ -495,13 +497,17 @@ class OpType(enum.Enum):
 # ---------------------------------------------------------------------------
 
 class _ConvWeight(nn.Module):
-    """(Conv | ConvTranspose), bias-free (build_weight parity); x cast to
-    `dtype` on entry, the kernel to x's dtype at use."""
+    """[spatial dropout] + (Conv | ConvTranspose), bias-free (build_weight
+    parity); x cast to `dtype` on entry (after the dropout, as in the JAX
+    package), the kernel to x's dtype at use. A `dropout` above 0 draws
+    from the generator of the enclosing `dropout_stream` in train mode."""
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int = 3,
                  stride: int = 1, dilation: int = 1, transpose: bool = False,
-                 output_padding: int = 0, groups: int = 1, dtype=None):
+                 output_padding: int = 0, groups: int = 1, dtype=None,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.stride, self.dilation, self.groups = stride, dilation, groups
         self.dtype = dtype
         self.transpose, self.output_padding = transpose, output_padding
@@ -513,6 +519,8 @@ class _ConvWeight(nn.Module):
             add_conv_kernel(self, "kernel", (c_out, c_in // groups, k, k))
 
     def forward(self, x, train: bool = False):
+        if self.dropout > 0:
+            x = spatial_dropout(x, self.dropout, train, _DROPOUT_RNG.get())
         x = cast(x, self.dtype)
         w = self.kernel.to(x.dtype)
         if self.transpose:
@@ -540,15 +548,15 @@ class ReLUConv(nn.Module):
 
 
 class ConvBn(nn.Module):
-    """conv -> BN."""
+    """[spatial dropout] -> conv -> BN."""
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int = 3,
                  stride: int = 1, dilation: int = 1, transpose: bool = False,
-                 output_padding: int = 0, dtype=None):
+                 output_padding: int = 0, dtype=None, dropout: float = 0.0):
         super().__init__()
         self._ConvWeight_0 = _ConvWeight(c_in, c_out, kernel_size, stride,
                                          dilation, transpose, output_padding,
-                                         dtype=dtype)
+                                         dtype=dtype, dropout=dropout)
         self.BatchNorm_0 = BatchNorm(c_out, dtype=dtype)
 
     def forward(self, x, train: bool = False):
@@ -619,6 +627,76 @@ class GroupNorm(nn.Module):
         return y.to(self.dtype or x.dtype)
 
 
+def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """NCHW channel shuffle: the JAX package's NHWC `channel_shuffle`
+    (channel g * (C / groups) + i moves to i * groups + g)."""
+    if groups == 1:
+        return x
+    b, c, h, w = x.shape
+    return x.reshape(b, groups, c // groups, h, w).transpose(1, 2).reshape(b, c, h, w)
+
+
+# The generator the SENAS cells' spatial dropout draws from, set by the
+# enclosing `dropout_stream`.
+_DROPOUT_RNG: "contextvars.ContextVar[Optional[torch.Generator]]" = contextvars.ContextVar(
+    "senas_dropout_rng", default=None)
+
+
+@contextlib.contextmanager
+def dropout_stream(stream):
+    """The spatial dropout of the ops inside draws from a generator on
+    `stream`'s device seeded with its seed (`stream` = (seed, device), or
+    None: no generator). The generator is built here, from the call's
+    arguments alone, so that a cell recomputed under `remat` draws the masks
+    its first forward drew."""
+    gen = None
+    if stream is not None:
+        seed, device = stream
+        gen = torch.Generator(device=device).manual_seed(seed)
+    token = _DROPOUT_RNG.set(gen)
+    try:
+        yield
+    finally:
+        _DROPOUT_RNG.reset(token)
+
+
+def dropout_streams(rng: torch.Generator, n: int) -> list:
+    """`n` cells' dropout streams, drawn from the step's generator `rng` in
+    one call (one host read a forward, not one a cell)."""
+    seeds = torch.randint(0, 2**62, (n,), generator=rng, device=rng.device).tolist()
+    return [(seed, rng.device) for seed in seeds]
+
+
+def channel_dropout_mask(rng: torch.Generator, shape, keep: float) -> torch.Tensor:
+    """The kept channels: bool `shape`, each True with probability `keep`,
+    drawn from `rng` on its device."""
+    return torch.rand(shape, generator=rng, device=rng.device) < keep
+
+
+def spatial_dropout(x: torch.Tensor, rate: float, train: bool,
+                    rng: Optional[torch.Generator]) -> torch.Tensor:
+    """The JAX package's `spatial_dropout` (Dropout2d) of NCHW `x`: in train
+    mode each channel of each sample is kept with probability 1 - rate and
+    scaled by 1 / (1 - rate) in x's dtype, else zero. The [B, C, 1, 1] mask
+    comes from `rng` and moves to x's device, so one generator gives every
+    device the same masks. Under a mesh every rank draws the global batch's
+    mask and keeps its rows; a spatial rank holds whole channels, so every
+    spatial rank of a data index keeps the same mask. Train mode without a
+    generator raises, as flax does without a 'dropout' key."""
+    if not train or rate == 0.0:
+        return x
+    if rng is None:
+        raise ValueError("spatial dropout in train mode needs a generator (the forward's rng=)")
+    keep = 1.0 - rate
+    mesh = active_mesh()
+    b = x.shape[0] if mesh is None else global_rows(x.shape[0])
+    mask = channel_dropout_mask(rng, (b, x.shape[1], 1, 1), keep)
+    if mesh is not None:
+        mask = mask[mesh.rows(b)]
+    return torch.where(mask.to(x.device), x / scalar(keep, x),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class Dropout(nn.Module):
     """flax nn.Dropout: in train mode each element is kept with probability
     1 - rate and scaled by 1 / (1 - rate). The mask is drawn from `rng`, a
@@ -675,10 +753,10 @@ class ConvBnSe(nn.Module):
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int = 3,
                  stride: int = 1, dilation: int = 1, transpose: bool = False,
-                 output_padding: int = 0, dtype=None):
+                 output_padding: int = 0, dtype=None, dropout: float = 0.0):
         super().__init__()
         self.ConvBn_0 = ConvBn(c_in, c_out, kernel_size, stride, dilation,
-                               transpose, output_padding, dtype=dtype)
+                               transpose, output_padding, dtype=dtype, dropout=dropout)
         self.SEBlock_0 = SEBlock(c_out, dtype=dtype)
 
     def forward(self, x, train: bool = False):
@@ -686,16 +764,18 @@ class ConvBnSe(nn.Module):
 
 
 class DepSepConv(nn.Module):
-    """depthwise conv -> BN -> ReLU -> pointwise conv -> BN."""
+    """depthwise conv -> BN -> ReLU -> pointwise conv -> BN (each conv
+    after its own spatial dropout when `dropout` > 0)."""
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int = 3,
                  stride: int = 1, dilation: int = 1, transpose: bool = False,
-                 output_padding: int = 0, dtype=None):
+                 output_padding: int = 0, dtype=None, dropout: float = 0.0):
         super().__init__()
         self.depth = _ConvWeight(c_in, c_in, kernel_size, stride, dilation,
-                                 transpose, output_padding, groups=c_in, dtype=dtype)
+                                 transpose, output_padding, groups=c_in, dtype=dtype,
+                                 dropout=dropout)
         self.depth_norm = BatchNorm(c_in, dtype=dtype)
-        self.point = _ConvWeight(c_in, c_out, 1, dtype=dtype)
+        self.point = _ConvWeight(c_in, c_out, 1, dtype=dtype, dropout=dropout)
         self.point_norm = BatchNorm(c_out, dtype=dtype)
 
     def forward(self, x, train: bool = False):
@@ -828,29 +908,26 @@ def make_op(name: str, c_in: int, c_out: int, op_type: OpType,
     """Instantiate candidate op `name` with the reference's stride rules:
     NORM -> stride 1; DOWN -> stride-2 conv/pool; UP -> stride-2 transpose
     conv with output_padding 1 (pool ops become bilinear 2x upsample).
-    `dp` is the conv ops' spatial-dropout rate; only 0 is ported. `dtype`
-    is the op's compute dtype."""
-    if dp > 0:
-        raise NotImplementedError(
-            "dropout_prob > 0 (spatial_dropout) is not ported yet (ROADMAP.md "
-            "Queue 1, M11 deferred: dropout)")
+    `dp` is the conv ops' spatial-dropout rate (`spatial_dropout` before
+    each convolution). `dtype` is the op's compute dtype."""
     stride = 1 if op_type == OpType.NORM else 2
     transpose = op_type == OpType.UP
     op = 1 if op_type == OpType.UP else 0
+    kw = dict(dtype=dtype, dropout=dp)
     if name in ("none", "identity", "up_sample"):
         return AdapterBlock(c_in, c_out, mode=name, stride=1, dtype=dtype)
     if name in ("avg_pool", "max_pool"):
         return AdapterBlock(c_in, c_out, mode=name, stride=stride, dtype=dtype)
     if name == "conv_3":
-        return ConvBn(c_in, c_out, 3, stride, 1, transpose, op, dtype=dtype)
+        return ConvBn(c_in, c_out, 3, stride, 1, transpose, op, **kw)
     if name == "se_conv_3":
-        return ConvBnSe(c_in, c_out, 3, stride, 1, transpose, op, dtype=dtype)
+        return ConvBnSe(c_in, c_out, 3, stride, 1, transpose, op, **kw)
     if name == "dil_3_conv_5":
-        return ConvBn(c_in, c_out, 5, stride, 3, transpose, op, dtype=dtype)
+        return ConvBn(c_in, c_out, 5, stride, 3, transpose, op, **kw)
     if name == "dil_2_conv_5":
-        return ConvBn(c_in, c_out, 5, stride, 2, transpose, op, dtype=dtype)
+        return ConvBn(c_in, c_out, 5, stride, 2, transpose, op, **kw)
     if name == "dep_sep_conv_3":
-        return DepSepConv(c_in, c_out, 3, stride, 1, transpose, op, dtype=dtype)
+        return DepSepConv(c_in, c_out, 3, stride, 1, transpose, op, **kw)
     if name == "dep_sep_conv_5":
-        return DepSepConv(c_in, c_out, 5, stride, 1, transpose, op, dtype=dtype)
+        return DepSepConv(c_in, c_out, 5, stride, 1, transpose, op, **kw)
     raise NotImplementedError(name)

@@ -26,19 +26,22 @@ from __future__ import annotations
 from typing import Callable, Sequence
 
 import torch
-import torch.nn.functional as F
 
 from senas_torch.ops.primitives import log_softmax, mean_all, softmax
 from senas_torch.train import smp_losses
 
 
 def cross_entropy(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean negative log-likelihood; a label outside [0, C) follows
+    `jnp.take_along_axis` (`smp_losses.take_class`): -1 is the last class,
+    others give NaN."""
     logp = log_softmax(logits)
-    return -mean_all(logp.gather(-1, target[..., None].long()))
+    return -mean_all(smp_losses.take_class(logp, target)[..., None])
 
 
 def _one_hot(target: torch.Tensor, nclass: int, dtype) -> torch.Tensor:
-    return F.one_hot(target.long(), nclass).to(dtype)
+    # jax.nn.one_hot: zeros for a label outside [0, nclass)
+    return smp_losses.one_hot(target, nclass, dtype)
 
 
 def soft_dice_loss(logits: torch.Tensor, target: torch.Tensor,

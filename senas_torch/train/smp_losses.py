@@ -70,6 +70,26 @@ def soft_tversky_score(output, target, alpha, beta, smooth=0.0, eps=1e-7, axis=N
 # Layout: (y_pred, y_true) to [B, C, P] each (dice.py:73-105), from NHWC.
 # ---------------------------------------------------------------------------
 
+def one_hot(labels: torch.Tensor, c: int, dtype) -> torch.Tensor:
+    """`jax.nn.one_hot`: a row of zeros for a label outside [0, c), such as
+    the void label -1 of ADE20K (F.one_hot raises on it)."""
+    return (labels[..., None] == torch.arange(c, device=labels.device)).to(dtype)
+
+
+def take_class(values: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """`jnp.take_along_axis(values, labels[..., None], -1)[..., 0]` with
+    JAX's index rule: a label in [-C, -1] counts as label + C, any other
+    label outside [0, C) gives NaN (and no gradient). `gather` would raise
+    on the CPU and assert on the card."""
+    c = values.shape[-1]
+    labels = labels.long()
+    idx = torch.where(labels < 0, labels + c, labels)
+    valid = (idx >= 0) & (idx < c)
+    got = values.gather(-1, torch.where(valid, idx, torch.zeros_like(idx))[..., None])[..., 0]
+    return torch.where(valid, got, torch.full((), float("nan"), dtype=got.dtype,
+                                               device=got.device))
+
+
 def _flatten(mode: str, y_pred, y_true, from_logits: bool, ignore_index: Optional[int]):
     if mode == BINARY_MODE:
         if y_pred.ndim == 4 and y_pred.shape[-1] == 1:
@@ -95,10 +115,10 @@ def _flatten(mode: str, y_pred, y_true, from_logits: bool, ignore_index: Optiona
         if ignore_index is not None:
             mask = (y_true != ignore_index)
             y_pred = y_pred * mask[:, None].to(y_pred.dtype)
-            oh = F.one_hot(torch.where(mask, y_true, 0), c).to(y_pred.dtype)
+            oh = one_hot(torch.where(mask, y_true, 0), c, y_pred.dtype)
             y_true = oh.transpose(1, 2) * mask[:, None].to(y_pred.dtype)
         else:
-            y_true = F.one_hot(y_true, c).to(y_pred.dtype).transpose(1, 2)
+            y_true = one_hot(y_true, c, y_pred.dtype).transpose(1, 2)
         return y_pred, y_true
 
     if mode == MULTILABEL_MODE:
@@ -286,7 +306,7 @@ class SoftCrossEntropyLoss:
         if self.ignore_index is not None:
             pad = y_true == self.ignore_index
             tgt = torch.where(pad, torch.zeros_like(y_true), y_true)
-        nll = -lprobs.gather(-1, tgt[..., None])[..., 0]
+        nll = -take_class(lprobs, tgt)
         smooth = -lprobs.sum(dim=-1)
         if pad is not None:
             nll = torch.where(pad, torch.zeros_like(nll), nll)

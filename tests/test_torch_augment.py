@@ -119,21 +119,21 @@ def test_translate_keeps_a_channel_axis():
 
 
 def test_registry_and_the_transforms_of_m9b():
-    """M9b brought the resize and crop family; the rotation and the colour
-    transforms wait for M9c."""
+    """M9b brought the resize and crop family, M9c the rotation and the
+    colour transforms: the registry is the JAX package's, name for name
+    (tests/test_torch_m9c.py holds the M9c transforms to senas_tpu's)."""
     aug = T.get_composed_augmentations({"hflip": 0.5, "translate": (0.1, 0.1),
                                         "rsizecrop": 32, "zoom": (0.9, 1.1)})
     assert [type(a) for a in aug.augmentations] == [T.RandomHorizontallyFlip,
                                                     T.RandomTranslate, T.RandomSizedCrop,
                                                     T.RandomZoom]
     assert T.get_composed_augmentations(None) is None
-    assert set(T.key2aug) | set(T.WAITING_FOR_M9C) == set(J.key2aug)
-    assert not set(T.key2aug) & set(T.WAITING_FOR_M9C)
+    assert set(T.key2aug) == set(J.key2aug)
     for k in T.key2aug:
         assert T.key2aug[k].__name__ == J.key2aug[k].__name__, k
-    for name in ("rotate", "hue", "gamma"):
-        with pytest.raises(NotImplementedError, match="M9c"):
-            T.get_composed_augmentations({name: 10})
+    aug = T.get_composed_augmentations({"rotate": 10, "hue": 0.1, "gamma": 0.2})
+    assert [type(a) for a in aug.augmentations] == [T.RandomRotate, T.AdjustHue,
+                                                    T.AdjustGamma]
 
 
 @pytest.mark.parametrize("shape", [(96, 96), (120, 100)])

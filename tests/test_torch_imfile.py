@@ -9,7 +9,8 @@ against Pillow itself, bit for bit (tolerance 0):
   them); on TIFFs that Pillow writes uncompressed, and TIFFs written here in
   either byte order, in several strips, WhiteIsZero;
 - the formats it does not read raise, naming them: interlaced, 16-bit and
-  1-bit PNG, compressed and tiled TIFF, JPEG;
+  1-bit PNG, compressed and tiled TIFF, CMYK JPEG (tests/test_torch_jpeg.py
+  holds the JPEG decoder);
 - `write_png_l` stores what Pillow's "F" to "L" conversion gives for
   values below 0, above 255, fractional, NaN and infinite.
 """
@@ -219,8 +220,8 @@ def test_unsupported_formats_raise(tmp_path):
     cases["lzw.tif"] = "compressed TIFF"
     _write_tiff(tmp_path / "tiled.tif", gray, tiled=True)
     cases["tiled.tif"] = "tiled TIFF"
-    Image.fromarray(gray).save(tmp_path / "j.jpg")
-    cases["j.jpg"] = "JPEG"
+    Image.fromarray(np.repeat(gray[..., None], 4, axis=-1), "CMYK").save(tmp_path / "j.jpg")
+    cases["j.jpg"] = "CMYK"
     (tmp_path / "junk.bin").write_bytes(b"not an image at all")
     cases["junk.bin"] = "unknown image format"
     for name, what in cases.items():

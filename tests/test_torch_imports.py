@@ -1,7 +1,8 @@
 """Import hygiene: senas_torch (every module: the search path's, the fixed
 model's train and test paths', K2's, the operations layer's: serving,
 checkpoint import, the challenge tools; the PROMISE12 data path's; the
-other shipped configs' loaders, with their PNG, TIFF and DICOM readers) and
+other shipped configs' loaders, with their PNG, TIFF and DICOM readers; the
+generic loaders with the JPEG decoder and Pillow's resampling) and
 chip_smoke.py load nothing of JAX, flax, optax or senas_tpu, and neither
 cv2 nor PIL, which the port does not depend on (checked in a fresh
 interpreter)."""
@@ -44,6 +45,8 @@ FIXED_PATH = ("senas_torch.ops.norm_convs", "senas_torch.models.geno_searched",
               "senas_torch.data.imfile", "senas_torch.data.dicom",
               "senas_torch.data.png_datasets", "senas_torch.data.msd",
               "senas_torch.data.monusac", "senas_torch.utils.misc",
+              # the generic loaders, JPEG and Pillow's resampling
+              "senas_torch.data.generic", "senas_torch.data.pilresample",
               # data parallelism
               "senas_torch.parallel", "senas_torch.parallel.mesh",
               "senas_torch.parallel.collectives", "senas_torch.parallel.launch")

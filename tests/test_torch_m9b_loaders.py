@@ -300,7 +300,7 @@ def test_unknown_roots_and_datasets_raise(tmp_path):
         tbase.get_dataset("heart", None)
     with pytest.raises(RuntimeError, match="Found 0"):
         tbase.get_dataset("chaos", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="JPEG"):
+    with pytest.raises(RuntimeError, match="Found 0"):
         tbase.get_dataset("pascal_voc", str(tmp_path))
     with pytest.raises(KeyError):
         tbase.get_dataset("no_such_set", str(tmp_path))

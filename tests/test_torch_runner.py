@@ -160,14 +160,11 @@ def test_unknown_precision_raises(tmp_path, precision):
 
 def test_real_datasets_wait_for_their_data(tmp_path):
     """Every dataset of the shipped configs is ported
-    (tests/test_torch_promise12.py, tests/test_torch_m9b_loaders.py) and
-    needs its data root; the JAX package's generic loaders (JPEG, Pillow's
-    resampling) are not ported."""
+    (tests/test_torch_promise12.py, tests/test_torch_m9b_loaders.py), and
+    so are the generic loaders (tests/test_torch_generic.py): each needs
+    its data root."""
     cfg = load_config(CONFIG)
-    cfg["data"]["dataset"] = "ade20k"
-    with pytest.raises(NotImplementedError, match="not ported yet.*JPEG"):
-        SearchRunner(cfg, log_root=str(tmp_path), device="cpu")
-    for name in ("promise12", "chaos", "heart", "monusac"):
+    for name in ("ade20k", "promise12", "chaos", "heart", "monusac"):
         cfg["data"]["dataset"] = name
         with pytest.raises(ValueError, match="data_root"):
             SearchRunner(cfg, log_root=str(tmp_path), device="cpu")

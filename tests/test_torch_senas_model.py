@@ -118,11 +118,15 @@ def test_factory():
         get_segmentation_model("no_such_model", dataset="synthetic", device="cpu")
 
 
-@pytest.mark.parametrize("knob,match", [({"dropout_prob": 0.1}, "dropout")])
+@pytest.mark.parametrize("knob,match", [({"dropout_prob": 0.1}, "rng")])
 def test_unported_knobs_raise(knob, match):
-    with pytest.raises(NotImplementedError, match=match):
-        SenasModel(nclass=2, in_channels=1, c=4, depth=2, genotype=tgs.senas,
-                   device="cpu", **knob)
+    """`dropout_prob` above 0 is ported (tests/test_torch_dropout.py holds
+    it to senas_tpu): the model builds, and a train-mode forward without
+    the step's generator raises, as flax does without a 'dropout' key."""
+    model = SenasModel(nclass=2, in_channels=1, c=4, depth=2, genotype=tgs.senas,
+                       device="cpu", **knob)
+    with pytest.raises(ValueError, match=match):
+        model(torch.zeros(1, 8, 8, 1), train=True)
 
 
 def test_kernel_init_stds_match_jax():

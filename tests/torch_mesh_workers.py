@@ -476,9 +476,10 @@ def _spatial_batch(mesh, batch, dtype, spatial):
 @case
 def spatial_fixed_steps(mesh, batches, eval_batch, opt_cfg, clip=5.0, loss="dice_ce",
                         model="senas_node_4", c=8, depth=3, variables=None, dtype="float64",
-                        gated=False, remat=False, spatial=True):
+                        gated=False, remat=False, spatial=True, dropout_prob=0.0):
     """fixed_steps with each batch placed by `shard_batch(spatial=...)`:
-    the image rows split over the mesh's spatial axis."""
+    the image rows split over the mesh's spatial axis (`dropout_prob`: the
+    model's spatial dropout)."""
     from senas_torch import convert
     from senas_torch.models import geno_searched
     from senas_torch.models.senas_model import SenasModel
@@ -491,7 +492,8 @@ def spatial_fixed_steps(mesh, batches, eval_batch, opt_cfg, clip=5.0, loss="dice
     try:
         net = SenasModel(nclass=2, in_channels=1, c=c, depth=depth, remat=remat,
                          genotype=getattr(geno_searched, model), device="cpu",
-                         generator=torch.Generator().manual_seed(0))
+                         generator=torch.Generator().manual_seed(0),
+                         dropout_prob=dropout_prob)
         if variables is not None:
             convert.load_variables(net, variables)
         net = net.to(dt)
