@@ -250,12 +250,32 @@ Phases, each of which fails the run:
      the CPU already; the f32 distance is logged), all within
      `CARD_CPU_LIMITS`; ms/step and peak at batch 12 of 256x256x3 with and
      without dropout and with remat.
+ 24. the long tail (M17): every legacy block class (senas_torch/utils/
+     legacy_blocks.py) and customize's PyramidPooling and ConcurrentModule
+     in f64, train mode, batch 2 of 64x64, on the card against the CPU
+     under deterministic algorithms (outputs, gradients, running stats);
+     legacy-segnet-train: pytorch-semseg's SegNet from the legacy blocks
+     (SegnetDown x 5 at 64, 128, 256, 512, 512 with 2, 2, 3, 3, 3
+     convolutions, the mirrored SegnetUps, a 1x1 head) at the
+     senas_promise12.yml `training:` geometry (batch 12 of 256x256x1, SGD
+     6e-3/0.9/5e-4, dice_ce, f32), 1 + 3 steps with SENAS_PALLAS_BN=1
+     (K1a-K1d once each a BatchNorm a step, counted), the gated BatchNorm
+     held at each of its shapes to the kernels' plain twins and to the
+     gate off (check_bn_path), then the gate on and off in turns with a
+     profile each way; KohonenSOM.fit on the card (20x20 grid, 1000x16
+     samples, 20 iterations) against the CPU: the f32 loop traced on
+     both, its best-matching units equal up to the first near-tie (the
+     two nearest nodes within 4 ulps) and the weights before it within
+     1e-5; the whole 20 iterations in f64 within 1e-9;
+     RunScore on CUDA label maps against numpy; get_gpus_memory_info,
+     device_memory_log, flops_params_info of SenasModel at `training:`;
+     the two user tools (calc_mean_std, cell_visualize) in this process.
 Each phase's seconds are logged as it ends, and all of them at the end.
 Phases 12-13, 16, 18's zoo, 20's and 21's ungated steps and 23 launch none
 of the kernels (neither the fixed model nor the zoo has any, unless
 SENAS_PALLAS_BN=1).
 Every kernel variant must be launched on at least one path (phases 4-6, 9,
-14, 15, 17, 19-22; K2's bf16 variant in phase 4). The line before the last is a
+14, 15, 17, 19-22, 24; K2's bf16 variant in phase 4). The line before the last is a
 JSON list of the kernels, the bf16 variants as `<name>_bf16`; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits 1 and prints no result.
@@ -288,7 +308,8 @@ import torch
 import torch.nn.functional as F
 import yaml
 
-from senas_torch import export_model, search_arc, testing_model, train_model
+from senas_torch import (calc_mean_std, cell_visualize, export_model, search_arc, testing_model,
+                         train_model)
 from senas_torch.challenge import predict_test, volumetric_metrics
 from senas_torch.challenge.promise12 import best_worst_contour_grid
 from senas_torch.core.config import load_config
@@ -308,18 +329,24 @@ from senas_torch.models.senas_model import SenasModel
 from senas_torch.ops import _build
 from senas_torch.ops import grouped_epilogue as ge
 from senas_torch.ops import norm_convs as nc
-from senas_torch.ops.primitives import BatchNorm
+from senas_torch.ops.primitives import BatchNorm, init_params_
 from senas_torch.runner.test import TestRunner
 from senas_torch.search.fused_cell import GroupedMixedOp
 from senas_torch.search.supernet import (SenasSearch, derive_genotype,
                                          init_arch_params, normalize_arch)
 from senas_torch.serve import Predictor, export_predict_fn, save_artifact
+from senas_torch.som import KohonenSOM, train_som
 from senas_torch.train.checkpoint import CheckpointManager
 from senas_torch.train.loss import build_loss
+from senas_torch.train.metrics import RunScore
 from senas_torch.train.optim import build_optimizer
 from senas_torch.train.trainer import (FixedTrainState, SearchTrainState,
                                        make_eval_step, make_search_eval_step,
                                        make_search_step, make_train_step)
+from senas_torch.utils import customize
+from senas_torch.utils import legacy_blocks as lb
+from senas_torch.utils.misc import device_memory_log, flops_params_info, get_gpus_memory_info
+from senas_torch.utils.visualize import genotype_to_dot
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "senas", "senas_promise12.yml")
@@ -1590,18 +1617,21 @@ TF32_CONTROL_FACTOR = 10.0
 
 
 @contextlib.contextmanager
-def deterministic_algorithms():
+def deterministic_algorithms(warn_only: bool = False):
     """PyTorch's deterministic algorithms inside (cuDNN's and cuBLAS's among
-    them; an op that has none raises), the process's choice restored.
-    cuBLAS needs CUBLAS_WORKSPACE_CONFIG, which `main` sets."""
-    kept = torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic
-    torch.use_deterministic_algorithms(True)
+    them; an op that has none raises, or with `warn_only` warns and runs
+    its own), the process's choice restored. cuBLAS needs
+    CUBLAS_WORKSPACE_CONFIG, which `main` sets."""
+    kept = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=warn_only)
     torch.backends.cudnn.deterministic = True
     try:
         yield
     finally:
-        torch.use_deterministic_algorithms(kept[0])
-        torch.backends.cudnn.deterministic = kept[1]
+        torch.use_deterministic_algorithms(kept[0], warn_only=kept[1])
+        torch.backends.cudnn.deterministic = kept[2]
 
 
 @contextlib.contextmanager
@@ -5576,6 +5606,434 @@ def run_generic_dropout(dev, seed: int, t: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the long tail (M17)
+# ---------------------------------------------------------------------------
+
+LEGACY_HW = 64                # the legacy blocks' card-vs-CPU inputs: batch 2 of 64x64
+LEGACY_C = 8
+LEGACY_F64_LIMIT = 1e-9       # f64: each tensor within 1e-9 of its largest magnitude
+# pytorch-semseg's SegNet: (width, convolutions) of each SegnetDown, mirrored
+# by the SegnetUps
+SEGNET_WIDTHS = ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3))
+SOM_GRID, SOM_SAMPLES, SOM_ITERATIONS = (20, 20), (1000, 16), 20
+SOM_LIMIT = 1e-5              # the f32 SOM weights, card against CPU, before a tie
+SOM_TIE_ULPS = 4              # a best-matching unit may differ only at a near-tie
+SOM_F64_LIMIT = 1e-9          # the card's f64 20-iteration weights against the CPU's
+RUNSCORE_CLASSES = 5
+CLI_SAMPLES = 32              # calc_mean_std's synthetic samples
+
+
+class LegacySegNet(torch.nn.Module):
+    """pytorch-semseg's SegNet from the legacy blocks: SegnetDown x 5 at
+    SEGNET_WIDTHS, the mirrored SegnetUp x 5 (widths 512, 256, 128, 64,
+    64) and a 1x1 head. NHWC in and out, as the fixed train step gives and
+    takes."""
+
+    def __init__(self, in_channels: int, nclass: int):
+        super().__init__()
+        c = in_channels
+        for i, (w, n) in enumerate(SEGNET_WIDTHS):
+            setattr(self, f"down{i + 1}", lb.SegnetDown(c, w, n))
+            c = w
+        for i in reversed(range(len(SEGNET_WIDTHS))):
+            w = SEGNET_WIDTHS[max(i - 1, 0)][0]
+            setattr(self, f"up{i + 1}", lb.SegnetUp(c, w, SEGNET_WIDTHS[i][1]))
+            c = w
+        self.head = lb.ConvNorm(c, nclass, 1, norm=None)
+
+    def forward(self, x, train: bool = False, rng=None):
+        x, saved = x.permute(0, 3, 1, 2).contiguous(), []
+        for i in range(len(SEGNET_WIDTHS)):
+            x, idx, hw = getattr(self, f"down{i + 1}")(x, train)
+            saved.append((idx, hw))
+        for i in reversed(range(len(SEGNET_WIDTHS))):
+            x = getattr(self, f"up{i + 1}")(x, *saved[i], train)
+        return self.head(x, train).permute(0, 2, 3, 1)
+
+
+def _legacy_cases():
+    """(label, block, NCHW input shapes, extra arguments) of each legacy
+    block class and the customize modules at batch 2 of 64x64."""
+    b, c, hw, h2 = 2, LEGACY_C, LEGACY_HW, LEGACY_HW // 2
+    pooled, idx = lb.max_pool_argmax_2x2(torch.randn(b, 16, hw, hw, dtype=torch.float64,
+                                                     generator=torch.Generator().manual_seed(2)))
+    return [
+        ("ConvNorm batch", lambda: lb.ConvNorm(c, 16, 3, stride=2, padding=1, act=True),
+         [(b, c, hw, hw)], ()),
+        ("ConvNorm group", lambda: lb.ConvNorm(c, 16, 3, padding=2, dilation=2, norm="group",
+                                               n_groups=4), [(b, c, hw, hw)], ()),
+        ("ConvNorm transposed", lambda: lb.ConvNorm(c, 16, 3, stride=2, padding=1,
+                                                    transpose=True), [(b, c, h2, h2)], ()),
+        ("UnetConv2", lambda: lb.UnetConv2(c, 16), [(b, c, hw, hw)], ()),
+        ("UnetUp", lambda: lb.UnetUp(16, c, 8), [(b, c, hw, hw), (b, 16, h2, h2)], ()),
+        ("UnetUp bilinear", lambda: lb.UnetUp(16, c, 8, is_deconv=False),
+         [(b, c, hw, hw), (b, 16, h2, h2)], ()),
+        ("SegnetDown", lambda: lb.SegnetDown(c, 16, 3), [(b, c, hw, hw)], ()),
+        ("SegnetUp", lambda: lb.SegnetUp(16, c, 2), [tuple(pooled.shape)], (idx, (hw, hw))),
+        ("ResidualBlock", lambda: lb.ResidualBlock(c, 16, 2), [(b, c, hw, hw)], ()),
+        ("ResidualBottleneck", lambda: lb.ResidualBottleneck(c, 4, 2), [(b, c, hw, hw)], ()),
+        ("LinknetUp", lambda: lb.LinknetUp(c, 16), [(b, c, h2, h2)], ()),
+        ("FRRU", lambda: lb.FRRU(c, 16, 2), [(b, c, h2, h2), (b, 32, hw, hw)], ()),
+        ("FRRU group", lambda: lb.FRRU(c, 16, 4, group_norm=True, n_groups=4),
+         [(b, c, hw // 4, hw // 4), (b, 32, hw, hw)], ()),
+        ("RU", lambda: lb.RU(c, c), [(b, c, hw, hw)], ()),
+        ("ResidualConvUnit", lambda: lb.ResidualConvUnit(c), [(b, c, hw, hw)], ()),
+        ("MultiResolutionFusion", lambda: lb.MultiResolutionFusion(c, 16, 2, 4, low_channels=c),
+         [(b, c, h2 + 2, h2 + 2), (b, c, hw // 4 + 2, hw // 4 + 2)], ()),
+        ("ChainedResidualPooling", lambda: lb.ChainedResidualPooling(c, c), [(b, c, hw, hw)], ()),
+        ("BottleNeckPSP", lambda: lb.BottleNeckPSP(c, 4, 16, dilation=2), [(b, c, hw, hw)], ()),
+        ("BottleNeckIdentifyPSP", lambda: lb.BottleNeckIdentifyPSP(c, 4, 2), [(b, c, hw, hw)], ()),
+        ("ResidualBlockPSP", lambda: lb.ResidualBlockPSP(c, 3, 4, 16, stride=2),
+         [(b, c, hw, hw)], ()),
+        ("CascadeFeatureFusion", lambda: lb.CascadeFeatureFusion(3, c, c, 16),
+         [(b, c, h2, h2), (b, c, hw, hw)], ()),
+        ("PyramidPooling", lambda: customize.PyramidPooling(16), [(b, 16, hw, hw)], ()),
+        ("PyramidPooling resize", lambda: customize.PyramidPooling(16), [(b, 16, 50, 50)], ()),
+        ("ConcurrentModule", lambda: customize.ConcurrentModule(
+            [lb.ConvNorm(c, 4, 3, padding=1), lb.ConvNorm(c, 6, 1)]), [(b, c, hw, hw)], ()),
+    ]
+
+
+def _legacy_run(block, xs, extra, readouts=None):
+    """A train-mode forward and backward of sum(output * readout): the
+    outputs, the inputs' and parameters' gradients, the running stats."""
+    dev = xs[0].device
+    xs = [x.clone().requires_grad_() for x in xs]
+    out = block(*xs, *[e.to(dev) if isinstance(e, torch.Tensor) else e for e in extra],
+                train=True)
+    outs = [o for o in (out if isinstance(out, tuple) else (out,))
+            if isinstance(o, torch.Tensor) and o.is_floating_point()]
+    if readouts is None:
+        g = torch.Generator().manual_seed(7)
+        readouts = [torch.randn(o.shape, dtype=o.dtype, generator=g) for o in outs]
+    sum((o * r.to(dev)).sum() for o, r in zip(outs, readouts)).backward()
+    got = {f"out{i}": o.detach() for i, o in enumerate(outs)}
+    got.update({f"dx{i}": x.grad for i, x in enumerate(xs)})
+    got.update({f"d.{k}": p.grad for k, p in block.named_parameters() if p.grad is not None})
+    got.update({f"buffer.{k}": v for k, v in block.named_buffers()})
+    return {k: v.cpu() for k, v in got.items()}, readouts
+
+
+def legacy_blocks_card_vs_cpu(dev, seed: int) -> dict:
+    """Each legacy block class and the customize modules in f64, train
+    mode, on the card against the CPU from one state: outputs, input and
+    parameter gradients and running stats, each within LEGACY_F64_LIMIT of
+    its largest magnitude, under deterministic algorithms (warn_only)."""
+    out = {}
+    for i, (label, make, shapes, extra) in enumerate(_legacy_cases()):
+        block = init_params_(make().double(), torch.Generator().manual_seed(seed + i))
+        g = torch.Generator().manual_seed(seed + 100 + i)
+        xs = [torch.randn(s, dtype=torch.float64, generator=g) * 1.3 + 0.2 for s in shapes]
+        card = copy.deepcopy(block).to(dev)
+        want, readouts = _legacy_run(block, xs, extra)
+        # F.interpolate's antialiased backward (the linear resizes other
+        # than 2x) has no deterministic CUDA version: it adds with atomics,
+        # whose order moves an f64 sum by ~1e-16 of it
+        with deterministic_algorithms(warn_only=True):
+            got, _ = _legacy_run(card, [x.to(dev) for x in xs], extra, readouts)
+        check(got.keys() == want.keys(), f"{label}: {sorted(set(got) ^ set(want))}")
+        worst = max(rel_err(got[k], want[k]) for k in want)
+        out[label] = worst
+        check(worst <= LEGACY_F64_LIMIT, f"legacy {label}: the card lies {worst:.3g} from the "
+                                         f"CPU in f64 (limit {LEGACY_F64_LIMIT})")
+    log(f"legacy blocks card vs CPU (f64, batch 2 of {LEGACY_HW}x{LEGACY_HW}, train mode, "
+        f"deterministic algorithms; worst tensor's max |diff| over its max |value|, limit "
+        f"{LEGACY_F64_LIMIT}): { {k: float(f'{v:.3g}') for k, v in out.items()} }")
+    return out
+
+
+def run_legacy_segnet(dev, seed: int) -> dict:
+    """legacy-segnet-train: LegacySegNet at the `training:` geometry (batch
+    12 of 256x256x1, SGD, dice_ce, f32, TF32 off): 1 + 3 steps with the
+    gate on, the kernels' counts set to 0 before and read after (each of
+    K1a-K1d once a BatchNorm a step); the gated BatchNorm at each shape
+    the path gives it held to the kernels' plain twins and to the gate off
+    (check_bn_path); then the gate on and off in turns with a profile each
+    way."""
+    t = load_config(CONFIG)["training"]
+    bs = t["batch_size"]
+    batch = _batches(np.random.RandomState(seed + 24), 1, bs, HW, dev)[0]
+    model = init_params_(LegacySegNet(IN_CHANNELS, NCLASS),
+                         torch.Generator().manual_seed(seed + 24)).to(dev)
+    state = FixedTrainState.create(model, t["model_optimizer"], seed=seed)
+    step = make_train_step(_fixed_loss(t), grad_clip=t["grad_clip"])
+    with bn_inputs(model) as seen, pallas_bn(False):
+        step(state, batch)
+    bn_calls = len(seen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    with pallas_bn(True):
+        m = step(state, batch)
+        torch.cuda.synchronize()
+        for _ in range(3):
+            t0 = time.perf_counter()
+            m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    want = {name: (4 * bn_calls if name in EPILOGUE_REPLACES else 0) for name in KERNELS}
+    check(launches == want, f"legacy-segnet-train: 1 + 3 gated steps launched {launches}, "
+                            f"expected {want}")
+    check(np.isfinite(float(m["loss"])), f"legacy-segnet-train loss {float(m['loss'])}")
+    shapes = sorted(set(seen))
+    t0 = time.perf_counter()
+    bn_worst = check_bn_path(dev, seed + 24, shapes)
+    bn_check_s = time.perf_counter() - t0
+    log(f"legacy-segnet-train's {len(shapes)} BatchNorm shapes {[list(x) for x in shapes]} held "
+        f"to the twins and the gate off in {bn_check_s:.1f} s: worst "
+        f"{ {k: float(f'{v:.3g}') for k, v in bn_worst.items()} }")
+    turns = _gate_turns(f"legacy-segnet-train, batch {bs}", lambda: step(state, batch), bn_calls)
+    params_m = sum(p.numel() for p in model.parameters()) / 1e6
+    log(f"legacy-segnet-train (SegnetDown x5 at {[w for w, _ in SEGNET_WIDTHS]}, {params_m:.2f} "
+        f"M params, batch {bs} of {HW}x{HW}x{IN_CHANNELS}): gated 1 + 3 steps "
+        f"{[round(x, 2) for x in times]} ms, peak {peak:.1f} MiB, loss {float(m['loss']):.5f}; "
+        f"{bn_calls} BatchNorm calls a step, launches {launches}")
+    del model, state
+    torch.cuda.empty_cache()
+    return dict(ms_gated=float(np.mean(times)), peak_mib=peak, bn_calls=bn_calls,
+                launches=launches, turns=turns, params_m=params_m, bn_shapes=shapes,
+                bn_worst=bn_worst, bn_check_s=bn_check_s)
+
+
+def _som_grid(som, dev, dtype):
+    gx, gy = torch.meshgrid(torch.arange(som.width), torch.arange(som.height), indexing="ij")
+    return torch.stack([gx, gy]).to(dev, dtype)
+
+
+def _som_bmu_trace(som, data, init, dev):
+    """`train_som`'s f32 loop (senas_torch/som.py) op for op on `dev`, each
+    step's best-matching unit and the two smallest squared distances
+    recorded: (the final weights as float64 numpy, the weights after each
+    iteration [iters, W, H, D], the units [iters, n], the two distances
+    [iters, n, 2]). Its final weights are held bit for bit to `fit`'s."""
+    f32 = torch.float32
+    w = torch.as_tensor(init, dtype=f32, device=dev)
+    coords = _som_grid(som, dev, f32)
+    tc = torch.tensor(som.time_constant, dtype=f32, device=dev)
+    snaps, bmus, tops = [], [], []
+    for step in range(som.n_iterations):
+        t = torch.tensor(float(step), dtype=f32, device=dev)
+        decay = torch.exp(-t / tc)
+        radius = float(som.initial_radius) * decay
+        lr = float(som.initial_learning_rate) * decay
+        two_r2 = 2.0 * radius ** 2
+        units, two = [], []
+        for vector in torch.as_tensor(data, dtype=f32, device=dev):
+            sq = ((w - vector) ** 2).sum(dim=-1)
+            flat_idx = torch.argmin(sq)
+            units.append(flat_idx)
+            two.append(torch.topk(sq.reshape(-1), 2, largest=False).values)
+            bx = torch.div(flat_idx, som.height, rounding_mode="floor")
+            by = flat_idx % som.height
+            grid_sq = (coords[0] - bx) ** 2 + (coords[1] - by) ** 2
+            influence = torch.exp(-grid_sq / two_r2)
+            w = w + lr * influence[..., None] * (vector - w)
+        snaps.append(w.cpu().numpy().astype(float))
+        bmus.append(torch.stack(units).cpu().numpy())
+        tops.append(torch.stack(two).double().cpu().numpy())
+    return snaps[-1], np.stack(snaps), np.stack(bmus), np.stack(tops)
+
+
+def run_som_card_vs_cpu(dev, seed: int) -> dict:
+    """KohonenSOM.fit on the card (device=None) against the CPU, f32, timed.
+    The two fits part where a sample's two nearest nodes tie to an f32
+    ulp: the devices round the squared distances apart and take different
+    best-matching units, and in the ordering phase (large radius and rate)
+    that one step reorganises the map. So the witness is the loop traced
+    step by step on both devices (`_som_bmu_trace`, bit-equal to `fit`):
+    the units agree up to the first that differs, the weights within
+    SOM_LIMIT after every iteration before it, and at it both devices'
+    two nearest distances lie within SOM_TIE_ULPS ulps of each other. The
+    same loop (`train_som`) in f64 over all SOM_ITERATIONS is held to
+    SOM_F64_LIMIT with every sample predicted alike. The f32 fits' weight
+    difference, share of samples alike and quantization errors (and the
+    initial weights') are logged, with the seconds of each run."""
+    data = np.random.RandomState(seed + 24).rand(*SOM_SAMPLES)
+    w, h = SOM_GRID
+    t0 = time.perf_counter()
+    card = KohonenSOM(w, h, SOM_ITERATIONS, random_state=seed).fit(data, record_history=True)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = KohonenSOM(w, h, SOM_ITERATIONS, random_state=seed, device="cpu").fit(
+        data, record_history=True)
+    cpu_s = time.perf_counter() - t0
+
+    def fitted(weights):
+        som = KohonenSOM(w, h)
+        som.weights = weights
+        return som
+
+    diff = float(np.abs(card.weights - cpu.weights).max())
+    share = float((card.predict(data) == cpu.predict(data)).all(axis=1).mean())
+    qe = {"card": card.quantization_error(data), "cpu": cpu.quantization_error(data)}
+    init = np.random.default_rng(seed).random((w, h, SOM_SAMPLES[1]))
+    qe_init = float(fitted(init).quantization_error(data))
+    check(len(card.quantization_error_history_) == SOM_ITERATIONS
+          and np.isfinite(card.quantization_error_history_).all(),
+          f"the card's SOM history {card.quantization_error_history_}")
+    # the witness: where the f32 loops part
+    t0 = time.perf_counter()
+    trace = {"card": _som_bmu_trace(cpu, data, init, dev),
+             "cpu": _som_bmu_trace(cpu, data, init, "cpu")}
+    trace_s = time.perf_counter() - t0
+    check(np.array_equal(trace["card"][0], card.weights)
+          and np.array_equal(trace["cpu"][0], cpu.weights),
+          "the traced SOM loop is not bit-equal to KohonenSOM.fit")
+    (_, snap_card, bmu_card, top_card), (_, snap_cpu, bmu_cpu, top_cpu) = (trace["card"],
+                                                                           trace["cpu"])
+    differ = np.argwhere(bmu_card != bmu_cpu)
+    flip = tuple(int(v) for v in differ[0]) if len(differ) else None
+    before = flip[0] if flip else SOM_ITERATIONS
+    early = float(np.abs(snap_card[:before] - snap_cpu[:before]).max()) if before else 0.0
+    tie = {}
+    if flip:
+        for name, top in (("card", top_card), ("cpu", top_cpu)):
+            near, second = top[flip]
+            tie[name] = dict(gap=float(second - near),
+                             ulps=float((second - near) / np.spacing(np.float32(second))))
+    # the same loop in f64, card and CPU
+    f64 = {}
+    for name, on in (("card", dev), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        weights, _ = train_som(
+            torch.as_tensor(init, dtype=torch.float64, device=on),
+            torch.as_tensor(data, dtype=torch.float64, device=on),
+            _som_grid(cpu, on, torch.float64), height=h, n_iterations=SOM_ITERATIONS,
+            initial_radius=float(cpu.initial_radius), time_constant=float(cpu.time_constant),
+            initial_lr=float(cpu.initial_learning_rate), record_history=False)
+        f64[name] = (weights.cpu().numpy(), time.perf_counter() - t0)
+    f64_diff = float(np.abs(f64["card"][0] - f64["cpu"][0]).max())
+    f64_share = float((fitted(f64["card"][0]).predict(data)
+                       == fitted(f64["cpu"][0]).predict(data)).all(axis=1).mean())
+    f64_to_f32 = float(np.abs(f64["cpu"][0] - cpu.weights).max())
+    steps = SOM_ITERATIONS * SOM_SAMPLES[0]
+    log(f"SOM {w}x{h}, {SOM_SAMPLES[0]}x{SOM_SAMPLES[1]} samples, {SOM_ITERATIONS} iterations, "
+        f"f32: card {card_s:.2f} s ({card_s / steps * 1e6:.1f} us a sample step), CPU "
+        f"{cpu_s:.2f} s; weights max |diff| {diff:.3g}, predicted alike {share:.4f}, "
+        f"quantization error card {qe['card']:.6f} CPU {qe['cpu']:.6f} (initial {qe_init:.6f}), "
+        f"topographic error card {card.topographic_error(data):.4f} CPU "
+        f"{cpu.topographic_error(data):.4f}; traced ({trace_s:.2f} s): first differing unit "
+        f"(iteration, sample) {flip}, card {bmu_card[flip] if flip else None} CPU "
+        f"{bmu_cpu[flip] if flip else None}, the two nearest squared distances apart by {tie} "
+        f"(limit {SOM_TIE_ULPS} ulps), weights before it within {early:.3g} (limit {SOM_LIMIT}), "
+        f"units differing in the last iteration {int((bmu_card[-1] != bmu_cpu[-1]).sum())}; "
+        f"f64: card {f64['card'][1]:.2f} s, CPU {f64['cpu'][1]:.2f} s, weights max |diff| "
+        f"{f64_diff:.3g} (limit {SOM_F64_LIMIT}), predicted alike {f64_share:.4f}, the f64 CPU "
+        f"fit {f64_to_f32:.3g} from the f32 CPU fit")
+    check(early <= SOM_LIMIT, f"the SOM's f32 weights part before any unit differs: {early}")
+    check(all(v["ulps"] <= SOM_TIE_ULPS for v in tie.values()),
+          f"the SOM's first differing unit {flip} is no near-tie: {tie}")
+    check(f64_diff <= SOM_F64_LIMIT and f64_share == 1.0,
+          f"the SOM's {SOM_ITERATIONS} iterations in f64 on the card and the CPU disagree: "
+          f"{f64_diff} {f64_share}")
+    return dict(card_s=card_s, cpu_s=cpu_s, us_per_sample_step=card_s / steps * 1e6,
+                max_abs_diff=diff, share_alike=share, qe=qe, qe_init=qe_init, trace_s=trace_s,
+                first_flip=flip, tie=tie, before_flip_max_abs_diff=early,
+                f64_card_s=f64["card"][1], f64_cpu_s=f64["cpu"][1], f64_max_abs_diff=f64_diff,
+                f64_share_alike=f64_share, f64_to_f32=f64_to_f32)
+
+
+def run_runscore_on_card(dev, seed: int) -> dict:
+    """RunScore on CUDA label maps (torch.bincount on the card) against
+    numpy, labels -1 and >= n included: equal matrices and scores."""
+    n = RUNSCORE_CLASSES
+    rng = np.random.RandomState(seed + 24)
+    trues = rng.randint(-1, n + 2, (12, HW, HW))
+    preds = rng.randint(0, n, (12, HW, HW))
+    card, ref = RunScore(n), RunScore(n)
+    t0 = time.perf_counter()
+    card.update(torch.from_numpy(trues).to(dev), torch.from_numpy(preds).to(dev))
+    ms = (time.perf_counter() - t0) * 1e3
+    ref.update(trues, preds)
+    (cs, ciu), (rs, riu) = card.get_scores(), ref.get_scores()
+    check(np.array_equal(card.confusion_matrix, ref.confusion_matrix)
+          and all(np.array_equal(cs[k], rs[k], equal_nan=True) for k in rs)
+          and np.array_equal(list(ciu.values()), list(riu.values()), equal_nan=True),
+          f"RunScore on the card {cs} against numpy {rs}")
+    log(f"RunScore on CUDA label maps (12 of {HW}x{HW}, {n} classes): equal to numpy, "
+        f"{ms:.2f} ms an update; {cs}")
+    return dict(ms=ms, scores={k: float(v) for k, v in cs.items()})
+
+
+def run_misc_on_card(dev, seed: int) -> dict:
+    """get_gpus_memory_info (bytes_limit is mem_get_info's total),
+    device_memory_log's lines, flops_params_info of SenasModel at the
+    `training:` geometry."""
+    best, stats = get_gpus_memory_info()
+    _, total = torch.cuda.mem_get_info(0)
+    check(best in stats and stats[0]["bytes_limit"] == total
+          and set(stats[0]) == {"bytes_limit", "bytes_in_use", "peak_bytes_in_use"},
+          f"get_gpus_memory_info: {best} {stats}, mem_get_info total {total}")
+    lines = []
+    device_memory_log(argparse.Namespace(info=lines.append), top_k=5)
+    check(lines[0].startswith("device 0: in_use=") and any(x.startswith("live arrays: ")
+                                                            for x in lines),
+          f"device_memory_log lines {lines[:3]}")
+    t = load_config(CONFIG)["training"]
+    model = _fixed_model(t, dev, torch.Generator().manual_seed(seed)).eval()
+    x = torch.zeros(t["batch_size"], HW, HW, IN_CHANNELS, device=dev)
+    t0 = time.perf_counter()
+    info = flops_params_info(model, x)
+    s = time.perf_counter() - t0
+    check(info["flops"] > 0 and info["params_m"] == sum(p.numel() for p in model.parameters())
+          / 1e6, f"flops_params_info {info}")
+    log(f"get_gpus_memory_info: card {best} of {len(stats)}, {stats}; device_memory_log "
+        f"{lines[:3]}; flops_params_info of SenasModel at training: (batch {t['batch_size']} of "
+        f"{HW}x{HW}x{IN_CHANNELS}, inference): {info['flops'] / 1e12:.4f} TFLOP, "
+        f"{info['params_m']:.4f} M params, {s:.2f} s")
+    del model
+    return dict(stats=stats, flops=info["flops"], params_m=info["params_m"], flops_s=s)
+
+
+def run_tail_clis(work: str) -> dict:
+    """The two user tools in this process: calc_mean_std on the card
+    (its default) against --device cpu on the synthetic dataset, and
+    cell_visualize's .dot files against genotype_to_dot."""
+    argv = ("--dataset", "synthetic", "--data-root", work, "--limit", str(CLI_SAMPLES))
+    card = _in_process(calc_mean_std.main, *argv)
+    cpu = _in_process(calc_mean_std.main, *argv, "--device", "cpu")
+    check(card == cpu, f"calc_mean_std on the card {card!r} and the CPU {cpu!r}")
+    t = load_config(CONFIG)["training"]
+    out_dir = os.path.join(work, "cells")
+    _in_process(cell_visualize.main, "--geno-name", t["geno_type"], "--directory", out_dir,
+                "--format", "png")
+    g = getattr(geno_searched, t["geno_type"])
+    for tag, gene in (("DownC", g.down), ("UpC", g.up)):
+        names = [n for n in os.listdir(out_dir) if n.startswith(tag) and n.endswith(".dot")]
+        check(len(names) == 1, f"cell_visualize wrote {names}")
+        with open(os.path.join(out_dir, names[0])) as f:
+            check(f.read() == genotype_to_dot(gene), f"{names[0]} differs from genotype_to_dot")
+    return dict(calc_mean_std=card.strip().splitlines())
+
+
+def run_long_tail(dev, seed: int, work: str) -> dict:
+    """Phase 24: the legacy blocks card against CPU, legacy-segnet-train
+    (the gated BatchNorm's K1a-K1d), the SOM, RunScore, misc and the two
+    user tools."""
+    t0 = time.perf_counter()
+    marks = []
+
+    def timed(label, fn, *a):
+        s0 = time.perf_counter()
+        r = fn(*a)
+        marks.append(f"{label} {time.perf_counter() - s0:.1f} s")
+        return r
+
+    out = dict(blocks=timed("blocks", legacy_blocks_card_vs_cpu, dev, seed),
+               segnet=timed("segnet", run_legacy_segnet, dev, seed),
+               som=timed("som", run_som_card_vs_cpu, dev, seed),
+               runscore=timed("runscore", run_runscore_on_card, dev, seed),
+               misc=timed("misc", run_misc_on_card, dev, seed),
+               clis=timed("clis", run_tail_clis, work))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 24 (the long tail): {out['seconds']:.1f} s ({', '.join(marks)})")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -5657,6 +6115,9 @@ def main(argv=None) -> int:
     paths["data_parallel"] = dict(launches=dp["launches"])
     with tempfile.TemporaryDirectory() as work:
         generic = phase(23, run_generic_path, dev, args.seed, work)
+    with tempfile.TemporaryDirectory() as work:
+        tail = phase(24, run_long_tail, dev, args.seed, work)
+    paths["legacy_segnet_train"] = dict(launches=tail["segnet"]["launches"])
 
     kernels = []
     for name, k in KERNELS.items():
@@ -5840,6 +6301,20 @@ def main(argv=None) -> int:
         f"sample { {n: (round(tr['decode_ms'], 2), round(tr['resample_ms'], 2), round(tr['getitem_ms'], 2)) for n, tr in generic['trees'].items()} }; "
         f"ms/step, prefetch wait share, peak GB, remat {gen_rows}; ADE20K void step card vs "
         f"CPU {generic['card_vs_cpu']['ade20k_void']}; dropout {generic['dropout']}")
+    seg = tail["segnet"]
+    log(f"phase 24 summary ({tail['seconds']:.1f} s): legacy blocks card vs CPU worst "
+        f"{max(tail['blocks'].values()):.3g} (f64); legacy-segnet-train gated "
+        f"{seg['ms_gated']:.2f} ms/step, gate on/off in turns {seg['turns']['ms_on']:.2f} / "
+        f"{seg['turns']['ms_off']:.2f} ms/step, peak {seg['peak_mib']:.1f} MiB, idle share on/off "
+        f"{seg['turns']['profile']['on'].get('idle_share', -1):.3f} / "
+        f"{seg['turns']['profile']['off'].get('idle_share', -1):.3f}, K1a-K1d a gated step "
+        f"{seg['bn_calls']} each, its {len(seg['bn_shapes'])} BatchNorm shapes held in "
+        f"{seg['bn_check_s']:.1f} s (worst {seg['bn_worst']}); SOM card {tail['som']['card_s']:.2f} s, CPU "
+        f"{tail['som']['cpu_s']:.2f} s, f32 max |diff| {tail['som']['max_abs_diff']:.3g}, alike "
+        f"{tail['som']['share_alike']:.4f}, parting at (iteration, sample) "
+        f"{tail['som']['first_flip']} on a tie {tail['som']['tie']}; f64 max |diff| "
+        f"{tail['som']['f64_max_abs_diff']:.3g}; RunScore {tail['runscore']['ms']:.2f} ms; flops "
+        f"{tail['misc']['flops'] / 1e12:.4f} TFLOP; calc_mean_std {tail['clis']['calc_mean_std']}")
     log(f"phase seconds {phase_s}")
     log(f"card: {smi}; total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -8,3 +8,10 @@ PyTorch version, on the card it launches the hand-written CUDA kernel.
 """
 
 __version__ = "0.1.0"
+
+from senas_torch._exports import lazy_exports  # noqa: E402
+
+# the JAX package's root exports, imported at first use
+_EXPORTS = {name: "senas_torch.core.genotype"
+            for name in ("Genotype", "GenoParser", "parse_genotype")}
+__getattr__ = lazy_exports(__name__, _EXPORTS)

@@ -52,6 +52,7 @@ from senas_torch.ops.primitives import (BatchNorm, Dropout, GroupNorm, add_bias,
                                         add_conv_kernel, conv2d, conv_transpose2d, image_mean,
                                         max_pool_2x2, on_whole_level, relu, sigmoid, softmax,
                                         whole_level)
+from senas_torch.ops.resize import PSP_SIZES, adaptive_avg_pool
 from senas_torch.parallel.collectives import global_height, whole_maps
 
 
@@ -414,24 +415,9 @@ class FPN(SegmentationModel):
 # PSPNet (pspnet/decoder.py)
 # ---------------------------------------------------------------------------
 
-PSP_SIZES = (1, 2, 3, 6)
-
-
-def psp_pool(y, size: int):
-    """The pyramid's pooling to size x size, as senas_tpu does it
-    (models/zoo.py:414-419): the mean over equal blocks where `size`
-    divides the map, else jax.image.resize's linear filter, which
-    antialiases when it shrinks (= F.interpolate bilinear, antialias=True,
-    half-pixel centres). smp's AdaptiveAvgPool2d differs there
-    (ROADMAP.md Queue 3, F3). Both keep y's dtype; a bf16 map's filter is
-    taken in f32 and rounded once (jax.image.resize rounds between its two
-    passes; PyTorch has no bf16 antialiased filter on the CPU)."""
-    h, w = y.shape[2], y.shape[3]
-    if h % size == 0 and w % size == 0:
-        return F.avg_pool2d(y, (h // size, w // size))
-    z = y.float() if y.dtype == torch.bfloat16 else y
-    return F.interpolate(z, size=(size, size), mode="bilinear", antialias=True,
-                         align_corners=False).to(y.dtype)
+# the pyramid's pooling to size x size, as senas_tpu does it (models/zoo.py:
+# 414-419): smp's AdaptiveAvgPool2d differs where size does not divide the map
+psp_pool = adaptive_avg_pool
 
 
 class PSPNet(SegmentationModel):

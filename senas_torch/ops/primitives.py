@@ -45,6 +45,7 @@ import contextvars
 import enum
 import math
 import os
+from functools import partial
 from typing import Optional
 
 import torch
@@ -931,3 +932,9 @@ def make_op(name: str, c_in: int, c_out: int, op_type: OpType,
     if name == "dep_sep_conv_5":
         return DepSepConv(c_in, c_out, 5, stride, 1, transpose, op, **kw)
     raise NotImplementedError(name)
+
+
+OPS = {name: partial(make_op, name)
+       for name in ("none", "identity", "avg_pool", "max_pool", "up_sample", "conv_3",
+                    "se_conv_3", "dil_3_conv_5", "dil_2_conv_5", "dep_sep_conv_3",
+                    "dep_sep_conv_5")}

@@ -7,6 +7,7 @@ from senas_torch.parallel.collectives import (
 from senas_torch.parallel.mesh import (
     Mesh,
     MeshSpec,
+    batch_sharding,
     initialize_distributed,
     make_mesh,
     place_state,

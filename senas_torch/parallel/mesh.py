@@ -26,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import os
 from datetime import timedelta
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -230,6 +230,14 @@ def shard_batch(mesh: Mesh, batch: Dict[str, Any], spatial: bool = False) -> Dic
     out = {k: v[:, rows] if v.ndim >= 3 else v for k, v in out.items()}
     out[ROW_SPLIT] = (h, w)
     return out
+
+
+def batch_sharding(mesh: Mesh, spatial: bool = True) -> Callable[[Any], Any]:
+    """The placement senas_tpu's `batch_sharding` names for a [B, H, W, C]
+    batch (B over the data axis, with `spatial` H over the spatial axis),
+    as the function that cuts a global array to this rank's part, as
+    `shard_batch` cuts its image."""
+    return lambda v: shard_batch(mesh, {"image": v}, spatial)["image"]
 
 
 def assemble_global_batch(mesh: Mesh, local_batch: Dict[str, Any], spatial: bool = False):

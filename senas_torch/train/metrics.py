@@ -5,6 +5,7 @@ utils/metrics.py): per-batch confusion counts per foreground class from the
 argmax prediction, the reference's bitwise-AND pixel accuracy, and a host
 accumulator that reports (2tp+eps)/(2tp+fp+fn+eps)-style percentages.
 `confusion_counts` and `mean_pix_accuracy` run on the logits' device.
+`RunScore` is the reference's confusion-matrix scorer.
 """
 
 from __future__ import annotations
@@ -108,3 +109,54 @@ class SegmentationMetric:
 
     def get(self):
         return self.acc.mperc(), percentage(self.miou()), percentage(self.dice())
+
+
+class RunScore:
+    """Confusion-matrix scorer (utils/utils.py:43-90): accumulates an
+    n_classes^2 histogram over (true, pred) label maps and reports overall
+    accuracy, per-class mean accuracy, mean IoU, frequency-weighted
+    accuracy and the per-class IoU table, in float64, under the JAX
+    package's keys ("Mean IoU " ends with a space).
+
+    The label maps are numpy arrays or tensors. Pixels whose true label
+    lies outside [0, n_classes) are left out. The histogram is
+    `torch.bincount` in int64 on the maps' own device (a CUDA map's on the
+    card), added to the float64 matrix once an `update`."""
+
+    def __init__(self, n_classes: int):
+        self.n_classes = n_classes
+        self.reset()
+
+    def _hist(self, label_true, label_pred) -> torch.Tensor:
+        n = self.n_classes
+        t = torch.as_tensor(label_true).reshape(-1).long()
+        p = torch.as_tensor(label_pred, device=t.device).reshape(-1).long()
+        valid = (t >= 0) & (t < n)
+        return torch.bincount(n * t[valid] + p[valid], minlength=n * n).reshape(n, n)
+
+    def update(self, label_trues, label_preds):
+        total = None
+        for lt, lp in zip(label_trues, label_preds):
+            h = self._hist(lt, lp)
+            total = h if total is None else total + h.to(total.device)
+        if total is not None:
+            self.confusion_matrix += total.cpu().numpy()
+
+    def get_scores(self):
+        hist = self.confusion_matrix
+        with np.errstate(divide="ignore", invalid="ignore"):
+            acc = np.diag(hist).sum() / hist.sum()
+            per_class_acc = np.diag(hist) / hist.sum(axis=1)
+            iu = np.diag(hist) / (hist.sum(axis=1) + hist.sum(axis=0)
+                                  - np.diag(hist))
+            freq = hist.sum(axis=1) / hist.sum()
+        summary = {
+            "Overall Acc": acc,
+            "Mean Acc": np.nanmean(per_class_acc),
+            "FreqW Acc": (freq[freq > 0] * iu[freq > 0]).sum(),
+            "Mean IoU ": np.nanmean(iu),
+        }
+        return summary, dict(enumerate(iu))
+
+    def reset(self):
+        self.confusion_matrix = np.zeros((self.n_classes, self.n_classes))

@@ -1,7 +1,7 @@
 """Run-dir logging, scalar logging and image grids for the runners.
 
-The parts of `senas_tpu/utils/logging.py` that the runners use, copied:
-stdout + run.log file logger, the run-dir layout
+`senas_tpu/utils/logging.py`, copied: stdout + run.log file logger,
+`create_exp_dir`, the run-dir layout
 <log_root>/<model>/<phase>/<dataset>/<phase>-<timestamp>/ with the config
 YAML copied in, a JSONL scalar log (scalars.jsonl), and the
 input | prediction | ground-truth grids (`store_images`). Images are
@@ -38,6 +38,12 @@ def get_logger(log_dir: str, name: str = "senas_torch") -> logging.Logger:
         fh.setFormatter(fmt)
         logger.addHandler(fh)
     return logger
+
+
+def create_exp_dir(path: str, desc: str = "Experiment dir: {}") -> str:
+    os.makedirs(path, exist_ok=True)
+    print(desc.format(path))
+    return path
 
 
 def close_logger(logger: logging.Logger) -> None:
