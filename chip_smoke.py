@@ -10,11 +10,18 @@ Phases, each of which fails the run:
      the SASS of norm_convs_kernel (cuobjdump) must hold tensor-core
      instructions (HGMMA: wgmma), and that of norm_convs_bf16_kernel bf16
      HGMMA only; ptxas's report of norm_convs_bf16_kernel<1..4> must show
-     0 bytes spilled and no wgmma serialized (its registers are logged);
+     0 bytes spilled and no wgmma serialized (its registers are logged), and
+     that of K1a's eight kernels 0 bytes spilled;
   3. kernels: each of the four epilogue kernels against its plain PyTorch
      version on the same tensors on the card, at the shapes the supernet
-     gives it (train- and eval-mode operands), timed; the epilogue's
-     autograd gradients against autograd through the plain reference;
+     gives it (train- and eval-mode operands), timed in turns with the
+     plain version (the call, and the device time of calls queued behind a
+     spin kernel, with the operands rotated over copies of more than 150 MB
+     so that the L2 holds none of a call's inputs); K1a on each path of its
+     launch plan (a warp a plane, a CTA a plane; 16-byte and scalar
+     loads, a misaligned slice), two calls bit-equal; the
+     epilogue's autograd gradients against autograd through the plain
+     reference;
      K2 (norm_convs, 3xTF32 on the tensor cores) against its plain version
      at bench.py's shape (B 64, 128x128, C 32, N 24) and at an edge-tile
      shape, timed beside its plain version and the library convolutions
@@ -153,9 +160,12 @@ Phases, each of which fails the run:
      the gate off, at every BatchNorm shape of the fixed model and at
      [2,64,1,1], [2,64,3,3], [2,64,6,6], [2,512,8,8] and [12,32,256,256],
      train and eval, f32 and bf16, forward, backward and running stats;
-     K1a-K1d at n=1 on [12,32,256,256] timed beside their twins, their byte
-     bounds and F.batch_norm's forward and backward, with the launches of
-     one BatchNorm forward and backward each way; the promise12-fixed-train
+     K1a-K1d at n=1 on [12,32,256,256] timed L2-cold as phase 3 times them,
+     each in turns with its twin and with the library call that computes
+     it (torch.batch_norm_stats, _elemt, _backward_reduce, _backward_elemt:
+     SyncBatchNorm's CUDA steps), beside their byte bounds and
+     F.batch_norm's forward and backward, with the launches of one
+     BatchNorm forward and backward each way; the promise12-fixed-train
      step, the fixed step in bf16 and the zoo's unet step in bf16 with the
      gate on and off in turns (each gated step's K1 launches held to its
      BatchNorm calls), one step each way under torch.profiler; one fixed
@@ -279,6 +289,14 @@ Every kernel variant must be launched on at least one path (phases 4-6, 9,
 JSON list of the kernels, the bf16 variants as `<name>_bf16`; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits 1 and prints no result.
+
+    python3 chip_smoke.py --k1
+
+builds the kernels and runs only phase 3's and 17's K1a-K1d checks and
+times, phase 19's n=1 times beside the library calls, and K1a and K1c at
+K1_SHAPES (~2 min, not the whole script's ~13): the loop for work on the
+K1 kernels, such as one launch for K1c (ROADMAP.md, the speed notes). It
+prints no result line.
 """
 
 from __future__ import annotations
@@ -292,6 +310,7 @@ import functools
 import gzip
 import importlib
 import io
+import itertools
 import json
 import os
 import random
@@ -417,6 +436,77 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+# ~10 ms of GPU time at the H100's 1.98 GHz boost clock: long enough for
+# the host to queue the timed calls behind it
+QUEUE_SLEEP_CYCLES = 20_000_000
+
+
+def queued_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device time of one call of fn(), from CUDA events around `reps`
+    calls queued behind a spin kernel (`torch.cuda._sleep`): the host
+    enqueues them all while the card spins, so the events read the calls'
+    device work back to back, where `time_ms` reads the wrapper's host cost
+    once that exceeds the kernel's time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# A timed call's operands rotate over copies that hold more than this
+# together, so that no call finds its inputs in the 50 MB L2 that the
+# previous calls filled; at most COLD_MAX_SETS copies (one for each call of
+# a timing: 3 warm-up and 20 timed), so that inputs under ~6.5 MB a set
+# stay L2-warm.
+COLD_BYTES = 150e6
+COLD_MAX_SETS = 24
+
+
+def cold_sets(tensors) -> list:
+    """`tensors` and copies of them (clones: the same values at other
+    addresses), at least two sets, enough for COLD_BYTES in all."""
+    size = sum(t.numel() * t.element_size() for t in tensors)
+    count = min(COLD_MAX_SETS, max(2, int(COLD_BYTES // max(size, 1)) + 1))
+    return [tuple(tensors)] + [tuple(t.clone() for t in tensors) for _ in range(count - 1)]
+
+
+def rotating(fn, sets):
+    """A call of fn(*set) on the next set of `sets` each time."""
+    it = itertools.cycle(sets)
+    return lambda: fn(*next(it))
+
+
+def cold_ms(fn, sets) -> dict:
+    """fn over the rotated operand sets: the call's time (`time_ms`) and
+    the device time (`queued_ms`)."""
+    return dict(ms=time_ms(rotating(fn, sets)), device_ms=queued_ms(rotating(fn, sets)))
+
+
+def in_turns_ms(fns: dict, sets) -> dict:
+    """`cold_ms` of each of the two callables of `fns` in turns, a, b, b,
+    a: for each, the mean call and device ms, the device readings and
+    their spread (largest less smallest)."""
+    first, second = fns
+    got = {name: [] for name in fns}
+    for name in (first, second, second, first):
+        got[name].append(cold_ms(fns[name], sets))
+    out = {}
+    for name, runs in got.items():
+        dev_ms = [r["device_ms"] for r in runs]
+        out[name] = dict(ms=sum(r["ms"] for r in runs) / len(runs),
+                         device_ms=sum(dev_ms) / len(runs), device_readings=dev_ms,
+                         device_spread=max(dev_ms) - min(dev_ms))
+    return out
+
+
 def reset_counts():
     for k in KERNELS.values():
         wrapper = k["wrapper"]
@@ -474,14 +564,13 @@ def build() -> str:
     bf16 = tensor_core_sass("norm_convs", "norm_convs_bf16_kernel", operands="BF16")
     check(bf16 == "HGMMA", f"norm_convs_bf16_kernel holds {bf16}, not HGMMA")
     ptxas_report("norm_convs", "norm_convs_bf16_kernel", 4)
+    stats_ptxas()
     return tensor_core_sass("norm_convs", "norm_convs_kernel")
 
 
-def ptxas_report(source: str, kernel: str, instances: int) -> dict:
-    """Registers and spilled bytes of each instantiation of `kernel` (the
-    mangled names of kernel<1..instances>) in ptxas's -v log of `source`.
-    Fails unless every one is there, spills 0 bytes and has no wgmma
-    serialized (ptxas's "Potential Performance Loss" notes)."""
+def ptxas_table(source: str, kernel: str) -> dict:
+    """Registers and spilled bytes of each function whose mangled name
+    holds `kernel`, from ptxas's -v log of `source`."""
     found, name = {}, None
     for line in _build.build_log(source).splitlines():
         entry = re.search(r"(?:Compiling entry function '|Function properties for )(\S+?)'?(?: for|$)",
@@ -498,6 +587,28 @@ def ptxas_report(source: str, kernel: str, instances: int) -> dict:
         used = re.search(r"Used (\d+) registers", line)
         if used:
             row["registers"] = int(used.group(1))
+    return found
+
+
+def stats_ptxas() -> dict:
+    """K1a's eight kernels (the warp path's and the CTA path's, vector and
+    scalar loads, f32 and bf16) are in ptxas's log, and none spills."""
+    found = {n: r for n, r in ptxas_table("grouped_epilogue", "branch_stats_").items()
+             if "_warp_kernel" in n or "_cta_kernel" in n}
+    short = {re.search(r"branch_stats_\w+?_kernelI\w+?Lb[01]E", n).group(0): r
+             for n, r in found.items()}
+    log(f"  ptxas branch_stats kernels: {short}")
+    check(len(found) == 8 and all(r.get("spill_bytes") == 0 for r in found.values()),
+          f"branch_stats kernels: missing or spilling: {found}")
+    return found
+
+
+def ptxas_report(source: str, kernel: str, instances: int) -> dict:
+    """Registers and spilled bytes of each instantiation of `kernel` (the
+    mangled names of kernel<1..instances>) in ptxas's -v log of `source`.
+    Fails unless every one is there, spills 0 bytes and has no wgmma
+    serialized (ptxas's "Potential Performance Loss" notes)."""
+    found = ptxas_table(source, kernel)
     serialized = [line.strip() for line in _build.build_log(source).splitlines()
                   if "serialized" in line and kernel in line]
     by_nt = {re.search(r"ILi(\d+)E", n).group(1): r for n, r in found.items()}
@@ -662,31 +773,23 @@ def check_kernels(dev) -> dict:
                 dx=(2 * n + 1) * plane_bytes + 3 * n * planes * 4)
             flops = dict(stats=3 * elems, mix=2 * elems, reduce=2 * elems + elems // n,
                          dx=4 * elems)
-            t = dict(
-                stats=time_ms(lambda: ge.branch_stats(xs)),
-                stats_plain=time_ms(lambda: ge.branch_stats_plain(xs)),
-                mix=time_ms(lambda: ge.apply_mix(xs, a, k)),
-                mix_plain=time_ms(lambda: ge.apply_mix_plain(xs, a, k)),
-                reduce=time_ms(lambda: ge.bwd_reduce(xs, g)),
-                reduce_plain=time_ms(lambda: ge.bwd_reduce_plain(xs, g)),
-                dx=time_ms(lambda: ge.bwd_dx(xs, g, a, ds1, ds2)),
-                dx_plain=time_ms(lambda: ge.bwd_dx_plain(xs, g, a, ds1, ds2)),
-                epi=time_ms(lambda: ge.fused_group_epilogue(*args, **kw)),
-                epi_plain=time_ms(lambda: ge.group_epilogue_reference(*args, **kw)),
-            )
+            t = k1_times(xs, a, k, g, ds1, ds2)
+            t.update(epi=time_ms(lambda: ge.fused_group_epilogue(*args, **kw)),
+                     epi_plain=time_ms(lambda: ge.group_epilogue_reference(*args, **kw)))
             bound = {key: max(nbytes[key] / PEAK_BYTES_PER_S, flops[key] / PEAK_F32_FLOPS) * 1e3
                      for key in nbytes}
-            log(f"  times [8,{GROUP_C},{h},{h}] n={n} (ms / plain / bound): "
-                + " | ".join(f"{name} {t[key]:.4f} / {t[key + '_plain']:.4f} / {bound[key]:.4f}"
-                             for name, key in _TIMED)
+            log(f"  times [8,{GROUP_C},{h},{h}] n={n}, L2-cold (call ms / device ms / spread / "
+                "plain ms / bound ms): "
+                + " | ".join(f"{name} {t[key]['ms']:.4f} / {t[key]['device_ms']:.4f} / "
+                             f"{t[key]['device_spread']:.4f} / {t[key + '_plain']['ms']:.4f} / "
+                             f"{bound[key]:.4f}" for name, key in _TIMED)
                 + f" | fused_group_epilogue {t['epi']:.4f} (plain reference {t['epi_plain']:.4f})")
             for name, key in _TIMED:
-                rec = dict(shape=[8, GROUP_C, h, h], n=n, ms=t[key], plain_ms=t[f"{key}_plain"],
-                           bound_ms=bound[key])
+                rec = k1_record([8, GROUP_C, h, h], n, t[key], t[f"{key}_plain"], bound[key])
                 records[name].setdefault("timed", []).append(rec)
                 if (h, n) == (KERNEL_HW[0], 6):
-                    records[name].update(ms=rec["ms"], plain_ms=rec["plain_ms"],
-                                         bound_ms=rec["bound_ms"])
+                    records[name].update({f: rec[f] for f in K1_ROW_KEYS})
+    worst["stats_rel"] = max(worst["stats_rel"], check_stats_paths(dev, torch.float32)["paths_rel"])
     for name in names:
         records[name]["max_abs_err"] = worst[name]
     records["branch_stats"]["max_rel_err"] = worst["stats_rel"]
@@ -695,8 +798,92 @@ def check_kernels(dev) -> dict:
     return records
 
 
+# K1a's paths on the card (`ge.branch_stats_plan`): (label, shape, n,
+# element offset of the data, the path, 16-byte loads)
+STATS_PATH_CASES = (
+    ("a CTA a plane, n=1 [12,32,256,256]", (12, 32, 256, 256), 1, 0, "cta", True),
+    ("a CTA a plane, n=6 main path", (8, GROUP_C, 256, 256), 6, 0, "cta", True),
+    ("warp, 1x1 squeeze", (12, 32, 1, 1), 1, 0, "warp", False),
+    ("warp, 16x16 maps", (12, 512, 16, 16), 1, 0, "warp", True),
+    ("warp, scalar: 3x3 (9 elements)", (2, 64, 3, 3), 1, 0, "warp", False),
+    ("a CTA a plane, scalar: misaligned slice", (12, 32, 256, 256), 1, 1, "cta", False),
+    ("a CTA a plane, scalar: odd plane 255x255", (2, 8, 255, 255), 3, 0, "cta", False),
+)
+
+
+def check_stats_paths(dev, dtype) -> dict:
+    """K1a on each path of its plan (STATS_PATH_CASES) in `dtype`: the plan
+    takes the path named, the sums lie within 1e-5 of the plain twin's
+    (s1 of the plane's sum of |x|, s2 of itself), a second call on the
+    same input is bit-equal to the first, and the warp path's sums are
+    those of a CTA a plane, bit for bit. A misaligned slice is a view
+    one element into a buffer (contiguous, its data off 16 bytes)."""
+    worst = 0.0
+    for i, (label, shape, n, offset, path, vec) in enumerate(STATS_PATH_CASES):
+        g = torch.Generator().manual_seed(100 + i)
+        size = int(np.prod(shape))
+        xs = []
+        for o in range(n):
+            buf = (torch.randn(size + offset, generator=g) * (1 + o) + 0.5).to(dev, dtype)
+            xs.append(buf[offset:].view(shape))
+        plan = ge.branch_stats_plan(n, shape[0] * shape[1], shape[2] * shape[3], dtype,
+                                    aligned=all(x.data_ptr() % 16 == 0 for x in xs))
+        check((plan.path, plan.vec) == (path, vec),
+              f"branch_stats plan for {label}: {plan}, not {path} vec={vec}")
+        s1, s2 = ge.branch_stats(xs)
+        t1, t2 = ge.branch_stats(xs)
+        p1, p2 = ge.branch_stats_plain(xs)
+        abs1 = torch.stack([x.float().abs().sum(dim=(2, 3)) for x in xs])
+        rel = max(((s1 - p1).abs() / abs1).max().item(), ((s2 - p2).abs() / p2).max().item())
+        same = torch.equal(s1, t1) and torch.equal(s2, t2)
+        if path == "warp" and dev.type == "cuda":
+            # the warp path adds in the CTA path's order: the same bits
+            c1, c2 = ge._launch_branch_stats(xs, ge.StatsPlan("cta", vec,
+                                                              n * shape[0] * shape[1]))
+            check(torch.equal(s1, c1) and torch.equal(s2, c2),
+                  f"branch_stats ({dtype}, {label}): the warp path's sums differ from a CTA's")
+        log(f"  branch_stats {dtype} {label}: plan {tuple(plan)}, rel {rel:.3g}, "
+            f"two calls bit-equal {same}")
+        check(rel <= 1e-5, f"branch_stats ({dtype}, {label}) disagrees: rel {rel:.3g}")
+        check(same, f"branch_stats ({dtype}, {label}): two calls differ")
+        worst = max(worst, rel)
+    torch.cuda.synchronize()
+    return dict(paths_rel=worst)
+
+
 _TIMED = (("branch_stats", "stats"), ("apply_mix", "mix"), ("bwd_reduce", "reduce"),
           ("bwd_dx", "dx"))
+# what a K1 row of the `kernels` line takes from its main shape's record
+K1_ROW_KEYS = ("ms", "device_ms", "device_spread", "plain_ms", "bound_ms", "share_of_bound")
+
+
+def k1_times(xs, a, k, g, ds1, ds2) -> dict:
+    """K1a-K1d on these operands, each in turns with its plain twin (kernel,
+    plain, plain, kernel; `in_turns_ms`), the branch tensors and g rotated
+    over L2-cold copies (`cold_sets`); keys "stats", "stats_plain", ..."""
+    calls = {"stats": (lambda xs, g: ge.branch_stats(xs), lambda xs, g: ge.branch_stats_plain(xs)),
+             "mix": (lambda xs, g: ge.apply_mix(xs, a, k),
+                     lambda xs, g: ge.apply_mix_plain(xs, a, k)),
+             "reduce": (lambda xs, g: ge.bwd_reduce(xs, g),
+                        lambda xs, g: ge.bwd_reduce_plain(xs, g)),
+             "dx": (lambda xs, g: ge.bwd_dx(xs, g, a, ds1, ds2),
+                    lambda xs, g: ge.bwd_dx_plain(xs, g, a, ds1, ds2))}
+    sets = [(list(s[:-1]), s[-1]) for s in cold_sets((*xs, g))]
+    out = {}
+    for key, (kernel, plain) in calls.items():
+        got = in_turns_ms({key: kernel, key + "_plain": plain}, sets)
+        out.update(got)
+    return out
+
+
+def k1_record(shape, n: int, kernel: dict, plain: dict, bound: float, **extra) -> dict:
+    """One timed shape of a K1 kernel: the call ms and L2-cold device ms
+    (mean of two readings, their spread), the plain twin's call ms, the
+    bound and the device time's share of it."""
+    return dict(shape=list(shape), n=n, ms=kernel["ms"], device_ms=kernel["device_ms"],
+                device_readings=kernel["device_readings"], device_spread=kernel["device_spread"],
+                plain_ms=plain["ms"], plain_device_ms=plain["device_ms"], bound_ms=bound,
+                share_of_bound=bound / kernel["device_ms"], **extra)
 
 
 # K2 shapes (B, C, H, W, N): bench.py's (bench_pallas_norm_convs), edge
@@ -2869,30 +3056,23 @@ def check_kernels_bf16(dev, f32: dict) -> dict:
                 dx=(2 * n + 1) * plane_bytes + 3 * n * planes * 4)
             flops = dict(stats=3 * elems, mix=2 * elems, reduce=2 * elems + elems // n,
                          dx=4 * elems)
-            t = dict(
-                stats=time_ms(lambda: ge.branch_stats(xs)),
-                stats_plain=time_ms(lambda: ge.branch_stats_plain(xs)),
-                mix=time_ms(lambda: ge.apply_mix(xs, a, k)),
-                mix_plain=time_ms(lambda: ge.apply_mix_plain(xs, a, k)),
-                reduce=time_ms(lambda: ge.bwd_reduce(xs, g)),
-                reduce_plain=time_ms(lambda: ge.bwd_reduce_plain(xs, g)),
-                dx=time_ms(lambda: ge.bwd_dx(xs, g, a, ds1, ds2)),
-                dx_plain=time_ms(lambda: ge.bwd_dx_plain(xs, g, a, ds1, ds2)),
-            )
+            t = k1_times(xs, a, k, g, ds1, ds2)
             bound = {key: max(nbytes[key] / PEAK_BYTES_PER_S, flops[key] / PEAK_F32_FLOPS) * 1e3
                      for key in nbytes}
-            f32_ms = {name: next(r["ms"] for r in f32[name]["timed"] if r["shape"][2] == h
-                                 and r["n"] == n) for name in names}
-            log(f"  bf16 times [8,{GROUP_C},{h},{h}] n={n} (ms / plain / bound / f32 ms): "
-                + " | ".join(f"{name} {t[key]:.4f} / {t[key + '_plain']:.4f} / {bound[key]:.4f}"
-                             f" / {f32_ms[name]:.4f}" for name, key in _TIMED))
+            f32_ms = {name: next(r["device_ms"] for r in f32[name]["timed"]
+                                 if r["shape"][2] == h and r["n"] == n) for name in names}
+            log(f"  bf16 times [8,{GROUP_C},{h},{h}] n={n}, L2-cold (call ms / device ms / "
+                "spread / plain ms / bound ms / f32 device ms): "
+                + " | ".join(f"{name} {t[key]['ms']:.4f} / {t[key]['device_ms']:.4f} / "
+                             f"{t[key]['device_spread']:.4f} / {t[key + '_plain']['ms']:.4f} / "
+                             f"{bound[key]:.4f} / {f32_ms[name]:.4f}" for name, key in _TIMED))
             for name, key in _TIMED:
-                rec = dict(shape=[8, GROUP_C, h, h], n=n, ms=t[key], plain_ms=t[f"{key}_plain"],
-                           bound_ms=bound[key], f32_ms=f32_ms[name])
+                rec = k1_record([8, GROUP_C, h, h], n, t[key], t[f"{key}_plain"], bound[key])
+                rec["f32_device_ms"] = f32_ms[name]
                 records[name]["timed"].append(rec)
                 if (h, n) == (KERNEL_HW[0], 6):
-                    records[name].update(ms=rec["ms"], plain_ms=rec["plain_ms"],
-                                         bound_ms=rec["bound_ms"], f32_ms=rec["f32_ms"])
+                    records[name].update({f: rec[f] for f in K1_ROW_KEYS + ("f32_device_ms",)})
+    worst["stats_rel"] = max(worst["stats_rel"], check_stats_paths(dev, BF16)["paths_rel"])
     for name in names:
         records[name]["max_abs_err"] = worst[name]
     records["branch_stats"]["max_rel_err"] = worst["stats_rel"]
@@ -3578,12 +3758,38 @@ def check_bn_path(dev, seed: int, shapes) -> dict:
     return worst
 
 
+# The library call that computes what each K1 kernel computes at n=1: the
+# CUDA steps of SyncBatchNorm, each reading and writing the kernel's bytes
+# (per-channel operands where the kernel's are per plane)
+LIBRARY_N1 = {"branch_stats": "torch.batch_norm_stats", "apply_mix": "torch.batch_norm_elemt",
+              "bwd_reduce": "torch.batch_norm_backward_reduce",
+              "bwd_dx": "torch.batch_norm_backward_elemt"}
+
+
+def library_n1_calls(x, state):
+    """The four library calls of `LIBRARY_N1` as callables of (x, g), with
+    the per-channel operands made here (f32, as SyncBatchNorm keeps them)."""
+    c = x.shape[1]
+    mean, invstd = torch.batch_norm_stats(x, ge.EPS)
+    w, b = state["scale"].float(), state["bias"].float()
+    count = torch.full((1,), x.numel() // c, dtype=torch.int32, device=x.device)
+    sum_dy, sum_dy_xmu = (0.01 * state["bias"].float() for _ in range(2))
+    return {"stats": lambda x, g: torch.batch_norm_stats(x, ge.EPS),
+            "mix": lambda x, g: torch.batch_norm_elemt(x, w, b, mean, invstd, ge.EPS),
+            "reduce": lambda x, g: torch.batch_norm_backward_reduce(g, x, mean, invstd, w, True,
+                                                                    False, False),
+            "dx": lambda x, g: torch.batch_norm_backward_elemt(g, x, mean, invstd, w, sum_dy,
+                                                               sum_dy_xmu, count)}
+
+
 def time_bn_kernels(dev, seed: int) -> dict:
-    """K1a-K1d at n=1 on BN_TIMED_SHAPE in f32 and bf16, beside their plain
-    twins, their byte bounds, the gated BatchNorm's forward and backward
-    (glue included) and F.batch_norm's (cuDNN: the library call computing
-    the same function); the kernel launches of one forward and one backward
-    each way (torch.profiler)."""
+    """K1a-K1d at n=1 on BN_TIMED_SHAPE in f32 and bf16, x and g rotated
+    over L2-cold copies (`cold_sets`): each kernel's call and device time in
+    turns with its library call (kernel, library, library, kernel;
+    `LIBRARY_N1`) and with its plain twin, its byte bound; the gated
+    BatchNorm's forward and backward (glue included) and F.batch_norm's
+    (cuDNN: the whole module); the kernel launches of one forward and one
+    backward each way (torch.profiler)."""
     b, c, h, w = BN_TIMED_SHAPE
     out = {}
     for dtype in (torch.float32, BF16):
@@ -3596,14 +3802,16 @@ def time_bn_kernels(dev, seed: int) -> dict:
         n, planes = b * c * h * w, b * c
         nbytes = dict(stats=n * e + 2 * planes * 4, mix=2 * n * e + 2 * planes * 4,
                       reduce=2 * n * e + 2 * planes * 4, dx=3 * n * e + 3 * planes * 4)
-        t = dict(stats=time_ms(lambda: ge.branch_stats(xs)),
-                 stats_plain=time_ms(lambda: ge.branch_stats_plain(xs)),
-                 mix=time_ms(lambda: ge.apply_mix(xs, a, k)),
-                 mix_plain=time_ms(lambda: ge.apply_mix_plain(xs, a, k)),
-                 reduce=time_ms(lambda: ge.bwd_reduce(xs, g)),
-                 reduce_plain=time_ms(lambda: ge.bwd_reduce_plain(xs, g)),
-                 dx=time_ms(lambda: ge.bwd_dx(xs, g, a, *ds)),
-                 dx_plain=time_ms(lambda: ge.bwd_dx_plain(xs, g, a, *ds)))
+        t = k1_times(xs, a, k, g, *ds)
+        library = library_n1_calls(x, state)
+        sets = cold_sets((x, g))
+        for key, kernel in (("stats", lambda x, g: ge.branch_stats([x])),
+                            ("mix", lambda x, g: ge.apply_mix([x], a, k)),
+                            ("reduce", lambda x, g: ge.bwd_reduce([x], g)),
+                            ("dx", lambda x, g: ge.bwd_dx([x], g, a, *ds))):
+            got = in_turns_ms({key: kernel, key + "_library": library[key]}, sets)
+            t[key + "_library"] = got[key + "_library"]
+            t[key + "_with_library"] = got[key]
         modules, launches = {}, {}
         for on in (True, False):
             bn = BatchNorm(c, dtype=dtype).to(dev)
@@ -3628,18 +3836,29 @@ def time_bn_kernels(dev, seed: int) -> dict:
         suffix = "" if dtype == torch.float32 else BF16_SUFFIX
         for name, key in _TIMED:
             pair = "fwd" if key in ("stats", "mix") else "bwd"
-            out[name + suffix] = dict(
-                shape=list(BN_TIMED_SHAPE), n=1, ms=t[key], plain_ms=t[f"{key}_plain"],
-                bound_ms=bound[key], pass_=pair,
-                pair_ms=t["stats"] + t["mix"] if pair == "fwd" else t["reduce"] + t["dx"],
+            lib, beside = t[key + "_library"], t[key + "_with_library"]
+            out[name + suffix] = k1_record(
+                BN_TIMED_SHAPE, 1, t[key], t[f"{key}_plain"], bound[key], pass_=pair,
+                library=LIBRARY_N1[name], library_ms=lib["device_ms"],
+                library_call_ms=lib["ms"], library_readings=lib["device_readings"],
+                library_spread=lib["device_spread"],
+                device_beside_library=beside["device_readings"],
+                pair_ms=t["stats"]["ms"] + t["mix"]["ms"] if pair == "fwd"
+                else t["reduce"]["ms"] + t["dx"]["ms"],
                 pair_bound_ms=(bound["stats"] + bound["mix"] if pair == "fwd"
                                else bound["reduce"] + bound["dx"]),
-                gated_module_ms=modules[f"gate_{pair}"], library_ms=modules[f"library_{pair}"],
+                gated_module_ms=modules[f"gate_{pair}"],
+                module_library_ms=modules[f"library_{pair}"],
                 launches_per_call=dict(gate=launches[f"gate_{pair}"],
                                        library=launches[f"library_{pair}"]))
-        log(f"  BatchNorm n=1 at {list(BN_TIMED_SHAPE)} {dtype} (ms / plain / bound): "
-            + " | ".join(f"{name} {t[key]:.4f} / {t[key + '_plain']:.4f} / {bound[key]:.4f}"
-                         for name, key in _TIMED)
+        log(f"  BatchNorm n=1 at {list(BN_TIMED_SHAPE)} {dtype}, L2-cold (call ms / device ms / "
+            "spread / beside the library / plain ms / bound ms / library: device ms, call ms): "
+            + " | ".join(f"{name} {t[key]['ms']:.4f} / {t[key]['device_ms']:.4f} / "
+                         f"{t[key]['device_spread']:.4f} / "
+                         f"{t[key + '_with_library']['device_ms']:.4f} / "
+                         f"{t[key + '_plain']['ms']:.4f} / {bound[key]:.4f} / {LIBRARY_N1[name]} "
+                         f"{t[key + '_library']['device_ms']:.4f}, "
+                         f"{t[key + '_library']['ms']:.4f}" for name, key in _TIMED)
             + f" | gated module fwd {modules['gate_fwd']:.4f} bwd {modules['gate_bwd']:.4f}"
             f" | F.batch_norm fwd {modules['library_fwd']:.4f} bwd {modules['library_bwd']:.4f}"
             f" | launches {launches}")
@@ -4310,39 +4529,15 @@ def run_family_deeplab(dev, seed: int, name=None) -> dict:
     return row
 
 
-# ~10 ms of GPU time at the H100's 1.98 GHz boost clock: long enough for
-# the host to queue the timed calls behind it
-QUEUE_SLEEP_CYCLES = 20_000_000
-
-
-def queued_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Device time of one call of fn(), from CUDA events around `reps`
-    calls queued behind a spin kernel (`torch.cuda._sleep`): the host
-    enqueues them all while the card spins, so the events read the calls'
-    device work back to back, where `time_ms` reads the wrapper's host cost
-    once that exceeds the kernel's time."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 # K1a and K1c at n=1 beside phase 19's timed shape
 K1_FAMILY_REFERENCE = BN_TIMED_SHAPE
 
 
 def time_k1_at(dev, shape, seed: int) -> dict:
     """K1a (branch_stats) and K1c (bwd_reduce: its partial and finish
-    kernels) at n=1 on `shape` in f32 and bf16: the call's ms (CUDA events
-    around 20 back-to-back calls, as phase 19 times them), the device ms
+    kernels) at n=1 on `shape` in f32 and bf16, x and g rotated over
+    L2-cold copies (`cold_sets`): the call's ms (CUDA events around 20
+    back-to-back calls, as phase 19 times them), the device ms
     (`queued_ms`), the plain twin's ms, the byte bound (each input read
     once, each output written once), and the device time's share of it."""
     b, c, h, w = shape
@@ -4350,22 +4545,22 @@ def time_k1_at(dev, shape, seed: int) -> dict:
     for dtype in (torch.float32, BF16):
         e = torch.finfo(dtype).bits // 8
         x, _, g = _bn_case(dev, shape, seed, dtype)
-        xs, n, planes = [x], b * c * h * w, b * c
+        sets, n, planes = cold_sets((x, g)), b * c * h * w, b * c
         for name, fn, plain, nbytes in (
-                ("branch_stats", lambda: ge.branch_stats(xs), lambda: ge.branch_stats_plain(xs),
-                 n * e + 2 * planes * 4),
-                ("bwd_reduce", lambda: ge.bwd_reduce(xs, g), lambda: ge.bwd_reduce_plain(xs, g),
-                 2 * n * e + 2 * planes * 4)):
-            ms, plain_ms = time_ms(fn), time_ms(plain)
-            device = queued_ms(fn)
+                ("branch_stats", lambda x, g: ge.branch_stats([x]),
+                 lambda x, g: ge.branch_stats_plain([x]), n * e + 2 * planes * 4),
+                ("bwd_reduce", lambda x, g: ge.bwd_reduce([x], g),
+                 lambda x, g: ge.bwd_reduce_plain([x], g), 2 * n * e + 2 * planes * 4)):
+            got = in_turns_ms({name: fn, "plain": plain}, sets)
             bound = nbytes / PEAK_BYTES_PER_S * 1e3
             key = name + ("" if dtype == torch.float32 else BF16_SUFFIX)
-            out[key] = dict(shape=list(shape), ms=ms, device_ms=device, plain_ms=plain_ms,
-                            bound_ms=bound, share_of_bound=bound / device)
-    log(f"  K1a / K1c at n=1 on {list(shape)} (call ms / device ms / plain ms / bound ms / "
-        f"device share of bound): "
-        + " | ".join(f"{k} {r['ms']:.4f} / {r['device_ms']:.4f} / {r['plain_ms']:.4f} / "
-                     f"{r['bound_ms']:.5f} / {r['share_of_bound']:.3f}" for k, r in out.items()))
+            out[key] = k1_record(shape, 1, got[name], got["plain"], bound,
+                                 copies=len(sets))
+    log(f"  K1a / K1c at n=1 on {list(shape)}, L2-cold (call ms / device ms / spread / plain ms "
+        f"/ bound ms / device share of bound): "
+        + " | ".join(f"{k} {r['ms']:.4f} / {r['device_ms']:.4f} / {r['device_spread']:.4f} / "
+                     f"{r['plain_ms']:.4f} / {r['bound_ms']:.5f} / {r['share_of_bound']:.3f}"
+                     for k, r in out.items()))
     return out
 
 
@@ -6034,6 +6229,29 @@ def run_long_tail(dev, seed: int, work: str) -> dict:
     return out
 
 
+# K1a's and K1c's n=1 shapes that `--k1` times beside phase 19's: a 1x1
+# squeeze, 16x16 maps, and the encoder families' large planes (phases 20-21)
+K1_SHAPES = ((12, 32, 1, 1), (12, 512, 16, 16), (12, 64, 128, 128), (12, 48, 128, 128))
+
+
+def run_k1_only(dev, seed: int) -> dict:
+    """`--k1`: phases 1-2, K1a-K1d against their plain twins with their
+    timings (phase 3's f32 checks, phase 17's bf16 ones), phase 19's n=1
+    timings beside the library calls, and K1a and K1c at K1_SHAPES; one
+    JSON line of the readings. Drives no model path and prints no result."""
+    environment()
+    build()
+    f32 = check_kernels(dev)
+    bf16 = check_kernels_bf16(dev, f32)
+    timed = {name: r["timed"] for name, r in (*f32.items(), *bf16.items())}
+    log(json.dumps(timed))
+    timed["shapes"] = {str(list(s)): time_k1_at(dev, s, seed + 24) for s in K1_SHAPES}
+    log(json.dumps(timed["shapes"]))
+    timed["n1"] = time_bn_kernels(dev, seed)
+    log(json.dumps(timed["n1"]))
+    return timed
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -6042,6 +6260,8 @@ def main(argv=None) -> int:
     ap.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dp-port", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dp-out", type=str, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--k1", action="store_true",
+                    help="only build, check and time K1a-K1d (run_k1_only); no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -6057,6 +6277,9 @@ def main(argv=None) -> int:
     # first cuBLAS call, which `deterministic_algorithms` needs
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     dev = torch.device("cuda")
+    if args.k1:
+        run_k1_only(dev, args.seed)
+        return 0
 
     t_start = time.perf_counter()
     phase_s = {}
@@ -6155,8 +6378,7 @@ def main(argv=None) -> int:
             row.update(bound_by="bytes", library_ms=None, library_note=LIBRARY_NOTE,
                        shape=[8, GROUP_C, HW, HW], n=6, dtype=k["dtype"],
                        launches_per_search_step=per_search_step)
-            if "f32_ms" in r:
-                row["f32_ms"] = r["f32_ms"]
+            row.update({f: r[f] for f in K1_ROW_KEYS + ("f32_device_ms",) if f in r})
             row["bn_n1"] = keys["timed"][name]
             if name.removesuffix(BF16_SUFFIX) in ("branch_stats", "bwd_reduce"):
                 row["bn_n1_families"] = {label: r[name]

@@ -11,10 +11,11 @@
 //                 (senas_tpu/ops/grouped_epilogue.py:86-135).
 //                 s1[o,b,c] = sum_hw x_o[b,c],  s2[o,b,c] = sum_hw x_o[b,c]^2.
 //                 The TPU kernel walked H sequentially and emitted per-(b, w*c)
-//                 H-sums in a lane-filling [B,H,W*C] view; here one block owns
-//                 one contiguous NCHW (o, b, c) plane and reduces over H and W
-//                 at once, which is what the glue needs. No atomics: the
-//                 result is deterministic.
+//                 H-sums in a lane-filling [B,H,W*C] view; here each contiguous
+//                 NCHW (o, b, c) plane is reduced over H and W at once, which
+//                 is what the glue needs. One launch, no atomics, and a sum
+//                 order fixed by the shape: the result is deterministic.
+//                 Its design is in the note above stats_range.
 //   apply_mix     replaces _apply_kernel via _apply_mix (:143-181).
 //                 Each block covers a chunk of one (b, c) plane; it reads its
 //                 n coefficients A[o,b,c] and K[b,c] once, then streams the n
@@ -40,8 +41,8 @@
 // once, to nearest even (__float2bfloat16_rn, what .to(torch.bfloat16) and
 // astype(jnp.bfloat16) do). A 16-byte vector holds 4 f32 or 8 bf16 values
 // (`Pack<T>`); a plane whose size or address does not allow it is read
-// with scalar loads. The f32 instantiations do the arithmetic of the f32
-// kernels that came before them, in the same order.
+// with scalar loads. apply_mix, bwd_reduce and bwd_dx in f32 do the
+// arithmetic of the f32 kernels that came before them, in the same order.
 //
 // Bound on the card: all four are memory-bound streaming passes with ~1-2
 // FLOP per byte. With e = sizeof(T), branch_stats reads n*B*C*H*W*e bytes;
@@ -64,7 +65,15 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr int kMaxBranches = 6;
+// branch_stats: 256-thread blocks (a warp a plane on the warp path). The
+// CTA path keeps to 32 registers a thread, so that 8 CTAs fit an SM: at 34
+// (nvcc's own choice for bf16) n=1 [12,32,256,256] read 3% slower.
 constexpr int kStatsThreads = 256;
+constexpr int kStatsCtasPerSm = 8;
+constexpr int kStatsWarps = kStatsThreads / 32;
+// the plan's paths (`path` of the entry point)
+constexpr int kStatsWarpPath = 0;
+constexpr int kStatsCtaPath = 1;
 constexpr int kApplyThreads = 256;
 constexpr int kApplyVecs = 4;  // 16-byte vectors per thread per block
 constexpr int kReduceThreads = 256;
@@ -89,6 +98,12 @@ struct Pack<float> {
     v[2] = x.z;
     v[3] = x.w;
   }
+  __device__ __forceinline__ void set(const uint4& raw) {
+    v[0] = __uint_as_float(raw.x);
+    v[1] = __uint_as_float(raw.y);
+    v[2] = __uint_as_float(raw.z);
+    v[3] = __uint_as_float(raw.w);
+  }
   __device__ __forceinline__ void store(float* p, long long i) const {
     reinterpret_cast<float4*>(p)[i] = make_float4(v[0], v[1], v[2], v[3]);
   }
@@ -99,7 +114,9 @@ struct Pack<bf16> {
   static constexpr int kN = 8;
   float v[kN];
   __device__ __forceinline__ void load(const bf16* p, long long i) {
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p) + i);
+    set(__ldg(reinterpret_cast<const uint4*>(p) + i));
+  }
+  __device__ __forceinline__ void set(const uint4& raw) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
     for (int j = 0; j < kN / 2; ++j) {
@@ -193,32 +210,145 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kStatsThreads)
-branch_stats_kernel(Branches<T> xs, long long hw, int planes,
-                    float* __restrict__ s1, float* __restrict__ s2) {
-  constexpr int V = Pack<T>::kN;
-  const int plane = blockIdx.x;
-  const int o = blockIdx.y;
-  const T* __restrict__ x = xs.p[o] + (long long)plane * hw;
-  float a = 0.f, q = 0.f;
-  if (hw % V == 0 && aligned16(x)) {
-    const long long nv = hw / V;
-    for (long long i = threadIdx.x; i < nv; i += kStatsThreads) {
+// branch_stats (K1a): its design.
+//
+// What bounds it: it reads n*B*C*H*W*e bytes once and writes 8*n*B*C, at
+// 3 FLOP an element: HBM at 3.35 TB/s bounds it. The kernel it replaces
+// gave a 256-thread block to each (plane, branch), each thread with one
+// 16-byte load in flight. The plan (branch_stats_plan in
+// senas_torch/ops/grouped_epilogue.py, computed on the host from (n,
+// planes, hw, dtype, alignment) and checked here by branch_stats) takes
+// one of two paths:
+//  - A warp a plane, eight planes a block, where a plane is at most 2 KB
+//    (1x1 squeezes; 16x16 maps in f32, 32x32 in bf16). A block a plane
+//    left most of its threads idle through two block-wide reductions:
+//    [12,32,1,1] is 48 blocks, not 384. The warp adds in the CTA path's
+//    order, so its sums are the CTA path's bits: a plan that moves a plane
+//    between the two (a row split halves the planes) moves no rounding.
+//  - A CTA a plane for the larger planes. Each thread loads four 16-byte
+//    packs before it adds the first, and the kernel keeps to 32 registers
+//    a thread, so that 8 CTAs fit an SM.
+// A plane whose size or address rules out 16-byte loads (hw not a
+// multiple of the 16-byte pack, or a base pointer off 16 bytes) takes the
+// same paths with scalar loads (VEC false).
+// Measured and not kept (NVIDIA H100 80GB HBM3 at 700 W, L2-cold device
+// times; PERF.md section 6): splitting a plane over a thread-block cluster
+// of 2, 4 or 8 CTAs, their partial sums added in the leader CTA through
+// distributed shared memory, so that the planes fill whole waves of the
+// 132 SMs. On the planes the port's paths give K1a (192 or more large
+// ones) it was slower at every cluster size, the more so the shorter the
+// chunks: a cluster's CTAs are launched and retired together. It was
+// faster only where the planes are fewer than the SMs, which none of
+// those paths gives. A ring of cp.async.bulk copies into shared memory
+// read no faster than the unrolled loads.
+// Sum order, fixed by the plan and so by the shape: each thread adds its
+// items (packs, or elements on the scalar path) at item index t, t + 256,
+// ... in that order, each pack by a pairwise tree (tree_sum, tree_sq);
+// then warp_sum, then warp 0's warp_sum of the block's warp sums. That is
+// the order of the block-a-plane kernel before this design, and so the
+// same bits: the Adam step on the arch tables turns a rounding-level
+// change of a gradient into a whole step, and `chip_smoke.py` phase 22
+// holds a row-split search step to one process within 1e-2 of the update,
+// which another summation order alone can exceed.
+
+// Adds this thread's items of x (packs when VEC, else elements; `items`
+// in all) at t, t + STRIDE, ..., to (a, q) in that order. Four items are
+// loaded before the first of them is added, so that four 16-byte loads a
+// thread are in flight (left to itself, nvcc put the bf16 loop's four
+// loads in flight two at a time); STRIDE, the threads that share the
+// plane, is a constant, so that the loads take immediate offsets.
+template <typename T, bool VEC, int STRIDE>
+__device__ __forceinline__ void stats_range(const T* __restrict__ x, long long items, int t,
+                                            float& a, float& q) {
+  constexpr int U = 4;
+  long long i = t;
+  if constexpr (VEC) {
+    const uint4* p = reinterpret_cast<const uint4*>(x);
+    for (; i + (U - 1) * STRIDE < items; i += U * STRIDE) {
+      uint4 raw[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) raw[u] = __ldg(p + i + u * STRIDE);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        Pack<T> v;
+        v.set(raw[u]);
+        a += tree_sum<Pack<T>::kN>(v.v);
+        q += tree_sq<Pack<T>::kN>(v.v);
+      }
+    }
+    for (; i < items; i += STRIDE) {
       Pack<T> v;
-      v.load(x, i);
-      a += tree_sum<V>(v.v);
-      q += tree_sq<V>(v.v);
+      v.set(__ldg(p + i));
+      a += tree_sum<Pack<T>::kN>(v.v);
+      q += tree_sq<Pack<T>::kN>(v.v);
     }
   } else {
-    for (long long i = threadIdx.x; i < hw; i += kStatsThreads) {
+#pragma unroll 4
+    for (; i < items; i += STRIDE) {
       const float v = load1(x, i);
       a += v;
       q += v * v;
     }
   }
-  __shared__ float sa[kStatsThreads / 32];
-  __shared__ float sq[kStatsThreads / 32];
+}
+
+// The CTA path's last step, as the warp path repeats it: the sum that
+// warp 0's warp_sum makes of the block's kStatsWarps (8) warp sums v, held
+// in lanes 0-7 with zeros above (x + 0 is kept: it turns -0 into +0).
+__device__ __forceinline__ float block_tail_sum(const float (&v)[kStatsWarps]) {
+  static_assert(kStatsWarps == 8, "the tree below is warp_sum's over 8 lanes");
+  float t[kStatsWarps];
+#pragma unroll
+  for (int w = 0; w < kStatsWarps; ++w) t[w] = (v[w] + 0.f) + 0.f;
+  return ((t[0] + t[4]) + (t[2] + t[6])) + ((t[1] + t[5]) + (t[3] + t[7]));
+}
+
+// Warp path: grid (ceil(planes / kStatsWarps), n); warp w of block (bx, o)
+// owns plane bx * kStatsWarps + w of branch o. It sums the plane in the
+// order the CTA path does (each lane plays the CTA's threads lane, lane +
+// 32, ..., lane + 224 in turn; a warp_sum for each of them; then the CTA's
+// sum of its 8 warp sums), so a plane's sums are the same bits whichever
+// path its plan takes.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kStatsThreads)
+branch_stats_warp_kernel(Branches<T> xs, long long hw, int planes, float* __restrict__ s1,
+                         float* __restrict__ s2) {
+  constexpr int V = VEC ? Pack<T>::kN : 1;
+  const int plane = blockIdx.x * kStatsWarps + (threadIdx.x >> 5);
+  if (plane >= planes) return;   // whole warps; no block-wide barrier follows
+  const int o = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const T* __restrict__ x = xs.p[o] + (long long)plane * hw;
+  const long long items = hw / V;
+  float va[kStatsWarps], vq[kStatsWarps];
+#pragma unroll
+  for (int w = 0; w < kStatsWarps; ++w) {
+    va[w] = vq[w] = 0.f;   // a warp of the CTA with no items sums to +0
+    if (32LL * w < items) {
+      float a = 0.f, q = 0.f;
+      stats_range<T, VEC, kStatsThreads>(x, items, 32 * w + lane, a, q);
+      va[w] = warp_sum(a);
+      vq[w] = warp_sum(q);
+    }
+  }
+  if (lane == 0) {
+    s1[(long long)o * planes + plane] = block_tail_sum(va);
+    s2[(long long)o * planes + plane] = block_tail_sum(vq);
+  }
+}
+
+// CTA path: grid (planes, n); block (plane, o) sums that plane of branch o.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kStatsThreads, kStatsCtasPerSm)
+branch_stats_cta_kernel(Branches<T> xs, long long hw, int planes, float* __restrict__ s1,
+                        float* __restrict__ s2) {
+  constexpr int V = VEC ? Pack<T>::kN : 1;
+  __shared__ float sa[kStatsWarps], sq[kStatsWarps];
+  const int plane = blockIdx.x;
+  const int o = blockIdx.y;
+  float a = 0.f, q = 0.f;
+  stats_range<T, VEC, kStatsThreads>(xs.p[o] + (long long)plane * hw, hw / V, threadIdx.x, a,
+                                     q);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   a = warp_sum(a);
@@ -229,15 +359,26 @@ branch_stats_kernel(Branches<T> xs, long long hw, int planes,
   }
   __syncthreads();
   if (warp == 0) {
-    a = lane < kStatsThreads / 32 ? sa[lane] : 0.f;
-    q = lane < kStatsThreads / 32 ? sq[lane] : 0.f;
-    a = warp_sum(a);
-    q = warp_sum(q);
+    a = warp_sum(lane < kStatsWarps ? sa[lane] : 0.f);
+    q = warp_sum(lane < kStatsWarps ? sq[lane] : 0.f);
     if (lane == 0) {
       s1[(long long)o * planes + plane] = a;
       s2[(long long)o * planes + plane] = q;
     }
   }
+}
+
+template <typename T, bool VEC>
+cudaError_t launch_stats(const Branches<T>& xs, long long hw, int n, int planes, int path,
+                         float* s1, float* s2, cudaStream_t stream) {
+  if (path == kStatsWarpPath) {
+    const dim3 grid((unsigned)ceil_div(planes, kStatsWarps), (unsigned)n);
+    branch_stats_warp_kernel<T, VEC><<<grid, kStatsThreads, 0, stream>>>(xs, hw, planes, s1, s2);
+  } else {
+    branch_stats_cta_kernel<T, VEC><<<dim3(planes, n), kStatsThreads, 0, stream>>>(
+        xs, hw, planes, s1, s2);
+  }
+  return cudaGetLastError();
 }
 
 template <typename T, int N>
@@ -464,12 +605,19 @@ bool bad_shape(int n, int planes, long long hw) {
 // The launchers behind the entry points, one per element type T.
 
 template <typename T>
-int branch_stats(const Branches<T>& xs, int n, int planes, long long hw, float* s1,
-                 float* s2, cudaStream_t stream) {
-  if (bad_shape(n, planes, hw)) return (int)cudaErrorInvalidValue;
-  branch_stats_kernel<T><<<dim3(planes, n), kStatsThreads, 0, stream>>>(xs, hw, planes, s1,
-                                                                         s2);
-  return (int)cudaGetLastError();
+int branch_stats(const Branches<T>& xs, int n, int planes, long long hw, int path, int vec,
+                 float* s1, float* s2, cudaStream_t stream) {
+  if (bad_shape(n, planes, hw) || (path != kStatsWarpPath && path != kStatsCtaPath))
+    return (int)cudaErrorInvalidValue;
+  if (vec) {
+    // 16-byte packs: every plane of every branch starts 16-byte aligned
+    if (hw % Pack<T>::kN != 0) return (int)cudaErrorInvalidValue;
+    for (int o = 0; o < n; ++o)
+      if ((reinterpret_cast<uintptr_t>(xs.p[o]) & 15u) != 0) return (int)cudaErrorInvalidValue;
+  }
+  const cudaError_t err = vec ? launch_stats<T, true>(xs, hw, n, planes, path, s1, s2, stream)
+                              : launch_stats<T, false>(xs, hw, n, planes, path, s1, s2, stream);
+  return (int)err;
 }
 
 template <typename T>
@@ -526,9 +674,12 @@ int bwd_dx(const Branches<T>& xs, int n, const T* g, const float* A, const float
 
 // The entry points, _f32 and _bf16 (T = float, __nv_bfloat16):
 //
-// senas_branch_stats_*(x0..x5, n, planes, hw, s1, s2, stream)
+// senas_branch_stats_*(x0..x5, n, planes, hw, path, vec, s1, s2, stream)
 //   xs: n (1..6) NCHW-contiguous tensors of `planes` = B*C planes of `hw`
 //   elements each (unused pointers may be null). s1, s2: [n, planes] f32.
+//   The launch plan (path 0: a warp a plane; 1: a CTA a plane; vec:
+//   16-byte loads) is checked: a plan the kernels do not take returns
+//   cudaErrorInvalidValue. One launch.
 // senas_apply_mix_*(x0..x5, n, A, K, out, planes, hw, stream)
 //   out[p, :] = K[p] + sum_o A[o, p] * x_o[p, :] for each of the `planes`
 //   planes; A: [n, planes] f32, K: [planes] f32, out like x0.
@@ -543,8 +694,9 @@ int bwd_dx(const Branches<T>& xs, int n, const T* g, const float* A, const float
 #define SENAS_ENTRY_POINTS(SUFFIX, T)                                                    \
   int senas_branch_stats_##SUFFIX(const T* x0, const T* x1, const T* x2, const T* x3,   \
                                   const T* x4, const T* x5, int n, int planes,           \
-                                  long long hw, float* s1, float* s2, void* stream) {    \
-    return branch_stats<T>({{x0, x1, x2, x3, x4, x5}}, n, planes, hw, s1, s2,           \
+                                  long long hw, int path, int vec, float* s1, float* s2, \
+                                  void* stream) {                                        \
+    return branch_stats<T>({{x0, x1, x2, x3, x4, x5}}, n, planes, hw, path, vec, s1, s2, \
                            (cudaStream_t)stream);                                       \
   }                                                                                      \
   int senas_apply_mix_##SUFFIX(const T* x0, const T* x1, const T* x2, const T* x3,      \

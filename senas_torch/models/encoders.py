@@ -98,11 +98,15 @@ class ResNetEncoder(nn.Module):
 
     def __init__(self, in_channels: int, layers: Sequence[int], depth: int = 5,
                  block: str = "basic", groups: int = 1, width_per_group: int = 64,
-                 output_stride: int = 32, dtype=None):
+                 dilate_last: bool = False, output_stride: int = 32, dtype=None):
         super().__init__()
         self.depth = depth
         if depth == 0:
             return
+        # dilate_last: senas_tpu's alias of output_stride=16 (smp's
+        # make_dilated for DeepLabV3+)
+        if dilate_last and output_stride == 32:
+            output_stride = 16
         add_conv_kernel(self, "conv1", (64, in_channels, 7, 7))
         self.bn1 = BatchNorm(64, dtype=dtype)
         self.stage_blocks: List[List[str]] = []
@@ -227,20 +231,22 @@ def get_encoder_names() -> List[str]:
     return names
 
 
-def get_encoder(name: str, depth: int = 5, dtype=None, output_stride: int = 32,
-                weights: Optional[str] = None, in_channels: int = 3) -> nn.Module:
+def get_encoder(name: str, depth: int = 5, dtype=None, dilate_last: bool = False,
+                output_stride: int = 32, weights: Optional[str] = None,
+                in_channels: int = 3) -> nn.Module:
     """The encoder `name` over `in_channels` input channels (the JAX package
     infers them from its first input; a torch module is built with them),
-    computing in `dtype` (None: the input's). A family without
-    dilated mode raises the reference's ValueError at output stride 16 or
-    8. senas_tpu's `dilate_last` alias of output_stride=16 has no caller
-    and is not ported."""
+    computing in `dtype` (None: the input's). `dilate_last` is senas_tpu's
+    alias of output_stride=16. A family without dilated mode raises the
+    reference's ValueError at output stride 16 or 8."""
     if weights is not None:
         # smp loads ImageNet weights by URL here (encoders/__init__.py:64-71)
         raise ValueError(
             f"pretrained weights {weights!r} are unavailable in this "
             "environment (no network egress); pass weights=None and "
             "initialize randomly, exactly as the reference does offline")
+    if dilate_last and output_stride == 32:
+        output_stride = 16
     if output_stride not in (8, 16, 32):
         raise ValueError(
             "Output stride should be 16 or 8, got {}.".format(output_stride))

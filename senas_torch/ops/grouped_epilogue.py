@@ -50,6 +50,7 @@ train and eval mode alike.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -130,7 +131,7 @@ def _lib():
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for sfx in _SUFFIX.values():
             for name, args in (
-                    ("branch_stats", [i32, i32, i64, ptr, ptr, ptr]),
+                    ("branch_stats", [i32, i32, i64, i32, i32, ptr, ptr, ptr]),
                     ("apply_mix", [i32, ptr, ptr, ptr, i32, i64, ptr]),
                     ("bwd_reduce", [i32, ptr, i32, i64, ptr, i64, ptr, ptr, ptr]),
                     ("bwd_dx", [i32, ptr, ptr, ptr, ptr] + [ptr] * MAX_BRANCHES
@@ -206,30 +207,76 @@ def _count(fn, dtype: torch.dtype) -> None:
     fn.launches_by_dtype[str(dtype).removeprefix("torch.")] += 1
 
 
-@_counted
-def branch_stats(xs: Sequence[torch.Tensor]):
-    """Per-plane sums of x and x^2 for n (<= 6) branch tensors [B,C,H,W].
+# K1a's launch plan, as csrc/grouped_epilogue.cu's branch_stats kernels
+# take it: 256-thread blocks; a plane of at most STATS_WARP_PLANE_BYTES goes
+# to one warp (8 a block), a larger one to a CTA.
+STATS_THREADS = 256
+STATS_WARPS = STATS_THREADS // 32
+STATS_WARP_PLANE_BYTES = 2048
+_STATS_PATH = {"warp": 0, "cta": 1}
 
-    Kernel `branch_stats` (csrc/grouped_epilogue.cu) on the card, for f32
-    or bf16 branches; replaces the TPU kernel `_stats_kernel` through
-    `_branch_stats` (senas_tpu/ops/grouped_epilogue.py:86-135).
-    Memory-bound: it reads n*B*C*H*W*e bytes (e = 4 or 2) and writes
-    2*n*B*C*4. Returns (s1, s2) [n,B,C] f32."""
-    _check_branches(xs)
-    if xs[0].device.type == "cpu":
-        return branch_stats_plain(xs)
-    _check_card(xs)
-    if xs[0].numel() == 0:   # an empty row block (a level lower than the ranks)
-        return branch_stats_plain(xs)
+
+class StatsPlan(NamedTuple):
+    """path: "warp" (a warp a plane) or "cta" (a CTA a plane); vec: 16-byte
+    loads; blocks: the grid's blocks (n rows of them)."""
+    path: str
+    vec: bool
+    blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def branch_stats_plan(n: int, planes: int, hw: int, dtype: torch.dtype,
+                      aligned: bool = True) -> StatsPlan:
+    """The launch plan of K1a for n branch tensors of `planes` planes of hw
+    elements of `dtype` (f32 or bf16); `aligned`: every branch's data
+    starts 16-byte aligned. 16-byte loads where hw is a multiple of the
+    16-byte pack and the data is aligned; a warp a plane for planes of at
+    most 2 KB, else a CTA a plane. Cached: the wrapper asks for it at each
+    call."""
+    e = dtype.itemsize
+    vec = aligned and (hw * e) % 16 == 0
+    if hw * e <= STATS_WARP_PLANE_BYTES:
+        return StatsPlan("warp", vec, n * -(-planes // STATS_WARPS))
+    return StatsPlan("cta", vec, n * planes)
+
+
+def _launch_branch_stats(xs: Sequence[torch.Tensor], plan: StatsPlan):
+    """One launch of K1a on checked card tensors by `plan`; (s1, s2). The
+    launcher refuses a plan it does not take (`_raise_on`)."""
     n = len(xs)
     b, c, h, w = xs[0].shape
     s1 = torch.empty((n, b, c), device=xs[0].device, dtype=torch.float32)
     s2 = torch.empty_like(s1)
     with torch.cuda.device(xs[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _kernel("branch_stats", xs[0].dtype)(*_ptrs(xs), n, b * c, h * w,
-                                                   s1.data_ptr(), s2.data_ptr(), stream)
+        rc = _kernel("branch_stats", xs[0].dtype)(
+            *_ptrs(xs), n, b * c, h * w, _STATS_PATH[plan.path], int(plan.vec), s1.data_ptr(),
+            s2.data_ptr(), stream)
     _raise_on(rc, "branch_stats")
+    return s1, s2
+
+
+@_counted
+def branch_stats(xs: Sequence[torch.Tensor]):
+    """Per-plane sums of x and x^2 for n (<= 6) branch tensors [B,C,H,W].
+
+    Kernel `branch_stats` (csrc/grouped_epilogue.cu) on the card, for f32
+    or bf16 branches, one launch on the plan of `branch_stats_plan`;
+    replaces the TPU kernel `_stats_kernel` through `_branch_stats`
+    (senas_tpu/ops/grouped_epilogue.py:86-135). Memory-bound: it reads
+    n*B*C*H*W*e bytes (e = 4 or 2) and writes 2*n*B*C*4. Returns (s1, s2)
+    [n,B,C] f32."""
+    _check_branches(xs)
+    if xs[0].device.type == "cpu":
+        return branch_stats_plain(xs)
+    _check_card(xs)
+    b, c, h, w = xs[0].shape
+    if xs[0].numel() == 0:   # an empty row block (a level lower than the ranks): zero sums
+        zero = torch.zeros((len(xs), b, c), device=xs[0].device, dtype=torch.float32)
+        return zero, zero.clone()
+    plan = branch_stats_plan(len(xs), b * c, h * w, xs[0].dtype,
+                             aligned=all(x.data_ptr() % 16 == 0 for x in xs))
+    s1, s2 = _launch_branch_stats(xs, plan)
     _count(branch_stats, xs[0].dtype)
     return s1, s2
 
@@ -257,9 +304,9 @@ def apply_mix(xs: Sequence[torch.Tensor], a: torch.Tensor, k: torch.Tensor,
     if (out_dtype or xs[0].dtype) != xs[0].dtype:
         raise NotImplementedError("the apply_mix kernel writes the branch tensors' dtype, "
                                   f"{xs[0].dtype}, not {out_dtype}")
-    if xs[0].numel() == 0:
-        return apply_mix_plain(xs, a, k, out_dtype)
     out = torch.empty_like(xs[0])
+    if xs[0].numel() == 0:   # nothing to write
+        return out
     with torch.cuda.device(xs[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _kernel("apply_mix", xs[0].dtype)(*_ptrs(xs), n, a.data_ptr(), k.data_ptr(),
@@ -297,10 +344,11 @@ def bwd_reduce(xs: Sequence[torch.Tensor], g: torch.Tensor):
     if xs[0].device.type == "cpu":
         return bwd_reduce_plain(xs, g)
     _check_card(xs, g)
-    if xs[0].numel() == 0:
-        return bwd_reduce_plain(xs, g)
     n = len(xs)
     b, c, h, w = xs[0].shape
+    if xs[0].numel() == 0:   # zero sums
+        return (torch.zeros((n, b, c), device=xs[0].device, dtype=torch.float32),
+                torch.zeros((b, c), device=xs[0].device, dtype=torch.float32))
     dA = torch.empty((n, b, c), device=xs[0].device, dtype=torch.float32)
     dK = torch.empty((b, c), device=xs[0].device, dtype=torch.float32)
     # the partial sums: n+1 per chunk, each plane cut into at most
@@ -333,11 +381,11 @@ def bwd_dx(xs: Sequence[torch.Tensor], g: torch.Tensor, a: torch.Tensor,
     if xs[0].device.type == "cpu":
         return bwd_dx_plain(xs, g, a, ds1, ds2)
     _check_card(xs, g, per_plane=(a, ds1, ds2))
-    if xs[0].numel() == 0:
-        return bwd_dx_plain(xs, g, a, ds1, ds2)
     n = len(xs)
     b, c, h, w = xs[0].shape
     outs = [torch.empty_like(x) for x in xs]
+    if xs[0].numel() == 0:   # nothing to write
+        return outs
     with torch.cuda.device(xs[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _kernel("bwd_dx", xs[0].dtype)(*_ptrs(xs), n, g.data_ptr(), a.data_ptr(),

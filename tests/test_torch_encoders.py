@@ -2,7 +2,10 @@
 feature pyramids of resnet10/18/34/50 and resnext50_32x4d at output stride
 32, 16 and 8 (smp's make_dilated) from the same numpy-made weights, batch 2
 of 32x32x3, in eval mode, and in train mode (64x64, with the running stats
-they leave) for resnet10 and resnext50_32x4d at stride 16;
+they leave) for resnet10 and resnext50_32x4d at stride 16; `dilate_last`
+(senas_tpu's alias of output stride 16, the fourth parameter of
+`get_encoder`), by position and by keyword, on a resnet and on a dilatable
+family, and the error of an undilatable one;
 `encoder_out_channels` and `stage_dilation` against senas_tpu's, and the
 error of each name the port does not build (the other families:
 tests/test_torch_encoders_{extra,families,mnv3_resnest}.py,
@@ -26,7 +29,8 @@ from senas_torch import convert
 from senas_torch.models import encoders as tenc
 from senas_torch.ops.primitives import init_params_
 
-from torch_port_util import assert_trees_close, nchw, nhwc, random_variables
+from torch_port_util import (assert_pyramid_close, assert_trees_close, nchw, nhwc, port_f64,
+                             random_variables)
 from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 REL = 2e-5
@@ -125,3 +129,68 @@ def test_output_stride_16_dilates_the_last_stage_only():
     enc = tenc.get_encoder("resnet10", output_stride=16, in_channels=1)
     assert enc.layer4_0.dilation == 2 and enc.layer4_0.stride == 1
     assert enc.layer3_0.dilation == 1 and enc.layer3_0.stride == 2
+
+
+# dilate_last=True, by position (the fourth parameter, as in senas_tpu) and
+# by keyword
+DILATE_LAST_CALLS = {"positional": lambda mod, name: mod.get_encoder(name, 5, None, True),
+                     "keyword": lambda mod, name: mod.get_encoder(name, dilate_last=True)}
+
+
+@pytest.mark.parametrize("call", sorted(DILATE_LAST_CALLS))
+@pytest.mark.parametrize("name", ["resnet10", "mobilenet_v2"])
+def test_dilate_last_pyramid_matches(name, call):
+    """The eval pyramid of `dilate_last=True` against senas_tpu's, from the
+    same weights: output stride 16 on a resnet and on a dilatable family."""
+    build = DILATE_LAST_CALLS[call]
+    rng = np.random.RandomState(5)
+    x = rng.randn(2, 32, 32, 3).astype(np.float32)
+    jm = build(jenc, name)
+    variables = random_variables(jm, rng, jnp.asarray(x), False)
+    tm = build(tenc, name)
+    init_params_(tm, torch.Generator().manual_seed(0))
+    convert.load_variables(tm, variables)
+    want = jax.jit(lambda v, x: jm.apply(v, x, False))(variables, x)
+    with torch.no_grad():
+        got = tm(nchw(x), train=False)
+    assert_pyramid_close(got, want, REL, port_f64(tm, x, False)[0], what=name)
+    assert [32 // f.shape[2] for f in got[1:]] == [2, 4, 8, 16, 16]
+
+
+@pytest.mark.parametrize("name", ["resnet10", "mobilenet_v2"])
+def test_dilate_last_by_position_and_keyword_builds_one_module(name):
+    """Both calls build output stride 16's module: the same parameters, and
+    from the same weights the same pyramid, bit for bit."""
+    x = torch.from_numpy(np.random.RandomState(6).randn(2, 3, 32, 32).astype(np.float32))
+    built = [DILATE_LAST_CALLS[c](tenc, name) for c in sorted(DILATE_LAST_CALLS)]
+    built.append(tenc.get_encoder(name, output_stride=16))
+    init_params_(built[0], torch.Generator().manual_seed(1))
+    shapes = {k: v.shape for k, v in built[0].state_dict().items()}
+    outs = []
+    for m in built:
+        assert {k: v.shape for k, v in m.state_dict().items()} == shapes
+        m.load_state_dict(built[0].state_dict())
+        with torch.no_grad():
+            outs.append(m(x, train=False))
+    for other in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(outs[0], other))
+
+
+@pytest.mark.parametrize("call", sorted(DILATE_LAST_CALLS))
+def test_dilate_last_on_an_undilatable_family_raises_senas_tpus_error(call):
+    build = DILATE_LAST_CALLS[call]
+    with pytest.raises(ValueError) as want:
+        build(jenc, "densenet121")
+    with pytest.raises(ValueError) as got:
+        build(tenc, "densenet121")
+    assert str(got.value) == str(want.value) and "dilated mode" in str(got.value)
+
+
+def test_resnet_encoder_takes_dilate_last():
+    """ResNetEncoder's own keyword, as senas_tpu's field: stride 16, and
+    no change to an explicit output stride 8."""
+    enc = tenc.ResNetEncoder(3, (1, 1, 1, 1), dilate_last=True)
+    assert enc.layer4_0.dilation == 2 and enc.layer4_0.stride == 1
+    assert enc.layer3_0.dilation == 1 and enc.layer3_0.stride == 2
+    enc = tenc.ResNetEncoder(3, (1, 1, 1, 1), dilate_last=True, output_stride=8)
+    assert enc.layer3_0.dilation == 2 and enc.layer4_0.dilation == 4

@@ -14,7 +14,9 @@ the f32 sum cancels, within 2^-21 of the sum of its terms' magnitudes (the
 kernel fuses each multiply-add, PyTorch rounds the product first); the
 epilogue's bf16 gradients are held to the plain reference's in f32 on the
 same bf16 inputs and cotangent at rtol/atol 2e-2 (the bf16 branch
-gradients round). Every input is drawn from a seeded CPU generator, so a
+gradients round). K1a's two calls on one input are bit-equal, and its
+warp path gives a CTA's bits. Every input
+is drawn from a seeded CPU generator, so a
 run tests the same numbers each time; the one-element allowance is for
 bf16 tensors of fewer than 1000 elements, where a share of 1e-3 admits
 none. norm_convs is
@@ -68,11 +70,34 @@ def _assert_bf16_close(got, want, terms):
     assert bool((diff <= torch.maximum(_bf16_ulp(got, want), terms.double() * 2.0 ** -21)).all())
 
 
+# K1a's cases: (n, shape, element offset of each branch's data) for each
+# path of its plan (`ge.branch_stats_plan`): a 1x1 squeeze and 16x16 maps
+# (a warp a plane), [12,32,256,256] at n=1, the search path's
+# [8,24,256,256] at n=6 and batch 2 of [32,256,256] (fewer planes than
+# SMs) (a CTA a plane), and a misaligned slice (scalar loads); then the
+# earlier shapes
+_STATS_NEW_CASES = [(1, (12, 32, 1, 1), 0), (1, (12, 512, 16, 16), 0),
+                    (1, (12, 32, 256, 256), 0), (6, (8, 24, 256, 256), 0),
+                    (1, (2, 32, 256, 256), 0), (2, (4, 16, 64, 64), 1)]
+_STATS_CASES = _STATS_NEW_CASES + [(n, shape, 0) for n in (1, 5, 6)
+                                   for shape in ((8, 24, 64, 64), (2, 24, 8, 8), (2, 3, 5, 7))]
+
+
+def _stats_xs(dev, n, shape, offset, dtype, seed=0):
+    """_xs, each branch a view `offset` elements into a buffer of its own."""
+    if not offset:
+        return _xs(dev, n, shape, seed=seed, dtype=dtype)
+    size = int(np.prod(shape))
+    bufs = _xs(dev, n, (size + offset,), seed=seed, dtype=dtype)
+    return [buf[offset:].view(shape) for buf in bufs]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [1, 5, 6])
-@pytest.mark.parametrize("shape", [(8, 24, 64, 64), (2, 24, 8, 8), (2, 3, 5, 7)])
-def test_branch_stats_kernel(dev, n, shape, dtype):
-    xs = _xs(dev, n, shape, dtype=dtype)
+@pytest.mark.parametrize("n,shape,offset", _STATS_CASES)
+def test_branch_stats_kernel(dev, n, shape, offset, dtype):
+    xs = _stats_xs(dev, n, shape, offset, dtype)
+    assert all(x.is_contiguous() for x in xs)
+    assert offset == 0 or xs[0].data_ptr() % 16 != 0
     key = str(dtype).removeprefix("torch.")
     before = (ge.branch_stats.launches, ge.branch_stats.launches_by_dtype[key])
     s1, s2 = ge.branch_stats(xs)
@@ -84,6 +109,43 @@ def test_branch_stats_kernel(dev, n, shape, dtype):
     abs1 = torch.stack([x.float().abs().sum(dim=(2, 3)) for x in xs])
     assert ((s1 - p1).abs() <= 1e-5 * abs1 + 1e-6).all()
     assert ((s2 - p2).abs() <= 1e-5 * p2 + 1e-6).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,shape,offset", _STATS_NEW_CASES)
+def test_branch_stats_two_calls_are_bit_equal(dev, n, shape, offset, dtype):
+    """One launch, no atomics, a sum order fixed by the shape: two calls
+    on the same input give the same bits."""
+    xs = _stats_xs(dev, n, shape, offset, dtype, seed=3)
+    first, second = ge.branch_stats(xs), ge.branch_stats(xs)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,shape,offset", [(1, (12, 32, 1, 1), 0), (1, (12, 512, 16, 16), 0),
+                                            (2, (2, 64, 3, 3), 0), (3, (4, 8, 16, 16), 1)])
+def test_branch_stats_warp_path_gives_a_ctas_bits(dev, n, shape, offset, dtype):
+    """The warp path adds in the order of a CTA a plane: the same bits."""
+    xs = _stats_xs(dev, n, shape, offset, dtype, seed=4)
+    planes, hw = shape[0] * shape[1], shape[2] * shape[3]
+    plan = ge.branch_stats_plan(n, planes, hw, dtype, aligned=offset == 0)
+    assert plan.path == "warp"
+    warp = ge._launch_branch_stats(xs, plan)
+    cta = ge._launch_branch_stats(xs, ge.StatsPlan("cta", plan.vec, n * planes))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(warp, cta))
+
+
+def test_branch_stats_launcher_refuses_a_plan_it_does_not_take(dev):
+    """16-byte loads on a misaligned slice, and on planes of 9 elements,
+    are refused with cudaErrorInvalidValue (the wrapper never asks for
+    them)."""
+    for offset, shape, plan in ((1, (2, 4, 128, 128), ge.StatsPlan("cta", True, 8)),
+                                (0, (2, 4, 3, 3), ge.StatsPlan("warp", True, 1))):
+        xs = _stats_xs(dev, 1, shape, offset, torch.float32)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            ge._launch_branch_stats(xs, plan)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
