@@ -28,6 +28,7 @@ from senas_torch.parallel.mesh import (REPLICATED, ROW_SPLIT, MeshSpec, initiali
                                        make_mesh, shard_batch)
 from senas_torch.train.metrics import AverageMeter, SegmentationMetric
 from senas_torch.utils.logging import get_logger
+from senas_torch.utils.spans import span
 
 # Run directories go under the checkout's git-ignored logs/ unless the
 # caller names another root; the CLIs' default config is the checkout's.
@@ -108,21 +109,26 @@ def make_batch_placer(device: torch.device, mesh=None, spatial: bool = False
     then reduces over the data axis only (`shard_train_step`). A batch the
     data axis does not divide (a trailing eval batch) goes whole to every
     rank, marked so that `shard_train_step` runs it as a single-device step
-    (the JAX placer's replicated case): its metrics count once."""
+    (the JAX placer's replicated case): its metrics count once. A call is
+    the span `place`, each copy to the device an `h2d` inside it."""
 
     def place(batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
-        batch = {"image": batch["image"], "label": batch["label"]}
-        b, h = batch["image"].shape[:2]
-        whole = mesh is not None and not mesh.divides(b)
-        if mesh is not None and not whole:
-            batch = shard_batch(mesh, batch, spatial=spatial and h % mesh.spec.spatial == 0)
-        out = {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(device)
-               for k in ("image", "label")}
-        if whole:
-            out[REPLICATED] = True
-        if ROW_SPLIT in batch:
-            out[ROW_SPLIT] = batch[ROW_SPLIT]
-        return out
+        with span("place"):
+            batch = {"image": batch["image"], "label": batch["label"]}
+            b, h = batch["image"].shape[:2]
+            whole = mesh is not None and not mesh.divides(b)
+            if mesh is not None and not whole:
+                batch = shard_batch(mesh, batch, spatial=spatial and h % mesh.spec.spatial == 0)
+            out = {}
+            for k in ("image", "label"):
+                host = torch.from_numpy(np.ascontiguousarray(batch[k]))
+                with span("h2d"):
+                    out[k] = host.to(device)
+            if whole:
+                out[REPLICATED] = True
+            if ROW_SPLIT in batch:
+                out[ROW_SPLIT] = batch[ROW_SPLIT]
+            return out
 
     return place
 

@@ -48,6 +48,7 @@ import torch
 from torch import nn
 
 from senas_torch.core.device import resolve_device
+from senas_torch.utils.spans import span
 
 FORMAT = "torch.export/pt2"
 PROGRAM_FILE = "model.pt2"
@@ -191,7 +192,14 @@ class Predictor:
     concatenated on the first device and sliced back, so callers see the
     same results either way (eval-mode BN is per sample). The replicas are
     called in turn; on CUDA devices the launches are asynchronous, so the
-    devices work at once."""
+    devices work at once.
+
+    A request is the span `serve_request` (`utils/spans.py`), which holds
+    `stage_in` (the host tensor, its padding and, as `h2d`, the first
+    replica's copy), `program` (the replicas' calls, with each later
+    replica's copy an `h2d` after the call before it, so that a card runs
+    while the next part is copied) and, for `predict_masks`, `readback`
+    (argmax, uint8 and the copy to the host)."""
 
     def __init__(self, out_dir: str, data_parallel: bool = False,
                  devices: Optional[Sequence] = None, device=None):
@@ -212,23 +220,38 @@ class Predictor:
 
     def logits(self, x: np.ndarray) -> torch.Tensor:
         """[B,H,W,C_in] float input -> [B,H,W,nclass] f32 logits on `self.device`."""
-        x = torch.as_tensor(np.asarray(x, np.float32))
+        with span("serve_request", unit=True):
+            return self._logits(x)
+
+    def _logits(self, x: np.ndarray) -> torch.Tensor:
         n = len(self._replicas)
-        least, most = self.batch_range
-        part = max(-(-x.shape[0] // n), least)
-        if most is not None and part > most:
-            raise ValueError(f"a batch of {x.shape[0]} needs {part} per replica; the program "
-                             f"was traced for at most {most}")
-        pad = part * n - x.shape[0]
-        if pad:
-            x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
-        with torch.inference_mode(), serving_precision(self.matmul_precision):
-            outs = [replica(part.to(dev, non_blocking=True))
-                    for replica, part, dev in zip(self._replicas, x.chunk(n), self.devices)]
-        out = outs[0] if n == 1 else torch.cat([o.to(self.device) for o in outs])
-        return out[:out.shape[0] - pad] if pad else out
+        with span("stage_in"):
+            x = torch.as_tensor(np.asarray(x, np.float32))
+            least, most = self.batch_range
+            part = max(-(-x.shape[0] // n), least)
+            if most is not None and part > most:
+                raise ValueError(f"a batch of {x.shape[0]} needs {part} per replica; the "
+                                 f"program was traced for at most {most}")
+            pad = part * n - x.shape[0]
+            if pad:
+                x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+            chunks = x.chunk(n)
+            with span("h2d"):
+                placed = chunks[0].to(self.device, non_blocking=True)
+        with span("program"), torch.inference_mode(), serving_precision(self.matmul_precision):
+            outs = []
+            for i, replica in enumerate(self._replicas):
+                outs.append(replica(placed))
+                if i + 1 < n:
+                    with span("h2d"):
+                        placed = chunks[i + 1].to(self.devices[i + 1], non_blocking=True)
+            out = outs[0] if n == 1 else torch.cat([o.to(self.device) for o in outs])
+            return out[:out.shape[0] - pad] if pad else out
 
     def predict_masks(self, x: np.ndarray) -> np.ndarray:
         """[B,H,W,C_in] float input -> [B,H,W] uint8 class masks (the
         testing_model.py mask payload; uint8 for a small readback)."""
-        return self.logits(x).argmax(dim=-1).to(torch.uint8).cpu().numpy()
+        with span("serve_request", unit=True):
+            logits = self._logits(x)
+            with span("readback"):
+                return logits.argmax(dim=-1).to(torch.uint8).cpu().numpy()

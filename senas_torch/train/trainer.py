@@ -20,6 +20,14 @@ loss and the metrics on the logits and labels gathered over both axes
 and sums the ranks' partial gradients in one collective before the clip,
 so that the clip norm is the global one. BatchNorm and the epilogue's
 statistics span the global batch on their own (they ask `active_mesh()`).
+
+A step records its phases as spans while a profiler runs
+(`utils/spans.py`): `train_step` holds `forward`, `backward` and `update`;
+`search_step` holds `arch_forward`, `arch_backward` and `arch_update`,
+then `weight_forward`, `weight_backward` and `weight_update`. A forward
+runs `normalize_fn`, the model and the loss; a backward
+`torch.autograd.grad`; an update the clip, the optimizer's step and
+`zero_grad`.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from torch import nn
 from senas_torch.parallel.collectives import all_reduce_flat_, gather_batch, gather_outputs
 from senas_torch.train.metrics import confusion_counts, mean_pix_accuracy
 from senas_torch.train.optim import build_optimizer
+from senas_torch.utils.spans import span
 
 
 def _last(outputs):
@@ -64,42 +73,49 @@ def _optimizer_params(opt: torch.optim.Optimizer) -> List[torch.Tensor]:
     return [p for group in opt.param_groups for p in group["params"]]
 
 
-def _grads(loss: torch.Tensor, params: List[torch.Tensor]) -> List[torch.Tensor]:
+def _grads(loss: torch.Tensor, params: List[torch.Tensor],
+           phase: str) -> List[torch.Tensor]:
     """d loss / d params, with zeros where loss does not depend on a
     parameter (JAX's grad gives zeros there). Weight decay and momentum then
     still apply to it, as optax does: torch's optimizers skip a parameter
-    whose .grad is None. Under an active mesh, summed over the ranks."""
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-    all_reduce_flat_(grads)
+    whose .grad is None. Under an active mesh, summed over the ranks. The
+    span `<phase>backward`."""
+    with span(phase + "backward"):
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        all_reduce_flat_(grads)
     return grads
 
 
 def _apply(opt: torch.optim.Optimizer, params: List[torch.Tensor],
-           grads: List[torch.Tensor]) -> None:
-    for p, g in zip(params, grads):
-        p.grad = g
-    opt.step()
-    opt.zero_grad(set_to_none=True)
+           grads: List[torch.Tensor], phase: str) -> None:
+    """The span `<phase>update`: `opt`'s step on `grads`."""
+    with span(phase + "update"):
+        for p, g in zip(params, grads):
+            p.grad = g
+        opt.step()
+        opt.zero_grad(set_to_none=True)
 
 
 def _clipped_step(opt: torch.optim.Optimizer, loss: torch.Tensor,
-                  grad_clip: float) -> torch.Tensor:
+                  grad_clip: float, phase: str) -> torch.Tensor:
     """One step of `opt` on the gradients of `loss` w.r.t. all its
     parameters, clipped by their joint global norm when grad_clip > 0
     (torch's clip_grad_norm_: scale min(1, grad_clip / (norm + 1e-6))).
-    Returns the norm before clipping."""
+    Returns the norm before clipping. The spans `<phase>backward` and
+    `<phase>update`."""
     params = _optimizer_params(opt)
-    grads = _grads(loss, params)
-    for p, g in zip(params, grads):
-        p.grad = g
-    if grad_clip and grad_clip > 0:
-        gnorm = torch.nn.utils.clip_grad_norm_(params, grad_clip)
-    else:
-        gnorm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g) for g in grads]))
-    opt.step()
-    opt.zero_grad(set_to_none=True)
+    grads = _grads(loss, params, phase)
+    with span(phase + "update"):
+        for p, g in zip(params, grads):
+            p.grad = g
+        if grad_clip and grad_clip > 0:
+            gnorm = torch.nn.utils.clip_grad_norm_(params, grad_clip)
+        else:
+            gnorm = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g) for g in grads]))
+        opt.step()
+        opt.zero_grad(set_to_none=True)
     return gnorm.detach()
 
 
@@ -165,13 +181,15 @@ def make_train_step(loss_fn: Callable, grad_clip: float = 0.0):
     step."""
 
     def step(state: FixedTrainState, batch):
-        outputs = state.model(batch["image"], train=True, rng=state.step_generator())
-        outputs, label = _global(outputs, batch["label"])
-        loss = loss_fn(outputs, label)
-        gnorm = _clipped_step(state.opt, loss, grad_clip)
-        state.step += 1
-        with torch.no_grad():
-            return {**_step_metrics(loss, outputs, label), "grad_norm": gnorm}
+        with span("train_step", unit=True):
+            with span("forward"):
+                outputs = state.model(batch["image"], train=True, rng=state.step_generator())
+                outputs, label = _global(outputs, batch["label"])
+                loss = loss_fn(outputs, label)
+            gnorm = _clipped_step(state.opt, loss, grad_clip, "")
+            state.step += 1
+            with torch.no_grad():
+                return {**_step_metrics(loss, outputs, label), "grad_norm": gnorm}
 
     return step
 
@@ -268,27 +286,29 @@ def make_search_step(normalize_fn: Callable, loss_fn: Callable, grad_clip: float
     The JAX step splits a dropout key per step; nothing on the supernet's
     path draws from it, so this step takes no generator."""
 
-    def forward(state: SearchTrainState, batch):
-        outputs, label = _global(state.model(batch["image"], normalize_fn(state.arch),
-                                             train=True), batch["label"])
-        return loss_fn(outputs, label), outputs, label
+    def forward(state: SearchTrainState, batch, phase: str):
+        with span(phase + "forward"):
+            outputs, label = _global(state.model(batch["image"], normalize_fn(state.arch),
+                                                 train=True), batch["label"])
+            return loss_fn(outputs, label), outputs, label
 
     def step(state: SearchTrainState, train_batch, val_batch, do_arch: bool):
-        tables = list(state.arch.values())
-        if do_arch:
-            a_loss, _, _ = forward(state, val_batch)
-            _apply(state.a_opt, tables, _grads(a_loss, tables))
-            a_loss = _reported(a_loss)
-        else:
-            a_loss = torch.zeros((), device=train_batch["image"].device)
+        with span("search_step", unit=True):
+            tables = list(state.arch.values())
+            if do_arch:
+                a_loss, _, _ = forward(state, val_batch, "arch_")
+                _apply(state.a_opt, tables, _grads(a_loss, tables, "arch_"), "arch_")
+                a_loss = _reported(a_loss)
+            else:
+                a_loss = torch.zeros((), device=train_batch["image"].device)
 
-        loss, outputs, label = forward(state, train_batch)
-        gnorm = _clipped_step(state.w_opt, loss, grad_clip)
-        state.step += 1
+            loss, outputs, label = forward(state, train_batch, "weight_")
+            gnorm = _clipped_step(state.w_opt, loss, grad_clip, "weight_")
+            state.step += 1
 
-        with torch.no_grad():
-            return {**_step_metrics(loss, outputs, label),
-                    "arch_loss": a_loss, "grad_norm": gnorm}
+            with torch.no_grad():
+                return {**_step_metrics(loss, outputs, label),
+                        "arch_loss": a_loss, "grad_norm": gnorm}
 
     return step
 

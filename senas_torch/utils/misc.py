@@ -1,5 +1,6 @@
 """Seeding, parameter counting, step timing and the runners' trace, the
-cards' memory and a model's flop count.
+cards' memory and a model's flop count. The trace's phase spans live in
+`utils/spans.py`; `span` and `take` are re-exported here.
 
 Port of `senas_tpu/utils/misc.py`: the device queries read the CUDA
 allocator (`torch.cuda.mem_get_info`, `memory_allocated`,
@@ -23,6 +24,8 @@ from torch import nn
 from torch.utils.flop_counter import FlopCounterMode
 
 from senas_torch.core.device import resolve_device
+from senas_torch.utils import spans
+from senas_torch.utils.spans import span, take  # noqa: F401 (re-exported)
 
 
 def set_seed(seed: int):
@@ -174,7 +177,9 @@ class StepTimer:
     into the directory (made if missing). The runners keep one timer an
     epoch, so each epoch of 6 or more steps writes one. A loop that ends
     inside the window stops the trace at `close()`, which the runners call
-    after the loop: the file then holds the steps that ran."""
+    after the loop: the file then holds the steps that ran. The program's
+    spans (`utils/spans.py`) show in the file as user annotations around
+    their operators; `close()` clears their in-memory record."""
 
     def __init__(self, device: Optional[torch.device] = None, trace_dir: Optional[str] = None,
                  trace_start: int = 5, trace_steps: int = 3, trace: bool = True):
@@ -211,7 +216,9 @@ class StepTimer:
         self._profiler.start()
 
     def close(self) -> None:
-        """Stop a running trace and write its file (nothing without one)."""
+        """Stop a running trace and write its file (nothing without one), and
+        clear the spans' in-memory record."""
+        spans.clear()
         if self._profiler is None:
             return
         prof, self._profiler = self._profiler, None
